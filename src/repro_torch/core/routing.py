@@ -1,0 +1,105 @@
+"""Routing and the shared dispatch tensor (the paper's section 3.1).
+
+The shared tensor between dispatch (producer) and the expert GEMMs
+(consumer) is the ``(E, C, d)`` dispatch buffer. Every transport uses the
+same routing, capacity and slot assignment, so their outputs agree.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+@dataclass
+class DispatchInfo:
+    flat_e: torch.Tensor     # (T*k,) expert id per (token, choice)
+    pos: torch.Tensor        # (T*k,) slot within the expert's queue
+    keep: torch.Tensor       # (T*k,) bool, False = dropped by capacity
+    T: int
+    k: int
+
+
+def capacity(T: int, k: int, E: int, factor: float, multiple: int = 4) -> int:
+    c = math.ceil(T * k / E * factor)
+    c = max(multiple, multiple * math.ceil(c / multiple))
+    return c
+
+
+def router(x, w_router, mcfg):
+    """x: (T, d). Returns (idx (T, k), weights (T, k) fp32, aux loss fp32).
+    The logits are an fp32 product whatever the compute dtype."""
+    logits = x.float() @ w_router.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, mcfg.top_k, dim=-1)
+    if mcfg.router_norm_topk:
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    E = logits.shape[-1]
+    # Switch-style load-balance loss
+    me = probs.mean(dim=0)                                          # (E,)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device)
+    ce.index_add_(0, idx.reshape(-1),
+                  torch.ones(idx.numel(), dtype=torch.float32,
+                             device=x.device))
+    ce = ce / max(idx.numel(), 1)
+    aux = E * torch.sum(me * ce) * mcfg.aux_loss_coef
+    return idx, w, aux
+
+
+def build_dispatch(x, idx, E: int, C: int
+                   ) -> Tuple[torch.Tensor, DispatchInfo]:
+    """x: (T, d); idx: (T, k). Builds the shared tensor (E, C, d) with tokens
+    sorted by (expert, arrival order): slot = position in the expert's
+    queue, from a stable argsort of the expert ids. (token, choice) pairs
+    past capacity are dropped: they scatter to an extra row E*C that is cut
+    off, the counterpart of the JAX scatter's mode="drop"."""
+    T, k = idx.shape
+    TK = T * k
+    dev = x.device
+    flat_e = idx.reshape(-1).long()                                  # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    # a scatter-add, not bincount: bincount reads its max on the host and
+    # would stall the host on every MoE layer
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts                        # (E,)
+    arange = torch.arange(TK, device=dev)
+    rank_sorted = arange - starts[flat_e[order]]
+    pos = torch.empty_like(rank_sorted)
+    pos[order] = rank_sorted                                         # (T*k,)
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + torch.clamp(pos, max=C - 1),
+                       torch.full_like(pos, E * C))
+    tok = arange // k
+    src = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
+    src[slot] = tok
+    filled = torch.zeros(E * C + 1, dtype=torch.bool, device=dev)
+    filled[slot] = True
+    src, filled = src[:E * C], filled[:E * C]
+    buf = torch.where(filled[:, None], x[src], torch.zeros((), dtype=x.dtype,
+                                                           device=dev))
+    return buf.reshape(E, C, x.shape[-1]), DispatchInfo(flat_e, pos, keep,
+                                                        T, k)
+
+
+def combine(recv_flat, info: DispatchInfo, weights, E_loc: int, C: int,
+            rot: Optional[int], ep: int):
+    """recv_flat: (ep*E_loc*C, d) expert outputs; slot layout (s, l, c) where
+    chunk index s is the destination group g (rot None) or (rot - g) % ep.
+    Returns (T, d), the top-k weighted sum; dropped slots contribute zero.
+    The gather (slot -> token rows) is plain tensor code; the weighted fp32
+    reduction runs in the ``topk_combine`` kernel on the card. ``d`` may be
+    one column block: the reduction is columnwise."""
+    g = info.flat_e // E_loc
+    l = info.flat_e % E_loc
+    s_idx = g if rot is None else (rot - g) % ep
+    idx = (s_idx * E_loc + l) * C + torch.clamp(info.pos, max=C - 1)
+    rows = recv_flat[idx]                                            # (T*k, d)
+    rows = torch.where(info.keep[:, None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    rows = rows.reshape(info.T, info.k, -1)
+    return ops.topk_combine(rows, weights)

@@ -1,0 +1,123 @@
+"""GQA attention in plain PyTorch: dense and chunked online-softmax
+prefill attention, and decode against a contiguous KV cache.
+
+These mirror the JAX package's jnp einsums (``repro.models.attention``),
+scores and softmax in fp32. They are not ``scaled_dot_product_attention``:
+the flash-attention kernel is ported in a later slice. The serving path
+only needs causal attention by absolute positions, so the JAX functions'
+other masks (``kv_mask``, ``q_offset``, ``kv_start``) are not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+DENSE_THRESHOLD = 1024          # the JAX package's attention() default
+
+
+def _expand_kv(k, n_heads):
+    """(B, S, Hkv, hd) -> (B, S, Hq, hd) by repeat."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _scale(hd: int) -> float:
+    return 1.0 / math.sqrt(hd)
+
+
+def _causal(q_pos, kv_pos):
+    """(B, Sq), (B, Sk) absolute positions -> (B, 1, Sq, Sk) keep-mask."""
+    return kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
+
+
+def dense_attention(q, k, v, q_pos, kv_pos):
+    """Causal O(S^2) path. q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd); q_pos/
+    kv_pos: (B, Sq)/(B, Sk) absolute positions for the causal mask."""
+    H, hd = q.shape[2], q.shape[3]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * _scale(hd)
+    scores = torch.where(_causal(q_pos, kv_pos), scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return out.to(q.dtype)
+
+
+def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos):
+    """Causal flash-style two-level loop: outer over q blocks, inner over kv
+    blocks with a running (max, sum, acc). Memory O(q_block * kv_block).
+    Shapes the blocks do not tile take the dense path."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    if Sq % q_block or Sk % kv_block:
+        return dense_attention(q, k, v, q_pos, kv_pos)
+    dev = q.device
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    outs = []
+    for qs in range(0, Sq, q_block):
+        qblk = q[:, qs:qs + q_block].float().transpose(1, 2) * _scale(hd)
+        qpos = q_pos[:, qs:qs + q_block]
+        m = torch.full((B, H, q_block), NEG_INF, device=dev)
+        l = torch.zeros((B, H, q_block), device=dev)
+        acc = torch.zeros((B, H, q_block, hd), device=dev)
+        for ks in range(0, Sk, kv_block):
+            kblk = k[:, ks:ks + kv_block].float().transpose(1, 2)
+            vblk = v[:, ks:ks + kv_block].float().transpose(1, 2)
+            s = torch.einsum("bhqd,bhkd->bhqk", qblk, kblk)
+            s = torch.where(_causal(qpos, kv_pos[:, ks:ks + kv_block]), s,
+                            NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                       vblk)
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)                # (B,Sq,H,hd)
+    return out.to(q.dtype)
+
+
+def attention(q, k, v, q_pos, kv_pos, q_block: int = 512,
+              kv_block: int = 1024):
+    """Causal attention: the dense path up to DENSE_THRESHOLD**2 score
+    elements per row and head, the chunked path beyond."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq * Sk <= DENSE_THRESHOLD * DENSE_THRESHOLD:
+        return dense_attention(q, k, v, q_pos, kv_pos)
+    return chunked_attention(q, k, v, q_block, kv_block, q_pos, kv_pos)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """q: (B, 1, H, hd); caches: (B, S, Hkv, hd); pos: (B,) per-row current
+    index. Attends over cache[: pos + 1] by masking."""
+    S = k_cache.shape[1]
+    H, hd = q.shape[2], q.shape[3]
+    k = _expand_kv(k_cache, H)
+    v = _expand_kv(v_cache, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
+    ar = torch.arange(S, device=q.device)[None, None, None, :]
+    s = torch.where(ar <= pos.reshape(-1, 1, 1, 1), s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return out.to(q.dtype)
+
+
+def update_cache(k_cache, v_cache, k_new, v_new, pos):
+    """Write (B, 1, Hkv, hd) at per-row positions ``pos`` (B,), in place.
+    Positions past the end clamp to the last index, as the JAX package's
+    dynamic_update_slice does."""
+    B, S = k_cache.shape[:2]
+    rows = torch.arange(B, device=k_cache.device)
+    p = torch.clamp(pos.long(), 0, S - 1)
+    k_cache[rows, p] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, p] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache

@@ -1,0 +1,121 @@
+"""Layer blocks of the serving path: attention + (dense FFN | MoE), schema
+and the two cached modes: single-token decode and chunked prefill.
+Attention layers only (no cross-attention, no SSM in this slice)."""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.moe_layer import moe_ffn, moe_schema
+from repro_torch.models import attention as A
+from repro_torch.models.common import (ParamDecl, apply_norm, apply_rope,
+                                       ffn_apply, ffn_schema, norm_schema)
+
+
+def attn_schema(cfg, a) -> Dict[str, ParamDecl]:
+    d = cfg.d_model
+    s = {
+        "wq": ParamDecl((d, a.n_heads * a.head_dim), ("embed", "qheads")),
+        "wk": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
+        "wv": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
+        "wo": ParamDecl((a.n_heads * a.head_dim, d), ("qheads", "embed")),
+    }
+    if a.qkv_bias:
+        s["bq"] = ParamDecl((a.n_heads * a.head_dim,), ("qheads",), "zeros")
+        s["bk"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
+                            "zeros")
+        s["bv"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
+                            "zeros")
+    return s
+
+
+def layer_schema(cfg, pos: int) -> Dict:
+    if cfg.layer_kind(pos) != "a" or cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: only decoder attention layers are ported so far")
+    s: Dict[str, Any] = {"ln1": norm_schema(cfg, cfg.d_model),
+                         "attn": attn_schema(cfg, cfg.attn)}
+    if cfg.d_ff > 0 or cfg.is_moe_layer(pos):
+        s["ln2"] = norm_schema(cfg, cfg.d_model)
+        if cfg.is_moe_layer(pos):
+            s["moe"] = moe_schema(cfg, cfg.moe, W=1, etp=1)
+        else:
+            s["ffn"] = ffn_schema(cfg, cfg.d_model, cfg.d_ff)
+    return s
+
+
+def _qkv_proj(a, p_attn, h):
+    """QKV projection + bias + head reshape. h: (B, S, d) -> q/k/v
+    (B, S, H*, hd)."""
+    B, S, _ = h.shape
+    q = h @ p_attn["wq"]
+    k = h @ p_attn["wk"]
+    v = h @ p_attn["wv"]
+    if "bq" in p_attn:
+        q = q + p_attn["bq"].to(q.dtype)
+        k = k + p_attn["bk"].to(k.dtype)
+        v = v + p_attn["bv"].to(v.dtype)
+    return (q.reshape(B, S, a.n_heads, a.head_dim),
+            k.reshape(B, S, a.n_kv_heads, a.head_dim),
+            v.reshape(B, S, a.n_kv_heads, a.head_dim))
+
+
+def _mlp_tail(cfg, p, x):
+    """ln2 -> (MoE | FFN) -> residual."""
+    if "ln2" not in p:
+        return x
+    h = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        h, _ = moe_ffn(cfg, cfg.moe, p["moe"], h)
+        if "shared" in p["moe"]:
+            h = h + ffn_apply(cfg, p["moe"]["shared"],
+                              apply_norm(cfg, p["ln2"], x))
+    else:
+        h = ffn_apply(cfg, p["ffn"], h)
+    return x + h.to(x.dtype)
+
+
+def decode_layer(cfg, pos: int, p, x, cache, t_pos):
+    """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd), updated
+    in place; t_pos: (B,) per-row cache write index (= RoPE position).
+    Returns x."""
+    a = cfg.attn
+    B = x.shape[0]
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = _qkv_proj(a, p["attn"], h)
+    if a.rope_theta > 0:
+        pos_arr = t_pos.reshape(B, 1)
+        q = apply_rope(q, pos_arr, a.rope_theta)
+        k = apply_rope(k, pos_arr, a.rope_theta)
+    kc, vc = A.update_cache(cache["k"], cache["v"], k, v, t_pos)
+    o = A.decode_attention(q, kc, vc, t_pos)
+    x = x + o.reshape(B, 1, a.n_heads * a.head_dim) @ p["attn"]["wo"]
+    return _mlp_tail(cfg, p, x)
+
+
+def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos):
+    """One prompt chunk per admission row: x (A, C, d) rows enter slot
+    ``slots[a]`` of the full cache at indices [pos_off[a], pos_off[a] + C),
+    written in place; each row attends over its own slot up to its own
+    index (earlier chunks included). Tail-pad K/V land past every valid
+    query's index: causal-masked now, overwritten by the first decode
+    steps before any query can reach them. Returns x."""
+    a = cfg.attn
+    Ac, C, _ = x.shape
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = _qkv_proj(a, p["attn"], h)
+    if a.rope_theta > 0:
+        q = apply_rope(q, q_pos, a.rope_theta)
+        k = apply_rope(k, q_pos, a.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    ck[slots[:, None], q_pos] = k.to(ck.dtype)
+    cv[slots[:, None], q_pos] = v.to(cv.dtype)
+    kc, vc = ck[slots], cv[slots]                      # (A, S, Hkv, hd)
+    S_tot = kc.shape[1]
+    kv_pos = torch.arange(S_tot, device=x.device)[None, :].expand(Ac, S_tot)
+    o = A.attention(q, kc, vc, q_pos, kv_pos, q_block=a.q_block,
+                    kv_block=a.kv_block)
+    h = o.reshape(Ac, C, a.n_heads * a.head_dim) @ p["attn"]["wo"]
+    x = x + h.to(x.dtype)
+    return _mlp_tail(cfg, p, x)

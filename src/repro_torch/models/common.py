@@ -1,0 +1,167 @@
+"""Shared model building blocks: schema-driven params, norms, RoPE, FFN.
+
+Parameters are declared through a *schema* (nested dicts and lists of
+``ParamDecl``), the same one ``repro.models.common`` declares, so the port's
+parameter tree has the JAX package's nesting, shapes and dtypes leaf for leaf.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tree = Any
+
+
+# ---------------------------------------------------------------------------
+# Param schema
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParamDecl:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]      # logical axis names, len == ndim
+    init: str = "normal"                    # normal | zeros | ones
+    scale: float = 1.0
+
+    def leaf_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        # norm scales/biases kept fp32 for stability
+        return torch.float32 if self.init in ("ones", "zeros") else dtype
+
+    def initialize(self, gen: torch.Generator, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+        """Drawn directly in its final dtype on ``device``: a full-size
+        bf16 model never gets an fp32 copy."""
+        dt = self.leaf_dtype(dtype)
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dt, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dt, device=device)
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        std = self.scale / math.sqrt(max(1, fan_in))
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        return out.normal_(0.0, std, generator=gen)
+
+
+def tree_leaves(tree: Tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """(path, leaf) pairs of a nested dict/list tree, dict keys sorted (the
+    order ``jax.tree_util`` flattens in)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def tree_map(fn, tree: Tree) -> Tree:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def init_from_schema(schema: Tree, gen: torch.Generator, dtype: torch.dtype,
+                     device: torch.device) -> Tree:
+    return tree_map(lambda d: d.initialize(gen, dtype, device), schema)
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps):
+    h = x.float()
+    var = (h * h).mean(dim=-1, keepdim=True)
+    return (h * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps):
+    h = x.float()
+    mu = h.mean(dim=-1, keepdim=True)
+    var = h.var(dim=-1, keepdim=True, unbiased=False)
+    out = (h - mu) * torch.rsqrt(var + eps)
+    return out.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def norm_schema(cfg, d) -> Dict[str, ParamDecl]:
+    s = {"scale": ParamDecl((d,), ("embed_v",), "ones")}
+    if cfg.norm == "layernorm":
+        s["bias"] = ParamDecl((d,), ("embed_v",), "zeros")
+    return s
+
+
+def activate(name: str, gate, up):
+    """gate may be None for non-GLU activations. ``gelu`` is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    if name == "swiglu":
+        return F.silu(gate) * up
+    if name == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if name == "gelu":
+        return F.gelu(up, approximate="tanh")
+    if name == "relu2":
+        r = F.relu(up)
+        return r * r
+    raise ValueError(name)
+
+
+def is_glu(name: str) -> bool:
+    return name in ("swiglu", "geglu")
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+
+
+def ffn_schema(cfg, d, hidden) -> Dict[str, ParamDecl]:
+    s: Dict[str, ParamDecl] = {}
+    if is_glu(cfg.activation):
+        s["w_gate"] = ParamDecl((d, hidden), ("embed", "ffn"))
+    s["w_up"] = ParamDecl((d, hidden), ("embed", "ffn"))
+    s["w_down"] = ParamDecl((hidden, d), ("ffn", "embed"), scale=1.0)
+    return s
+
+
+def ffn_apply(cfg, p, x):
+    gate = x @ p["w_gate"] if "w_gate" in p else None
+    up = x @ p["w_up"]
+    h = activate(cfg.activation, gate, up)
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,145 @@
+"""Full model of the serving path: schema, init, prefill chunks, decode.
+
+Layers are stacked by *period* as in the JAX package: ``params["layers"]``
+is a list over period positions of trees whose leaves carry a leading
+(n_periods,) axis, and the KV cache has the same stacking. Where JAX scans
+over periods, the port loops in Python and takes views of period ``n``.
+The cache is updated in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models.common import (ParamDecl, apply_norm,
+                                       init_from_schema, norm_schema,
+                                       tree_map)
+
+Tree = Any
+
+
+def period_of(cfg) -> int:
+    p = max(1, len(cfg.layer_pattern))
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every_k_layers)
+    return p
+
+
+def _stack(schema: Tree, n: int) -> Tree:
+    return tree_map(lambda d: ParamDecl((n,) + d.shape, ("layers",)
+                                        + d.logical, d.init, d.scale),
+                    schema)
+
+
+def model_schema(cfg) -> Dict:
+    d, V = cfg.d_model, cfg.vocab_size
+    s: Dict[str, Any] = {"embed": ParamDecl((V, d), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamDecl((d, V), ("embed", "vocab"))
+    s["ln_f"] = norm_schema(cfg, d)
+    p = period_of(cfg)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not stack "
+                         f"by period {p}")
+    n_periods = cfg.n_layers // p
+    s["layers"] = [_stack(B.layer_schema(cfg, pos), n_periods)
+                   for pos in range(p)]
+    return s
+
+
+def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Tree:
+    """Random weights from ``seed``, each leaf drawn in its final dtype on
+    the device (``cuda`` unless the caller asks for the CPU). They differ
+    from the JAX package's bits for the same seed; ``bridge.from_jax``
+    carries JAX weights across instead."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_from_schema(model_schema(cfg), gen, dtype_of(cfg.param_dtype),
+                            dev)
+
+
+def output_head(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def _logits(cfg, params, h):
+    """fp32 logits: h.float() @ W.float(), as the JAX package computes them."""
+    return h.float() @ output_head(cfg, params).float()
+
+
+def _period(tree: Tree, n: int) -> Tree:
+    return tree_map(lambda a: a[n], tree)
+
+
+def init_cache(cfg, batch_size: int, seq_len: int,
+               device: DeviceLike = None) -> Tuple:
+    """Zero contiguous KV cache, a tuple over period positions of
+    {"k", "v"} (n_periods, batch, seq_len, Hkv, hd) in the param dtype."""
+    dev = resolve_device(device)
+    p = period_of(cfg)
+    n_periods = cfg.n_layers // p
+    a = cfg.attn
+    shape = (n_periods, batch_size, seq_len, a.n_kv_heads, a.head_dim)
+    dt = dtype_of(cfg.param_dtype)
+    return tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
+                  "v": torch.zeros(shape, dtype=dt, device=dev)}
+                 for _ in range(p))
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+@torch.no_grad()
+def decode_step(cfg, params, cache, tokens, t_pos):
+    """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
+    (every slot decodes at its own position). Returns (logits (B, V) fp32,
+    cache), the cache updated in place."""
+    Bsz = tokens.shape[0]
+    t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
+        -1).expand(Bsz)
+    h = _embed(cfg, params, tokens)
+    p = period_of(cfg)
+    for n in range(cfg.n_layers // p):
+        for pos in range(p):
+            h = B.decode_layer(cfg, pos, _period(params["layers"][pos], n),
+                               h, _period(cache[pos], n), t_vec)
+    h = apply_norm(cfg, params["ln_f"], h)
+    return _logits(cfg, params, h[:, 0]), cache
+
+
+@torch.no_grad()
+def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
+                  slot: Optional[torch.Tensor] = None):
+    """Prompt chunks against per-slot cache regions: one admission row or a
+    stack of them. tokens: (A, C) int, tail-padded past valid_len; pos_off:
+    (A,) cache index of each row's first token; valid_len: (A,) valid
+    tokens per row (0 = an identity row); slot: (A,) cache row of each
+    admission row (default: row a is slot a). Returns (logits (A, V) fp32
+    at each row's last valid position, cache), the cache updated in
+    place."""
+    Ac, C = tokens.shape
+    dev = tokens.device
+
+    def vec(v):
+        return torch.as_tensor(v, device=dev).long().reshape(-1).expand(Ac)
+
+    pos_off, valid_len = vec(pos_off), vec(valid_len)
+    slots = torch.arange(Ac, device=dev) if slot is None else vec(slot)
+    q_pos = pos_off[:, None] + torch.arange(C, device=dev)[None, :]
+    h = _embed(cfg, params, tokens)
+    p = period_of(cfg)
+    for n in range(cfg.n_layers // p):
+        for pos in range(p):
+            h = B.chunk_layer(cfg, pos, _period(params["layers"][pos], n), h,
+                              _period(cache[pos], n), slots, pos_off, q_pos)
+    h = apply_norm(cfg, params["ln_f"], h)
+    h_last = h[torch.arange(Ac, device=dev), torch.clamp(valid_len - 1, min=0)]
+    return _logits(cfg, params, h_last), cache

@@ -1,0 +1,108 @@
+"""The MoE layer at one rank: the port's ``moe_ffn`` against
+``repro.core.moe_layer.moe_ffn`` for every transport and GroupGEMM backend
+(the JAX kernel backends in interpret mode), on the same numpy weights."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.core import moe_layer as JM
+from repro.parallel.mesh import AxisCtx
+from repro_torch.configs import get_config
+from repro_torch.core import moe_layer as M
+
+# tiny shapes: one thread each, so parallel test workers do not
+# oversubscribe the CPU
+torch.set_num_threads(1)
+
+
+def _params(cfg, seed):
+    rng = np.random.default_rng(seed)
+    m, d = cfg.moe, cfg.d_model
+    dw = m.wire_dim or d
+
+    def nrm(*shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    p = {"router": nrm(d, m.num_experts, fan_in=d),
+         "experts": {"w_gate": nrm(1, m.num_experts, dw, m.d_expert,
+                                   fan_in=dw),
+                     "w_up": nrm(1, m.num_experts, dw, m.d_expert, fan_in=dw),
+                     "w_down": nrm(1, m.num_experts, m.d_expert, dw,
+                                   fan_in=m.d_expert)}}
+    if m.wire_dim:
+        p["w_desc"] = nrm(d, dw, fan_in=d)
+        p["w_asc"] = nrm(dw, d, fan_in=dw)
+    return p
+
+
+def _tree(p, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in p.items()}
+
+
+def _run(arch, S, **moe_kw):
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                             **moe_kw))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
+    p = _params(cfg, 7)
+    x = np.random.default_rng(8).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    jy, jaux = JM.moe_ffn(jcfg, jcfg.moe, _tree(p, jnp.asarray),
+                          jnp.asarray(x), AxisCtx())
+    y, aux = M.moe_ffn(cfg, cfg.moe, _tree(p, torch.from_numpy),
+                       torch.from_numpy(x))
+    assert y.shape == x.shape and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("gemm_impl", ["xla", "pallas", "pallas_fused"])
+@pytest.mark.parametrize("impl,S", [("naive", 6), ("comet", 6), ("bcast", 1),
+                                    ("dense", 6)])
+def test_moe_ffn_matches_jax(impl, S, gemm_impl):
+    _run("qwen2-moe-2.7b-smoke", S, impl=impl, gemm_impl=gemm_impl)
+
+
+@pytest.mark.parametrize("gemm_impl", ["xla", "pallas_fused"])
+def test_moe_ffn_fused_combine_matches_jax(gemm_impl):
+    _run("qwen2-moe-2.7b-smoke", 6, impl="comet", fused_combine=True,
+         n_col_blocks=2, gemm_impl=gemm_impl)
+
+
+@pytest.mark.parametrize("impl,S", [("comet", 6), ("naive", 1)])
+def test_moe_ffn_bigmac_wire_dim_matches_jax(impl, S):
+    _run("granite-moe-bigmac-smoke", S, impl=impl)
+
+
+def test_pack_expert_weights_matches_jax():
+    rng = np.random.default_rng(0)
+    full = {"w_up": rng.standard_normal((4, 6, 8)).astype(np.float32),
+            "w_down": rng.standard_normal((4, 8, 6)).astype(np.float32)}
+    want = JM.pack_expert_weights(_tree(full, jnp.asarray), ep=2, etp=2)
+    got = M.pack_expert_weights(_tree(full, torch.from_numpy), ep=2, etp=2)
+    for k in full:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("gemm_impl", ["xla", "pallas", "pallas_fused"])
+def test_mlp_col_blocks_concatenate_to_the_full_mlp(gemm_impl):
+    """The layer-1 producer interface of the comet ring: per-column-block
+    outputs concatenate to the full-width expert MLP, for every backend."""
+    from repro_torch.core import transport as T
+    cfg = get_config("qwen2-moe-2.7b-smoke")
+    p = _tree(_params(cfg, 9), torch.from_numpy)
+    w = {k: v[0] for k, v in p["experts"].items()}
+    rows = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (w["w_up"].shape[0], 12, cfg.d_model)).astype(np.float32))
+    full = T._mlp_out(rows, w, cfg.activation, gemm_impl)
+    blocks = T.mlp_col_blocks(rows, w, cfg.activation, 4, cfg.d_model // 4,
+                              gemm_impl)
+    torch.testing.assert_close(torch.cat(blocks, dim=-1), full, rtol=1e-5,
+                               atol=1e-5)
