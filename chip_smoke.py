@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all five phases, one card
-  python3 chip_smoke.py --only build,kernels
+  python3 chip_smoke.py              # all six phases, one card
+  python3 chip_smoke.py --only build,kernels,train
 
 Phases:
   1 build    nvidia-smi's card and power limit; build the CUDA kernels from
              ``src/repro_torch/kernels/csrc`` (nvcc, at first use).
   2 kernels  each kernel against its plain PyTorch version on the card, at
-             the main path's shapes and one ragged shape, bf16 (tol 2e-2)
-             and fp32 (tol 1e-4, TF32 off); median time by CUDA events
-             beside the plain version's, one library call's and the bound.
+             the main paths' shapes and ragged ones, bf16 (tol 2e-2) and
+             fp32 (tol 1e-4, TF32 off); median time by CUDA events beside
+             the plain version's, one library call's and the bound. The
+             backward kernels (fused_mlp_dgrad, fused_mlp_wgrad) at the
+             train shape, a ragged R, a column block and all four
+             activations.
   3 serve    ServeEngine on the full qwen2-moe-2.7b (24 layers, bf16,
              seeded weights on the card), gemm_impl="pallas_fused", 8 slots,
              max_seq 1024, chunk 256: after a warm-up round on an engine of
@@ -24,10 +27,21 @@ Phases:
   5 pallas   a short serve with gemm_impl="pallas" (the grouped-GEMM
              kernel), then one full-width MoE layer, prefill and decode
              shapes, "pallas" against "xla".
+  6 train    the serving weights are freed first. Loss and every gradient
+             of qwen2-moe-2.7b at full width through the kernels and through
+             the plain versions: 2 layers in fp32 (rel L2 1e-4 per leaf),
+             4 layers in bf16 (beside a second plain route). Then the
+             port's train step at full width and 4 layers (bf16, comet,
+             pallas_fused, remat full, AdamW), 4096 tokens per step: one
+             warm-up step and 3 timed ones, launch counters zeroed before
+             and read after (2L fused_mlp and topk_combine, L dgrad and
+             wgrad per step). Last, Trainer.run with a checkpoint and a
+             fault-hook replay on qwen2-moe-2.7b-smoke.
 
-With ``--only build,serve,profile`` a sixth phase runs one admission round
-and 8 decode steps of the serve configuration under torch.profiler and
-writes the device time by kernel to chiprun_out/profile_serve.txt.
+Extra phases, run only when named: ``--only build,serve,profile`` profiles
+one admission round and 8 decode steps of the serve configuration, and
+``--only build,train,profile_train`` one train step of the train phase,
+under torch.profiler (device time by kernel).
 
 Prints the card line, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -54,13 +68,21 @@ ARCH = "qwen2-moe-2.7b"
 PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
-PHASES = ("build", "kernels", "serve", "logits", "pallas")
-EXTRA_PHASES = ("profile",)      # run only when named in --only
+PHASES = ("build", "kernels", "serve", "logits", "pallas", "train")
+EXTRA_PHASES = ("profile", "profile_train")  # run only when named in --only
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
     "topk_combine": "src/repro/kernels/topk_combine.py:57",
+    "fused_mlp_dgrad": "src/repro/kernels/fused_mlp.py:226",
+    "fused_mlp_wgrad": "src/repro/kernels/fused_mlp.py:320",
 }
+SOURCES = {"fused_mlp_dgrad": "fused_mlp_dgrad.cu",
+           "fused_mlp_wgrad": "fused_mlp_wgrad.cu"}
+# the train phase: 4 layers at full width (optimizer state for all 24 does
+# not fit one card), 4 x 1024 tokens per step
+TRAIN_LAYERS = 4
+TRAIN_SEQ, TRAIN_BATCH = 1024, 4
 
 
 class PhaseFailed(Exception):
@@ -106,6 +128,38 @@ def bound_ms(nbytes, flops, dt):
                                        else "operations")
 
 
+def _pairs(got, want):
+    """(got, want) output pairs of one output or a tuple of them (None
+    entries skipped)."""
+    if not isinstance(want, tuple):
+        return [(got, want)]
+    return [(g, w) for g, w in zip(got, want) if w is not None]
+
+
+def outputs_err(got, want, tol):
+    """max_err over one output or a tuple of them."""
+    errs = [max_err(g, w, tol) for g, w in _pairs(got, want)]
+    return max(e for e, _ in errs), all(o for _, o in errs)
+
+
+def outputs_outside(got, want, tol):
+    """How many elements lie outside tol + tol * |want|, of how many."""
+    n = tot = 0
+    for g, w in _pairs(got, want):
+        diff = (g.float() - w.float()).abs()
+        n += int((diff > tol + tol * w.float().abs()).sum())
+        tot += w.numel()
+    return n, tot
+
+
+def outputs_rel_l2(got, want):
+    """||got - want|| / ||want|| over one output or a tuple of them."""
+    pairs = _pairs(got, want)
+    num = sum(float((g.double() - w.double()).norm() ** 2) for g, w in pairs)
+    den = sum(float(w.double().norm() ** 2) for _, w in pairs)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
 def max_err(got, want, tol):
     """max |got - want|, and whether every element is within
     tol + tol * |want| (numpy's allclose with rtol = atol = tol)."""
@@ -146,7 +200,72 @@ def kernel_cases():
                       dict(M=37, K=2048, N=1408, order="n_major")))
         for T in (2048, 8, 1000):
             cases.append(("topk_combine", f"T={T}", dt, dict(T=T)))
+        # the backward kernels: R = capacity(4096, 4, 64, 1.25) = 320 at
+        # the train shape, a ragged R, one of two column blocks, and every
+        # activation at a small ragged shape
+        for kern in ("fused_mlp_dgrad", "fused_mlp_wgrad"):
+            full = dict(E=64, d=2048, f=1408, N=2048, act="swiglu", col=None)
+            cases.append((kern, "R=320 swiglu", dt, dict(full, R=320)))
+            cases.append((kern, "R=37 swiglu", dt, dict(full, R=37)))
+            cases.append((kern, "R=320 col_slice=(1024,1024)", dt,
+                          dict(full, R=320, col=(1024, 1024))))
+            for act in ("swiglu", "geglu", "gelu", "relu2"):
+                cases.append((kern, f"E=8 R=70 d=N=256 f=200 {act}", dt,
+                              dict(E=8, R=70, d=256, f=200, N=256, act=act,
+                                   col=None)))
     return cases
+
+
+def mlp_bwd_case(kernel, dt, isz, spec, gen):
+    """(kernel fn, plain fn, second plain fn, library fn, bytes, flops) of
+    a backward kernel case. The second plain route runs the plain version
+    with fp64 products (the same bf16 rounding points). The library
+    yardstick is torch.autograd.grad through bmm -> activation -> bmm,
+    which the port never calls."""
+    import torch
+
+    from repro_torch.kernels import fused_mlp, ref
+    from repro_torch.models.common import activate, is_glu
+    E, R, d, f, N, act = (spec[k] for k in ("E", "R", "d", "f", "N", "act"))
+    glu = is_glu(act)
+    x = _randn((E, R, d), dt, 1.0, gen)
+    wg = _randn((E, d, f), dt, d ** -0.5, gen) if glu else None
+    wu = _randn((E, d, f), dt, d ** -0.5, gen)
+    wd = _randn((E, f, N), dt, f ** -0.5, gen)
+    dy = _randn((E, R, N), dt, 1.0, gen)
+    if spec["col"] is not None:
+        s, w = spec["col"]
+        wd, dy = wd[:, :, s:s + w], dy[:, :, s:s + w].contiguous()
+    n_out = wd.shape[2]
+    dgrad = kernel == "fused_mlp_dgrad"
+    kfn = fused_mlp.fused_mlp_dgrad if dgrad else fused_mlp.fused_mlp_wgrad
+    pfn = ref.fused_mlp_dgrad_ref if dgrad else ref.fused_mlp_wgrad_ref
+
+    def k():
+        return kfn(x, wg, wu, wd, dy, act)
+
+    def p():
+        return pfn(x, wg, wu, wd, dy, act)
+
+    def p64():
+        return pfn(x, wg, wu, wd, dy, act, acc=torch.float64)
+
+    def lib():
+        xs = x.detach().requires_grad_(dgrad)
+        ws = [t.detach().requires_grad_(not dgrad) for t in (wg, wu, wd)
+              if t is not None]
+        gate = torch.bmm(xs, ws[0]) if glu else None
+        y = torch.bmm(activate(act, gate, torch.bmm(xs, ws[-2])), ws[-1])
+        return torch.autograd.grad(y, [xs] if dgrad else ws, dy)
+
+    n_w1 = 2 if glu else 1
+    # operands read once and outputs written once; the FLOPs count the
+    # recompute of the hidden that the interface forces
+    ins = E * R * d + n_w1 * E * d * f + E * f * n_out + E * R * n_out
+    outs = E * R * d if dgrad else n_w1 * E * d * f + E * f * n_out
+    flops = (2 * E * R * f * (2 * n_w1 * d + n_out) if dgrad
+             else 2 * E * R * f * (2 * n_w1 * d + 2 * n_out))
+    return k, p, p64, lib, (ins + outs) * isz, flops
 
 
 def run_kernel_case(kernel, dt_name, spec, gen, timed):
@@ -184,6 +303,9 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         nbytes = (E * R * d + 2 * E * d * f + E * f * n_out
                   + E * R * n_out) * isz
         flops = 2 * E * R * d * f * 2 + 2 * E * R * f * n_out
+    elif kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad"):
+        k, p, p64, lib, nbytes, flops = mlp_bwd_case(kernel, dt, isz, spec,
+                                                     gen)
     elif kernel == "grouped_gemm":
         M, K, Nn = spec["M"], spec["K"], spec["N"]
         lhs = _randn((E, M, K), dt, 1.0, gen)
@@ -221,12 +343,37 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     got = k()
     torch.cuda.synchronize()
     want = p()
-    err, ok = max_err(got, want, TOL[dt_name])
+    err, ok = outputs_err(got, want, TOL[dt_name])
     rec = {"max_abs_err": err, "within_tol": ok, "tol": TOL[dt_name]}
+    if kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad") and dt_name == "bf16":
+        # The weight gradients are sums over the rows of products of
+        # bf16-rounded factors. Where two routes round an intermediate
+        # (h, dh, dup, dgate) to neighbouring bf16 values, one summand moves
+        # by an ulp of its own size, which can exceed 2e-2 of a sum that
+        # cancels: two plain routes (fp32 and fp64 products, the same
+        # rounding points) differ so on a few elements in millions. Such a
+        # case is held, as phase 4 holds the logits, to 3x the floor
+        # between the two plain routes, in max error and in rel L2.
+        floor = p64()
+        f_err, _ = outputs_err(floor, want, TOL[dt_name])
+        f_l2, k_l2 = outputs_rel_l2(floor, want), outputs_rel_l2(got, want)
+        rec.update(floor_max_abs_err=f_err, floor_rel_l2=f_l2,
+                   rel_l2=k_l2, within_floor=bool(
+                       err <= 3 * f_err and k_l2 <= 3 * f_l2),
+                   outside_tol=outputs_outside(got, want, TOL[dt_name]),
+                   floor_outside_tol=outputs_outside(floor, want,
+                                                     TOL[dt_name]))
+        ok = ok or rec["within_floor"]
+        rec["within_tol"] = ok
+        del floor
+    del got, want
     b_ms, b_by = bound_ms(nbytes, flops, dt_name)
     rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     if timed:
         iters = 10 if dt_name == "bf16" else 3
+        if kernel != "fused_mlp" and kernel.startswith("fused_mlp") \
+                and spec["E"] == 64:
+            iters = 5 if dt_name == "bf16" else 3
         rec["ms"] = median_ms(k, iters=iters)
         rec["plain_ms"] = median_ms(p, iters=iters)
         rec["library_ms"] = median_ms(lib, iters=iters)
@@ -245,9 +392,15 @@ def phase_kernels(out):
         times = (f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
                  f"library {rec['library_ms']:.4f}, bound "
                  f"{rec['bound_ms']:.4f} by {rec['bound_by']})")
-        log(f"  {kernel:13s} {dt} {label:34s} max_abs_err "
+        floor = ("" if "floor_rel_l2" not in rec else
+                 f" [rel L2 {rec['rel_l2']:.2e}, outside tol "
+                 f"{rec['outside_tol'][0]}/{rec['outside_tol'][1]}; "
+                 f"plain-route floor {rec['floor_max_abs_err']:.2e} / "
+                 f"{rec['floor_rel_l2']:.2e}, outside tol "
+                 f"{rec['floor_outside_tol'][0]}]")
+        log(f"  {kernel:15s} {dt} {label:34s} max_abs_err "
             f"{rec['max_abs_err']:.3e} "
-            f"{'ok' if rec['within_tol'] else 'FAIL'}  {times}")
+            f"{'ok' if rec['within_tol'] else 'FAIL'}  {times}{floor}")
         torch.cuda.empty_cache()
     out["kernel_cases"] = results
     bad = [f"{r['kernel']} {r['dtype']} {r['case']}" for r in results
@@ -263,7 +416,8 @@ def phase_kernels(out):
 class PlainGuard:
     """Counts calls of the plain versions with CUDA tensors while active."""
 
-    NAMES = ("fused_mlp_ref", "grouped_gemm_ref", "topk_combine_ref")
+    NAMES = ("fused_mlp_ref", "grouped_gemm_ref", "topk_combine_ref",
+             "fused_mlp_dgrad_ref", "fused_mlp_wgrad_ref")
 
     def __init__(self):
         from repro_torch.kernels import ref
@@ -301,7 +455,9 @@ def read_counts():
     from repro_torch.kernels import fused_mlp, grouped_gemm, topk_combine
     return {"fused_mlp": fused_mlp.launches,
             "grouped_gemm": grouped_gemm.launches,
-            "topk_combine": topk_combine.launches}
+            "topk_combine": topk_combine.launches,
+            "fused_mlp_dgrad": fused_mlp.dgrad_launches,
+            "fused_mlp_wgrad": fused_mlp.wgrad_launches}
 
 
 def with_gemm(cfg, gemm_impl):
@@ -392,27 +548,44 @@ def _leaves(tree):
 
 @contextlib.contextmanager
 def plain_ops():
-    """While active, ops' three entry points call the plain versions,
-    explicitly by name, on CUDA tensors."""
+    """While active, ops' kernel entry points call the plain versions,
+    explicitly by name, on CUDA tensors (the combine's autograd function
+    reaches its forward through ops.topk_combine)."""
     from repro_torch.kernels import ops, ref
-    saved = (ops.topk_combine, ops.grouped_gemm, ops.fused_mlp)
+    names = ("topk_combine", "grouped_gemm", "fused_mlp", "fused_mlp_dgrad",
+             "fused_mlp_wgrad")
+    saved = {n: getattr(ops, n) for n in names}
+
+    def wd_of(w, col_slice):
+        wd = w["w_down"]
+        if col_slice is not None:
+            wd = wd[:, :, col_slice[0]:col_slice[0] + col_slice[1]]
+        return wd
 
     def plain_gg(lhs, rhs, order="expert_major"):
         return ref.grouped_gemm_ref(lhs, rhs)
 
     def plain_mlp(rows, w, activation, col_slice=None, order=""):
-        wd = w["w_down"]
-        if col_slice is not None:
-            wd = wd[:, :, col_slice[0]:col_slice[0] + col_slice[1]]
-        return ref.fused_mlp_ref(rows, w.get("w_gate"), w["w_up"], wd,
-                                 activation)
+        return ref.fused_mlp_ref(rows, w.get("w_gate"), w["w_up"],
+                                 wd_of(w, col_slice), activation)
 
-    ops.topk_combine, ops.grouped_gemm, ops.fused_mlp = (
-        ref.topk_combine_ref, plain_gg, plain_mlp)
+    def plain_dgrad(rows, w, dy, activation, col_slice=None):
+        return ref.fused_mlp_dgrad_ref(rows, w.get("w_gate"), w["w_up"],
+                                       wd_of(w, col_slice), dy, activation)
+
+    def plain_wgrad(rows, w, dy, activation, col_slice=None):
+        return ref.fused_mlp_wgrad_ref(rows, w.get("w_gate"), w["w_up"],
+                                       wd_of(w, col_slice), dy, activation)
+
+    plain = dict(zip(names, (ref.topk_combine_ref, plain_gg, plain_mlp,
+                             plain_dgrad, plain_wgrad)))
+    for n in names:
+        setattr(ops, n, plain[n])
     try:
         yield
     finally:
-        ops.topk_combine, ops.grouped_gemm, ops.fused_mlp = saved
+        for n in names:
+            setattr(ops, n, saved[n])
 
 
 def teacher_forced_logits(cfg, params, toks, plens, nxt, S=512):
@@ -547,6 +720,266 @@ def phase_pallas(state, out):
           f"pallas MoE layer disagrees with xla: {res}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+
+
+def train_cfg(n_layers, dtype, gemm_impl="pallas_fused"):
+    """qwen2-moe-2.7b at full width, cut in depth only; the MoE layer runs
+    the comet arm, whose backward is the dgrad/wgrad kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, param_dtype=dtype, compute_dtype=dtype,
+        remat="full", moe=dataclasses.replace(cfg.moe, impl="comet",
+                                              gemm_impl=gemm_impl))
+
+
+def train_batch(cfg, step=0):
+    """The train shape's synthetic batch (4 x 1024 tokens) on the card."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.specs import train_batch_specs
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    nb = SyntheticLM(cfg, train_batch_specs(cfg, shape, 1)).batch_at(step)
+    return {k: torch.from_numpy(v).long().cuda() for k, v in nb.items()}
+
+
+def loss_and_grads(cfg, params, batch, plain=False):
+    """loss_fn and the gradient of every leaf, through the kernels or (with
+    ``plain``) the plain versions."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    leaves = [(p, t.requires_grad_(True)) for p, t in tree_leaves(params)]
+    with plain_ops() if plain else contextlib.nullcontext():
+        loss, _ = lm.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return loss.detach(), {p: g for (p, _), g in zip(leaves, grads)}
+
+
+def rel_l2(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def grad_check(cfg, params, batch, routes):
+    """Loss and per-leaf gradient distances of the kernel route to the
+    plain route (and of each extra route to the plain route)."""
+    import torch
+    runs = {"plain": loss_and_grads(cfg, params, batch, plain=True)}
+    for name, c in routes.items():
+        runs[name] = loss_and_grads(c, params, batch,
+                                    plain=name != "kernels")
+    torch.cuda.synchronize()
+    want_l, want_g = runs.pop("plain")
+    res = {}
+    for name, (loss, grads) in runs.items():
+        check(bool(torch.isfinite(loss)) and all(
+            bool(g.isfinite().all()) for g in grads.values()),
+            f"{name}: non-finite loss or gradient")
+        res[name] = {
+            "loss": float(loss), "loss_plain": float(want_l),
+            "loss_rel_err": abs(float(loss) - float(want_l))
+            / abs(float(want_l)),
+            "grad_rel_l2": {"/".join(map(str, p)): rel_l2(g, want_g[p])
+                            for p, g in grads.items()}}
+    return res
+
+
+def phase_train(state, out):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    state.pop("params", None)                  # the serving weights
+    torch.cuda.empty_cache()
+    rec = {}
+
+    # (1) fp32, 2 layers: the kernels against the plain versions
+    c32 = train_cfg(2, "float32")
+    p32 = lm.init_params(c32, seed=1, device="cuda")
+    g32 = grad_check(c32, p32, train_batch(c32), {"kernels": c32})
+    del p32
+    torch.cuda.empty_cache()
+    k32 = g32["kernels"]
+    worst32 = max(k32["grad_rel_l2"].values())
+    rec["fp32_2_layers"] = {"loss_rel_err": k32["loss_rel_err"],
+                            "grad_rel_l2_max": worst32,
+                            "grad_rel_l2": k32["grad_rel_l2"]}
+    log(f"  fp32 2 layers: loss {k32['loss']:.6f} (plain "
+        f"{k32['loss_plain']:.6f}), worst leaf rel L2 {worst32:.3e}")
+    check(k32["loss_rel_err"] <= TOL["fp32"] and worst32 <= TOL["fp32"],
+          f"fp32 gradients: loss rel err {k32['loss_rel_err']:.3e}, worst "
+          f"leaf {worst32:.3e} > 1e-4")
+
+    # (2) bf16, 4 layers, beside the floor between two plain routes
+    c16 = train_cfg(TRAIN_LAYERS, "bfloat16")
+    p16 = lm.init_params(c16, seed=2, device="cuda")
+    g16 = grad_check(c16, p16, train_batch(c16),
+                     {"kernels": c16,
+                      "xla": train_cfg(TRAIN_LAYERS, "bfloat16", "xla")})
+    del p16
+    torch.cuda.empty_cache()
+    bad = []
+    for leaf, err in g16["kernels"]["grad_rel_l2"].items():
+        bound = max(TOL["bf16"], 3 * g16["xla"]["grad_rel_l2"][leaf])
+        if err > bound:
+            bad.append(f"{leaf}: {err:.3e} > {bound:.3e}")
+    lbound = max(TOL["bf16"], 3 * g16["xla"]["loss_rel_err"])
+    rec["bf16_4_layers"] = {
+        name: {"loss_rel_err": r["loss_rel_err"],
+               "grad_rel_l2_max": max(r["grad_rel_l2"].values()),
+               "grad_rel_l2": r["grad_rel_l2"]} for name, r in g16.items()}
+    log(f"  bf16 {TRAIN_LAYERS} layers: kernels vs plain loss rel err "
+        f"{g16['kernels']['loss_rel_err']:.3e}, worst leaf "
+        f"{max(g16['kernels']['grad_rel_l2'].values()):.3e}; xla vs plain "
+        f"{g16['xla']['loss_rel_err']:.3e}, worst leaf "
+        f"{max(g16['xla']['grad_rel_l2'].values()):.3e}")
+    check(g16["kernels"]["loss_rel_err"] <= lbound,
+          f"bf16 loss rel err {g16['kernels']['loss_rel_err']:.3e} > "
+          f"{lbound:.3e}")
+    check(not bad, f"bf16 gradients outside max(2e-2, 3 x floor): {bad}")
+
+    # (3) the train step at full width, 4 layers
+    cfg = train_cfg(TRAIN_LAYERS, "bfloat16")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    tr = Trainer(cfg, shape, None, TrainerConfig(ckpt_dir=ckpt),
+                 device="cuda")
+    t0 = time.perf_counter()
+    tstate = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(tstate["params"]))
+    log(f"  train: {ARCH} at {TRAIN_LAYERS} layers, {n_params / 1e9:.2f} B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s")
+    step_fn = tr.built["fn"]
+    batches = [tr._device_batch(tr.data.batch_at(i)) for i in range(4)]
+    tstate, m = step_fn(tstate, batches[0])           # warm-up
+    warm_loss = float(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    with PlainGuard() as guard:
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            tstate, m = step_fn(tstate, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "loss": loss, "grad_norm": float(m["grad_norm"]),
+                          "skipped": m["skipped"]})
+    counts = read_counts()
+    L = TRAIN_LAYERS
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    ms = statistics.median(st["ms"] for st in steps)
+    rec["train"] = {
+        "layers": L, "tokens_per_step": tokens, "params": n_params,
+        "warmup_loss": warm_loss, "steps": steps, "step_ms_median": ms,
+        "tokens_per_s": tokens / ms * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "plain_calls_on_cuda": guard.cuda_calls}
+    log("  " + json.dumps({k: v for k, v in rec["train"].items()}))
+    want = {"fused_mlp": 2 * L * 3, "topk_combine": 2 * L * 3,
+            "fused_mlp_dgrad": L * 3, "fused_mlp_wgrad": L * 3,
+            "grouped_gemm": 0}
+    check(counts == want, f"launches {counts}, expected {want} (3 steps)")
+    check(guard.cuda_calls == 0,
+          f"plain versions saw CUDA tensors {guard.cuda_calls} times")
+    check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+              and not st["skipped"] for st in steps),
+          f"non-finite or skipped steps: {steps}")
+    state["train"] = (tr, tstate, batches[0])
+    out["train"] = rec
+
+    # (4) Trainer.run with checkpoints and a fault-hook replay (smoke
+    # config: a full-width checkpoint is 35 GB)
+    smoke = get_config(ARCH + "-smoke")
+    smoke = dataclasses.replace(smoke, moe=dataclasses.replace(
+        smoke.moe, gemm_impl="pallas_fused"))
+    sshape = ShapeConfig("smoke", 64, 4, "train")
+
+    def run(hook=None):
+        d = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+        t = Trainer(smoke, sshape, None,
+                    TrainerConfig(ckpt_dir=d, ckpt_every=2, log_every=1000,
+                                  keep=2), fault_hook=hook, device="cuda")
+        return t.run(6)
+
+    fired = []
+
+    def bomb(step):
+        if step == 5 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    clean, replay = run(), run(bomb)
+    lc = [m["loss"] for m in clean["metrics"]]
+    lr_ = [m["loss"] for m in replay["metrics"]]
+    rec["trainer_run"] = {"arch": smoke.name, "clean_losses": lc,
+                          "replay_losses": lr_,
+                          "restarts": replay["restarts"],
+                          "final_step": replay["final_step"]}
+    log("  " + json.dumps(rec["trainer_run"]))
+    # the replay repeats steps 5-6 from the step-4 checkpoint; torch's
+    # atomic scatter-adds (embedding and dispatch gradients) may differ in
+    # the last bits between the two runs
+    check(replay["restarts"] == 1 and replay["final_step"] == 6
+          and all(np.isfinite(lc + lr_))
+          and abs(lr_[-1] - lc[-1]) <= 1e-4 * abs(lc[-1]),
+          f"Trainer.run replay: {rec['trainer_run']}")
+
+
+def phase_profile_train(state, out):
+    """Device time by kernel name over one train step of the train phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tr, tstate, batch = state["train"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tstate, m = tr.built["fn"](tstate, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    state["train"] = (tr, tstate, batch)
+    out["profile_train"] = device_time_by_name(prof, wall)
+    log(f"  train step: wall {wall * 1e3:.1f} ms, device "
+        f"{out['profile_train']['device_ms']:.1f} ms")
+    for r in out["profile_train"]["top"]:
+        log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
+    check(out["profile_train"]["device_ms"] > 0,
+          "the profiler recorded no device time")
+
+
+def device_time_by_name(prof, wall):
+    """Sum the device kernels and copies of a profile by name: wall and
+    device ms, idle share and the top 20."""
+    import torch
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+            "idle_share": max(0.0, 1 - dev_ms / (wall * 1e3)),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
 def phase_profile(state, out):
     """Device time by kernel name over one admission round (prefill) and 8
     decode steps of the serve configuration."""
@@ -572,19 +1005,8 @@ def phase_profile(state, out):
             work()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_name = {}                 # device kernels and copies, by name
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                   n + 1)
-        dev_ms = sum(ms for ms, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-        res[name] = {
-            "wall_ms": wall * 1e3, "device_ms": dev_ms,
-            "idle_share": max(0.0, 1 - dev_ms / (wall * 1e3)),
-            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                    for k, (ms, n) in top]}
+        res[name] = device_time_by_name(prof, wall)
+        dev_ms = res[name]["device_ms"]
         log(f"  {name}: wall {wall * 1e3:.1f} ms, device {dev_ms:.1f} ms")
         for r in res[name]["top"]:
             log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
@@ -603,7 +1025,9 @@ def kernel_records(out):
     shape, launches from the serving run that exercises it."""
     head = {"fused_mlp": "R=160 expert_major",
             "grouped_gemm": "gemm1 expert_major",
-            "topk_combine": "T=2048"}
+            "topk_combine": "T=2048",
+            "fused_mlp_dgrad": "R=320 swiglu",
+            "fused_mlp_wgrad": "R=320 swiglu"}
     src = {"fused_mlp": "serve", "grouped_gemm": "serve_pallas",
            "topk_combine": "serve"}
     recs = []
@@ -611,10 +1035,12 @@ def kernel_records(out):
         c = next((r for r in out.get("kernel_cases", [])
                   if r["kernel"] == name and r["dtype"] == "bf16"
                   and r["case"] == case), {})
-        run = out.get(src[name], {})
+        run = (out.get("train", {}).get("train", {}) if name not in src
+               else out.get(src[name], {}))
         recs.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + SOURCES.get(name, f"{name}.cu"),
             "replaces": REPLACES[name],
             "launches": run.get("launches", {}).get(name, 0),
             "max_abs_err": c.get("max_abs_err"), "ms": c.get("ms"),
@@ -691,6 +1117,11 @@ def main(argv=None):
             elif name == "profile":
                 check("params" in state, "needs the serve phase")
                 phase_profile(state, out)
+            elif name == "train":
+                phase_train(state, out)
+            elif name == "profile_train":
+                check("train" in state, "needs the train phase")
+                phase_profile_train(state, out)
             status = "ok"
         except Exception as e:                 # report, then fail the run
             import traceback

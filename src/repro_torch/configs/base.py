@@ -208,6 +208,18 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+    microbatch: int = 0                # 0 = no grad accumulation (train only)
+
 
 # ---------------------------------------------------------------------------
 # Registry

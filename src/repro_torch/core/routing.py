@@ -92,8 +92,9 @@ def combine(recv_flat, info: DispatchInfo, weights, E_loc: int, C: int,
     chunk index s is the destination group g (rot None) or (rot - g) % ep.
     Returns (T, d), the top-k weighted sum; dropped slots contribute zero.
     The gather (slot -> token rows) is plain tensor code; the weighted fp32
-    reduction runs in the ``topk_combine`` kernel on the card. ``d`` may be
-    one column block: the reduction is columnwise."""
+    reduction runs in the ``topk_combine`` kernel on the card, with its
+    analytic backward (``ops.topk_combine_diff``). ``d`` may be one column
+    block: the reduction is columnwise."""
     g = info.flat_e // E_loc
     l = info.flat_e % E_loc
     s_idx = g if rot is None else (rot - g) % ep
@@ -102,4 +103,4 @@ def combine(recv_flat, info: DispatchInfo, weights, E_loc: int, C: int,
     rows = torch.where(info.keep[:, None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     rows = rows.reshape(info.T, info.k, -1)
-    return ops.topk_combine(rows, weights)
+    return ops.topk_combine_diff(rows, weights)

@@ -10,8 +10,11 @@ layout. At one rank every ring and all-to-all degenerates to its local arm:
             N-decomposition) that a streaming combine consumes one by one.
   bcast   - the decode path: the expert MLP over the whole (E, C, d) buffer.
 
-The ranked transports (all-to-all, the comet ring over torch.distributed)
-come in a later slice.
+The comet arm is an ``autograd.Function`` whose backward consumes the
+cotangents column block by column block (``_mlp_bwd``), the counterpart of
+the JAX package's custom VJP: under "pallas_fused" it runs the dgrad and
+wgrad kernels per block. The ranked transports (all-to-all, the comet ring
+and its backward ring over torch.distributed) come in a later slice.
 
 The GroupGEMM backend is explicit (``gemm_impl=``) through every entry
 point, with the same names as the JAX package:
@@ -25,12 +28,12 @@ On CPU tensors the two kernel backends run their plain versions.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import activate, is_glu
+from repro_torch.models.common import activate, activate_vjp, is_glu
 
 GEMM_BACKENDS = ("xla", "pallas", "pallas_fused")
 DEFAULT_GEMM_IMPL = "xla"
@@ -104,6 +107,76 @@ def mlp_col_blocks(rows, w, activation: str, n_col: int, blk: int,
             for b in range(n_col)]
 
 
+def _mlp_preacts(rows, w, activation: str, gemm_impl: Optional[str] = None):
+    """Layer-0 pre-activations (gate | None, up) under the backend."""
+    up = _gg(rows, w["w_up"], gemm_impl=gemm_impl)
+    gate = (_gg(rows, w["w_gate"], gemm_impl=gemm_impl)
+            if is_glu(activation) else None)
+    return gate, up
+
+
+def _mlp_bwd(rows, w, activation: str, dys, blk: int,
+             gemm_impl: Optional[str] = None):
+    """The expert MLP's backward with per-column-block dY consumption.
+
+    rows: (E_loc, R, d); dys: the ``n_col`` column-block cotangents
+    (E_loc, R, blk) that partition the output width. Returns (d_rows
+    (E_loc, R, d), dw dict with w's keys).
+
+    "pallas_fused": each block runs the column-sliced dgrad and wgrad
+    kernels (the hidden recomputed, never stored); the blocks' dX, dw_up and
+    dw_gate partials add up in the rows' dtype and the dw_down blocks
+    concatenate. "xla" and "pallas": the pre-activations recomputed, dh
+    accumulated over the blocks, one activation VJP, and the
+    transposed products in torch (the grouped-GEMM kernel is a forward-layout
+    kernel; the JAX package leaves these products to XLA too)."""
+    impl = _impl(gemm_impl)
+    n_col = len(dys)
+    glu = is_glu(activation)
+    if impl == "pallas_fused":
+        d_rows = dwg = dwu = None
+        dwd_blocks = []
+        for b, dy in enumerate(dys):
+            cs = (b * blk, blk) if n_col > 1 else None
+            dx = ops.fused_mlp_dgrad(rows, w, dy, activation, col_slice=cs)
+            g_, u_, d_ = ops.fused_mlp_wgrad(rows, w, dy, activation,
+                                             col_slice=cs)
+            d_rows = dx if d_rows is None else d_rows + dx
+            dwu = u_ if dwu is None else dwu + u_
+            if glu:
+                dwg = g_ if dwg is None else dwg + g_
+            dwd_blocks.append(d_)
+        dw = {"w_up": dwu, "w_down": torch.cat(dwd_blocks, dim=2)
+              if n_col > 1 else dwd_blocks[0]}
+        if glu:
+            dw["w_gate"] = dwg
+        return d_rows, dw
+
+    gate, up = _mlp_preacts(rows, w, activation, impl)
+    h_cast = activate(activation, gate, up).to(rows.dtype)
+    dh = None
+    dwd_blocks = []
+    for b, dy in enumerate(dys):
+        wd_b = w["w_down"][:, :, b * blk:(b + 1) * blk]
+        dh_b = torch.bmm(dy, wd_b.transpose(1, 2))
+        dh = dh_b if dh is None else dh + dh_b
+        dwd_blocks.append(torch.bmm(h_cast.transpose(1, 2), dy))
+    dgate, dup = activate_vjp(activation, gate, up, dh.to(up.dtype))
+    rt = rows.transpose(1, 2)
+    d_rows = torch.bmm(dup, w["w_up"].transpose(1, 2))
+    dw = {"w_up": torch.bmm(rt, dup),
+          "w_down": torch.cat(dwd_blocks, dim=2)
+          if n_col > 1 else dwd_blocks[0]}
+    if glu:
+        d_rows = d_rows + torch.bmm(dgate, w["w_gate"].transpose(1, 2))
+        dw["w_gate"] = torch.bmm(rt, dgate)
+    return d_rows.to(rows.dtype), dw
+
+
+def _cast_like(dw: Dict, w: Dict) -> Dict:
+    return {k: dw[k].to(w[k].dtype) for k in w}
+
+
 def expert_mlp(rows, w, activation: str, gemm_impl: Optional[str] = None):
     return _mlp_out(rows, w, activation, gemm_impl)
 
@@ -118,18 +191,56 @@ def transport_naive(send, w, activation: str,
     return out, None
 
 
+class _CometLocalArm(torch.autograd.Function):
+    """The one-rank comet arm (transport.py:536-570 of the JAX package):
+    the forward is the naive path cut into column blocks; the backward
+    reshapes the per-block cotangents into expert rows and runs
+    ``_mlp_bwd``; autograd hands a block that got no gradient in as zeros.
+    Saves (send, w) only: the fused backend recomputes the hidden in its
+    kernels, the others recompute the pre-activations."""
+
+    @staticmethod
+    def forward(ctx, send, keys, activation, n_col, gemm_impl, *ws):
+        w = dict(zip(keys, ws))
+        out, _ = transport_naive(send, w, activation, gemm_impl)
+        ctx.save_for_backward(send, *ws)
+        ctx.args = (keys, activation, n_col, gemm_impl)
+        if n_col == 1:
+            return out
+        blk = out.shape[-1] // n_col
+        return tuple(out[..., b * blk:(b + 1) * blk].contiguous()
+                     for b in range(n_col))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        send, *ws = ctx.saved_tensors
+        keys, activation, n_col, gemm_impl = ctx.args
+        w = dict(zip(keys, ws))
+        ep, E_loc, C, d = send.shape
+        blk = d // n_col
+        rows = send.transpose(0, 1).reshape(E_loc, ep * C, d)
+        dys = [ct.to(send.dtype).transpose(0, 1).reshape(E_loc, ep * C, blk)
+               for ct in cts]
+        d_rows, dw = _mlp_bwd(rows, w, activation, dys, blk, gemm_impl)
+        d_send = d_rows.reshape(E_loc, ep, C, d).transpose(0, 1)
+        dw = _cast_like(dw, w)
+        return (d_send.to(send.dtype), None, None, None, None,
+                *(dw[k] for k in keys))
+
+
 def transport_comet_blocks(send, w, activation: str, n_col_blocks: int = 1,
                            ring_group: int = 1,
                            gemm_impl: Optional[str] = None):
     """The comet ring's local arm: returns (blocks, rot) with ``blocks`` the
     ``n_col`` column blocks (ep, E_loc, C, blk) of the expert outputs.
     At one rank the forward is exactly the naive path (``ring_group`` only
-    matters across ranks)."""
+    matters across ranks); the backward is ``_CometLocalArm``'s."""
     d = send.shape[-1]
     n_col = legalize_n_col(d, n_col_blocks)
-    blk = d // n_col
-    out, _ = transport_naive(send, w, activation, gemm_impl)
-    return [out[..., b * blk:(b + 1) * blk] for b in range(n_col)], None
+    keys = tuple(sorted(w))
+    out = _CometLocalArm.apply(send, keys, activation, n_col, gemm_impl,
+                               *(w[k] for k in keys))
+    return ([out] if n_col == 1 else list(out)), None
 
 
 def transport_comet(send, w, activation: str, n_col_blocks: int = 1,

@@ -40,6 +40,14 @@ SIGNATURES = {
     "repro_fused_mlp": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL, _P,
                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_chunk": (),
+    "repro_fused_mlp_dgrad": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
+                              _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P),
+    "repro_fused_mlp_dgrad_chunk": (),
+    "repro_fused_mlp_wgrad": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
+                              _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _P),
+    "repro_fused_mlp_wgrad_tile": (_I,),
 }
 
 

@@ -14,6 +14,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace repro {
 
 constexpr int kThreads = 256;
@@ -40,6 +42,14 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
 }
 
+// d gelu_tanh / dx: the derivative JAX's autodiff takes of jax.nn.gelu
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k = 0.7978845608028654f;
+  const float t = tanhf(k * (x + 0.044715f * x * x * x));
+  return 0.5f * (1.f + t) +
+         0.5f * x * (1.f - t * t) * k * (1.f + 3.f * 0.044715f * x * x);
+}
+
 enum Act { kSwiglu = 0, kGeglu = 1, kGelu = 2, kRelu2 = 3 };
 
 // models/common.activate on fp32 pre-activations; gate is ignored by the
@@ -53,6 +63,31 @@ __device__ __forceinline__ float activate(int act, float g, float u) {
       const float r = fmaxf(u, 0.f);
       return r * r;
     }
+  }
+}
+
+// The activation's VJP in fp32: (dg, du) for h = activate(act, g, u) and the
+// cotangent dh; dg = 0 for the non-GLU activations
+__device__ __forceinline__ void activate_vjp(int act, float g, float u,
+                                             float dh, float& dg, float& du) {
+  switch (act) {
+    case kSwiglu: {
+      const float s = 1.f / (1.f + expf(-g));
+      dg = dh * u * s * (1.f + g * (1.f - s));
+      du = dh * g * s;
+      break;
+    }
+    case kGeglu:
+      dg = dh * u * gelu_tanh_grad(g);
+      du = dh * gelu_tanh(g);
+      break;
+    case kGelu:
+      dg = 0.f;
+      du = dh * gelu_tanh_grad(u);
+      break;
+    default:
+      dg = 0.f;
+      du = dh * 2.f * fmaxf(u, 0.f);
   }
 }
 
@@ -102,9 +137,17 @@ template <int BM, int BN> struct Acc<__nv_bfloat16, BM, BN> {
     for (int i = 0; i < PER; ++i) nvcuda::wmma::fill_fragment(c[i], 0.f);
   }
 
+  // A (BM x K) and B (K x BN) in shared memory, row-major by default;
+  // AT / BT read A / B column-major (A(r, k) = A[k * lda + r], B(k, n) =
+  // B[n * ldb + k]): a transposed operand in its stored layout, no copy
+  template <bool AT = false, bool BT = false>
   __device__ void mma(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
                       int ldb, int K) {
     using namespace nvcuda;
+    using LA = typename std::conditional<AT, wmma::col_major,
+                                         wmma::row_major>::type;
+    using LB = typename std::conditional<BT, wmma::col_major,
+                                         wmma::row_major>::type;
     const int w = threadIdx.x / 32;
     for (int k = 0; k < K; k += 16) {
 #pragma unroll
@@ -112,16 +155,40 @@ template <int BM, int BN> struct Acc<__nv_bfloat16, BM, BN> {
         const int f = w + 8 * i;
         if (f < NFRAG) {  // warp-uniform
           const int fm = f / FN, fn = f % FN;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b;
-          wmma::load_matrix_sync(a, A + fm * 16 * lda + k, lda);
-          wmma::load_matrix_sync(b, B + k * ldb + fn * 16, ldb);
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
+          wmma::load_matrix_sync(
+              a, AT ? A + k * lda + fm * 16 : A + fm * 16 * lda + k, lda);
+          wmma::load_matrix_sync(
+              b, BT ? B + fn * 16 * ldb + k : B + k * ldb + fn * 16, ldb);
           wmma::mma_sync(c[i], a, b, c[i]);
         }
       }
     }
+  }
+
+  // the sums from a row-major fp32 matrix (shared or device memory) whose
+  // tile lies wholly inside it
+  __device__ void load(const float* S, int lds) {
+    const int w = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int f = w + 8 * i;
+      if (f < NFRAG) {
+        const int fm = f / FN, fn = f % FN;
+        nvcuda::wmma::load_matrix_sync(c[i], S + fm * 16 * lds + fn * 16,
+                                       lds, nvcuda::wmma::mem_row_major);
+      }
+    }
+  }
+
+  // f(c, a.c, b.c) on matching elements, each by reference
+  template <typename F> __device__ void zip(Acc& a, Acc& b, F f) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+#pragma unroll
+      for (int j = 0; j < c[i].num_elements; ++j)
+        f(c[i].x[j], a.c[i].x[j], b.c[i].x[j]);
   }
 
   // c = f(other.c, c) elementwise: two accumulators of the same shape hold
@@ -157,6 +224,7 @@ template <int BM, int BN> struct Acc<float, BM, BN> {
     for (int i = 0; i < PER; ++i) c[i] = 0.f;
   }
 
+  template <bool AT = false, bool BT = false>
   __device__ void mma(const float* A, int lda, const float* B, int ldb,
                       int K) {
 #pragma unroll
@@ -165,10 +233,25 @@ template <int BM, int BN> struct Acc<float, BM, BN> {
       if (idx < BM * BN) {
         const int r = idx / BN, n = idx % BN;
         float s = c[i];
-        for (int k = 0; k < K; ++k) s = fmaf(A[r * lda + k], B[k * ldb + n], s);
+        for (int k = 0; k < K; ++k)
+          s = fmaf(AT ? A[k * lda + r] : A[r * lda + k],
+                   BT ? B[n * ldb + k] : B[k * ldb + n], s);
         c[i] = s;
       }
     }
+  }
+
+  __device__ void load(const float* S, int lds) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + kThreads * i;
+      if (idx < BM * BN) c[i] = S[(idx / BN) * lds + idx % BN];
+    }
+  }
+
+  template <typename F> __device__ void zip(Acc& a, Acc& b, F f) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) f(c[i], a.c[i], b.c[i]);
   }
 
   template <typename F> __device__ void combine(const Acc& other, F f) {
@@ -232,6 +315,48 @@ __device__ __forceinline__ void store_tile(const AccT& acc, unsigned char* smem,
 
 template <int BM, int BN> constexpr size_t out_stage_bytes() {
   return align128(sizeof(float) * BM * (BN + 4));
+}
+
+// The split-f kernels' second pass: out[row, n] = sum over the NF f-chunk
+// planes of part[fc, row, n] (each plane rows x N), summed in f-chunk order
+// (deterministic, no atomics) and cast to T. One block per (row, slab of
+// kSlab columns); order 0 (expert_major) puts rows outermost, 1 (n_major)
+// column slabs.
+constexpr int kSlab = 1024;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sum_partials_kernel(const float* __restrict__ part, T* __restrict__ out,
+                        int rows, int N, int NF, int order) {
+  const int slabs = (N + kSlab - 1) / kSlab;
+  const long long id = blockIdx.x;
+  long long row;
+  int sb;
+  if (order == 0) {
+    row = id / slabs;
+    sb = static_cast<int>(id % slabs);
+  } else {
+    sb = static_cast<int>(id / rows);
+    row = id % rows;
+  }
+  const long long plane = static_cast<long long>(rows) * N;
+  for (int c = sb * kSlab + threadIdx.x; c < min(N, (sb + 1) * kSlab);
+       c += kThreads) {
+    const float* p = part + row * N + c;
+    float s = 0.f;
+    for (int fc = 0; fc < NF; ++fc) s += p[fc * plane];
+    out[row * N + c] = from_f<T>(s);
+  }
+}
+
+template <typename T>
+cudaError_t sum_partials(const float* part, T* out, int rows, int N, int NF,
+                         int order, cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>(rows) * ((N + kSlab - 1) / kSlab);
+  sum_partials_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(part, out, rows, N, NF, order);
+  return cudaGetLastError();
 }
 
 }  // namespace repro

@@ -42,7 +42,6 @@ namespace {
 
 constexpr int BFS = 128;  // hidden columns per block (f-chunk)
 constexpr int BK = 64;    // d slice of GEMM1, f slice of GEMM2
-constexpr int SLAB = 1024;  // output columns per reduce block
 
 template <typename T, int BM, int BN> struct FusedSmem {
   static constexpr int LDX = BK + 8, LDW = BFS + 8, LDD = BN + 8, LDH = BFS + 8;
@@ -130,33 +129,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[row, n] = sum over f-chunks of part[fc, row, n], in f-chunk order
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_reduce_kernel(const float* __restrict__ part,
-                            T* __restrict__ out, int rows, int N, int NF,
-                            int order) {
-  const int slabs = (N + SLAB - 1) / SLAB;
-  const long long id = blockIdx.x;
-  long long row;
-  int sb;
-  if (order == 0) {  // expert_major: rows outermost
-    row = id / slabs;
-    sb = static_cast<int>(id % slabs);
-  } else {           // n_major: column slabs outermost
-    sb = static_cast<int>(id / rows);
-    row = id % rows;
-  }
-  const long long plane = static_cast<long long>(rows) * N;
-  for (int c = sb * SLAB + threadIdx.x; c < min(N, (sb + 1) * SLAB);
-       c += kThreads) {
-    const float* p = part + row * N + c;
-    float s = 0.f;
-    for (int fc = 0; fc < NF; ++fc) s += p[fc * plane];
-    out[row * N + c] = from_f<T>(s);
-  }
-}
-
 template <typename T, int BM, int BN>
 cudaError_t launch(const void* x, long long sxe, long long sxr,
                    const void* wg, const void* wu, long long swe,
@@ -178,14 +150,8 @@ cudaError_t launch(const void* x, long long sxe, long long sxr,
       sdf, static_cast<float*>(part), E, R, d, f, N, act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = E * R;
-  const long long rblocks =
-      static_cast<long long>(rows) * ((N + SLAB - 1) / SLAB);
-  fused_mlp_reduce_kernel<T><<<static_cast<unsigned>(rblocks), kThreads, 0,
-                               stream>>>(static_cast<const float*>(part),
-                                         static_cast<T*>(out), rows, N, NF,
-                                         order);
-  return cudaGetLastError();
+  return sum_partials<T>(static_cast<const float*>(part), static_cast<T*>(out),
+                         E * R, N, NF, order, stream);
 }
 
 }  // namespace

@@ -1,11 +1,15 @@
-"""Wrapper of the fused expert-MLP CUDA kernel (``csrc/fused_mlp.cu``).
+"""Wrappers of the fused expert-MLP CUDA kernels: the forward
+(``csrc/fused_mlp.cu``) and its two backward kernels, dgrad
+(``csrc/fused_mlp_dgrad.cu``) and wgrad (``csrc/fused_mlp_wgrad.cu``).
 
-The plain version is ``kernels/ref.fused_mlp_ref``; ``kernels/ops.py``
-picks between the two by the tensors' device.
+The plain versions are ``kernels/ref.fused_mlp_ref``,
+``fused_mlp_dgrad_ref`` and ``fused_mlp_wgrad_ref``; ``kernels/ops.py``
+picks between kernel and plain version by the tensors' device. Each kernel
+counts its own launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -14,12 +18,48 @@ from repro_torch.kernels.grouped_gemm import ORDERS
 from repro_torch.models.common import is_glu
 
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu2": 3}
-launches = 0        # kernel launches since the last reset()
+# kernel launches since the last reset(), one count per kernel
+launches = 0
+dgrad_launches = 0
+wgrad_launches = 0
 
 
 def reset() -> None:
-    global launches
-    launches = 0
+    global launches, dgrad_launches, wgrad_launches
+    launches = dgrad_launches = wgrad_launches = 0
+
+
+def _check(name, rows, w_gate, w_up, w_down, activation, dy=None):
+    """Check the operands every fused-MLP kernel takes; returns
+    (dtype code, E, R, d, f, N)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"{name}: unknown activation {activation!r}")
+    if is_glu(activation) != (w_gate is not None):
+        raise ValueError(f"{name}: {activation} needs w_gate "
+                         f"{'' if is_glu(activation) else 'to be None'}")
+    ws = [w for w in (w_gate, w_up) if w is not None]
+    extra = [] if dy is None else [dy]
+    build.require_cuda(name, rows, w_down, *ws, *extra)
+    code = build.dtype_code(name, rows, w_down, *ws, *extra)
+    if rows.dim() != 3 or w_down.dim() != 3 or any(
+            w.shape != w_up.shape or w.dim() != 3 for w in ws):
+        raise ValueError(f"{name}: expected 3-d rows and weights")
+    E, R, d = rows.shape
+    f = w_up.shape[2]
+    N = w_down.shape[2]
+    if w_up.shape[:2] != (E, d) or w_down.shape[:2] != (E, f):
+        raise ValueError(f"{name}: shapes rows {tuple(rows.shape)}, w_up "
+                         f"{tuple(w_up.shape)}, w_down "
+                         f"{tuple(w_down.shape)} do not chain")
+    if dy is not None and tuple(dy.shape) != (E, R, N):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} is not "
+                         f"{(E, R, N)}")
+    if any(t.stride(2) != 1 for t in [rows, w_down] + extra):
+        raise ValueError(f"{name}: rows, w_down and dy need a unit last "
+                         f"stride")
+    if not all(w.is_contiguous() for w in ws):
+        raise ValueError(f"{name}: w_gate and w_up must be contiguous")
+    return code, E, R, d, f, N
 
 
 def fused_mlp(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
@@ -32,30 +72,9 @@ def fused_mlp(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     partial sums of the f-chunks is allocated here."""
     global launches
     name = "fused_mlp"
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"{name}: unknown activation {activation!r}")
-    if is_glu(activation) != (w_gate is not None):
-        raise ValueError(f"{name}: {activation} needs w_gate "
-                         f"{'' if is_glu(activation) else 'to be None'}")
     if order not in ORDERS:
         raise ValueError(f"{name}: unknown order {order!r}")
-    ws = [w for w in (w_gate, w_up) if w is not None]
-    build.require_cuda(name, rows, w_down, *ws)
-    code = build.dtype_code(name, rows, w_down, *ws)
-    if rows.dim() != 3 or w_down.dim() != 3 or any(
-            w.shape != w_up.shape or w.dim() != 3 for w in ws):
-        raise ValueError(f"{name}: expected 3-d rows and weights")
-    E, R, d = rows.shape
-    f = w_up.shape[2]
-    N = w_down.shape[2]
-    if w_up.shape[:2] != (E, d) or w_down.shape[:2] != (E, f):
-        raise ValueError(f"{name}: shapes rows {tuple(rows.shape)}, w_up "
-                         f"{tuple(w_up.shape)}, w_down "
-                         f"{tuple(w_down.shape)} do not chain")
-    if rows.stride(2) != 1 or w_down.stride(2) != 1:
-        raise ValueError(f"{name}: rows and w_down need a unit last stride")
-    if not all(w.is_contiguous() for w in ws):
-        raise ValueError(f"{name}: w_gate and w_up must be contiguous")
+    code, E, R, d, f, N = _check(name, rows, w_gate, w_up, w_down, activation)
     out = torch.empty((E, R, N), dtype=rows.dtype, device=rows.device)
     if out.numel() == 0:
         return out
@@ -77,3 +96,90 @@ def fused_mlp(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     lib.check(name, err)
     launches += 1
     return out
+
+
+def fused_mlp_dgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
+                    w_up: torch.Tensor, w_down: torch.Tensor,
+                    dy: torch.Tensor, activation: str) -> torch.Tensor:
+    """dX (E, R, d) of the fused expert MLP for the cotangent dy (E, R, N),
+    in the inputs' dtype. w_down and dy may be the same column slice of the
+    full output (dX is then that block's part). Scratch for the fp32
+    partial sums of the f-chunks is allocated here."""
+    global dgrad_launches
+    name = "fused_mlp_dgrad"
+    code, E, R, d, f, N = _check(name, rows, w_gate, w_up, w_down,
+                                 activation, dy)
+    out = torch.empty((E, R, d), dtype=rows.dtype, device=rows.device)
+    if out.numel() == 0:
+        return out
+    if f == 0 or N == 0:
+        return out.zero_()
+    lib = build.load()
+    n_chunks = -(-f // lib.lib.repro_fused_mlp_dgrad_chunk())
+    part = torch.empty((n_chunks, E, R, d), dtype=torch.float32,
+                       device=rows.device)
+    err = lib.lib.repro_fused_mlp_dgrad(
+        rows.data_ptr(), rows.stride(0), rows.stride(1),
+        None if w_gate is None else w_gate.data_ptr(), w_up.data_ptr(),
+        w_up.stride(0), w_up.stride(1),
+        w_down.data_ptr(), w_down.stride(0), w_down.stride(1),
+        dy.data_ptr(), dy.stride(0), dy.stride(1),
+        part.data_ptr(), out.data_ptr(), E, R, d, f, N,
+        ACTIVATIONS[activation], code, build.stream_ptr(rows))
+    lib.check(name, err)
+    dgrad_launches += 1
+    return out
+
+
+def fused_mlp_wgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
+                    w_up: torch.Tensor, w_down: torch.Tensor,
+                    dy: torch.Tensor, activation: str
+                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                               torch.Tensor]:
+    """(dw_gate | None, dw_up, dw_down) of the fused expert MLP for the
+    cotangent dy (E, R, N): (E, d, f), (E, d, f), (E, f, N) in the inputs'
+    dtype. With a column-sliced w_down/dy, dw_down is that column block and
+    dw_up/dw_gate are the block's partials. The fp32 running sums of the
+    row-tile loop are allocated here, padded to whole tiles, when R spans
+    more than one tile."""
+    global wgrad_launches
+    name = "fused_mlp_wgrad"
+    code, E, R, d, f, N = _check(name, rows, w_gate, w_up, w_down,
+                                 activation, dy)
+    dev, dt = rows.device, rows.dtype
+    glu = w_gate is not None
+    dwg = torch.empty((E, d, f), dtype=dt, device=dev) if glu else None
+    dwu = torch.empty((E, d, f), dtype=dt, device=dev)
+    dwd = torch.empty((E, f, N), dtype=dt, device=dev)
+    outs = [t for t in (dwg, dwu, dwd) if t is not None]
+    if all(t.numel() == 0 for t in outs):
+        return dwg, dwu, dwd
+    if R == 0:
+        return tuple(None if t is None else t.zero_()
+                     for t in (dwg, dwu, dwd))
+    lib = build.load()
+    bm, bfs, bo = (lib.lib.repro_fused_mlp_wgrad_tile(i) for i in range(3))
+    run_g = run_u = run_d = None
+    if R > bm:
+        def up(n, b):
+            return -(-n // b) * b
+        Fp, Np, Dp = up(f, bfs), up(N, bo), up(d, bo)
+        run_u = torch.empty((E, Dp, Fp), dtype=torch.float32, device=dev)
+        run_d = torch.empty((E, Fp, Np), dtype=torch.float32, device=dev)
+        if glu:
+            run_g = torch.empty((E, Dp, Fp), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.lib.repro_fused_mlp_wgrad(
+        rows.data_ptr(), rows.stride(0), rows.stride(1), ptr(w_gate),
+        w_up.data_ptr(), w_up.stride(0), w_up.stride(1),
+        w_down.data_ptr(), w_down.stride(0), w_down.stride(1),
+        dy.data_ptr(), dy.stride(0), dy.stride(1),
+        ptr(run_g), ptr(run_u), ptr(run_d), ptr(dwg), dwu.data_ptr(),
+        dwd.data_ptr(), E, R, d, f, N, ACTIVATIONS[activation], code,
+        build.stream_ptr(rows))
+    lib.check(name, err)
+    wgrad_launches += 1
+    return dwg, dwu, dwd

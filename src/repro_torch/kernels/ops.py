@@ -1,9 +1,17 @@
-"""Dispatch of the three kernels by the tensors' device.
+"""Dispatch of the kernels by the tensors' device, and the autograd
+functions around them.
 
 A CPU tensor goes to the plain version in ``kernels/ref.py``. A CUDA tensor
 goes to the hand-written kernel; if the kernel cannot be built, loaded or
 launched, the call raises. There is no fallback from the card to the plain
 version.
+
+``fused_mlp`` is differentiable: its backward runs the dgrad and wgrad
+kernels (the counterpart of the JAX package's custom VJP,
+``repro.kernels.fused_mlp._diff_fused``). ``topk_combine_diff`` is the
+combine kernel with the analytic fp32 backward of
+``repro.kernels.topk_combine._diff_combine``, plain tensor code on both
+devices.
 """
 from __future__ import annotations
 
@@ -38,16 +46,87 @@ def grouped_gemm(lhs, rhs, order: str = "expert_major"):
     return ref.grouped_gemm_ref(lhs, rhs)
 
 
+class _TopkCombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, weights):
+        ctx.save_for_backward(rows, weights)
+        return topk_combine(rows, weights)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rows, weights = ctx.saved_tensors
+        g = ct.float()[:, None, :]                              # (T, 1, d)
+        d_rows = (weights.float()[..., None] * g).to(rows.dtype)
+        d_w = (rows.float() * g).sum(dim=-1).to(weights.dtype)  # (T, k)
+        return d_rows, d_w
+
+
+def topk_combine_diff(rows, weights):
+    """Differentiable top-k combine: the kernel forward, the analytic fp32
+    backward (topk_combine.py:38-45 of the JAX package)."""
+    return _TopkCombine.apply(rows, weights)
+
+
+def _sliced_wd(w, col_slice):
+    wd = w["w_down"]
+    if col_slice is not None:
+        wd = wd[:, :, col_slice[0]:col_slice[0] + col_slice[1]]
+    return wd
+
+
+class _FusedMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, w_gate, w_up, w_down, activation, order):
+        ctx.save_for_backward(rows, w_gate, w_up, w_down)
+        ctx.activation = activation
+        if _on_cuda(rows, w_gate, w_up, w_down):
+            return _fm.fused_mlp(rows, w_gate, w_up, w_down, activation,
+                                 order)
+        return ref.fused_mlp_ref(rows, w_gate, w_up, w_down, activation)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rows, w_gate, w_up, w_down = ctx.saved_tensors
+        w = {"w_up": w_up, "w_down": w_down}
+        if w_gate is not None:
+            w["w_gate"] = w_gate
+        ct = ct.to(rows.dtype)
+        dx = fused_mlp_dgrad(rows, w, ct, ctx.activation)
+        dwg, dwu, dwd = fused_mlp_wgrad(rows, w, ct, ctx.activation)
+        return dx, dwg, dwu, dwd, None, None
+
+
 def fused_mlp(rows, w: Dict[str, torch.Tensor], activation: str,
               col_slice: Optional[Tuple[int, int]] = None,
               order: str = "expert_major"):
     """``w`` is the expert-weight dict (w_gate optional, w_up, w_down);
     ``col_slice=(start, width)`` computes only that block of output
-    columns, from a strided view of w_down."""
-    wd = w["w_down"]
-    if col_slice is not None:
-        wd = wd[:, :, col_slice[0]:col_slice[0] + col_slice[1]]
-    wg = w.get("w_gate")
-    if _on_cuda(rows, wg, w["w_up"], wd):
-        return _fm.fused_mlp(rows, wg, w["w_up"], wd, activation, order)
-    return ref.fused_mlp_ref(rows, wg, w["w_up"], wd, activation)
+    columns, from a strided view of w_down. Differentiable: the backward is
+    the dgrad and wgrad kernels (plain versions on the CPU)."""
+    return _FusedMLP.apply(rows, w.get("w_gate"), w["w_up"],
+                           _sliced_wd(w, col_slice), activation, order)
+
+
+def fused_mlp_dgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
+                    col_slice: Optional[Tuple[int, int]] = None):
+    """dX (E, R, d) of the fused expert MLP for the cotangent dy, which
+    covers the output columns ``col_slice`` (all of them when None). Per
+    column block calls sum to the full dX."""
+    wd, wg = _sliced_wd(w, col_slice), w.get("w_gate")
+    if _on_cuda(rows, wg, w["w_up"], wd, dy):
+        # an autograd cotangent may be an expanded (stride-0) tensor
+        return _fm.fused_mlp_dgrad(rows, wg, w["w_up"], wd, dy.contiguous(),
+                                   activation)
+    return ref.fused_mlp_dgrad_ref(rows, wg, w["w_up"], wd, dy, activation)
+
+
+def fused_mlp_wgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
+                    col_slice: Optional[Tuple[int, int]] = None):
+    """(dw_gate | None, dw_up, dw_down) for the cotangent dy of the output
+    columns ``col_slice``: dw_down covers that column block, dw_up/dw_gate
+    are the block's partials (they sum over blocks to the full gradient)."""
+    wd, wg = _sliced_wd(w, col_slice), w.get("w_gate")
+    if _on_cuda(rows, wg, w["w_up"], wd, dy):
+        return _fm.fused_mlp_wgrad(rows, wg, w["w_up"], wd, dy.contiguous(),
+                                   activation)
+    return ref.fused_mlp_wgrad_ref(rows, wg, w["w_up"], wd, dy, activation)

@@ -1,0 +1,36 @@
+"""Train batch shapes for every (arch x shape) cell: the port's copy of
+``repro.launch.specs`` without partition specs (one rank has no mesh).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+# default grad-accumulation per train shape name (microbatch count)
+TRAIN_ACCUM = {"train_4k": 8, "smoke": 1}
+WHISPER_DEC_RATIO = 4          # decoder text length = seq_len // ratio
+
+
+def legal_accum(global_batch: int, accum: int) -> int:
+    """The largest microbatch count <= accum that divides the batch."""
+    while accum > 1 and global_batch % accum:
+        accum -= 1
+    return max(1, accum)
+
+
+def train_batch_specs(cfg, shape, accum: int) -> Dict[str, Tuple[int, ...]]:
+    """The shape of each entry of one train batch; leading dims (accum,
+    microbatch, seq), or (microbatch, seq) without accumulation."""
+    B, S = shape.global_batch, shape.seq_len
+    accum = legal_accum(B, accum)
+    mb = B // accum
+
+    def shp(*tail):
+        return (accum, mb) + tail if accum > 1 else (mb,) + tail
+
+    if cfg.family == "vlm":
+        return {"embeds": shp(S, cfg.d_model), "labels": shp(S)}
+    if cfg.n_enc_layers:                            # whisper
+        Sd = max(64, S // WHISPER_DEC_RATIO)
+        return {"frames": shp(S, cfg.d_model), "tokens": shp(Sd),
+                "labels": shp(Sd)}
+    return {"tokens": shp(S), "labels": shp(S)}

@@ -3,9 +3,10 @@ prefill attention, and decode against a contiguous KV cache.
 
 These mirror the JAX package's jnp einsums (``repro.models.attention``),
 scores and softmax in fp32. They are not ``scaled_dot_product_attention``:
-the flash-attention kernel is ported in a later slice. The serving path
-only needs causal attention by absolute positions, so the JAX functions'
-other masks (``kv_mask``, ``q_offset``, ``kv_start``) are not ported.
+the flash-attention kernel is ported in a later slice. Masks are by
+absolute positions (``q_pos``/``kv_pos``, causal or not) and an optional
+(B, Sk) key validity ``kv_mask``; the JAX functions' ``q_offset`` and
+``kv_start`` are not ported.
 """
 from __future__ import annotations
 
@@ -34,22 +35,35 @@ def _causal(q_pos, kv_pos):
     return kv_pos[:, None, None, :] <= q_pos[:, None, :, None]
 
 
-def dense_attention(q, k, v, q_pos, kv_pos):
-    """Causal O(S^2) path. q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd); q_pos/
-    kv_pos: (B, Sq)/(B, Sk) absolute positions for the causal mask."""
+def _mask(s, q_pos, kv_pos, causal, kv_mask):
+    """Scores (B, H, Sq, Sk) with the causal mask and the (B, Sk) key
+    validity applied."""
+    if causal:
+        s = torch.where(_causal(q_pos, kv_pos), s, NEG_INF)
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :], s, NEG_INF)
+    return s
+
+
+def dense_attention(q, k, v, q_pos, kv_pos, causal: bool = True,
+                    kv_mask=None):
+    """O(S^2) path. q: (B, Sq, H, hd), k/v: (B, Sk, Hkv, hd); q_pos/
+    kv_pos: (B, Sq)/(B, Sk) absolute positions for the causal mask;
+    kv_mask: optional (B, Sk) bool, False keys are excluded."""
     H, hd = q.shape[2], q.shape[3]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * _scale(hd)
-    scores = torch.where(_causal(q_pos, kv_pos), scores, NEG_INF)
+    scores = _mask(scores, q_pos, kv_pos, causal, kv_mask)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)
 
 
-def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos):
-    """Causal flash-style two-level loop: outer over q blocks, inner over kv
+def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos,
+                      causal: bool = True, kv_mask=None):
+    """Flash-style two-level loop: outer over q blocks, inner over kv
     blocks with a running (max, sum, acc). Memory O(q_block * kv_block).
     Shapes the blocks do not tile take the dense path."""
     B, Sq, H, hd = q.shape
@@ -57,7 +71,7 @@ def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos):
     q_block = min(q_block, Sq)
     kv_block = min(kv_block, Sk)
     if Sq % q_block or Sk % kv_block:
-        return dense_attention(q, k, v, q_pos, kv_pos)
+        return dense_attention(q, k, v, q_pos, kv_pos, causal, kv_mask)
     dev = q.device
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
@@ -72,8 +86,9 @@ def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos):
             kblk = k[:, ks:ks + kv_block].float().transpose(1, 2)
             vblk = v[:, ks:ks + kv_block].float().transpose(1, 2)
             s = torch.einsum("bhqd,bhkd->bhqk", qblk, kblk)
-            s = torch.where(_causal(qpos, kv_pos[:, ks:ks + kv_block]), s,
-                            NEG_INF)
+            s = _mask(s, qpos, kv_pos[:, ks:ks + kv_block], causal,
+                      None if kv_mask is None
+                      else kv_mask[:, ks:ks + kv_block])
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -87,13 +102,15 @@ def chunked_attention(q, k, v, q_block: int, kv_block: int, q_pos, kv_pos):
 
 
 def attention(q, k, v, q_pos, kv_pos, q_block: int = 512,
-              kv_block: int = 1024):
-    """Causal attention: the dense path up to DENSE_THRESHOLD**2 score
-    elements per row and head, the chunked path beyond."""
+              kv_block: int = 1024, causal: bool = True, kv_mask=None):
+    """Full-sequence attention: the dense path up to DENSE_THRESHOLD**2
+    score elements per row and head, the chunked path beyond (the JAX
+    package's switch, attention.py:170-178)."""
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq * Sk <= DENSE_THRESHOLD * DENSE_THRESHOLD:
-        return dense_attention(q, k, v, q_pos, kv_pos)
-    return chunked_attention(q, k, v, q_block, kv_block, q_pos, kv_pos)
+        return dense_attention(q, k, v, q_pos, kv_pos, causal, kv_mask)
+    return chunked_attention(q, k, v, q_block, kv_block, q_pos, kv_pos,
+                             causal, kv_mask)
 
 
 def decode_attention(q, k_cache, v_cache, pos):

@@ -1,6 +1,8 @@
-"""Layer blocks of the serving path: attention + (dense FFN | MoE), schema
-and the two cached modes: single-token decode and chunked prefill.
-Attention layers only (no cross-attention, no SSM in this slice)."""
+"""Layer blocks: attention + (dense FFN | MoE), schema, the training
+forward (``apply_layer``, the sequential form of the JAX package's
+``block_segments``) and the two cached serving modes: single-token decode
+and chunked prefill. Attention layers only (no cross-attention, no SSM
+yet)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -62,18 +64,53 @@ def _qkv_proj(a, p_attn, h):
 
 
 def _mlp_tail(cfg, p, x):
-    """ln2 -> (MoE | FFN) -> residual."""
+    """ln2 -> (MoE | FFN) -> residual. Returns (x, aux loss fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ln2" not in p:
-        return x
+        return x, aux
     h = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
-        h, _ = moe_ffn(cfg, cfg.moe, p["moe"], h)
+        h, aux = moe_ffn(cfg, cfg.moe, p["moe"], h,
+                         n_col=cfg.moe.n_col_blocks)
         if "shared" in p["moe"]:
             h = h + ffn_apply(cfg, p["moe"]["shared"],
                               apply_norm(cfg, p["ln2"], x))
     else:
         h = ffn_apply(cfg, p["ffn"], h)
-    return x + h.to(x.dtype)
+    return x + h.to(x.dtype), aux
+
+
+def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
+               kv_mask=None):
+    """Full-sequence self-attention at one rank (blocks.py:116 of the JAX
+    package). x: (B, S, d); positions: (B, S) or (1, S) absolute positions
+    (RoPE and the causal mask); kv_mask: optional (B, S) key validity.
+    Returns the o-projection (B, S, d)."""
+    a = cfg.attn
+    B, S, _ = x.shape
+    q, k, v = _qkv_proj(a, p, x)
+    positions = positions.expand(B, S)
+    if use_rope:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    if kv_mask is not None:
+        kv_mask = kv_mask.expand(B, S)
+    o = A.attention(q, k, v, positions, positions, q_block=a.q_block,
+                    kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+    return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
+
+
+def apply_layer(cfg, pos: int, p, x, positions, mask=None):
+    """The training forward of one layer (blocks.py:361 of the JAX package,
+    written sequentially): ln1 -> attention -> residual -> ln2 -> (MoE |
+    FFN) -> residual. mask: optional (B, S) validity; pad keys are excluded
+    from attention. Returns (x, aux loss fp32)."""
+    a = cfg.attn
+    h = apply_norm(cfg, p["ln1"], x)
+    h = attn_apply(cfg, p["attn"], h, positions, a.causal, a.rope_theta > 0,
+                   kv_mask=mask)
+    x = x + h.to(x.dtype)
+    return _mlp_tail(cfg, p, x)
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos):
@@ -91,7 +128,7 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos):
     kc, vc = A.update_cache(cache["k"], cache["v"], k, v, t_pos)
     o = A.decode_attention(q, kc, vc, t_pos)
     x = x + o.reshape(B, 1, a.n_heads * a.head_dim) @ p["attn"]["wo"]
-    return _mlp_tail(cfg, p, x)
+    return _mlp_tail(cfg, p, x)[0]
 
 
 def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos):
@@ -118,4 +155,4 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos):
                     kv_block=a.kv_block)
     h = o.reshape(Ac, C, a.n_heads * a.head_dim) @ p["attn"]["wo"]
     x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x)
+    return _mlp_tail(cfg, p, x)[0]

@@ -12,6 +12,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Tree = Any
 
@@ -68,6 +69,16 @@ def tree_map(fn, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def tree_map_path(fn, tree: Tree, path: Tuple = ()) -> Tree:
+    """tree_map with fn(path, leaf), paths as ``tree_leaves`` gives them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def init_from_schema(schema: Tree, gen: torch.Generator, dtype: torch.dtype,
                      device: torch.device) -> Tree:
     return tree_map(lambda d: d.initialize(gen, dtype, device), schema)
@@ -120,6 +131,31 @@ def activate(name: str, gate, up):
     raise ValueError(name)
 
 
+def _gelu_tanh_grad(x):
+    """d gelu_tanh / dx, the derivative JAX's autodiff takes of
+    ``jax.nn.gelu``."""
+    k = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(k * (x + 0.044715 * x ** 3))
+    return 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * k * (1 + 3 * 0.044715
+                                                         * x * x)
+
+
+def activate_vjp(name: str, gate, up, dh):
+    """(dgate, dup) for h = activate(name, gate, up) and the cotangent dh,
+    written out (dgate is None for non-GLU activations)."""
+    if name == "swiglu":
+        s = torch.sigmoid(gate)
+        return dh * up * s * (1 + gate * (1 - s)), dh * gate * s
+    if name == "geglu":
+        return (dh * up * _gelu_tanh_grad(gate),
+                dh * F.gelu(gate, approximate="tanh"))
+    if name == "gelu":
+        return None, dh * _gelu_tanh_grad(up)
+    if name == "relu2":
+        return None, dh * 2 * F.relu(up)
+    raise ValueError(name)
+
+
 def is_glu(name: str) -> bool:
     return name in ("swiglu", "geglu")
 
@@ -165,3 +201,36 @@ def apply_rope(x, positions, theta):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked softmax cross-entropy: never keeps (tokens, vocab) logits alive
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hc, w_out, lc, logit_dtype):
+    logits = hc.to(logit_dtype) @ w_out.to(logit_dtype)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).to(logit_dtype)
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def chunked_xent(h, w_out, labels, chunk: int = 1024,
+                 logit_dtype=torch.float32):
+    """h: (B, S, d); w_out: (d, V); labels: (B, S), -1 = ignore. Returns
+    (mean loss over the kept labels, their count), as
+    ``repro.models.common.chunked_xent``. Each sequence chunk's
+    (B, chunk, V) logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``), so
+    only one chunk's logits are alive at a time."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    tot = torch.zeros((), dtype=logit_dtype, device=h.device)
+    cnt = torch.zeros((), dtype=logit_dtype, device=h.device)
+    for s0 in range(0, S, chunk):
+        l, c = checkpoint(_xent_chunk, h[:, s0:s0 + chunk], w_out,
+                          labels[:, s0:s0 + chunk], logit_dtype,
+                          use_reentrant=False)
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp(cnt, min=1.0), cnt

@@ -1,4 +1,5 @@
-"""Full model of the serving path: schema, init, prefill chunks, decode.
+"""Full model: schema, init, the training forward and loss, prefill chunks
+and decode.
 
 Layers are stacked by *period* as in the JAX package: ``params["layers"]``
 is a list over period positions of trees whose leaves carry a leading
@@ -12,12 +13,13 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamDecl, apply_norm,
-                                       init_from_schema, norm_schema,
-                                       tree_map)
+                                       chunked_xent, init_from_schema,
+                                       norm_schema, tree_map)
 
 Tree = Any
 
@@ -95,6 +97,78 @@ def init_cache(cfg, batch_size: int, seq_len: int,
 
 def _embed(cfg, params, tokens):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(cfg, params, batch):
+    """Token embeddings (or the stub frontend's ``embeds``) in the compute
+    dtype."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet")
+    if "embeds" in batch:
+        return batch["embeds"].to(dtype_of(cfg.compute_dtype))
+    return _embed(cfg, params, batch["tokens"])
+
+
+def _forward_inputs(cfg, params, batch):
+    """Embeddings, pad-aware positions and the mask: with ``mask`` (B, S)
+    a row's position is its rank among its valid tokens (left padding
+    starts at 0 at the first real token)."""
+    h = embed_inputs(cfg, params, batch)
+    Bsz, Ssz, _ = h.shape
+    mask = batch.get("mask")
+    if "positions" in batch:
+        positions = batch["positions"]
+    elif mask is not None:
+        positions = torch.clamp(torch.cumsum(mask.long(), dim=1) - 1, min=0)
+    else:
+        positions = torch.arange(Ssz, device=h.device)[None, :].expand(
+            Bsz, Ssz)
+    return h, positions, mask
+
+
+def _period_body(cfg, h, lp, positions, mask):
+    """The layers of one period: returns (h, the period's aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for pos in range(period_of(cfg)):
+        h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask)
+        aux = aux + a
+    return h, aux
+
+
+def forward(cfg, params, batch):
+    """Returns (h_final (B, S, d), aux loss fp32, None). With
+    ``cfg.remat == "full"`` every period runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of its
+    scan body): its activations are recomputed in the backward."""
+    if cfg.block_schedule:
+        raise NotImplementedError("block_schedule: the whole-graph schedule "
+                                  "is not ported yet")
+    h, positions, mask = _forward_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    p = period_of(cfg)
+    for n in range(cfg.n_layers // p):
+        lp = [_period(params["layers"][pos], n) for pos in range(p)]
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            h, a = checkpoint(_period_body, cfg, h, lp, positions, mask,
+                              use_reentrant=False)
+        else:
+            h, a = _period_body(cfg, h, lp, positions, mask)
+        aux = aux + a
+    return apply_norm(cfg, params["ln_f"], h), aux, None
+
+
+def loss_fn(cfg, params, batch):
+    """Mean next-token cross-entropy (labels -1 ignored) plus the MoE aux
+    loss. Returns (loss, {"xent", "aux", "tokens"})."""
+    h, aux, _ = forward(cfg, params, batch)
+    loss, cnt = chunked_xent(h, output_head(cfg, params), batch["labels"])
+    return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 
 @torch.no_grad()

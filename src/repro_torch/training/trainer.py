@@ -1,0 +1,209 @@
+"""Fault-tolerant training loop at one rank (``repro.training.trainer``).
+
+* Checkpoint/restart: periodic async atomic snapshots; when a step fails
+  the loop restores the last committed checkpoint and replays from there.
+  The synthetic data is a pure function of (seed, step), so a replayed run
+  is bit-identical to an uninterrupted one.
+* Straggler monitor: a per-step wall-time EWMA; a step slower than
+  ``straggler_factor`` times the EWMA is logged and counted.
+* Non-finite guard: the train step skips an update whose loss or gradient
+  norm is NaN/inf; after ``nan_limit`` consecutive skips the loop escalates
+  to checkpoint replay.
+
+The elastic path (``rescale``, ``reshard_state``) needs a mesh and comes
+with the ranked transports. The trainer runs on the card unless it is
+given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager, TensorSpec
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.launch.train_step import build_train_step
+from repro_torch.models import lm
+from repro_torch.models.common import tree_map
+from repro_torch.optim.adamw import AdamW
+
+Tree = Any
+
+
+class StragglerMonitor:
+    """EWMA step-time tracker; flags outlier steps."""
+
+    def __init__(self, factor: float = 2.5, alpha: float = 0.2,
+                 on_straggler: Optional[Callable[[int, float, float],
+                                                 None]] = None):
+        self.factor = factor
+        self.alpha = alpha
+        self.ewma: Optional[float] = None
+        self.flagged: List[int] = []
+        self.on_straggler = on_straggler
+
+    def observe(self, step: int, dt: float) -> bool:
+        is_straggler = (self.ewma is not None
+                        and dt > self.factor * self.ewma)
+        if is_straggler:
+            self.flagged.append(step)
+            if self.on_straggler:
+                self.on_straggler(step, dt, self.ewma)
+        else:  # don't poison the EWMA with outliers
+            self.ewma = dt if self.ewma is None else (
+                self.alpha * dt + (1 - self.alpha) * self.ewma)
+        return is_straggler
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    keep: int = 3
+    log_every: int = 10
+    straggler_factor: float = 2.5
+    seed: int = 0
+    max_restarts: int = 3
+    # after this many CONSECUTIVE skipped (non-finite) steps the loop
+    # escalates to checkpoint replay: the state itself is poisoned
+    nan_limit: int = 3
+
+
+def abstract_state(cfg) -> Dict:
+    """The training state's structure, shapes and dtypes, for restore."""
+    dt = dtype_of(cfg.param_dtype)
+    schema = lm.model_schema(cfg)
+    params = tree_map(lambda d: TensorSpec(d.shape, d.leaf_dtype(dt)),
+                      schema)
+
+    def f32(s):
+        return TensorSpec(s.shape, torch.float32)
+
+    return {"params": params,
+            "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params),
+                    "count": 0},
+            "step": 0}
+
+
+class Trainer:
+    def __init__(self, cfg, shape, mesh=None,
+                 tcfg: TrainerConfig = TrainerConfig(),
+                 optim: Optional[AdamW] = None,
+                 fault_hook: Optional[Callable] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.shape = shape
+        self.tcfg = tcfg
+        self.optim = optim or AdamW()
+        self.fault_hook = fault_hook          # tests inject failures here
+        self.built = build_train_step(cfg, shape, mesh, self.optim)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.monitor = StragglerMonitor(tcfg.straggler_factor)
+        self.metrics_log: List[Dict[str, float]] = []
+        self.nan_skips = 0                    # total skipped updates
+        self._consec_nans = 0
+        self.data = SyntheticLM(cfg, self.built["batch_structs"],
+                                seed=tcfg.seed)
+
+    # ------------------------------------------------------------------ state
+    def init_state(self, seed: Optional[int] = None) -> Dict:
+        """Seeded weights on the trainer's device, zero AdamW moments."""
+        params = lm.init_params(self.cfg, self.tcfg.seed if seed is None
+                                else seed, self.device)
+        return {"params": params, "opt": self.optim.init(params), "step": 0}
+
+    def restore_or_init(self) -> Tuple[Dict, int]:
+        if self.ckpt.latest_step() is not None:
+            return self.ckpt.restore(abstract_state(self.cfg),
+                                     device=self.device)
+        return self.init_state(), 0
+
+    # ------------------------------------------------------------------- run
+    def _device_batch(self, np_batch: Dict[str, np.ndarray]):
+        def conv(a):
+            t = torch.from_numpy(a)
+            if not t.is_floating_point():
+                t = t.long()
+            return t.to(self.device)
+        return {k: conv(v) for k, v in np_batch.items()}
+
+    def run(self, num_steps: int) -> Dict[str, Any]:
+        """Train with checkpoint/restart. Returns a summary dict."""
+        state, step = self.restore_or_init()
+        restarts = 0
+        while step < num_steps:
+            try:
+                state, step = self._run_span(state, step, num_steps)
+            except Exception as e:  # node failure / injected fault
+                restarts += 1
+                if restarts > self.tcfg.max_restarts:
+                    raise
+                self.ckpt.wait()
+                print(f"[trainer] failure after step {step} "
+                      f"({type(e).__name__}: {e}); restoring from "
+                      f"step {self.ckpt.latest_step() or 0} "
+                      f"(restart {restarts}/{self.tcfg.max_restarts})")
+                state = None                  # free it before the restore
+                state, step = self.restore_or_init()
+                self._consec_nans = 0
+        self.ckpt.save(step, state, wait=True)
+        return {"final_step": step, "restarts": restarts,
+                "stragglers": list(self.monitor.flagged),
+                "nan_skips": self.nan_skips,
+                "metrics": self.metrics_log}
+
+    def _apply_fault_hook(self, step, state):
+        """Fault hooks take ``(step)`` (raise to simulate a node failure)
+        or ``(step, state) -> state`` (may also corrupt the state)."""
+        try:
+            nparams = len(inspect.signature(self.fault_hook).parameters)
+        except (TypeError, ValueError):
+            nparams = 1
+        if nparams >= 2:
+            out = self.fault_hook(step, state)
+            return state if out is None else out
+        self.fault_hook(step)
+        return state
+
+    def _run_span(self, state, step, num_steps):
+        step_fn = self.built["fn"]
+        while step < num_steps:
+            if self.fault_hook is not None:
+                state = self._apply_fault_hook(step, state)
+            batch = self._device_batch(self.data.batch_at(step))
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])     # waits for the step
+            dt = time.perf_counter() - t0
+            step += 1
+            self.monitor.observe(step, dt)
+            skipped = bool(metrics["skipped"]) or not np.isfinite(loss)
+            if skipped:
+                self.nan_skips += 1
+                self._consec_nans += 1
+                print(f"[trainer] step {step}: non-finite loss/grads - "
+                      f"update skipped ({self._consec_nans} consecutive, "
+                      f"{self.nan_skips} total)")
+                if self._consec_nans > self.tcfg.nan_limit:
+                    raise FloatingPointError(
+                        f"{self._consec_nans} consecutive non-finite steps "
+                        f"at step {step} (nan_limit {self.tcfg.nan_limit})")
+            else:
+                self._consec_nans = 0
+            rec = {"step": step, "loss": loss, "time_s": dt,
+                   "skipped": int(skipped),
+                   "grad_norm": float(metrics["grad_norm"])}
+            self.metrics_log.append(rec)
+            if step % self.tcfg.log_every == 0:
+                print(f"[trainer] step {step} loss {loss:.4f} "
+                      f"({dt * 1e3:.0f} ms)")
+            if step % self.tcfg.ckpt_every == 0 and self._consec_nans == 0:
+                # never checkpoint mid-NaN-streak
+                self.ckpt.save(step, state)
+        return state, step
