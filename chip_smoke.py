@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all six phases, one card
-  python3 chip_smoke.py --only build,kernels,train
+  python3 chip_smoke.py              # all seven phases, one card
+  python3 chip_smoke.py --only build,kernels,train_ssm
 
 Phases:
   1 build    nvidia-smi's card and power limit; build the CUDA kernels from
@@ -13,7 +13,9 @@ Phases:
              the plain version's, one library call's and the bound. The
              backward kernels (fused_mlp_dgrad, fused_mlp_wgrad) at the
              train shape, a ragged R, a column block and all four
-             activations.
+             activations; flash_attention at the qwen2 train shape, a
+             GQA shape (mixtral-8x7b's heads) and ragged lengths;
+             ssd_forward at the mamba2-780m train shape and ragged ones.
   3 serve    ServeEngine on the full qwen2-moe-2.7b (24 layers, bf16,
              seeded weights on the card), gemm_impl="pallas_fused", 8 slots,
              max_seq 1024, chunk 256: after a warm-up round on an engine of
@@ -35,13 +37,22 @@ Phases:
              pallas_fused, remat full, AdamW), 4096 tokens per step: one
              warm-up step and 3 timed ones, launch counters zeroed before
              and read after (2L fused_mlp and topk_combine, L dgrad and
-             wgrad per step). Last, Trainer.run with a checkpoint and a
+             wgrad per step; 2L flash_attention: forward and remat
+             recompute). Last, Trainer.run with a checkpoint and a
              fault-hook replay on qwen2-moe-2.7b-smoke.
+  7 train_ssm  mamba2-780m at full width and all 48 layers: loss and every
+             gradient through the SSD kernel and through the plain
+             chunked form, 2 layers in fp32 (rel L2 1e-4 per leaf) and 4
+             in bf16 (beside a second plain route at chunk 64); then the
+             train step (bf16, remat full, AdamW), 4 x 2048 tokens: one
+             warm-up step and 3 timed ones, 2 x 48 ssd_forward launches
+             per step.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
-one admission round and 8 decode steps of the serve configuration, and
-``--only build,train,profile_train`` one train step of the train phase,
-under torch.profiler (device time by kernel).
+one admission round and 8 decode steps of the serve configuration,
+``--only build,train,profile_train`` one train step of the train phase and
+``--only build,train_ssm,profile_train_ssm`` one of train_ssm, under
+torch.profiler (device time by kernel).
 
 Prints the card line, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -68,21 +79,29 @@ ARCH = "qwen2-moe-2.7b"
 PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
-PHASES = ("build", "kernels", "serve", "logits", "pallas", "train")
-EXTRA_PHASES = ("profile", "profile_train")  # run only when named in --only
+PHASES = ("build", "kernels", "serve", "logits", "pallas", "train",
+          "train_ssm")
+# run only when named in --only
+EXTRA_PHASES = ("profile", "profile_train", "profile_train_ssm")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
     "topk_combine": "src/repro/kernels/topk_combine.py:57",
     "fused_mlp_dgrad": "src/repro/kernels/fused_mlp.py:226",
     "fused_mlp_wgrad": "src/repro/kernels/fused_mlp.py:320",
+    "flash_attention": "src/repro/kernels/flash_attention.py:63",
+    "ssd_forward": "src/repro/kernels/ssd.py:72",
 }
 SOURCES = {"fused_mlp_dgrad": "fused_mlp_dgrad.cu",
-           "fused_mlp_wgrad": "fused_mlp_wgrad.cu"}
+           "fused_mlp_wgrad": "fused_mlp_wgrad.cu", "ssd_forward": "ssd.cu"}
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
 TRAIN_LAYERS = 4
 TRAIN_SEQ, TRAIN_BATCH = 1024, 4
+# the SSM train phase: mamba2-780m whole (48 layers), 4 x 2048 tokens per
+# step (2048 is Mamba-2's published training context)
+SSM_ARCH = "mamba2-780m"
+SSM_SEQ, SSM_BATCH = 2048, 4
 
 
 class PhaseFailed(Exception):
@@ -213,7 +232,105 @@ def kernel_cases():
                 cases.append((kern, f"E=8 R=70 d=N=256 f=200 {act}", dt,
                               dict(E=8, R=70, d=256, f=200, N=256, act=act,
                                    col=None)))
+        # flash attention: qwen2-moe-2.7b's train shape, mixtral-8x7b's
+        # GQA heads at 2048, ragged and short lengths
+        for label, spec in (
+                ("train B4 H16 S1024 hd128", dict(B=4, Hq=16, Hkv=16,
+                                                  S=1024, hd=128, c=True,
+                                                  train=True)),
+                ("GQA B1 H32/8 S2048 hd128", dict(B=1, Hq=32, Hkv=8,
+                                                  S=2048, hd=128, c=True)),
+                ("B2 H4 S1000 hd128", dict(B=2, Hq=4, Hkv=4, S=1000,
+                                           hd=128, c=True)),
+                ("B2 H4/2 S77 hd64 non-causal", dict(B=2, Hq=4, Hkv=2,
+                                                     S=77, hd=64, c=False))):
+            cases.append(("flash_attention", label, dt, spec))
+        # SSD: mamba2-780m's train shape, a ragged length, a small state
+        for label, spec in (
+                ("train B4 S2048 nh48 hd64 ds128", dict(B=4, S=2048, nh=48,
+                                                        hd=64, ds=128,
+                                                        train=True)),
+                ("B2 S1000 nh8 hd64 ds128", dict(B=2, S=1000, nh=8, hd=64,
+                                                 ds=128)),
+                ("B2 S77 nh2 hd32 ds16", dict(B=2, S=77, nh=2, hd=32,
+                                              ds=16))):
+            cases.append(("ssd_forward", label, dt, spec))
     return cases
+
+
+def flash_case(dt, isz, spec, gen):
+    """(kernel fn, plain fn, library fn, backward fn, bytes, flops) of a
+    flash-attention case. q/k/v are made in the model's (B, S, H, hd)
+    layout and passed as transposed views, as the model passes them. The
+    FLOPs count QK^T and PV over the pairs the mask keeps."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    B, Hq, Hkv, S, hd, causal = (spec[k] for k in
+                                 ("B", "Hq", "Hkv", "S", "hd", "c"))
+    q = _randn((B, S, Hq, hd), dt, 1.0, gen).transpose(1, 2)
+    k = _randn((B, S, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
+    v = _randn((B, S, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
+    ct = _randn((B, Hq, S, hd), dt, 1.0, gen)
+
+    def kf():
+        return flash_attention.flash_attention(q, k, v, causal)
+
+    def pf():
+        return ref.flash_attention_ref(q, k, v, causal)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=Hq != Hkv)
+
+    def bwd():
+        return ref.flash_attention_vjp(q, k, v, causal, ct)
+
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd) * isz
+    return kf, pf, lib, bwd, nbytes, 2 * 2 * B * Hq * pairs * hd
+
+
+def ssd_case(dt, spec, gen):
+    """(kernel fn, plain fn, library fn, backward fn, bytes, flops) of an
+    SSD case. x, B and C are slices of one conv-output-like tensor, as the
+    model passes them; dt, A, D are fp32. There is no single PyTorch call
+    for the SSD: no library yardstick. The FLOPs count the chunked form at
+    the kernel's chunk Q: per (batch, chunk) C . B^T (shared by the heads),
+    per (batch, head, chunk) the (Q, Q) . (Q, hd) product and the two
+    (Q, ds) . (ds, hd) state products; all of them fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, ssd
+    B, S, nh, hd, ds = (spec[k] for k in ("B", "S", "nh", "hd", "ds"))
+    conv = _randn((B, S, nh * hd + 2 * ds), dt, 1.0, gen)
+    x = conv[..., :nh * hd].reshape(B, S, nh, hd)
+    Bm, Cm = conv[..., nh * hd:nh * hd + ds], conv[..., nh * hd + ds:]
+    dtv = F.softplus(torch.randn((B, S, nh), device="cuda", generator=gen))
+    A = -torch.exp(torch.randn((nh,), device="cuda", generator=gen) * 0.3)
+    D = torch.ones((nh,), device="cuda")
+    ct = _randn((B, S, nh, hd), dt, 1.0, gen)
+    ins = (x, dtv, A, Bm, Cm, D)
+
+    def kf():
+        return ssd.ssd_forward(*ins)
+
+    def pf():
+        return ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK)
+
+    def bwd():   # the op's backward, at the kernel's chunk
+        return ref.ssd_vjp(*ins, ssd.CHUNK, ct, (True,) * 6)
+
+    isz = 2 if dt == torch.bfloat16 else 4
+    nbytes = (2 * B * S * nh * hd + 2 * B * S * ds) * isz \
+        + B * S * nh * 4 + 2 * nh * 4
+    Q = ssd.CHUNK
+    nc = -(-S // Q)
+    flops = 2 * B * nc * Q * Q * ds + B * nh * nc * (
+        2 * Q * Q * hd + 2 * 2 * Q * ds * hd)
+    return kf, pf, None, bwd, nbytes, flops
 
 
 def mlp_bwd_case(kernel, dt, isz, spec, gen):
@@ -306,6 +423,10 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     elif kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad"):
         k, p, p64, lib, nbytes, flops = mlp_bwd_case(kernel, dt, isz, spec,
                                                      gen)
+    elif kernel == "flash_attention":
+        k, p, lib, bwd, nbytes, flops = flash_case(dt, isz, spec, gen)
+    elif kernel == "ssd_forward":
+        k, p, lib, bwd, nbytes, flops = ssd_case(dt, spec, gen)
     elif kernel == "grouped_gemm":
         M, K, Nn = spec["M"], spec["K"], spec["N"]
         lhs = _randn((E, M, K), dt, 1.0, gen)
@@ -367,7 +488,9 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         rec["within_tol"] = ok
         del floor
     del got, want
-    b_ms, b_by = bound_ms(nbytes, flops, dt_name)
+    # the SSD kernel's products are fp32 whatever its inputs' dtype
+    b_ms, b_by = bound_ms(nbytes, flops,
+                          "fp32" if kernel == "ssd_forward" else dt_name)
     rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     if timed:
         iters = 10 if dt_name == "bf16" else 3
@@ -376,7 +499,13 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
             iters = 5 if dt_name == "bf16" else 3
         rec["ms"] = median_ms(k, iters=iters)
         rec["plain_ms"] = median_ms(p, iters=iters)
-        rec["library_ms"] = median_ms(lib, iters=iters)
+        rec["library_ms"] = None if lib is None else median_ms(lib,
+                                                               iters=iters)
+        if spec.get("train") and dt_name == "bf16":
+            # the flash/SSD op's backward at the train shape: the plain
+            # version recomputed under autograd (no backward kernel, as in
+            # the JAX package)
+            rec["backward_ms"] = median_ms(bwd, iters=5, warmup=1)
     return rec
 
 
@@ -389,9 +518,13 @@ def phase_kernels(out):
         rec = run_kernel_case(kernel, dt, spec, gen, timed=True)
         rec.update(kernel=kernel, case=label, dtype=dt)
         results.append(rec)
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f}")
+        bwd = ("" if "backward_ms" not in rec
+               else f", backward {rec['backward_ms']:.4f}")
         times = (f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-                 f"library {rec['library_ms']:.4f}, bound "
-                 f"{rec['bound_ms']:.4f} by {rec['bound_by']})")
+                 f"library {lib}, bound {rec['bound_ms']:.4f} by "
+                 f"{rec['bound_by']}{bwd})")
         floor = ("" if "floor_rel_l2" not in rec else
                  f" [rel L2 {rec['rel_l2']:.2e}, outside tol "
                  f"{rec['outside_tol'][0]}/{rec['outside_tol'][1]}; "
@@ -417,7 +550,8 @@ class PlainGuard:
     """Counts calls of the plain versions with CUDA tensors while active."""
 
     NAMES = ("fused_mlp_ref", "grouped_gemm_ref", "topk_combine_ref",
-             "fused_mlp_dgrad_ref", "fused_mlp_wgrad_ref")
+             "fused_mlp_dgrad_ref", "fused_mlp_wgrad_ref",
+             "flash_attention_ref", "ssd_chunked_ref", "ssd_ref")
 
     def __init__(self):
         from repro_torch.kernels import ref
@@ -446,18 +580,22 @@ class PlainGuard:
 
 
 def reset_counts():
-    from repro_torch.kernels import fused_mlp, grouped_gemm, topk_combine
-    for m in (fused_mlp, grouped_gemm, topk_combine):
+    from repro_torch.kernels import (flash_attention, fused_mlp,
+                                     grouped_gemm, ssd, topk_combine)
+    for m in (fused_mlp, grouped_gemm, topk_combine, flash_attention, ssd):
         m.reset()
 
 
 def read_counts():
-    from repro_torch.kernels import fused_mlp, grouped_gemm, topk_combine
+    from repro_torch.kernels import (flash_attention, fused_mlp,
+                                     grouped_gemm, ssd, topk_combine)
     return {"fused_mlp": fused_mlp.launches,
             "grouped_gemm": grouped_gemm.launches,
             "topk_combine": topk_combine.launches,
             "fused_mlp_dgrad": fused_mlp.dgrad_launches,
-            "fused_mlp_wgrad": fused_mlp.wgrad_launches}
+            "fused_mlp_wgrad": fused_mlp.wgrad_launches,
+            "flash_attention": flash_attention.launches,
+            "ssd_forward": ssd.launches}
 
 
 def with_gemm(cfg, gemm_impl):
@@ -550,10 +688,11 @@ def _leaves(tree):
 def plain_ops():
     """While active, ops' kernel entry points call the plain versions,
     explicitly by name, on CUDA tensors (the combine's autograd function
-    reaches its forward through ops.topk_combine)."""
+    reaches its forward through ops.topk_combine); the plain attention and
+    SSD are differentiated by autograd directly."""
     from repro_torch.kernels import ops, ref
     names = ("topk_combine", "grouped_gemm", "fused_mlp", "fused_mlp_dgrad",
-             "fused_mlp_wgrad")
+             "fused_mlp_wgrad", "flash_attention", "ssd_forward")
     saved = {n: getattr(ops, n) for n in names}
 
     def wd_of(w, col_slice):
@@ -577,8 +716,12 @@ def plain_ops():
         return ref.fused_mlp_wgrad_ref(rows, w.get("w_gate"), w["w_up"],
                                        wd_of(w, col_slice), dy, activation)
 
+    def plain_ssd(x, dt, A, Bm, Cm, D, chunk=64):
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+
     plain = dict(zip(names, (ref.topk_combine_ref, plain_gg, plain_mlp,
-                             plain_dgrad, plain_wgrad)))
+                             plain_dgrad, plain_wgrad,
+                             ref.flash_attention_ref, plain_ssd)))
     for n in names:
         setattr(ops, n, plain[n])
     try:
@@ -736,14 +879,14 @@ def train_cfg(n_layers, dtype, gemm_impl="pallas_fused"):
                                               gemm_impl=gemm_impl))
 
 
-def train_batch(cfg, step=0):
+def train_batch(cfg, step=0, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
     """The train shape's synthetic batch (4 x 1024 tokens) on the card."""
     import torch
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.launch.specs import train_batch_specs
-    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeConfig("train", seq, batch, "train")
     nb = SyntheticLM(cfg, train_batch_specs(cfg, shape, 1)).batch_at(step)
     return {k: torch.from_numpy(v).long().cuda() for k, v in nb.items()}
 
@@ -862,24 +1005,10 @@ def phase_train(state, out):
     n_params = sum(t.numel() for _, t in tree_leaves(tstate["params"]))
     log(f"  train: {ARCH} at {TRAIN_LAYERS} layers, {n_params / 1e9:.2f} B "
         f"parameters, init {time.perf_counter() - t0:.1f} s")
-    step_fn = tr.built["fn"]
     batches = [tr._device_batch(tr.data.batch_at(i)) for i in range(4)]
-    tstate, m = step_fn(tstate, batches[0])           # warm-up
+    tstate, m = tr.built["fn"](tstate, batches[0])    # warm-up
     warm_loss = float(m["loss"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    steps = []
-    with PlainGuard() as guard:
-        for b in batches[1:]:
-            t0 = time.perf_counter()
-            tstate, m = step_fn(tstate, b)
-            loss = float(m["loss"])
-            torch.cuda.synchronize()
-            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                          "loss": loss, "grad_norm": float(m["grad_norm"]),
-                          "skipped": m["skipped"]})
-    counts = read_counts()
+    tstate, steps, counts, plain_calls = train_steps(tr, tstate, batches[1:])
     L = TRAIN_LAYERS
     tokens = TRAIN_SEQ * TRAIN_BATCH
     ms = statistics.median(st["ms"] for st in steps)
@@ -888,14 +1017,15 @@ def phase_train(state, out):
         "warmup_loss": warm_loss, "steps": steps, "step_ms_median": ms,
         "tokens_per_s": tokens / ms * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": counts, "plain_calls_on_cuda": guard.cuda_calls}
-    log("  " + json.dumps({k: v for k, v in rec["train"].items()}))
+        "launches": counts, "plain_calls_on_cuda": plain_calls}
+    log("  " + json.dumps(rec["train"]))
     want = {"fused_mlp": 2 * L * 3, "topk_combine": 2 * L * 3,
             "fused_mlp_dgrad": L * 3, "fused_mlp_wgrad": L * 3,
-            "grouped_gemm": 0}
+            "grouped_gemm": 0, "flash_attention": 2 * L * 3,
+            "ssd_forward": 0}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
-    check(guard.cuda_calls == 0,
-          f"plain versions saw CUDA tensors {guard.cuda_calls} times")
+    check(plain_calls == 0,
+          f"plain versions saw CUDA tensors {plain_calls} times")
     check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
               and not st["skipped"] for st in steps),
           f"non-finite or skipped steps: {steps}")
@@ -940,11 +1070,156 @@ def phase_train(state, out):
           f"Trainer.run replay: {rec['trainer_run']}")
 
 
-def phase_profile_train(state, out):
-    """Device time by kernel name over one train step of the train phase."""
+def train_steps(tr, tstate, batches):
+    """Timed train steps (launch counters zeroed before, read after, plain
+    versions watched): (state, step records, launch counts, plain calls on
+    CUDA tensors)."""
+    import torch
+    step_fn = tr.built["fn"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    with PlainGuard() as guard:
+        for b in batches:
+            t0 = time.perf_counter()
+            tstate, m = step_fn(tstate, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "loss": loss, "grad_norm": float(m["grad_norm"]),
+                          "skipped": m["skipped"]})
+    return tstate, steps, read_counts(), guard.cuda_calls
+
+
+def ssm_cfg(n_layers, dtype, chunk=0):
+    """mamba2-780m at full width, cut in depth only where named; ``chunk``
+    overrides the SSD chunk of the plain route (the model's is 256)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, param_dtype=dtype,
+                              compute_dtype=dtype, remat="full")
+    if chunk:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=chunk))
+    return cfg
+
+
+def phase_train_ssm(state, out):
+    """mamba2-780m: gradients through the SSD kernel against the plain
+    chunked form, then the train step of the whole model."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    for key in ("params", "train"):            # earlier phases' state
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    rec = {}
+
+    def batch_of(cfg):
+        return train_batch(cfg, 0, SSM_SEQ, SSM_BATCH)
+
+    # (1) fp32, 2 layers: the kernel route (forward and backward at the
+    # kernel's chunk of 64) against the plain chunked form at the model's
+    # chunk (256); the plain form at chunk 64 beside it shows the fp32
+    # floor of that chunk change (reported, not a bound)
+    c32 = ssm_cfg(2, "float32")
+    p32 = lm.init_params(c32, seed=1, device="cuda")
+    g32 = grad_check(c32, p32, batch_of(c32),
+                     {"kernels": c32, "chunk64": ssm_cfg(2, "float32", 64)})
+    del p32
+    torch.cuda.empty_cache()
+    k32 = g32["kernels"]
+    worst32 = max(k32["grad_rel_l2"].values())
+    rec["fp32_2_layers"] = {
+        "loss_rel_err": k32["loss_rel_err"], "grad_rel_l2_max": worst32,
+        "grad_rel_l2": k32["grad_rel_l2"],
+        "chunk64_grad_rel_l2_max": max(g32["chunk64"]["grad_rel_l2"]
+                                       .values())}
+    floor32 = rec["fp32_2_layers"]["chunk64_grad_rel_l2_max"]
+    log(f"  fp32 2 layers: loss {k32['loss']:.6f} (plain "
+        f"{k32['loss_plain']:.6f}), worst leaf rel L2 {worst32:.3e}; "
+        f"chunk 64 vs plain {floor32:.3e}")
+    check(k32["loss_rel_err"] <= TOL["fp32"] and worst32 <= TOL["fp32"],
+          f"fp32 gradients: loss rel err {k32['loss_rel_err']:.3e}, worst "
+          f"leaf {worst32:.3e} > 1e-4")
+
+    # (2) bf16, 4 layers, beside a second plain route (chunk 64)
+    c16 = ssm_cfg(4, "bfloat16")
+    p16 = lm.init_params(c16, seed=2, device="cuda")
+    g16 = grad_check(c16, p16, batch_of(c16),
+                     {"kernels": c16, "chunk64": ssm_cfg(4, "bfloat16", 64)})
+    del p16
+    torch.cuda.empty_cache()
+    bad = []
+    for leaf, err in g16["kernels"]["grad_rel_l2"].items():
+        bound = max(TOL["bf16"], 3 * g16["chunk64"]["grad_rel_l2"][leaf])
+        if err > bound:
+            bad.append(f"{leaf}: {err:.3e} > {bound:.3e}")
+    lbound = max(TOL["bf16"], 3 * g16["chunk64"]["loss_rel_err"])
+    rec["bf16_4_layers"] = {
+        name: {"loss_rel_err": r["loss_rel_err"],
+               "grad_rel_l2_max": max(r["grad_rel_l2"].values()),
+               "grad_rel_l2": r["grad_rel_l2"]} for name, r in g16.items()}
+    log(f"  bf16 4 layers: kernel vs plain loss rel err "
+        f"{g16['kernels']['loss_rel_err']:.3e}, worst leaf "
+        f"{max(g16['kernels']['grad_rel_l2'].values()):.3e}; chunk 64 vs "
+        f"plain {g16['chunk64']['loss_rel_err']:.3e}, worst leaf "
+        f"{max(g16['chunk64']['grad_rel_l2'].values()):.3e}")
+    check(g16["kernels"]["loss_rel_err"] <= lbound,
+          f"bf16 loss rel err {g16['kernels']['loss_rel_err']:.3e} > "
+          f"{lbound:.3e}")
+    check(not bad, f"bf16 gradients outside max(2e-2, 3 x floor): {bad}")
+
+    # (3) the train step of the whole model: 48 layers, bf16
+    cfg = ssm_cfg(48, "bfloat16")
+    shape = ShapeConfig("train", SSM_SEQ, SSM_BATCH, "train")
+    tr = Trainer(cfg, shape, None,
+                 TrainerConfig(ckpt_dir=tempfile.mkdtemp(
+                     prefix="chip_smoke_ssm_")), device="cuda")
+    t0 = time.perf_counter()
+    tstate = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(tstate["params"]))
+    log(f"  train: {SSM_ARCH}, {cfg.n_layers} layers, {n_params / 1e9:.3f} "
+        f"B parameters, init {time.perf_counter() - t0:.1f} s")
+    batches = [tr._device_batch(tr.data.batch_at(i)) for i in range(4)]
+    tstate, m = tr.built["fn"](tstate, batches[0])    # warm-up
+    warm_loss = float(m["loss"])
+    tstate, steps, counts, plain_calls = train_steps(tr, tstate, batches[1:])
+    L, tokens = cfg.n_layers, SSM_SEQ * SSM_BATCH
+    ms = statistics.median(st["ms"] for st in steps)
+    rec["train"] = {
+        "arch": SSM_ARCH, "layers": L, "tokens_per_step": tokens,
+        "params": n_params, "warmup_loss": warm_loss, "steps": steps,
+        "step_ms_median": ms, "tokens_per_s": tokens / ms * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "plain_calls_on_cuda": plain_calls}
+    log("  " + json.dumps(rec["train"]))
+    want = {"fused_mlp": 0, "topk_combine": 0, "fused_mlp_dgrad": 0,
+            "fused_mlp_wgrad": 0, "grouped_gemm": 0, "flash_attention": 0,
+            "ssd_forward": 2 * L * 3}
+    check(counts == want, f"launches {counts}, expected {want} (3 steps)")
+    check(plain_calls == 0,
+          f"plain versions saw CUDA tensors {plain_calls} times")
+    check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+              and not st["skipped"] for st in steps),
+          f"non-finite or skipped steps: {steps}")
+    state["train_ssm"] = (tr, tstate, batches[0])
+    out["train_ssm"] = rec
+
+
+def profile_step(state, key, out_key, out):
+    """Device time by kernel name over one train step of a train phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    tr, tstate, batch = state["train"]
+    tr, tstate, batch = state[key]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -953,19 +1228,40 @@ def phase_profile_train(state, out):
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    state["train"] = (tr, tstate, batch)
-    out["profile_train"] = device_time_by_name(prof, wall)
+    state[key] = (tr, tstate, batch)
+    out[out_key] = device_time_by_name(prof, wall)
     log(f"  train step: wall {wall * 1e3:.1f} ms, device "
-        f"{out['profile_train']['device_ms']:.1f} ms")
-    for r in out["profile_train"]["top"]:
+        f"{out[out_key]['device_ms']:.1f} ms")
+    for r in out[out_key]["top"]:
         log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
-    check(out["profile_train"]["device_ms"] > 0,
+    for g, r in out[out_key]["groups"].items():
+        log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  [{g}]")
+    check(out[out_key]["device_ms"] > 0,
           "the profiler recorded no device time")
+
+
+# device-kernel name fragments -> the group a profile sums them into (the
+# first match wins; names matching none are "other")
+KERNEL_GROUPS = (
+    ("flash_kernel", "flash_attention kernel"),
+    ("ssd_kernel", "ssd_forward kernel"),
+    ("fused_mlp_wgrad", "fused_mlp_wgrad kernel"),
+    ("fused_mlp_dgrad", "fused_mlp_dgrad kernel"),
+    ("fused_mlp", "fused_mlp kernel"),
+    ("sum_partials", "fused_mlp reduce pass"),
+    ("topk_combine", "topk_combine kernel"),
+    ("gemm", "library GEMMs"), ("nvjet", "library GEMMs"),
+    ("xmma", "library GEMMs"), ("cutlass", "library GEMMs"),
+    ("softmax", "softmax"), ("reduce_kernel", "reductions"),
+    ("index", "indexing"), ("scatter", "indexing"), ("gather", "indexing"),
+    ("copy", "copies and casts"), ("Cat", "copies and casts"),
+    ("elementwise", "elementwise"), ("Memset", "copies and casts"),
+    ("Memcpy", "copies and casts"))
 
 
 def device_time_by_name(prof, wall):
     """Sum the device kernels and copies of a profile by name: wall and
-    device ms, idle share and the top 20."""
+    device ms, idle share, the top 20 names and the sums by group."""
     import torch
     by_name = {}
     for e in prof.events():
@@ -974,10 +1270,17 @@ def device_time_by_name(prof, wall):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     dev_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        g = next((g for frag, g in KERNEL_GROUPS if frag in name), "other")
+        gms, gn = groups.get(g, (0.0, 0))
+        groups[g] = (gms + ms, gn + n)
     return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
             "idle_share": max(0.0, 1 - dev_ms / (wall * 1e3)),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                    for k, (ms, n) in top]}
+                    for k, (ms, n) in top],
+            "groups": {g: {"ms": ms, "calls": n} for g, (ms, n) in
+                       sorted(groups.items(), key=lambda kv: -kv[1][0])}}
 
 
 def phase_profile(state, out):
@@ -1027,7 +1330,9 @@ def kernel_records(out):
             "grouped_gemm": "gemm1 expert_major",
             "topk_combine": "T=2048",
             "fused_mlp_dgrad": "R=320 swiglu",
-            "fused_mlp_wgrad": "R=320 swiglu"}
+            "fused_mlp_wgrad": "R=320 swiglu",
+            "flash_attention": "train B4 H16 S1024 hd128",
+            "ssd_forward": "train B4 S2048 nh48 hd64 ds128"}
     src = {"fused_mlp": "serve", "grouped_gemm": "serve_pallas",
            "topk_combine": "serve"}
     recs = []
@@ -1035,7 +1340,8 @@ def kernel_records(out):
         c = next((r for r in out.get("kernel_cases", [])
                   if r["kernel"] == name and r["dtype"] == "bf16"
                   and r["case"] == case), {})
-        run = (out.get("train", {}).get("train", {}) if name not in src
+        phase = "train_ssm" if name == "ssd_forward" else "train"
+        run = (out.get(phase, {}).get("train", {}) if name not in src
                else out.get(src[name], {}))
         recs.append({
             "name": name, "route": "cuda",
@@ -1091,7 +1397,11 @@ def main(argv=None):
     state = {}
     t_all = time.perf_counter()
     failed = []
-    for name in PHASES + EXTRA_PHASES:
+    # each profile phase right after the phase whose state it profiles;
+    # train_ssm frees the earlier phases' weights and training state
+    order = ("build", "kernels", "serve", "logits", "pallas", "profile",
+             "train", "profile_train", "train_ssm", "profile_train_ssm")
+    for name in order:
         if name not in phases:
             continue
         log(f"== phase {name}")
@@ -1121,7 +1431,12 @@ def main(argv=None):
                 phase_train(state, out)
             elif name == "profile_train":
                 check("train" in state, "needs the train phase")
-                phase_profile_train(state, out)
+                profile_step(state, "train", "profile_train", out)
+            elif name == "train_ssm":
+                phase_train_ssm(state, out)
+            elif name == "profile_train_ssm":
+                check("train_ssm" in state, "needs the train_ssm phase")
+                profile_step(state, "train_ssm", "profile_train_ssm", out)
             status = "ok"
         except Exception as e:                 # report, then fail the run
             import traceback

@@ -48,6 +48,12 @@ SIGNATURES = {
                               _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_wgrad_tile": (_I,),
+    "repro_flash_attention": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
+                              _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P),
+    "repro_ssd_forward": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
+                          _P, _LL, _LL, _P, _LL, _LL, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

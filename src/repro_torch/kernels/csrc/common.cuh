@@ -268,6 +268,35 @@ template <int BM, int BN> struct Acc<float, BM, BN> {
   }
 };
 
+// A register-tiled product over the block, in fp32 FMAs (an fp32 product
+// stays exact fp32, and bf16 factors are exact in fp32): thread t owns the
+// outputs (rg + RG * i, cg + CG * j), i < TM, j < TN, with cg = t % CG,
+// rg = t / CG, RG = kThreads / CG, and adds sum_k A(r, k) * B(k, c) to
+// acc[i][j], where A(r, k) = A[r * a_r + k * a_k] and
+// B(k, c) = B[k * b_k + c * b_c] lie in shared memory. Interleaved rows and
+// columns put a warp's B reads on neighbouring addresses.
+template <int TM, int TN, int CG, typename TA, typename TB>
+__device__ __forceinline__ void fma_tile(float (&acc)[TM][TN], const TA* A,
+                                         int a_r, int a_k, const TB* B,
+                                         int b_k, int b_c, int K) {
+  constexpr int RG = kThreads / CG;
+  static_assert(kThreads % CG == 0, "column groups must tile the block");
+  const TA* a = A + (threadIdx.x / CG) * a_r;
+  const TB* b = B + (threadIdx.x % CG) * b_c;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = to_f(a[i * RG * a_r + k * a_k]);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bv[j] = to_f(b[k * b_k + j * CG * b_c]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
 // Output tile coordinates of a linear block id. The TPU kernels' grid order
 // becomes this linearisation: expert_major puts the N tile innermost (an
 // expert's tiles are issued together), n_major puts it outermost (column

@@ -11,7 +11,10 @@ kernels (the counterpart of the JAX package's custom VJP,
 ``repro.kernels.fused_mlp._diff_fused``). ``topk_combine_diff`` is the
 combine kernel with the analytic fp32 backward of
 ``repro.kernels.topk_combine._diff_combine``, plain tensor code on both
-devices.
+devices. ``flash_attention`` and ``ssd_forward`` run their kernels forward;
+their backward recomputes the plain version under autograd, on both
+devices, because the JAX package has no backward kernel for either
+(``jax.grad`` differentiates its jnp attention and ``ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import topk_combine as _tc
 
 
@@ -130,3 +135,56 @@ def fused_mlp_wgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
         return _fm.fused_mlp_wgrad(rows, wg, w["w_up"], wd, dy.contiguous(),
                                    activation)
     return ref.fused_mlp_wgrad_ref(rows, wg, w["w_up"], wd, dy, activation)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        if _on_cuda(q, k, v):
+            return _fa.flash_attention(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, ct):
+        q, k, v = ctx.saved_tensors
+        return (*ref.flash_attention_vjp(q, k, v, ctx.causal, ct), None)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, Hq, Sq, hd):
+    causal GQA attention with fp32 scores and softmax, positions from 0
+    (``repro.kernels.ops.flash_attention``). Differentiable: the backward
+    is the plain attention recomputed under autograd."""
+    return _Flash.apply(q, k, v, causal)
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        on_cuda = _on_cuda(x, dt, A, Bm, Cm, D)
+        # the backward differentiates the form the forward ran
+        ctx.chunk = _ssd.CHUNK if on_cuda else chunk
+        if on_cuda:
+            return _ssd.ssd_forward(x, dt, A, Bm, Cm, D)
+        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grads = ref.ssd_vjp(*ctx.saved_tensors, ctx.chunk, ct,
+                            ctx.needs_input_grad[:6])
+        return (*grads, None)
+
+
+def ssd_forward(x, dt, A, Bm, Cm, D, chunk: int = 64):
+    """y (B, S, nh, hd) of the Mamba-2 chunked SSD from a zero state
+    (``repro.kernels.ops.ssd_forward``). x: (B, S, nh, hd); dt: (B, S, nh)
+    fp32; A/D: (nh,) fp32; Bm/Cm: (B, S, ds). On the CPU the plain chunked
+    form runs at ``chunk``; the CUDA kernel runs its own chunk of
+    ``kernels/ssd.CHUNK`` (chunk-invariant up to rounding). Differentiable:
+    the backward is the plain chunked form recomputed under autograd at
+    the chunk the forward ran (``chunk`` on the CPU, ``ssd.CHUNK`` on the
+    card)."""
+    return _SSD.apply(x, dt, A, Bm, Cm, D, chunk)

@@ -2,10 +2,14 @@
 
 They mirror ``repro.kernels.ref``: the CPU path runs them, and the tests and
 ``chip_smoke.py`` hold each CUDA kernel against them. Nothing on the main
-path calls them with a CUDA tensor (``kernels/ops.py`` sends those to the
-kernels).
+path runs a plain forward with a CUDA tensor (``kernels/ops.py`` sends
+those to the kernels); the backward of the attention and of the SSD
+(``flash_attention_vjp``, ``ssd_vjp``) recomputes the plain form under
+autograd on either device.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,3 +90,159 @@ def topk_combine_ref(rows, weights):
     rows' dtype."""
     out = torch.einsum("tkd,tk->td", rows.float(), weights.float())
     return out.to(rows.dtype)
+
+
+def _attention_fp32(q, k, v, causal):
+    """The body of flash_attention_ref, also recomputed by its VJP."""
+    hd, Hq, Hkv = q.shape[3], q.shape[1], k.shape[1]
+    Sq, Sk = q.shape[2], k.shape[2]
+    rep = Hq // Hkv
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (hd ** 0.5)
+    if causal:
+        keep = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(keep, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, Hq, Sq, hd).
+    fp32 scores scaled after the product, -1e30 causal mask by positions
+    from 0, fp32 softmax, output rounded to q's dtype (the JAX package's
+    ``ref.flash_attention_ref``)."""
+    return _attention_fp32(q, k, v, causal)
+
+
+def flash_attention_vjp(q, k, v, causal, ct):
+    """(dq, dk, dv) of flash_attention_ref for the cotangent ct: the plain
+    attention recomputed under autograd (the JAX package differentiates its
+    jnp attention; the TPU kernel has no VJP)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = _attention_fp32(*ins, causal)
+        return torch.autograd.grad(out, ins, ct.to(out.dtype))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain chunked SSD dual form (the JAX package's
+    ``models.ssm.ssd_chunked``); its three-operand einsums are written as
+    pairwise products, so no (B, NC, Q, Q, nh, hd) temporary is built.
+    ``ssd_chunked_ref`` and the SSD op's backward run it.
+    x: (B, S, nh, hd); dt: (B, S, nh); A: (nh,)
+    (negative); Bm/Cm: (B, S, ds); D: (nh,); h0: optional (B, nh, ds, hd)
+    fp32 initial state (None = zero state). A chunk that does not divide S
+    becomes one chunk of S, as in the JAX package. Returns
+    (y (B, S, nh, hd) in x's dtype, h_final (B, nh, ds, hd) fp32)."""
+    Bsz, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        Q = S
+    NC = S // Q
+    f32 = torch.float32
+
+    xd = (x * dt[..., None]).to(f32)                   # discretized input
+    la = (dt * A[None, None, :]).to(f32)               # log decay (<= 0)
+    xc = xd.reshape(Bsz, NC, Q, nh, hd)
+    lac = la.reshape(Bsz, NC, Q, nh)
+    Bc = Bm.reshape(Bsz, NC, Q, ds).to(f32)
+    Cc = Cm.reshape(Bsz, NC, Q, ds).to(f32)
+
+    cum = torch.cumsum(lac, dim=2)                     # (B, NC, Q, nh)
+    total = cum[:, :, -1]                              # (B, NC, nh)
+
+    # intra-chunk: (CB * L) @ xd per head, L[i, j] = exp(cum_i - cum_j)
+    # The mask goes in before the exp: above the diagonal diff >= 0 can
+    # overflow exp to inf on long chunks, and where(causal, exp(diff), 0)
+    # would then give 0 * inf = NaN gradients. The values are the same.
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,NC,Q,Q,nh)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
+                                   float("-inf")))
+    CB = Cc @ Bc.transpose(-1, -2)                     # (B, NC, Q, Q)
+    M = (CB[..., None] * L).permute(0, 1, 4, 2, 3)     # (B, NC, nh, Q, Q)
+    y_intra = M @ xc.permute(0, 1, 3, 2, 4)            # (B, NC, nh, Q, hd)
+
+    # chunk states: sum_j B_j exp(total - cum_j) xd_j
+    decay_to_end = torch.exp(total[:, :, None, :] - cum)   # (B, NC, Q, nh)
+    xw = xc * decay_to_end[..., None]                  # (B, NC, Q, nh, hd)
+    states = (Bc.transpose(-1, -2) @ xw.reshape(Bsz, NC, Q, nh * hd))
+    states = states.reshape(Bsz, NC, ds, nh, hd).permute(0, 1, 3, 2, 4)
+
+    # inter-chunk recurrence, emitting the state before each chunk.
+    # unbind, not states[:, n]: under autograd each index's backward fills
+    # a zero tensor of the whole (B, NC, nh, ds, hd), NC times per call.
+    h = (torch.zeros((Bsz, nh, ds, hd), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    h_prev = []
+    for decay, st in zip(torch.exp(total).unbind(1), states.unbind(1)):
+        h_prev.append(h)
+        h = h * decay[..., None, None] + st
+    h_prev = torch.stack(h_prev, dim=1)                # (B, NC, nh, ds, hd)
+
+    # inter-chunk output: exp(cum_i) * C_i . h_prev
+    ch = Cc @ h_prev.permute(0, 1, 3, 2, 4).reshape(Bsz, NC, ds, nh * hd)
+    y_inter = ch.reshape(Bsz, NC, Q, nh, hd) * torch.exp(cum)[..., None]
+
+    y = y_intra.permute(0, 1, 3, 2, 4) + y_inter       # (B, NC, Q, nh, hd)
+    y = y.reshape(Bsz, S, nh, hd) + D[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype), h
+
+
+def ssd_ref(x, dt, A, Bm, Cm, D):
+    """Sequential SSD recurrence oracle, O(S) steps (the JAX package's
+    ``ref.ssd_ref`` and ``models.ssm.ssd_reference``). x: (B, S, nh, hd);
+    dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S, ds)."""
+    Bsz, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    f32 = torch.float32
+    h = torch.zeros((Bsz, nh, ds, hd), dtype=f32, device=x.device)
+    xf, dtf, bf, cf = x.to(f32), dt.to(f32), Bm.to(f32), Cm.to(f32)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t] * A)                   # (B, nh)
+        xd = xf[:, t] * dtf[:, t, :, None]             # (B, nh, hd)
+        h = (h * a[..., None, None]
+             + bf[:, t][:, None, :, None] * xd[:, :, None, :])
+        ys.append(torch.einsum("bs,bhsp->bhp", cf[:, t], h))
+    y = torch.stack(ys, dim=1) + D[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def _ssd_padded(x, dt, A, Bm, Cm, D, chunk):
+    """The body of ssd_chunked_ref, also recomputed by its VJP."""
+    S = x.shape[1]
+    pad = (-S) % chunk if S > chunk else 0
+    if pad:
+        x, dt, Bm, Cm = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
+    return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0][:, :S]
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=64):
+    """The SSD kernel's plain version: the chunked dual form from a zero
+    state at ``chunk``, y only (what ``repro/kernels/ssd.py`` computes).
+    A length that ``chunk`` does not divide gets a tail of identity steps
+    (zero x, dt, B and C) up to the next multiple, as the kernel pads its
+    last chunk; ``ssd_chunked`` itself would take one chunk of the whole
+    length, whose cumulative decays lose digits to cancellation."""
+    return _ssd_padded(x, dt, A, Bm, Cm, D, chunk)
+
+
+def ssd_vjp(x, dt, A, Bm, Cm, D, chunk, ct, needs):
+    """Gradients of ssd_chunked_ref for the cotangent ct, recomputed under
+    autograd (the JAX package has no SSD backward kernel: ``jax.grad``
+    differentiates the jnp form). ``needs`` flags which of the six inputs
+    want a gradient; the others get None."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip((x, dt, A, Bm, Cm, D), needs)]
+        y = _ssd_padded(*ins, chunk)
+        want = [t for t, n in zip(ins, needs) if n]
+        got = iter(torch.autograd.grad(y, want, ct.to(y.dtype)))
+        return tuple(next(got) if n else None for n in needs)

@@ -1,0 +1,69 @@
+"""Wrapper of the Mamba-2 SSD CUDA kernel (``csrc/ssd.cu``).
+
+The plain version is ``kernels/ref.ssd_chunked_ref`` (the chunked dual
+form); ``kernels/ops.py`` picks between the two by the tensors' device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+CHUNK = 64          # the kernel's own chunk (csrc/ssd.cu, kQ)
+MAX_STATE = 128     # d_state the kernel's shared-memory tiles hold
+MAX_HEAD_DIM = 64
+launches = 0        # kernel launches since the last reset()
+
+
+def reset() -> None:
+    global launches
+    launches = 0
+
+
+def ssd_forward(x, dt, A, Bm, Cm, D) -> torch.Tensor:
+    """y of the chunked SSD from a zero state. x: (B, S, nh, hd) fp32 or
+    bf16; dt: (B, S, nh) fp32; A, D: (nh,) fp32; Bm, Cm: (B, S, ds) fp32 or
+    bf16 (one dtype for both), shared by all heads. x, Bm and Cm may be
+    strided views with a unit last stride (the model passes slices of its
+    conv output). Returns a contiguous (B, S, nh, hd) in x's dtype. The
+    kernel runs its own chunk of CHUNK steps: the result is chunk-invariant
+    up to rounding."""
+    global launches
+    name = "ssd_forward"
+    build.require_cuda(name, x, dt, A, Bm, Cm, D)
+    xcode = build.dtype_code(name, x)
+    bcode = build.dtype_code(name, Bm, Cm)
+    for label, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {label} must be fp32, got {t.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not (B, S, nh, hd)")
+    B, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    if (tuple(dt.shape) != (B, S, nh) or tuple(A.shape) != (nh,)
+            or tuple(D.shape) != (nh,) or tuple(Bm.shape) != (B, S, ds)
+            or tuple(Cm.shape) != (B, S, ds)):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, D "
+                         f"{tuple(D.shape)} do not match")
+    if not (0 < ds <= MAX_STATE and 0 < hd <= MAX_HEAD_DIM):
+        raise ValueError(f"{name}: d_state {ds} / head_dim {hd} exceed the "
+                         f"kernel's {MAX_STATE} / {MAX_HEAD_DIM}")
+    if (x.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1
+            or not (A.is_contiguous() and D.is_contiguous())):
+        raise ValueError(f"{name}: x, Bm and Cm need a unit last stride, "
+                         f"A and D must be contiguous")
+    y = torch.empty((B, S, nh, hd), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = build.load()
+    err = lib.lib.repro_ssd_forward(
+        x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
+        dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
+        A.data_ptr(), Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+        Cm.data_ptr(), Cm.stride(0), Cm.stride(1), D.data_ptr(),
+        y.data_ptr(), B, S, nh, hd, ds, xcode, bcode, build.stream_ptr(x))
+    lib.check(name, err)
+    launches += 1
+    return y

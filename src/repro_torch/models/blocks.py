@@ -1,8 +1,9 @@
-"""Layer blocks: attention + (dense FFN | MoE), schema, the training
-forward (``apply_layer``, the sequential form of the JAX package's
-``block_segments``) and the two cached serving modes: single-token decode
-and chunked prefill. Attention layers only (no cross-attention, no SSM
-yet)."""
+"""Layer blocks: (attention | Mamba-2 SSM) + (dense FFN | MoE), schema,
+the training forward (``apply_layer``, the sequential form of the JAX
+package's ``block_segments``) and the two cached serving modes of
+attention layers: single-token decode and chunked prefill. No
+cross-attention yet; SSM layers have no cached mode yet (the SSM serving
+slice)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -10,7 +11,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core.moe_layer import moe_ffn, moe_schema
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDecl, apply_norm, apply_rope,
                                        ffn_apply, ffn_schema, norm_schema)
 
@@ -33,11 +36,14 @@ def attn_schema(cfg, a) -> Dict[str, ParamDecl]:
 
 
 def layer_schema(cfg, pos: int) -> Dict:
-    if cfg.layer_kind(pos) != "a" or cfg.n_enc_layers:
+    if cfg.n_enc_layers:
         raise NotImplementedError(
-            f"{cfg.name}: only decoder attention layers are ported so far")
-    s: Dict[str, Any] = {"ln1": norm_schema(cfg, cfg.d_model),
-                         "attn": attn_schema(cfg, cfg.attn)}
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+    s: Dict[str, Any] = {"ln1": norm_schema(cfg, cfg.d_model)}
+    if cfg.layer_kind(pos) == "a":
+        s["attn"] = attn_schema(cfg, cfg.attn)
+    else:
+        s["ssm"] = SSM.ssm_schema(cfg, cfg.ssm)
     if cfg.d_ff > 0 or cfg.is_moe_layer(pos):
         s["ln2"] = norm_schema(cfg, cfg.d_model)
         if cfg.is_moe_layer(pos):
@@ -81,11 +87,18 @@ def _mlp_tail(cfg, p, x):
 
 
 def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
-               kv_mask=None):
+               kv_mask=None, arange_positions: bool = False):
     """Full-sequence self-attention at one rank (blocks.py:116 of the JAX
     package). x: (B, S, d); positions: (B, S) or (1, S) absolute positions
-    (RoPE and the causal mask); kv_mask: optional (B, S) key validity.
-    Returns the o-projection (B, S, d)."""
+    (RoPE and the causal mask); kv_mask: optional (B, S) key validity;
+    ``arange_positions``: the caller built positions as arange(S) (the
+    training forward without a mask). Returns the o-projection (B, S, d).
+
+    Causal, unmasked, with positions arange(S): there the JAX package's
+    ``__fusable__flash`` region computes exactly what its flash kernel
+    computes, and the port sends it to ``ops.flash_attention`` (the
+    hand-written kernel on a CUDA tensor). Every other case keeps the
+    plain attention, as the JAX package does."""
     a = cfg.attn
     B, S, _ = x.shape
     q, k, v = _qkv_proj(a, p, x)
@@ -93,30 +106,49 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
     if use_rope:
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
-    if kv_mask is not None:
-        kv_mask = kv_mask.expand(B, S)
-    o = A.attention(q, k, v, positions, positions, q_block=a.q_block,
-                    kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+    if causal and kv_mask is None and arange_positions:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True)
+        o = o.transpose(1, 2)
+    else:
+        if kv_mask is not None:
+            kv_mask = kv_mask.expand(B, S)
+        o = A.attention(q, k, v, positions, positions, q_block=a.q_block,
+                        kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
     return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
 
 
-def apply_layer(cfg, pos: int, p, x, positions, mask=None):
+def apply_layer(cfg, pos: int, p, x, positions, mask=None,
+                arange_positions: bool = False):
     """The training forward of one layer (blocks.py:361 of the JAX package,
-    written sequentially): ln1 -> attention -> residual -> ln2 -> (MoE |
-    FFN) -> residual. mask: optional (B, S) validity; pad keys are excluded
-    from attention. Returns (x, aux loss fp32)."""
-    a = cfg.attn
+    written sequentially): ln1 -> (attention | SSM) -> residual -> ln2 ->
+    (MoE | FFN) -> residual. mask: optional (B, S) validity; pad keys are
+    excluded from attention and pad steps are identities of the SSM scan.
+    ``arange_positions``: see attn_apply. Returns (x, aux loss fp32)."""
     h = apply_norm(cfg, p["ln1"], x)
-    h = attn_apply(cfg, p["attn"], h, positions, a.causal, a.rope_theta > 0,
-                   kv_mask=mask)
+    if cfg.layer_kind(pos) == "a":
+        a = cfg.attn
+        h = attn_apply(cfg, p["attn"], h, positions, a.causal,
+                       a.rope_theta > 0, kv_mask=mask,
+                       arange_positions=arange_positions)
+    else:
+        h, _ = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask)
     x = x + h.to(x.dtype)
     return _mlp_tail(cfg, p, x)
+
+
+def require_attention(cfg, pos: int, what: str) -> None:
+    """The cached serving modes hold KV caches only: an SSM layer raises."""
+    if cfg.layer_kind(pos) != "a":
+        raise NotImplementedError(f"{what} of an SSM layer: "
+                                  f"{SSM.SERVING_SLICE}")
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd), updated
     in place; t_pos: (B,) per-row cache write index (= RoPE position).
     Returns x."""
+    require_attention(cfg, pos, "decode_layer")
     a = cfg.attn
     B = x.shape[0]
     h = apply_norm(cfg, p["ln1"], x)
@@ -138,6 +170,7 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos):
     index (earlier chunks included). Tail-pad K/V land past every valid
     query's index: causal-masked now, overwritten by the first decode
     steps before any query can reach them. Returns x."""
+    require_attention(cfg, pos, "chunk_layer")
     a = cfg.attn
     Ac, C, _ = x.shape
     h = apply_norm(cfg, p["ln1"], x)

@@ -80,10 +80,18 @@ def _period(tree: Tree, n: int) -> Tree:
     return tree_map(lambda a: a[n], tree)
 
 
+def require_attention_only(cfg, what: str) -> None:
+    """A config with SSM layers raises here, before any shape meets a
+    missing cache."""
+    for pos in range(period_of(cfg)):
+        B.require_attention(cfg, pos, f"{what} of {cfg.name}")
+
+
 def init_cache(cfg, batch_size: int, seq_len: int,
                device: DeviceLike = None) -> Tuple:
     """Zero contiguous KV cache, a tuple over period positions of
     {"k", "v"} (n_periods, batch, seq_len, Hkv, hd) in the param dtype."""
+    require_attention_only(cfg, "init_cache")
     dev = resolve_device(device)
     p = period_of(cfg)
     n_periods = cfg.n_layers // p
@@ -116,12 +124,15 @@ def embed_inputs(cfg, params, batch):
 
 
 def _forward_inputs(cfg, params, batch):
-    """Embeddings, pad-aware positions and the mask: with ``mask`` (B, S)
-    a row's position is its rank among its valid tokens (left padding
-    starts at 0 at the first real token)."""
+    """Embeddings, pad-aware positions, the mask, and whether the
+    positions are the default arange(S): with ``mask`` (B, S) a row's
+    position is its rank among its valid tokens (left padding starts at 0
+    at the first real token). The flag is known here, where the positions
+    are built, so no layer has to compare them on the device."""
     h = embed_inputs(cfg, params, batch)
     Bsz, Ssz, _ = h.shape
     mask = batch.get("mask")
+    arange = False
     if "positions" in batch:
         positions = batch["positions"]
     elif mask is not None:
@@ -129,14 +140,16 @@ def _forward_inputs(cfg, params, batch):
     else:
         positions = torch.arange(Ssz, device=h.device)[None, :].expand(
             Bsz, Ssz)
-    return h, positions, mask
+        arange = True
+    return h, positions, mask, arange
 
 
-def _period_body(cfg, h, lp, positions, mask):
+def _period_body(cfg, h, lp, positions, mask, arange):
     """The layers of one period: returns (h, the period's aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos in range(period_of(cfg)):
-        h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask)
+        h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
+                             arange_positions=arange)
         aux = aux + a
     return h, aux
 
@@ -149,16 +162,16 @@ def forward(cfg, params, batch):
     if cfg.block_schedule:
         raise NotImplementedError("block_schedule: the whole-graph schedule "
                                   "is not ported yet")
-    h, positions, mask = _forward_inputs(cfg, params, batch)
+    h, positions, mask, arange = _forward_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     p = period_of(cfg)
     for n in range(cfg.n_layers // p):
         lp = [_period(params["layers"][pos], n) for pos in range(p)]
         if cfg.remat == "full" and torch.is_grad_enabled():
             h, a = checkpoint(_period_body, cfg, h, lp, positions, mask,
-                              use_reentrant=False)
+                              arange, use_reentrant=False)
         else:
-            h, a = _period_body(cfg, h, lp, positions, mask)
+            h, a = _period_body(cfg, h, lp, positions, mask, arange)
         aux = aux + a
     return apply_norm(cfg, params["ln_f"], h), aux, None
 
@@ -176,6 +189,7 @@ def decode_step(cfg, params, cache, tokens, t_pos):
     """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
     (every slot decodes at its own position). Returns (logits (B, V) fp32,
     cache), the cache updated in place."""
+    require_attention_only(cfg, "decode_step")
     Bsz = tokens.shape[0]
     t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
         -1).expand(Bsz)
@@ -199,6 +213,7 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     admission row (default: row a is slot a). Returns (logits (A, V) fp32
     at each row's last valid position, cache), the cache updated in
     place."""
+    require_attention_only(cfg, "prefill_chunk")
     Ac, C = tokens.shape
     dev = tokens.device
 

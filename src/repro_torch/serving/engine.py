@@ -137,6 +137,7 @@ class ServeEngine:
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
                  device: DeviceLike = None):
+        lm.require_attention_only(cfg, "ServeEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_seq = max_seq

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small ragged shapes: every activation, both orders, a column slice, fp32
 (1e-4, TF32 off) and bf16 (2e-2); the backward pair (dgrad, wgrad) also
-at two row tiles and through ops.fused_mlp's autograd. Needs an NVIDIA
-Hopper GPU and nvcc; skips elsewhere. On the card:
+at two row tiles and through ops.fused_mlp's autograd; flash attention
+(MHA, GQA, MQA, ragged lengths, causal and not, strided views) and the SSD
+(ragged lengths, small and model-size states, strided views, mixed
+dtypes) with their autograd backward. Needs an NVIDIA Hopper GPU and nvcc;
+skips elsewhere. On the card:
 
   python -m pytest -m gpu tests/test_torch_cuda_kernels.py
 """
@@ -160,3 +163,98 @@ def test_wrappers_count_launches(cuda):
     rows = torch.ones((2, 3, 8), device="cuda")
     ops.topk_combine(rows, torch.ones((2, 3), device="cuda"))
     assert topk_combine.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd", [(1, 4, 4, 128, 64),
+                                           (2, 8, 2, 200, 128),
+                                           (1, 4, 1, 77, 32),
+                                           (2, 2, 2, 1, 128)])
+def test_flash_attention(cuda, dtype, causal, B, Hq, Hkv, S, hd):
+    """The kernel reads (B, S, H, hd) tensors through transposed views, as
+    the model passes them."""
+    from repro_torch.kernels import flash_attention, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + hd)
+    q = _randn(gen, (B, S, Hq, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, S, Hkv, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, S, Hkv, hd), dtype).transpose(1, 2)
+    got = flash_attention.flash_attention(q, k, v, causal)
+    _close(got, ref.flash_attention_ref(q, k, v, causal), dtype)
+
+
+def _ssd_operands(gen, B, S, nh, hd, ds, xdt, bdt):
+    x = _randn(gen, (B, S, nh, hd), xdt)
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, nh),
+                                             torch.float32))
+    A = -torch.exp(_randn(gen, (nh,), torch.float32, 0.3))
+    Bm = _randn(gen, (B, S, ds), bdt)
+    Cm = _randn(gen, (B, S, ds), bdt)
+    D = torch.full((nh,), 0.5, device="cuda")
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.parametrize("xdt,bdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,S,nh,hd,ds", [(1, 64, 2, 16, 8),
+                                          (2, 200, 3, 64, 128),
+                                          (1, 5, 1, 8, 4),
+                                          (2, 130, 4, 32, 16)])
+def test_ssd_forward(cuda, xdt, bdt, B, S, nh, hd, ds):
+    from repro_torch.kernels import ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + ds)
+    ins = _ssd_operands(gen, B, S, nh, hd, ds, xdt, bdt)
+    got = ssd.ssd_forward(*ins)
+    dtype = torch.bfloat16 if torch.bfloat16 in (xdt, bdt) else xdt
+    _close(got, ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK), dtype)
+    _close(got, ref.ssd_ref(*ins), dtype)
+
+
+def test_ssd_reads_slices_of_the_conv_output(cuda):
+    """x, B and C as the model passes them: strided slices of one conv
+    output, the dt of a softplus."""
+    from repro_torch.kernels import ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    B, S, nh, hd, ds = 2, 100, 4, 64, 128
+    conv = _randn(gen, (B, S, nh * hd + 2 * ds), torch.bfloat16)
+    x = conv[..., :nh * hd].reshape(B, S, nh, hd)
+    Bm, Cm = conv[..., nh * hd:nh * hd + ds], conv[..., nh * hd + ds:]
+    _, dt, A, _, _, D = _ssd_operands(gen, B, S, nh, hd, 1, torch.float32,
+                                      torch.float32)
+    got = ssd.ssd_forward(x, dt, A, Bm, Cm, D)
+    _close(got, ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, ssd.CHUNK),
+           torch.bfloat16)
+
+
+def test_flash_and_ssd_backward_recompute_the_plain_versions(cuda):
+    """ops' autograd functions launch the kernel once forward and give the
+    plain versions' gradients (fp32); the SSD's at the kernel's own chunk,
+    whatever chunk the caller names."""
+    from repro_torch.kernels import flash_attention, ops, ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    q = _randn(gen, (2, 4, 96, 64), torch.float32).requires_grad_()
+    k = _randn(gen, (2, 2, 96, 64), torch.float32).requires_grad_()
+    v = _randn(gen, (2, 2, 96, 64), torch.float32).requires_grad_()
+    ct = _randn(gen, (2, 4, 96, 64), torch.float32)
+    flash_attention.reset()
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), [q, k, v], ct)
+    assert flash_attention.launches == 1
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v), [q, k, v],
+                               ct)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+    ins = [t.requires_grad_() for t in _ssd_operands(
+        gen, 2, 128, 3, 32, 16, torch.float32, torch.float32)]
+    ct = _randn(gen, (2, 128, 3, 32), torch.float32)
+    ssd.reset()
+    got = torch.autograd.grad(ops.ssd_forward(*ins, chunk=32), ins, ct)
+    assert ssd.launches == 1
+    want = torch.autograd.grad(ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK),
+                               ins, ct)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)

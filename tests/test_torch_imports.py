@@ -63,6 +63,8 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu():
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serving import ServeEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(get_config("mamba2-780m-smoke"))
     cfg = get_config("qwen2-moe-2.7b-smoke")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg)
@@ -73,22 +75,32 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu():
 
 
 @pytest.mark.parametrize("kernel", ["topk_combine", "grouped_gemm",
-                                    "fused_mlp"])
+                                    "fused_mlp", "flash_attention",
+                                    "ssd_forward"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """A wrapper launches its CUDA kernel or raises: it never computes a
     CPU tensor itself (the plain version is ops' job)."""
-    from repro_torch.kernels import fused_mlp, grouped_gemm, topk_combine
+    from repro_torch.kernels import (flash_attention, fused_mlp,
+                                     grouped_gemm, ssd, topk_combine)
     x = torch.zeros(2, 3, 8)
     with pytest.raises(ValueError, match="CUDA"):
         if kernel == "topk_combine":
             topk_combine.topk_combine(x, torch.zeros(2, 3))
         elif kernel == "grouped_gemm":
             grouped_gemm.grouped_gemm(x, torch.zeros(2, 8, 4))
-        else:
+        elif kernel == "fused_mlp":
             fused_mlp.fused_mlp(x, torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
                                 torch.zeros(2, 4, 8), "swiglu")
+        elif kernel == "flash_attention":
+            q = torch.zeros(1, 2, 4, 8)
+            flash_attention.flash_attention(q, q, q)
+        else:
+            ssd.ssd_forward(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2),
+                            torch.zeros(2), torch.zeros(1, 4, 3),
+                            torch.zeros(1, 4, 3), torch.zeros(2))
     assert (topk_combine.launches, grouped_gemm.launches,
-            fused_mlp.launches) == (0, 0, 0)
+            fused_mlp.launches, flash_attention.launches,
+            ssd.launches) == (0, 0, 0, 0, 0)
 
 
 def test_ops_sends_cpu_tensors_to_the_plain_versions(monkeypatch):
@@ -103,3 +115,31 @@ def test_ops_sends_cpu_tensors_to_the_plain_versions(monkeypatch):
     with pytest.raises(ValueError, match="devices"):
         ops.topk_combine(torch.ones(2, 3, 4, device="meta"),
                          torch.ones(2, 3))
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "ssd_forward"])
+def test_ops_sends_cpu_tensors_to_the_new_plain_versions(monkeypatch, op):
+    """flash_attention and ssd_forward: a CPU tensor reaches the plain
+    version (flash_attention_ref, ssd_chunked_ref at the given chunk), a
+    tensor on another device raises."""
+    from repro_torch.kernels import ops, ref
+    calls = []
+    name = {"flash_attention": "flash_attention_ref",
+            "ssd_forward": "ssd_chunked_ref"}[op]
+    real = getattr(ref, name)
+    monkeypatch.setattr(ref, name, lambda *a: calls.append(
+        (a[0].device, a[6:])) or real(*a))
+    if op == "flash_attention":
+        q = torch.ones(1, 2, 4, 8)
+        ops.flash_attention(q, q, q)
+        assert calls == [(torch.device("cpu"), ())]
+        with pytest.raises(ValueError, match="devices"):
+            ops.flash_attention(q.to("meta"), q, q)
+    else:
+        args = [torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2),
+                -torch.ones(2), torch.ones(1, 4, 3), torch.ones(1, 4, 3),
+                torch.ones(2)]
+        ops.ssd_forward(*args, 2)
+        assert calls == [(torch.device("cpu"), (2,))]
+        with pytest.raises(ValueError, match="devices"):
+            ops.ssd_forward(args[0].to("meta"), *args[1:], 2)
