@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all seven phases, one card
-  python3 chip_smoke.py --only build,kernels,train_ssm
+  python3 chip_smoke.py              # all eight phases, one card
+  python3 chip_smoke.py --only build,kernels,serve_ssm
 
 Phases:
   1 build    nvidia-smi's card and power limit; build the CUDA kernels from
@@ -15,12 +15,16 @@ Phases:
              train shape, a ragged R, a column block and all four
              activations; flash_attention at the qwen2 train shape, a
              GQA shape (mixtral-8x7b's heads) and ragged lengths;
-             ssd_forward at the mamba2-780m train shape and ragged ones.
+             ssd_forward at the mamba2-780m train shape and ragged ones,
+             and with an initial and a final state at the serving chunk
+             shape and a ragged one; rmsnorm in both epilogues at the
+             paths' widths and the JAX test's shapes, non-unit scales.
   3 serve    ServeEngine on the full qwen2-moe-2.7b (24 layers, bf16,
              seeded weights on the card), gemm_impl="pallas_fused", 8 slots,
              max_seq 1024, chunk 256: after a warm-up round on an engine of
              its own, 16 requests with prompts of 64-512 tokens and max_new
-             32. Launch counters are zeroed before and read after; the plain
+             32. Launch counters are zeroed before and read after (rmsnorm:
+             2L+1 per prefill_chunk or decode_step call); the plain
              versions must see no CUDA tensor.
   4 logits   the same weights: one stacked prefill_chunk plus 4
              teacher-forced decode_steps through the kernels and through
@@ -38,7 +42,8 @@ Phases:
              warm-up step and 3 timed ones, launch counters zeroed before
              and read after (2L fused_mlp and topk_combine, L dgrad and
              wgrad per step; 2L flash_attention: forward and remat
-             recompute). Last, Trainer.run with a checkpoint and a
+             recompute; rmsnorm 2 x 2L + 1: forward, remat recompute and
+             the final norm). Last, Trainer.run with a checkpoint and a
              fault-hook replay on qwen2-moe-2.7b-smoke.
   7 train_ssm  mamba2-780m at full width and all 48 layers: loss and every
              gradient through the SSD kernel and through the plain
@@ -46,10 +51,21 @@ Phases:
              in bf16 (beside a second plain route at chunk 64); then the
              train step (bf16, remat full, AdamW), 4 x 2048 tokens: one
              warm-up step and 3 timed ones, 2 x 48 ssd_forward launches
-             per step.
+             per step (rmsnorm 2 x 96 + 1).
+  8 serve_ssm  qwen2's serving weights are freed first. ServeEngine on
+             the whole mamba2-780m (48 layers, bf16, seeded weights on
+             the card), 8 slots, max_seq 2048, chunk 256: after a warm-up
+             round on an engine of its own, 16 requests with prompts of
+             64-1024 tokens and max_new 32.
+             ssd_forward launches 48 per prefill_chunk call, rmsnorm 97
+             (2L+1) per prefill_chunk or decode_step call; the plain
+             versions see no CUDA tensor. Then teacher-forced logits as in
+             phase 4: 4 layers in fp32 (1e-4), all 48 in bf16 beside a
+             second plain route (the SSD at chunk 64 against 256).
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
-one admission round and 8 decode steps of the serve configuration,
+one admission round and 8 decode steps of the serve configuration
+(``--only build,serve_ssm,profile_serve_ssm`` of the serve_ssm one),
 ``--only build,train,profile_train`` one train step of the train phase and
 ``--only build,train_ssm,profile_train_ssm`` one of train_ssm, under
 torch.profiler (device time by kernel).
@@ -64,6 +80,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -79,10 +96,11 @@ ARCH = "qwen2-moe-2.7b"
 PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
-PHASES = ("build", "kernels", "serve", "logits", "pallas", "train",
-          "train_ssm")
+PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
+          "train", "train_ssm")
 # run only when named in --only
-EXTRA_PHASES = ("profile", "profile_train", "profile_train_ssm")
+EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
+                "profile_train_ssm")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -91,6 +109,7 @@ REPLACES = {
     "fused_mlp_wgrad": "src/repro/kernels/fused_mlp.py:320",
     "flash_attention": "src/repro/kernels/flash_attention.py:63",
     "ssd_forward": "src/repro/kernels/ssd.py:72",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
 }
 SOURCES = {"fused_mlp_dgrad": "fused_mlp_dgrad.cu",
            "fused_mlp_wgrad": "fused_mlp_wgrad.cu", "ssd_forward": "ssd.cu"}
@@ -102,6 +121,8 @@ TRAIN_SEQ, TRAIN_BATCH = 1024, 4
 # step (2048 is Mamba-2's published training context)
 SSM_ARCH = "mamba2-780m"
 SSM_SEQ, SSM_BATCH = 2048, 4
+# the SSM serve phase: prompts up to 1024 tokens in 8 slots of 2048
+SSM_SERVE = dict(max_seq=2048, prompt_max=1024)
 
 
 class PhaseFailed(Exception):
@@ -138,6 +159,22 @@ def median_ms(fn, iters=10, warmup=2):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=50, iters=5):
+    """Median per-call device time of ``reps`` calls fn(0), fn(1), ...
+    replayed from one CUDA graph: for a kernel of a few microseconds,
+    events around eager calls time the host's launch gap instead (each
+    call checks its operands and crosses ctypes). fn(i) takes its i-th
+    input, so the calls can cycle through more bytes than the L2 holds."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    return median_ms(graph.replay, iters=iters, warmup=1) / reps
 
 
 def bound_ms(nbytes, flops, dt):
@@ -255,6 +292,22 @@ def kernel_cases():
                 ("B2 S77 nh2 hd32 ds16", dict(B=2, S=77, nh=2, hd=32,
                                               ds=16))):
             cases.append(("ssd_forward", label, dt, spec))
+        # the SSD with an initial and a final state: mamba2-780m's serving
+        # chunk (8 rows of 256) and a ragged one
+        for label, spec in (
+                ("serve state A8 C256 nh48 hd64 ds128",
+                 dict(B=8, S=256, nh=48, hd=64, ds=128, state=True)),
+                ("state A1 C100 nh48 hd64 ds128",
+                 dict(B=1, S=100, nh=48, hd=64, ds=128, state=True))):
+            cases.append(("ssd_forward", label, dt, spec))
+        # rmsnorm: the serving paths' widths (qwen2 2048, mamba2 1536 and
+        # its gated 3072) at a 2048-row prefill step and 8-row decode, and
+        # the JAX test's shapes; both epilogues
+        for T, d in ((2048, 2048), (2048, 1536), (2048, 3072), (8, 1536),
+                     (100, 896), (8, 64)):
+            for epi in ("model", "tpu"):
+                cases.append(("rmsnorm", f"T={T} d={d} {epi}", dt,
+                              dict(T=T, d=d, epi=epi)))
     return cases
 
 
@@ -313,12 +366,18 @@ def ssd_case(dt, spec, gen):
     D = torch.ones((nh,), device="cuda")
     ct = _randn((B, S, nh, hd), dt, 1.0, gen)
     ins = (x, dtv, A, Bm, Cm, D)
+    h0 = (torch.randn((B, nh, ds, hd), device="cuda", generator=gen)
+          if spec.get("state") else None)
 
     def kf():
-        return ssd.ssd_forward(*ins)
+        if h0 is None:
+            return ssd.ssd_forward(*ins)
+        return ssd.ssd_forward_state(*ins, h0)
 
     def pf():
-        return ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK)
+        if h0 is None:
+            return ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK)
+        return ref.ssd_state_ref(*ins, h0, chunk=ssd.CHUNK)
 
     def bwd():   # the op's backward, at the kernel's chunk
         return ref.ssd_vjp(*ins, ssd.CHUNK, ct, (True,) * 6)
@@ -326,11 +385,45 @@ def ssd_case(dt, spec, gen):
     isz = 2 if dt == torch.bfloat16 else 4
     nbytes = (2 * B * S * nh * hd + 2 * B * S * ds) * isz \
         + B * S * nh * 4 + 2 * nh * 4
+    if h0 is not None:                   # the state read and written
+        nbytes += 2 * B * nh * ds * hd * 4
     Q = ssd.CHUNK
     nc = -(-S // Q)
     flops = 2 * B * nc * Q * Q * ds + B * nh * nc * (
         2 * Q * Q * hd + 2 * 2 * Q * ds * hd)
     return kf, pf, None, bwd, nbytes, flops
+
+
+def rmsnorm_case(dt, isz, spec, gen):
+    """(kernel fn, plain fn, library fn, bytes, flops) of an rmsnorm case:
+    x (T, d) in dt, a non-unit fp32 scale (the model's norm scales are fp32
+    leaves). The plain version is the epilogue's: ``ref.rms_norm`` (model)
+    or ``ref.rmsnorm_ref`` (tpu). The library yardstick is F.rms_norm with
+    the scale in x's dtype, which the port never calls. Bytes: x read and y
+    written once, the scale once; FLOPs: square, sum, normalise, scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref, rmsnorm
+    T, d, epi, eps = spec["T"], spec["d"], spec["epi"], 1e-5
+    # timed calls cycle through copies of x that together exceed the 50 MB
+    # L2, as a prefill step's norm reads a row block it did not just read
+    n = min(50, -(-128 * 2 ** 20 // (T * d * isz)))
+    xs = [_randn((T, d), dt, 1.0, gen) for _ in range(n)]
+    scale = 1.0 + 0.1 * torch.randn((d,), device="cuda", generator=gen)
+    scale_lib = scale.to(dt)
+    plain = ref.rms_norm if epi == "model" else ref.rmsnorm_ref
+
+    def k(i=0):
+        return rmsnorm.rmsnorm(xs[i % n], scale, eps, epilogue=epi)
+
+    def p(i=0):
+        return plain(xs[i % n], scale, eps)
+
+    def lib(i=0):
+        return F.rms_norm(xs[i % n], (d,), weight=scale_lib, eps=eps)
+
+    return k, p, lib, 2 * T * d * isz + d * 4, 4 * T * d
 
 
 def mlp_bwd_case(kernel, dt, isz, spec, gen):
@@ -427,6 +520,8 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         k, p, lib, bwd, nbytes, flops = flash_case(dt, isz, spec, gen)
     elif kernel == "ssd_forward":
         k, p, lib, bwd, nbytes, flops = ssd_case(dt, spec, gen)
+    elif kernel == "rmsnorm":
+        k, p, lib, nbytes, flops = rmsnorm_case(dt, isz, spec, gen)
     elif kernel == "grouped_gemm":
         M, K, Nn = spec["M"], spec["K"], spec["N"]
         lhs = _randn((E, M, K), dt, 1.0, gen)
@@ -488,19 +583,22 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         rec["within_tol"] = ok
         del floor
     del got, want
-    # the SSD kernel's products are fp32 whatever its inputs' dtype
+    # the SSD's products and the norm's statistics are fp32 whatever the
+    # inputs' dtype
     b_ms, b_by = bound_ms(nbytes, flops,
-                          "fp32" if kernel == "ssd_forward" else dt_name)
+                          "fp32" if kernel in ("ssd_forward", "rmsnorm")
+                          else dt_name)
     rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     if timed:
         iters = 10 if dt_name == "bf16" else 3
         if kernel != "fused_mlp" and kernel.startswith("fused_mlp") \
                 and spec["E"] == 64:
             iters = 5 if dt_name == "bf16" else 3
-        rec["ms"] = median_ms(k, iters=iters)
-        rec["plain_ms"] = median_ms(p, iters=iters)
-        rec["library_ms"] = None if lib is None else median_ms(lib,
-                                                               iters=iters)
+        timer = graph_ms if kernel == "rmsnorm" else functools.partial(
+            median_ms, iters=iters)
+        rec["ms"] = timer(k)
+        rec["plain_ms"] = timer(p)
+        rec["library_ms"] = None if lib is None else timer(lib)
         if spec.get("train") and dt_name == "bf16":
             # the flash/SSD op's backward at the train shape: the plain
             # version recomputed under autograd (no backward kernel, as in
@@ -551,7 +649,8 @@ class PlainGuard:
 
     NAMES = ("fused_mlp_ref", "grouped_gemm_ref", "topk_combine_ref",
              "fused_mlp_dgrad_ref", "fused_mlp_wgrad_ref",
-             "flash_attention_ref", "ssd_chunked_ref", "ssd_ref")
+             "flash_attention_ref", "ssd_chunked_ref", "ssd_ref",
+             "ssd_state_ref", "rmsnorm_ref", "rms_norm")
 
     def __init__(self):
         from repro_torch.kernels import ref
@@ -581,21 +680,46 @@ class PlainGuard:
 
 def reset_counts():
     from repro_torch.kernels import (flash_attention, fused_mlp,
-                                     grouped_gemm, ssd, topk_combine)
-    for m in (fused_mlp, grouped_gemm, topk_combine, flash_attention, ssd):
+                                     grouped_gemm, rmsnorm, ssd,
+                                     topk_combine)
+    for m in (fused_mlp, grouped_gemm, topk_combine, flash_attention, ssd,
+              rmsnorm):
         m.reset()
 
 
 def read_counts():
     from repro_torch.kernels import (flash_attention, fused_mlp,
-                                     grouped_gemm, ssd, topk_combine)
+                                     grouped_gemm, rmsnorm, ssd,
+                                     topk_combine)
     return {"fused_mlp": fused_mlp.launches,
             "grouped_gemm": grouped_gemm.launches,
             "topk_combine": topk_combine.launches,
             "fused_mlp_dgrad": fused_mlp.dgrad_launches,
             "fused_mlp_wgrad": fused_mlp.wgrad_launches,
             "flash_attention": flash_attention.launches,
-            "ssd_forward": ssd.launches}
+            "ssd_forward": ssd.launches,
+            "rmsnorm": rmsnorm.launches}
+
+
+@contextlib.contextmanager
+def count_model_calls(calls):
+    """While active, counts lm.prefill_chunk and lm.decode_step calls into
+    the dict ``calls`` (the engine reaches both through the module)."""
+    from repro_torch.models import lm
+    saved = {n: getattr(lm, n) for n in ("prefill_chunk", "decode_step")}
+    for n, real in saved.items():
+        calls[n] = 0
+
+        def wrapped(*a, _real=real, _n=n, **kw):
+            calls[_n] += 1
+            return _real(*a, **kw)
+
+        setattr(lm, n, wrapped)
+    try:
+        yield calls
+    finally:
+        for n, real in saved.items():
+            setattr(lm, n, real)
 
 
 def with_gemm(cfg, gemm_impl):
@@ -604,7 +728,7 @@ def with_gemm(cfg, gemm_impl):
 
 
 def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
-          max_seq=1024, chunk=256):
+          max_seq=1024, chunk=256, prompt_max=512):
     import numpy as np
     import torch
 
@@ -614,17 +738,17 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     # libraries and the kernels' module), so the timed run is a warm server
     warm = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
                        chunk=chunk, device="cuda")
-    for p in make_trace(cfg.vocab_size, batch, 64, 512, seed + 100):
+    for p in make_trace(cfg.vocab_size, batch, 64, prompt_max, seed + 100):
         warm.submit(p, max_new=2)
     warm.run()
     del warm
     eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
                       chunk=chunk, device="cuda")
-    prompts = make_trace(cfg.vocab_size, n_req, 64, 512, seed)
+    prompts = make_trace(cfg.vocab_size, n_req, 64, prompt_max, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with PlainGuard() as guard:
+    with PlainGuard() as guard, count_model_calls({}) as calls:
         t0 = time.perf_counter()
         rids = [eng.submit(p, max_new=max_new) for p in prompts]
         eng.run()
@@ -634,7 +758,8 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     reqs = [eng.finished[r] for r in rids]
     ttft = [r.ttft_s * 1e3 for r in reqs]
     rec = {
-        "gemm_impl": cfg.moe.gemm_impl, "requests": n_req,
+        "gemm_impl": cfg.moe.gemm_impl if cfg.moe else None,
+        "requests": n_req,
         "max_new": max_new, "slots": batch, "max_seq": max_seq,
         "chunk": chunk, "prompt_tokens": eng.prefill_tokens,
         "decode_steps": eng.decode_steps, "decode_tokens": eng.decode_tokens,
@@ -646,7 +771,8 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
         "ttft_p50_ms": float(np.percentile(ttft, 50)),
         "ttft_p99_ms": float(np.percentile(ttft, 99)),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": counts, "plain_calls_on_cuda": guard.cuda_calls,
+        "launches": counts, "model_calls": calls,
+        "plain_calls_on_cuda": guard.cuda_calls,
     }
     out[out_key] = rec
     log("  " + json.dumps(rec))
@@ -656,7 +782,26 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     check(not bad, f"requests not ok with {max_new} valid tokens: {bad}")
     check(guard.cuda_calls == 0,
           f"plain versions saw CUDA tensors {guard.cuda_calls} times")
+    # every norm region is one rmsnorm launch: ln1 (and ln2 where the
+    # layer has an FFN or MoE, or the SSM block's gated norm) per layer,
+    # and the final norm, in every prefill_chunk and decode_step call
+    per_call = norms_per_forward(cfg)
+    n_calls = calls["prefill_chunk"] + calls["decode_step"]
+    check(counts["rmsnorm"] == per_call * n_calls,
+          f"rmsnorm launches {counts['rmsnorm']}, expected {per_call} x "
+          f"{n_calls} model calls")
     return eng, rec
+
+
+def norms_per_forward(cfg):
+    """The rmsnorm regions of one forward through the model: per layer
+    ln1, ln2 where the layer has an FFN or MoE, and the SSM block's gated
+    norm; then ln_f."""
+    n = 1
+    for pos in range(cfg.n_layers):
+        n += 1 + (cfg.d_ff > 0 or cfg.is_moe_layer(pos))
+        n += cfg.layer_kind(pos) != "a"
+    return n
 
 
 def phase_serve(state, out):
@@ -692,7 +837,8 @@ def plain_ops():
     SSD are differentiated by autograd directly."""
     from repro_torch.kernels import ops, ref
     names = ("topk_combine", "grouped_gemm", "fused_mlp", "fused_mlp_dgrad",
-             "fused_mlp_wgrad", "flash_attention", "ssd_forward")
+             "fused_mlp_wgrad", "flash_attention", "ssd_forward",
+             "ssd_forward_state", "rms_norm")
     saved = {n: getattr(ops, n) for n in names}
 
     def wd_of(w, col_slice):
@@ -719,9 +865,13 @@ def plain_ops():
     def plain_ssd(x, dt, A, Bm, Cm, D, chunk=64):
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
 
+    def plain_ssd_state(x, dt, A, Bm, Cm, D, chunk=64, h0=None):
+        return ref.ssd_state_ref(x, dt, A, Bm, Cm, D, h0, chunk)
+
     plain = dict(zip(names, (ref.topk_combine_ref, plain_gg, plain_mlp,
                              plain_dgrad, plain_wgrad,
-                             ref.flash_attention_ref, plain_ssd)))
+                             ref.flash_attention_ref, plain_ssd,
+                             plain_ssd_state, ref.rms_norm)))
     for n in names:
         setattr(ops, n, plain[n])
     try:
@@ -729,6 +879,68 @@ def plain_ops():
     finally:
         for n in names:
             setattr(ops, n, saved[n])
+
+
+def phase_serve_ssm(state, out):
+    """The whole mamba2-780m served through the SSD kernel with a state and
+    the rmsnorm kernel, then its teacher-forced logits against the plain
+    versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    state.pop("params", None)                  # qwen2's serving weights
+    torch.cuda.empty_cache()
+    cfg = ssm_cfg(48, "bfloat16")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  {SSM_ARCH}: {n_params / 1e9:.3f} B parameters in bf16 on the "
+        f"card, init {time.perf_counter() - t0:.1f} s")
+    state["ssm_serve"] = (cfg, params)
+    _, rec = serve(cfg, params, 16, 32, 0, "serve_ssm", out, **SSM_SERVE)
+    L, calls = cfg.n_layers, rec["model_calls"]
+    check(rec["launches"]["ssd_forward"] == L * calls["prefill_chunk"],
+          f"ssd_forward launches {rec['launches']['ssd_forward']}, expected "
+          f"{L} x {calls['prefill_chunk']} prefill_chunk calls")
+
+    # teacher-forced logits: one stacked prefill_chunk (4 rows x 256, valid
+    # lengths 97-256) and 4 decode_steps, kernels against plain versions.
+    # fp32 at 4 layers, 1e-4; bf16 at all 48 beside the floor between two
+    # plain routes, the SSD at the model's chunk (256) and at 64
+    rng = np.random.default_rng(1)
+    plens = np.array([256, 200, 97, 160])
+    toks = rng.integers(1, cfg.vocab_size, (4, 256))
+    nxt = rng.integers(1, cfg.vocab_size, (4, 4))
+
+    def run(c, p, plain=False):
+        with plain_ops() if plain else contextlib.nullcontext():
+            return teacher_forced_logits(c, p, toks, plens, nxt)
+
+    c32 = ssm_cfg(4, "float32")
+    p32 = {k: tree_map(lambda a: a.float(), v) for k, v in params.items()
+           if k != "layers"}
+    p32["layers"] = [tree_map(lambda a: a[:4].float(), v)
+                     for v in params["layers"]]
+    fp32 = compare_logits(run(c32, p32), run(c32, p32, plain=True))
+    del p32
+    plain = run(cfg, params, plain=True)
+    bf16 = compare_logits(run(cfg, params), plain)
+    floor = compare_logits(run(ssm_cfg(48, "bfloat16", 64), params,
+                               plain=True), plain)
+    logits = {"fp32_4_layers": fp32, "bf16_48_layers": bf16,
+              "bf16_48_layers_chunk64_vs_plain": floor}
+    out["serve_ssm_logits"] = logits
+    log("  " + json.dumps(logits))
+    check(fp32["rel_l2_err"] <= TOL["fp32"],
+          f"fp32 logits rel L2 error {fp32['rel_l2_err']:.3e} > 1e-4")
+    check(fp32["argmax_agree"] >= 0.95,
+          f"fp32 argmax agreement {fp32['argmax_agree']:.2f} < 0.95")
+    bound = max(TOL["bf16"], 3 * floor["rel_l2_err"])
+    check(bf16["rel_l2_err"] <= bound,
+          f"bf16 logits rel L2 error {bf16['rel_l2_err']:.3e} > {bound:.3e}")
 
 
 def teacher_forced_logits(cfg, params, toks, plens, nxt, S=512):
@@ -944,7 +1156,8 @@ def phase_train(state, out):
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves
     from repro_torch.training.trainer import Trainer, TrainerConfig
-    state.pop("params", None)                  # the serving weights
+    for key in ("params", "ssm_serve"):        # the serving weights
+        state.pop(key, None)
     torch.cuda.empty_cache()
     rec = {}
 
@@ -1019,10 +1232,13 @@ def phase_train(state, out):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": counts, "plain_calls_on_cuda": plain_calls}
     log("  " + json.dumps(rec["train"]))
+    # rmsnorm: the forward's 2L norms, their remat recompute in the
+    # backward, and ln_f (outside the checkpointed periods); the norm's
+    # backward is plain
     want = {"fused_mlp": 2 * L * 3, "topk_combine": 2 * L * 3,
             "fused_mlp_dgrad": L * 3, "fused_mlp_wgrad": L * 3,
             "grouped_gemm": 0, "flash_attention": 2 * L * 3,
-            "ssd_forward": 0}
+            "ssd_forward": 0, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -1117,7 +1333,7 @@ def phase_train_ssm(state, out):
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves
     from repro_torch.training.trainer import Trainer, TrainerConfig
-    for key in ("params", "train"):            # earlier phases' state
+    for key in ("params", "ssm_serve", "train"):   # earlier phases' state
         state.pop(key, None)
     torch.cuda.empty_cache()
     rec = {}
@@ -1202,9 +1418,11 @@ def phase_train_ssm(state, out):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": counts, "plain_calls_on_cuda": plain_calls}
     log("  " + json.dumps(rec["train"]))
+    # rmsnorm: ln1 and the gated norm per layer, forward and remat
+    # recompute, and ln_f
     want = {"fused_mlp": 0, "topk_combine": 0, "fused_mlp_dgrad": 0,
             "fused_mlp_wgrad": 0, "grouped_gemm": 0, "flash_attention": 0,
-            "ssd_forward": 2 * L * 3}
+            "ssd_forward": 2 * L * 3, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -1245,6 +1463,7 @@ def profile_step(state, key, out_key, out):
 KERNEL_GROUPS = (
     ("flash_kernel", "flash_attention kernel"),
     ("ssd_kernel", "ssd_forward kernel"),
+    ("rmsnorm_kernel", "rmsnorm kernel"),
     ("fused_mlp_wgrad", "fused_mlp_wgrad kernel"),
     ("fused_mlp_dgrad", "fused_mlp_dgrad kernel"),
     ("fused_mlp", "fused_mlp kernel"),
@@ -1283,18 +1502,17 @@ def device_time_by_name(prof, wall):
                        sorted(groups.items(), key=lambda kv: -kv[1][0])}}
 
 
-def phase_profile(state, out):
+def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512):
     """Device time by kernel name over one admission round (prefill) and 8
-    decode steps of the serve configuration."""
+    decode steps of a serve configuration."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import make_trace
     from repro_torch.serving import ServeEngine
-    cfg, params = state["cfg"], state["params"]
-    eng = ServeEngine(cfg, params=params, max_seq=1024, batch_size=8,
+    eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=8,
                       chunk=256, device="cuda")
-    for p in make_trace(cfg.vocab_size, 8, 64, 512, 5):
+    for p in make_trace(cfg.vocab_size, 8, 64, prompt_max, 5):
         eng.submit(p, max_new=32)
     res = {}
     for name, work in (("prefill", lambda: eng._admit_batch(
@@ -1313,7 +1531,9 @@ def phase_profile(state, out):
         log(f"  {name}: wall {wall * 1e3:.1f} ms, device {dev_ms:.1f} ms")
         for r in res[name]["top"]:
             log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
-    out["profile"] = res
+        for g, r in res[name]["groups"].items():
+            log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  [{g}]")
+    out[out_key] = res
     check(all(r["device_ms"] > 0 for r in res.values()),
           "the profiler recorded no device time")
 
@@ -1332,17 +1552,30 @@ def kernel_records(out):
             "fused_mlp_dgrad": "R=320 swiglu",
             "fused_mlp_wgrad": "R=320 swiglu",
             "flash_attention": "train B4 H16 S1024 hd128",
-            "ssd_forward": "train B4 S2048 nh48 hd64 ds128"}
+            "ssd_forward": "train B4 S2048 nh48 hd64 ds128",
+            "rmsnorm": "T=2048 d=1536 model"}
     src = {"fused_mlp": "serve", "grouped_gemm": "serve_pallas",
-           "topk_combine": "serve"}
+           "topk_combine": "serve", "rmsnorm": "serve_ssm"}
+
+    def case_rec(name, case):
+        return next((r for r in out.get("kernel_cases", [])
+                     if r["kernel"] == name and r["dtype"] == "bf16"
+                     and r["case"] == case), {})
+
     recs = []
     for name, case in head.items():
-        c = next((r for r in out.get("kernel_cases", [])
-                  if r["kernel"] == name and r["dtype"] == "bf16"
-                  and r["case"] == case), {})
+        c = case_rec(name, case)
         phase = "train_ssm" if name == "ssd_forward" else "train"
         run = (out.get(phase, {}).get("train", {}) if name not in src
                else out.get(src[name], {}))
+        extra = {}
+        if name == "ssd_forward":     # the serving chunk, with a state
+            sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
+            extra = {"serve_ms": sc.get("ms"),
+                     "serve_bound_ms": sc.get("bound_ms"),
+                     "serve_plain_ms": sc.get("plain_ms"),
+                     "serve_launches": out.get("serve_ssm", {}).get(
+                         "launches", {}).get(name, 0)}
         recs.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/"
@@ -1352,7 +1585,7 @@ def kernel_records(out):
             "max_abs_err": c.get("max_abs_err"), "ms": c.get("ms"),
             "plain_ms": c.get("plain_ms"), "bound_ms": c.get("bound_ms"),
             "bound_by": c.get("bound_by"), "library_ms": c.get("library_ms"),
-            "at": f"bf16 {case}"})
+            "at": f"bf16 {case}", **extra})
     return recs
 
 
@@ -1398,9 +1631,11 @@ def main(argv=None):
     t_all = time.perf_counter()
     failed = []
     # each profile phase right after the phase whose state it profiles;
-    # train_ssm frees the earlier phases' weights and training state
+    # serve_ssm, train and train_ssm free the earlier phases' weights and
+    # state
     order = ("build", "kernels", "serve", "logits", "pallas", "profile",
-             "train", "profile_train", "train_ssm", "profile_train_ssm")
+             "serve_ssm", "profile_serve_ssm", "train", "profile_train",
+             "train_ssm", "profile_train_ssm")
     for name in order:
         if name not in phases:
             continue
@@ -1426,7 +1661,13 @@ def main(argv=None):
                 phase_pallas(state, out)
             elif name == "profile":
                 check("params" in state, "needs the serve phase")
-                phase_profile(state, out)
+                phase_profile(state["cfg"], state["params"], out, "profile")
+            elif name == "serve_ssm":
+                phase_serve_ssm(state, out)
+            elif name == "profile_serve_ssm":
+                check("ssm_serve" in state, "needs the serve_ssm phase")
+                phase_profile(*state["ssm_serve"], out, "profile_serve_ssm",
+                              **SSM_SERVE)
             elif name == "train":
                 phase_train(state, out)
             elif name == "profile_train":

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 SIGNATURES = {
     "repro_topk_combine": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_grouped_gemm": (_P, _LL, _LL, _P, _LL, _LL, _P,
@@ -52,8 +53,9 @@ SIGNATURES = {
                               _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P),
     "repro_ssd_forward": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
-                          _P, _LL, _LL, _P, _LL, _LL, _P, _P,
+                          _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
 }
 
 

@@ -1,8 +1,11 @@
-// Mamba-2 SSD (state-space duality) forward from a zero state: y only.
+// Mamba-2 SSD (state-space duality) forward: y, from a zero or a given
+// initial state, and optionally the final state.
 //
-// Replaces: src/repro/kernels/ssd.py::ssd_forward, the __fusable__ssd
-// region of repro/models/ssm.py::ssm_forward (training forward, h0 = None),
-// which the port reaches through models/ssm.ssm_forward.
+// Replaces: src/repro/kernels/ssd.py::ssd_forward (zero state, y only), the
+// __fusable__ssd region of repro/models/ssm.py::ssm_forward, which the port
+// reaches through models/ssm.ssm_forward: the training forward (h0 = None,
+// y only) and the serving chunks (h0 = the cached state, h_final kept:
+// repro/models/ssm.py:180-188, ssd_chunked's h0 and scan carry).
 //
 // What bounds it on an H100: at the mamba2-780m train shape (B 4, S 2048,
 // nh 48, hd 64, d_state 128, bf16 x/B/C) the products, all fp32 as the TPU
@@ -10,7 +13,8 @@
 // intra-chunk product and the two (Q, ds) . (ds, hd) state products, with
 // C . B^T shared by the heads, about 16 GFLOP, about 0.24 ms at 67 TFLOP/s
 // fp32; the bytes (x, dt, B, C read once, y written once, about 105 MB) take
-// about 31 us.
+// about 31 us. A state read and written adds 2 x 4 x nh x ds x hd bytes
+// per batch row (1.5 MB each way at mamba2-780m's width).
 //
 // Design. The TPU kernel's grid (B * nh, NC) runs the chunks in order and
 // carries the state h (ds, hd) in VMEM. Here one block per (b, head) loops
@@ -25,6 +29,9 @@
 //   M = (C . B^T) * exp(cum_i - cum_j) on the causal triangle
 //   y = M . xd + exp(cum) * (C . h) + D * x          -> written once
 //   h = h * exp(total) + (B * exp(total - cum))^T . xd
+// h starts from h0 (B, nh, ds, hd) fp32 when given, else from zeros, and is
+// written to h_final (the same layout) after the last chunk when asked. A
+// ragged tail's zero dt keeps h, so h_final is the state after step S - 1.
 // B and C are shared by all heads (one group) and are read as (B, S, ds)
 // through the index, with no per-head broadcast. Every product is fp32 FMAs
 // in registers over shared-memory tiles (fma_tile in common.cuh).
@@ -62,7 +69,8 @@ __global__ void __launch_bounds__(kThreads)
                long long sds, long long sdh, const float* __restrict__ A,
                const TB* __restrict__ Bm, long long sbb, long long sbs,
                const TB* __restrict__ Cm, long long scb, long long scs,
-               const float* __restrict__ D, TX* __restrict__ y, int S,
+               const float* __restrict__ D, TX* __restrict__ y,
+               const float* __restrict__ h0, float* __restrict__ hf, int S,
                int nh, int hd, int ds) {
   using L = SsdSmem;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -86,7 +94,11 @@ __global__ void __launch_bounds__(kThreads)
   TX* yb = y + (b * S * nh + h) * static_cast<long long>(hd);
   const int cg = threadIdx.x % 16, rg = threadIdx.x / 16;
 
-  for (int i = threadIdx.x; i < kDS * L::LDH; i += kThreads) hs[i] = 0.f;
+  const long long hoff = (b * nh + h) * static_cast<long long>(ds) * hd;
+  for (int i = threadIdx.x; i < kDS * L::LDH; i += kThreads) {
+    const int r = i / L::LDH, c = i % L::LDH;
+    hs[i] = (h0 != nullptr && r < ds && c < hd) ? h0[hoff + r * hd + c] : 0.f;
+  }
 
   for (int t0 = 0; t0 < S; t0 += kQ) {
     const int n = min(kQ, S - t0);
@@ -107,9 +119,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < kQ * kHD; i += kThreads)
       xds[i] = xs[i] * dts[i / kHD];
     if (threadIdx.x == 0) {
+      // the rounded product, then the sum, in order: the plain version's
+      // dt * A and cumsum. A fused multiply-add here would move cum by an
+      // ulp per step, and exp(cum_i - cum_j) amplifies that on the long
+      // decays of a chunk (y of tens: errors past 1e-4 in fp32).
       float c = 0.f;
       for (int r = 0; r < kQ; ++r) {
-        c += dts[r] * a;
+        c = __fadd_rn(c, __fmul_rn(dts[r], a));
         cum[r] = c;
       }
     }
@@ -170,6 +186,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+  if (hf != nullptr)
+    for (int i = threadIdx.x; i < ds * hd; i += kThreads)
+      hf[hoff + i] = hs[(i / hd) * L::LDH + i % hd];
 }
 
 template <typename TX, typename TB>
@@ -178,8 +197,8 @@ cudaError_t launch(const void* x, long long sxb, long long sxs, long long sxh,
                    long long sdh, const void* A, const void* Bm,
                    long long sbb, long long sbs, const void* Cm,
                    long long scb, long long scs, const void* D, void* y,
-                   int B, int S, int nh, int hd, int ds,
-                   cudaStream_t stream) {
+                   const void* h0, void* hf, int B, int S, int nh, int hd,
+                   int ds, cudaStream_t stream) {
   auto kern = ssd_kernel<TX, TB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -189,7 +208,8 @@ cudaError_t launch(const void* x, long long sxb, long long sxs, long long sxh,
       static_cast<const TX*>(x), sxb, sxs, sxh, static_cast<const float*>(dt),
       sdb, sds, sdh, static_cast<const float*>(A),
       static_cast<const TB*>(Bm), sbb, sbs, static_cast<const TB*>(Cm), scb,
-      scs, static_cast<const float*>(D), static_cast<TX*>(y), S, nh, hd, ds);
+      scs, static_cast<const float*>(D), static_cast<TX*>(y),
+      static_cast<const float*>(h0), static_cast<float*>(hf), S, nh, hd, ds);
   return cudaGetLastError();
 }
 
@@ -199,37 +219,41 @@ cudaError_t dispatch_bc(const void* x, long long sxb, long long sxs,
                         long long sds, long long sdh, const void* A,
                         const void* Bm, long long sbb, long long sbs,
                         const void* Cm, long long scb, long long scs,
-                        const void* D, void* y, int B, int S, int nh, int hd,
-                        int ds, int bcdtype, cudaStream_t st) {
+                        const void* D, void* y, const void* h0, void* hf,
+                        int B, int S, int nh, int hd, int ds, int bcdtype,
+                        cudaStream_t st) {
   if (bcdtype == 1)
     return launch<TX, __nv_bfloat16>(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A,
-                                     Bm, sbb, sbs, Cm, scb, scs, D, y, B, S,
-                                     nh, hd, ds, st);
+                                     Bm, sbb, sbs, Cm, scb, scs, D, y, h0, hf,
+                                     B, S, nh, hd, ds, st);
   return launch<TX, float>(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A, Bm, sbb,
-                           sbs, Cm, scb, scs, D, y, B, S, nh, hd, ds, st);
+                           sbs, Cm, scb, scs, D, y, h0, hf, B, S, nh, hd, ds,
+                           st);
 }
 
 }  // namespace
 
 // x: (B, S, nh, hd) through strides (sxb, sxs, sxh, 1); dt: (B, S, nh) fp32
 // through (sdb, sds, sdh); A, D: (nh,) fp32; Bm/Cm: (B, S, ds) through
-// (sbb, sbs, 1) / (scb, scs, 1); y: (B, S, nh, hd) contiguous. ds <= 128,
-// hd <= 64. xdtype / bcdtype: 0 = fp32, 1 = bf16 (x; B and C). Returns the
-// launch's CUDA error.
+// (sbb, sbs, 1) / (scb, scs, 1); y: (B, S, nh, hd) contiguous; h0 (or
+// null: a zero state) and hf (or null: not written): (B, nh, ds, hd) fp32
+// contiguous. ds <= 128, hd <= 64. xdtype / bcdtype: 0 = fp32, 1 = bf16
+// (x; B and C). Returns the launch's CUDA error.
 extern "C" int repro_ssd_forward(const void* x, long long sxb, long long sxs,
                                  long long sxh, const void* dt, long long sdb,
                                  long long sds, long long sdh, const void* A,
                                  const void* Bm, long long sbb, long long sbs,
                                  const void* Cm, long long scb, long long scs,
-                                 const void* D, void* y, int B, int S, int nh,
-                                 int hd, int ds, int xdtype, int bcdtype,
+                                 const void* D, void* y, const void* h0,
+                                 void* hf, int B, int S, int nh, int hd,
+                                 int ds, int xdtype, int bcdtype,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (xdtype == 1)
     return dispatch_bc<__nv_bfloat16>(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A,
-                                      Bm, sbb, sbs, Cm, scb, scs, D, y, B, S,
-                                      nh, hd, ds, bcdtype, st);
+                                      Bm, sbb, sbs, Cm, scb, scs, D, y, h0,
+                                      hf, B, S, nh, hd, ds, bcdtype, st);
   return dispatch_bc<float>(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A, Bm, sbb,
-                            sbs, Cm, scb, scs, D, y, B, S, nh, hd, ds,
-                            bcdtype, st);
+                            sbs, Cm, scb, scs, D, y, h0, hf, B, S, nh, hd,
+                            ds, bcdtype, st);
 }

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.grouped_gemm import ORDERS
-from repro_torch.models.common import is_glu
+from repro_torch.kernels.ref import is_glu
 
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu2": 3}
 # kernel launches since the last reset(), one count per kernel

@@ -15,6 +15,10 @@ devices. ``flash_attention`` and ``ssd_forward`` run their kernels forward;
 their backward recomputes the plain version under autograd, on both
 devices, because the JAX package has no backward kernel for either
 (``jax.grad`` differentiates its jnp attention and ``ssd_chunked``).
+``rms_norm`` is the model's norm: the rmsnorm kernel's ``model`` epilogue
+forward, the plain form recomputed under autograd backward, for the same
+reason. ``ssd_forward_state`` is the serving chunks' SSD, with an initial
+and a final state, under ``no_grad``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import topk_combine as _tc
 
@@ -188,3 +193,44 @@ def ssd_forward(x, dt, A, Bm, Cm, D, chunk: int = 64):
     the chunk the forward ran (``chunk`` on the CPU, ``ssd.CHUNK`` on the
     card)."""
     return _SSD.apply(x, dt, A, Bm, Cm, D, chunk)
+
+
+@torch.no_grad()
+def ssd_forward_state(x, dt, A, Bm, Cm, D, chunk: int = 64,
+                      h0: Optional[torch.Tensor] = None):
+    """(y (B, S, nh, hd), h_final (B, nh, ds, hd) fp32) of the Mamba-2
+    chunked SSD from the initial state h0 ((B, nh, ds, hd) fp32; None = a
+    zero state): the serving chunks' form (the JAX package's
+    ``ssd_chunked(..., h0)`` in ``repro/models/ssm.py:180-188``). On the
+    CPU the plain chunked form runs at ``chunk``; the CUDA kernel runs its
+    own chunk of ``kernels/ssd.CHUNK``. Not differentiable."""
+    if _on_cuda(x, dt, A, Bm, Cm, D, h0):
+        return _ssd.ssd_forward_state(x, dt, A, Bm, Cm, D,
+                                      None if h0 is None else h0.contiguous())
+    return ref.ssd_state_ref(x, dt, A, Bm, Cm, D, h0, chunk)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if _on_cuda(x, scale):
+            y = _rn.rmsnorm(x.reshape(-1, x.shape[-1]).contiguous(),
+                            scale.contiguous(), eps, epilogue="model")
+            return y.reshape(x.shape)
+        return ref.rms_norm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, scale = ctx.saved_tensors
+        return (*ref.rms_norm_vjp(x, scale, ctx.eps, ct), None)
+
+
+def rms_norm(x, scale, eps: float):
+    """The model's RMSNorm over the last axis (``models/common.rms_norm``):
+    x (..., d), scale (d,) -> x's shape and dtype. On a CUDA tensor the
+    rmsnorm kernel with the ``model`` epilogue, over the flattened leading
+    dimensions. Differentiable: the backward is the plain form recomputed
+    under autograd."""
+    return _RMSNorm.apply(x, scale, eps)

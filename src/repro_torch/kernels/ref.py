@@ -3,17 +3,99 @@
 They mirror ``repro.kernels.ref``: the CPU path runs them, and the tests and
 ``chip_smoke.py`` hold each CUDA kernel against them. Nothing on the main
 path runs a plain forward with a CUDA tensor (``kernels/ops.py`` sends
-those to the kernels); the backward of the attention and of the SSD
-(``flash_attention_vjp``, ``ssd_vjp``) recomputes the plain form under
-autograd on either device.
+those to the kernels); the backward of the attention, the SSD and the norm
+(``flash_attention_vjp``, ``ssd_vjp``, ``rms_norm_vjp``) recomputes the
+plain form under autograd on either device. The activations and the
+model's ``rms_norm`` are model functions (``models/common`` names them)
+kept here as the plain versions of the kernels' epilogues, so this module
+imports nothing of the model layer.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.common import activate, activate_vjp
+
+def activate(name: str, gate, up):
+    """gate may be None for non-GLU activations. ``gelu`` is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    if name == "swiglu":
+        return F.silu(gate) * up
+    if name == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if name == "gelu":
+        return F.gelu(up, approximate="tanh")
+    if name == "relu2":
+        r = F.relu(up)
+        return r * r
+    raise ValueError(name)
+
+
+def _gelu_tanh_grad(x):
+    """d gelu_tanh / dx, the derivative JAX's autodiff takes of
+    ``jax.nn.gelu``."""
+    k = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(k * (x + 0.044715 * x ** 3))
+    return 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * k * (1 + 3 * 0.044715
+                                                         * x * x)
+
+
+def activate_vjp(name: str, gate, up, dh):
+    """(dgate, dup) for h = activate(name, gate, up) and the cotangent dh,
+    written out (dgate is None for non-GLU activations)."""
+    if name == "swiglu":
+        s = torch.sigmoid(gate)
+        return dh * up * s * (1 + gate * (1 - s)), dh * gate * s
+    if name == "geglu":
+        return (dh * up * _gelu_tanh_grad(gate),
+                dh * F.gelu(gate, approximate="tanh"))
+    if name == "gelu":
+        return None, dh * _gelu_tanh_grad(up)
+    if name == "relu2":
+        return None, dh * 2 * F.relu(up)
+    raise ValueError(name)
+
+
+def is_glu(name: str) -> bool:
+    return name in ("swiglu", "geglu")
+
+
+def _rms_norm(x, scale, eps, epilogue: str):
+    """The body of rmsnorm_ref and rms_norm, also recomputed by
+    rms_norm_vjp: fp32 statistics, then the epilogue's rounding."""
+    h = x.float()
+    r = torch.rsqrt((h * h).mean(dim=-1, keepdim=True) + eps)
+    if epilogue == "tpu":
+        return (h * r * scale.float()).to(x.dtype)
+    return (h * r).to(x.dtype) * scale.to(x.dtype)
+
+
+def rmsnorm_ref(x, scale, eps=1e-5):
+    """The TPU kernel's RMSNorm (the rmsnorm kernel's ``tpu`` epilogue;
+    the JAX package's ``ref.rmsnorm_ref``): fp32 statistics, the scale
+    multiplied in fp32, one rounding to x's dtype."""
+    return _rms_norm(x, scale, eps, "tpu")
+
+
+def rms_norm(x, scale, eps):
+    """The model's RMSNorm (the rmsnorm kernel's ``model`` epilogue; the
+    JAX package's ``models.common.rms_norm``): fp32 statistics, the
+    normalised row rounded to x's dtype, times the scale rounded to x's
+    dtype. In fp32 it equals rmsnorm_ref."""
+    return _rms_norm(x, scale, eps, "model")
+
+
+def rms_norm_vjp(x, scale, eps, ct):
+    """(dx, dscale) of rms_norm for the cotangent ct, the plain form
+    recomputed under autograd (the JAX package has no norm VJP kernel:
+    ``jax.grad`` differentiates its jnp norm)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, scale)]
+        out = _rms_norm(*ins, eps, "model")
+        return torch.autograd.grad(out, ins, ct.to(out.dtype))
 
 
 def grouped_gemm_ref(lhs, rhs, out_dtype=None):
@@ -214,14 +296,16 @@ def ssd_ref(x, dt, A, Bm, Cm, D):
     return y.to(x.dtype)
 
 
-def _ssd_padded(x, dt, A, Bm, Cm, D, chunk):
-    """The body of ssd_chunked_ref, also recomputed by its VJP."""
+def _ssd_padded(x, dt, A, Bm, Cm, D, chunk, h0=None):
+    """The body of ssd_chunked_ref and ssd_state_ref, also recomputed by
+    the VJP: (y, h_final)."""
     S = x.shape[1]
     pad = (-S) % chunk if S > chunk else 0
     if pad:
-        x, dt, Bm, Cm = (torch.nn.functional.pad(
-            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
-    return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)[0][:, :S]
+        x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                         for t in (x, dt, Bm, Cm))
+    y, h = ssd_chunked(x, dt, A, Bm, Cm, D, chunk, h0)
+    return y[:, :S], h
 
 
 def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=64):
@@ -231,7 +315,16 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=64):
     (zero x, dt, B and C) up to the next multiple, as the kernel pads its
     last chunk; ``ssd_chunked`` itself would take one chunk of the whole
     length, whose cumulative decays lose digits to cancellation."""
-    return _ssd_padded(x, dt, A, Bm, Cm, D, chunk)
+    return _ssd_padded(x, dt, A, Bm, Cm, D, chunk)[0]
+
+
+def ssd_state_ref(x, dt, A, Bm, Cm, D, h0=None, chunk=64):
+    """The plain version of the SSD kernel with a state, the serving
+    chunks' form: (y, h_final) of the chunked dual form from the initial
+    state h0 ((B, nh, ds, hd) fp32; None = a zero state), a ragged tail
+    padded with identity steps as in ssd_chunked_ref, so h_final is the
+    state after the last real step."""
+    return _ssd_padded(x, dt, A, Bm, Cm, D, chunk, h0)
 
 
 def ssd_vjp(x, dt, A, Bm, Cm, D, chunk, ct, needs):
@@ -242,7 +335,7 @@ def ssd_vjp(x, dt, A, Bm, Cm, D, chunk, ct, needs):
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(n)
                for t, n in zip((x, dt, A, Bm, Cm, D), needs)]
-        y = _ssd_padded(*ins, chunk)
+        y = _ssd_padded(*ins, chunk)[0]
         want = [t for t, n in zip(ins, needs) if n]
         got = iter(torch.autograd.grad(y, want, ct.to(y.dtype)))
         return tuple(next(got) if n else None for n in needs)

@@ -4,6 +4,10 @@ GPU, random weights from a seed.
   python -m repro_torch.launch.serve --arch qwen2-moe-2.7b --requests 16 \
       --batch 8 --max-seq 1024 --chunk 256 --max-new 32 \
       --gemm-impl pallas_fused
+  python -m repro_torch.launch.serve --arch mamba2-780m --max-seq 2048 \
+      --prompt-max 1024
+
+``--gemm-impl`` applies to configs with MoE layers only.
 
 Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
 numpy RNG. ``--device cpu`` runs on the CPU (small configs only).

@@ -1,9 +1,8 @@
 """Layer blocks: (attention | Mamba-2 SSM) + (dense FFN | MoE), schema,
 the training forward (``apply_layer``, the sequential form of the JAX
-package's ``block_segments``) and the two cached serving modes of
-attention layers: single-token decode and chunked prefill. No
-cross-attention yet; SSM layers have no cached mode yet (the SSM serving
-slice)."""
+package's ``block_segments``) and the two cached serving modes,
+single-token decode and chunked prefill, of both layer kinds. No
+cross-attention yet."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -137,21 +136,18 @@ def apply_layer(cfg, pos: int, p, x, positions, mask=None,
     return _mlp_tail(cfg, p, x)
 
 
-def require_attention(cfg, pos: int, what: str) -> None:
-    """The cached serving modes hold KV caches only: an SSM layer raises."""
-    if cfg.layer_kind(pos) != "a":
-        raise NotImplementedError(f"{what} of an SSM layer: "
-                                  f"{SSM.SERVING_SLICE}")
-
-
 def decode_layer(cfg, pos: int, p, x, cache, t_pos):
-    """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd), updated
-    in place; t_pos: (B,) per-row cache write index (= RoPE position).
-    Returns x."""
-    require_attention(cfg, pos, "decode_layer")
+    """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
+    {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
+    write index (= RoPE position). Returns x."""
+    h = apply_norm(cfg, p["ln1"], x)
+    if cfg.layer_kind(pos) != "a":
+        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache)
+        cache["conv"].copy_(new["conv"])
+        cache["state"].copy_(new["state"])
+        return _mlp_tail(cfg, p, x + h)[0]
     a = cfg.attn
     B = x.shape[0]
-    h = apply_norm(cfg, p["ln1"], x)
     q, k, v = _qkv_proj(a, p["attn"], h)
     if a.rope_theta > 0:
         pos_arr = t_pos.reshape(B, 1)
@@ -163,17 +159,32 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos):
     return _mlp_tail(cfg, p, x)[0]
 
 
-def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos):
+def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
+                valid_len):
     """One prompt chunk per admission row: x (A, C, d) rows enter slot
     ``slots[a]`` of the full cache at indices [pos_off[a], pos_off[a] + C),
     written in place; each row attends over its own slot up to its own
     index (earlier chunks included). Tail-pad K/V land past every valid
     query's index: causal-masked now, overwritten by the first decode
-    steps before any query can reach them. Returns x."""
-    require_attention(cfg, pos, "chunk_layer")
+    steps before any query can reach them. An SSM layer takes its slots'
+    conv window and state out (zeroed where pos_off == 0: a request's first
+    chunk starts from a zero carry), scans on from them with the pads
+    (mask (A, C) false) as identity steps, and writes them back in place
+    with the window after each row's valid_len tokens. Returns x."""
+    h = apply_norm(cfg, p["ln1"], x)
+    if cfg.layer_kind(pos) != "a":
+        carry = {}
+        for k in ("conv", "state"):
+            c = cache[k][slots]
+            first = (pos_off == 0).reshape((-1,) + (1,) * (c.dim() - 1))
+            carry[k] = torch.where(first, torch.zeros_like(c), c)
+        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=carry,
+                                 mask=mask, valid_len=valid_len)
+        for k in ("conv", "state"):
+            cache[k].index_copy_(0, slots, new[k].to(cache[k].dtype))
+        return _mlp_tail(cfg, p, x + h.to(x.dtype))[0]
     a = cfg.attn
     Ac, C, _ = x.shape
-    h = apply_norm(cfg, p["ln1"], x)
     q, k, v = _qkv_proj(a, p["attn"], h)
     if a.rope_theta > 0:
         q = apply_rope(q, q_pos, a.rope_theta)

@@ -11,8 +11,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
+# the plain model norm and the activations live beside the kernels whose
+# plain versions they are; the model layer names them here, as the JAX
+# package's models/common does
+from repro_torch.kernels.ref import (activate, activate_vjp,  # noqa: F401
+                                     is_glu, rms_norm)
 
 Tree = Any
 
@@ -89,12 +95,6 @@ def init_from_schema(schema: Tree, gen: torch.Generator, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, eps):
-    h = x.float()
-    var = (h * h).mean(dim=-1, keepdim=True)
-    return (h * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
-
-
 def layer_norm(x, scale, bias, eps):
     h = x.float()
     mu = h.mean(dim=-1, keepdim=True)
@@ -104,9 +104,12 @@ def layer_norm(x, scale, bias, eps):
 
 
 def apply_norm(cfg, p, x):
+    """A norm region of the model: RMSNorm through ``ops.rms_norm`` (the
+    hand-written kernel on a CUDA tensor, the plain ``rms_norm`` on the
+    CPU); LayerNorm stays plain, as no TPU kernel computes it."""
     if cfg.norm == "layernorm":
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
-    return rms_norm(x, p["scale"], cfg.norm_eps)
+    return ops.rms_norm(x, p["scale"], cfg.norm_eps)
 
 
 def norm_schema(cfg, d) -> Dict[str, ParamDecl]:
@@ -114,50 +117,6 @@ def norm_schema(cfg, d) -> Dict[str, ParamDecl]:
     if cfg.norm == "layernorm":
         s["bias"] = ParamDecl((d,), ("embed_v",), "zeros")
     return s
-
-
-def activate(name: str, gate, up):
-    """gate may be None for non-GLU activations. ``gelu`` is the tanh
-    approximation, ``jax.nn.gelu``'s default."""
-    if name == "swiglu":
-        return F.silu(gate) * up
-    if name == "geglu":
-        return F.gelu(gate, approximate="tanh") * up
-    if name == "gelu":
-        return F.gelu(up, approximate="tanh")
-    if name == "relu2":
-        r = F.relu(up)
-        return r * r
-    raise ValueError(name)
-
-
-def _gelu_tanh_grad(x):
-    """d gelu_tanh / dx, the derivative JAX's autodiff takes of
-    ``jax.nn.gelu``."""
-    k = math.sqrt(2.0 / math.pi)
-    t = torch.tanh(k * (x + 0.044715 * x ** 3))
-    return 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * k * (1 + 3 * 0.044715
-                                                         * x * x)
-
-
-def activate_vjp(name: str, gate, up, dh):
-    """(dgate, dup) for h = activate(name, gate, up) and the cotangent dh,
-    written out (dgate is None for non-GLU activations)."""
-    if name == "swiglu":
-        s = torch.sigmoid(gate)
-        return dh * up * s * (1 + gate * (1 - s)), dh * gate * s
-    if name == "geglu":
-        return (dh * up * _gelu_tanh_grad(gate),
-                dh * F.gelu(gate, approximate="tanh"))
-    if name == "gelu":
-        return None, dh * _gelu_tanh_grad(up)
-    if name == "relu2":
-        return None, dh * 2 * F.relu(up)
-    raise ValueError(name)
-
-
-def is_glu(name: str) -> bool:
-    return name in ("swiglu", "geglu")
 
 
 # ---------------------------------------------------------------------------

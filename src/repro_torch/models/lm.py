@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDecl, apply_norm,
                                        chunked_xent, init_from_schema,
                                        norm_schema, tree_map)
@@ -80,27 +81,34 @@ def _period(tree: Tree, n: int) -> Tree:
     return tree_map(lambda a: a[n], tree)
 
 
-def require_attention_only(cfg, what: str) -> None:
-    """A config with SSM layers raises here, before any shape meets a
-    missing cache."""
-    for pos in range(period_of(cfg)):
-        B.require_attention(cfg, pos, f"{what} of {cfg.name}")
-
-
 def init_cache(cfg, batch_size: int, seq_len: int,
                device: DeviceLike = None) -> Tuple:
-    """Zero contiguous KV cache, a tuple over period positions of
-    {"k", "v"} (n_periods, batch, seq_len, Hkv, hd) in the param dtype."""
-    require_attention_only(cfg, "init_cache")
+    """Zero contiguous decode cache, a tuple over period positions: an
+    attention position holds {"k", "v"} (n_periods, batch, seq_len, Hkv,
+    hd) in the param dtype, an SSM position {"conv" (n_periods, batch,
+    W-1, d_in + 2 ds) in the param dtype, "state" (n_periods, batch, nh,
+    ds, hd) fp32} (``repro/models/lm.py:285-294``)."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet (init_cache)")
     dev = resolve_device(device)
     p = period_of(cfg)
     n_periods = cfg.n_layers // p
-    a = cfg.attn
-    shape = (n_periods, batch_size, seq_len, a.n_kv_heads, a.head_dim)
     dt = dtype_of(cfg.param_dtype)
-    return tuple({"k": torch.zeros(shape, dtype=dt, device=dev),
-                  "v": torch.zeros(shape, dtype=dt, device=dev)}
-                 for _ in range(p))
+    caches = []
+    for pos in range(p):
+        if cfg.layer_kind(pos) == "a":
+            a = cfg.attn
+            shape = (n_periods, batch_size, seq_len, a.n_kv_heads,
+                     a.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)})
+        else:
+            c = SSM.init_ssm_cache(cfg, cfg.ssm, n_periods * batch_size, dt,
+                                   dev)
+            caches.append({k: v.reshape((n_periods, batch_size)
+                                        + v.shape[1:]) for k, v in c.items()})
+    return tuple(caches)
 
 
 def _embed(cfg, params, tokens):
@@ -188,8 +196,8 @@ def loss_fn(cfg, params, batch):
 def decode_step(cfg, params, cache, tokens, t_pos):
     """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
     (every slot decodes at its own position). Returns (logits (B, V) fp32,
-    cache), the cache updated in place."""
-    require_attention_only(cfg, "decode_step")
+    cache), the cache updated in place: K/V at each row's index, and every
+    row's SSM carry (free slots decode too, as in the JAX engine)."""
     Bsz = tokens.shape[0]
     t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
         -1).expand(Bsz)
@@ -211,9 +219,14 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     (A,) cache index of each row's first token; valid_len: (A,) valid
     tokens per row (0 = an identity row); slot: (A,) cache row of each
     admission row (default: row a is slot a). Returns (logits (A, V) fp32
-    at each row's last valid position, cache), the cache updated in
-    place."""
-    require_attention_only(cfg, "prefill_chunk")
+    at each row's last valid position, cache), the cache updated in place.
+
+    Where the JAX package gathers the admission rows' SSM carry, resets it
+    where pos_off == 0 and scatters it back after the chunk
+    (``repro/models/lm.py:416-433, 460-473``), the port does the same per
+    layer (``blocks.chunk_layer``) and writes back with an in-place
+    ``index_copy_``. Tokens past a row's valid_len are identity steps of
+    the SSM scan (mask false)."""
     Ac, C = tokens.shape
     dev = tokens.device
 
@@ -223,12 +236,14 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     pos_off, valid_len = vec(pos_off), vec(valid_len)
     slots = torch.arange(Ac, device=dev) if slot is None else vec(slot)
     q_pos = pos_off[:, None] + torch.arange(C, device=dev)[None, :]
+    mask = torch.arange(C, device=dev)[None, :] < valid_len[:, None]
     h = _embed(cfg, params, tokens)
     p = period_of(cfg)
     for n in range(cfg.n_layers // p):
         for pos in range(p):
             h = B.chunk_layer(cfg, pos, _period(params["layers"][pos], n), h,
-                              _period(cache[pos], n), slots, pos_off, q_pos)
+                              _period(cache[pos], n), slots, pos_off, q_pos,
+                              mask, valid_len)
     h = apply_norm(cfg, params["ln_f"], h)
     h_last = h[torch.arange(Ac, device=dev), torch.clamp(valid_len - 1, min=0)]
     return _logits(cfg, params, h_last), cache

@@ -1,13 +1,14 @@
-"""Mamba-2 (SSD, state-space duality) block: the training forward
-(``repro.models.ssm``).
+"""Mamba-2 (SSD, state-space duality) block (``repro.models.ssm``): the
+training forward and the cached serving modes.
 
-``ssm_forward`` is the block at ``cache=None``: the ``__fusable__ssd``
-region of the JAX package (``repro/models/ssm.py:184-188``) goes to
-``ops.ssd_forward``, the hand-written kernel on a CUDA tensor. The plain
-SSD forms (``ssd_chunked`` with an initial and a final state, and the
-sequential ``ssd_ref``) live in ``kernels/ref.py``. The cached serving
-modes (decode recurrence, chunk continuation, prefill with
-``return_cache``) belong to the SSM serving slice and raise here.
+The ``__fusable__ssd`` region of the JAX package
+(``repro/models/ssm.py:180-188``) goes to the hand-written SSD kernel on a
+CUDA tensor: ``ops.ssd_forward`` in the training forward (a zero state, y
+only), ``ops.ssd_forward_state`` on the serving chunks (the cached state in,
+the final state out). The single-step decode recurrence is plain tensor
+code, as in the JAX package. The gated norm goes through ``ops.rms_norm``.
+The plain SSD forms (``ssd_chunked`` with an initial and a final state, and
+the sequential ``ssd_ref``) live in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -17,11 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDecl, rms_norm
-
-SERVING_SLICE = ("the SSM serving slice of the port (cache modes, "
-                 "init_ssm_cache, decode recurrence, chunk continuation) "
-                 "is not ported yet")
+from repro_torch.models.common import ParamDecl
 
 
 def ssm_schema(cfg, s) -> Dict[str, ParamDecl]:
@@ -66,22 +63,44 @@ def _causal_conv(x, w, b, state=None):
     return y + b.to(x.dtype), new_state
 
 
-def ssm_forward(cfg, s, p, x, cache=None, return_cache=False,
-                mask=None):
-    """The Mamba-2 block's training forward. x: (B, S, d); mask: optional
-    (B, S) validity: pad positions become identity steps (conv input and
-    dt zeroed, ``repro/models/ssm.py:165-176``). Returns (y, None)."""
-    if cache is not None or return_cache:
-        raise NotImplementedError(f"ssm_forward with a cache: "
-                                  f"{SERVING_SLICE}")
+def _conv_window(conv_state, conv_in, valid_len, W):
+    """The conv window after the last valid token of a continuation chunk:
+    the W-1 rows of concat(previous window, chunk inputs) that start at
+    ``valid_len`` (() shared or (B,) per row; None = the whole chunk),
+    ``repro/models/ssm.py:193-205``."""
+    Bsz, S = conv_in.shape[:2]
+    xp = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
+    off = (torch.full((Bsz,), S, device=conv_in.device) if valid_len is None
+           else torch.as_tensor(valid_len, device=conv_in.device).long()
+           .reshape(-1).expand(Bsz))
+    rows = off[:, None] + torch.arange(W - 1, device=conv_in.device)
+    return xp[torch.arange(Bsz, device=conv_in.device)[:, None], rows]
+
+
+def ssm_forward(cfg, s, p, x, cache=None, return_cache=False, mask=None,
+                valid_len=None):
+    """The Mamba-2 block. x: (B, S, d). ``cache``: None for the training
+    forward and the prefill, else {"conv" (B, W-1, C), "state" (B, nh, ds,
+    hd) fp32}: the single-token decode recurrence when S == 1, the chunked
+    prefill continuation when S > 1 (the chunk scans on from the cached
+    conv window and SSD state). ``return_cache`` on the prefill emits the
+    final state. mask: optional (B, S) validity: pad positions become
+    identity steps (conv input and dt zeroed, ``repro/models/ssm.py:
+    165-176``). valid_len: () or (B,) valid leading tokens of a
+    continuation chunk: the new conv window is taken after the last valid
+    token. Returns (y, new cache or None); the cache passed in is not
+    written."""
     d_in = s.expand * cfg.d_model
     nh = d_in // s.head_dim
+    chunk_cont = cache is not None and x.shape[1] > 1
     z, xr, Bm, Cm, dt = _split_proj(cfg, s, x @ p["in_proj"])
 
     conv_in = torch.cat([xr, Bm, Cm], dim=-1)
     if mask is not None:
         conv_in = conv_in * mask[..., None].to(conv_in.dtype)
-    conv_out, _ = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+    conv_state = cache["conv"] if cache is not None else None
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
+                                      conv_state)
     conv_out = F.silu(conv_out)
     xr = conv_out[..., :d_in]
     Bm = conv_out[..., d_in:d_in + s.d_state]
@@ -91,9 +110,53 @@ def ssm_forward(cfg, s, p, x, cache=None, return_cache=False,
     if mask is not None:
         dt = dt * mask[..., None].to(dt.dtype)
     A = -torch.exp(p["A_log"].float())
+    D = p["D"].float()
     xh = xr.reshape(*xr.shape[:-1], nh, s.head_dim)
-    # the __fusable__ssd region at a zero initial state, y only
-    y = ops.ssd_forward(xh, dt, A, Bm, Cm, p["D"].float(), s.chunk_size)
+
+    new_cache = None
+    if cache is None and not return_cache:
+        # the training forward: a zero initial state, y only
+        y = ops.ssd_forward(xh, dt, A, Bm, Cm, D, s.chunk_size)
+    elif cache is None or chunk_cont:
+        # a prefill chunk: from the cached state (continuation) or a zero
+        # one (prefill with return_cache), keeping the final state
+        y, h_final = ops.ssd_forward_state(
+            xh, dt, A, Bm, Cm, D, s.chunk_size,
+            cache["state"] if chunk_cont else None)
+        W = s.conv_width
+        if W == 1:
+            conv_entry = conv_in[:, :0]
+        elif chunk_cont:
+            conv_entry = _conv_window(conv_state, conv_in, valid_len, W)
+        else:
+            conv_entry = conv_in[:, -(W - 1):]
+        new_cache = {"conv": conv_entry.to(x.dtype), "state": h_final}
+    else:
+        # the single-step recurrence, S == 1 (plain, as in the JAX package)
+        h = cache["state"]                              # (B, nh, ds, hd)
+        a = torch.exp(dt[:, 0] * A)                     # (B, nh)
+        xd = (xh[:, 0] * dt[:, 0, :, None]).float()
+        h = (h * a[..., None, None]
+             + Bm[:, 0].float()[:, None, :, None] * xd[:, :, None, :])
+        y = torch.einsum("bs,bhsp->bhp", Cm[:, 0].float(), h)
+        y = y + D[None, :, None] * xh[:, 0].float()
+        y = y[:, None].to(x.dtype)
+        new_cache = {"conv": new_conv, "state": h}
+
     y = y.reshape(*x.shape[:-1], d_in)
-    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    return (y @ p["out_proj"]).to(x.dtype), None
+    y = ops.rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    return (y @ p["out_proj"]).to(x.dtype), new_cache
+
+
+def init_ssm_cache(cfg, s, batch: int, dtype, device) -> Dict:
+    """A zero SSM cache for ``batch`` rows: the conv window (B, W-1,
+    d_in + 2 ds) in ``dtype`` and the SSD state (B, nh, ds, hd) fp32."""
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.d_state
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, nh, s.d_state, s.head_dim),
+                             dtype=torch.float32, device=device),
+    }

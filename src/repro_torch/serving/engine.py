@@ -9,6 +9,9 @@ chunks in one stacked call per chunk step, the stack padded to a power
 of two with free slots as identity rows. Decoding advances every slot at its
 own position; free slots decode too and their tokens are ignored, as in
 the JAX engine, so both engines route the same tokens through the MoE.
+Attention, SSM and hybrid configs go through the same code: the cache
+holds K/V or SSM carries per layer kind (``lm.init_cache``), and a slot's
+SSM carry is reset inside the prefill step where a request starts.
 
 Not ported yet: the paged cache, deadlines and load shedding, cancel,
 NaN quarantine, snapshot/restore and fault injection, and the
@@ -137,7 +140,6 @@ class ServeEngine:
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
                  device: DeviceLike = None):
-        lm.require_attention_only(cfg, "ServeEngine")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_seq = max_seq

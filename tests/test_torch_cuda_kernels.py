@@ -4,8 +4,9 @@ small ragged shapes: every activation, both orders, a column slice, fp32
 at two row tiles and through ops.fused_mlp's autograd; flash attention
 (MHA, GQA, MQA, ragged lengths, causal and not, strided views) and the SSD
 (ragged lengths, small and model-size states, strided views, mixed
-dtypes) with their autograd backward. Needs an NVIDIA Hopper GPU and nvcc;
-skips elsewhere. On the card:
+dtypes, an initial and a final state) with their autograd backward; the
+rmsnorm in both epilogues (vector and scalar widths, fp32 and bf16 scales)
+and its autograd op. Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
 
   python -m pytest -m gpu tests/test_torch_cuda_kernels.py
 """
@@ -256,5 +257,82 @@ def test_flash_and_ssd_backward_recompute_the_plain_versions(cuda):
     assert ssd.launches == 1
     want = torch.autograd.grad(ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK),
                                ins, ct)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("xdt,bdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,S,nh,hd,ds", [(2, 200, 3, 64, 128),
+                                          (1, 5, 1, 8, 4),
+                                          (2, 64, 4, 32, 16)])
+def test_ssd_forward_with_state(cuda, xdt, bdt, B, S, nh, hd, ds):
+    """y and the final state from a given initial state, against the plain
+    chunked form; a state handed through two calls equals one call over
+    the whole length."""
+    from repro_torch.kernels import ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + hd)
+    ins = _ssd_operands(gen, B, S, nh, hd, ds, xdt, bdt)
+    h0 = _randn(gen, (B, nh, ds, hd), torch.float32)
+    ssd.reset()
+    y, hf = ssd.ssd_forward_state(*ins, h0)
+    assert ssd.launches == 1 and hf.dtype == torch.float32
+    want_y, want_h = ref.ssd_state_ref(*ins, h0, chunk=ssd.CHUNK)
+    dtype = torch.bfloat16 if torch.bfloat16 in (xdt, bdt) else xdt
+    _close(y, want_y, dtype)
+    _close(hf, want_h, torch.float32 if dtype == torch.float32 else dtype)
+    if S < 2:
+        return
+    cut = S // 2
+    x, dt, A, Bm, Cm, D = ins
+    y1, h1 = ssd.ssd_forward_state(x[:, :cut], dt[:, :cut], A, Bm[:, :cut],
+                                   Cm[:, :cut], D, h0)
+    y2, h2 = ssd.ssd_forward_state(x[:, cut:], dt[:, cut:], A, Bm[:, cut:],
+                                   Cm[:, cut:], D, h1)
+    _close(torch.cat([y1, y2], dim=1), y, dtype)
+    _close(h2, hf, torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", ["tpu", "model"])
+@pytest.mark.parametrize("T,d", [(100, 896), (8, 64), (3, 1536), (5, 8192),
+                                 (4, 100), (2, 3000),
+                                 (3, 1001)])
+def test_rmsnorm(cuda, dtype, epilogue, T, d):
+    """Vector widths, scalar ones (d not a multiple of the 16-byte
+    vector), up to jamba's gated norm width; a non-unit fp32 scale."""
+    from repro_torch.kernels import ref, rmsnorm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T + d)
+    x = _randn(gen, (T, d), dtype)
+    scale = 1.0 + 0.1 * _randn(gen, (d,), torch.float32)
+    got = rmsnorm.rmsnorm(x, scale, 1e-5, epilogue=epilogue)
+    plain = ref.rmsnorm_ref if epilogue == "tpu" else ref.rms_norm
+    assert got.dtype == dtype
+    _close(got, plain(x, scale, 1e-5), dtype)
+    if dtype == torch.bfloat16:      # a scale in x's dtype
+        s16 = scale.to(dtype)
+        _close(rmsnorm.rmsnorm(x, s16, 1e-5, epilogue=epilogue),
+               plain(x, s16, 1e-5), dtype)
+
+
+def test_rms_norm_op_is_the_kernel_forward(cuda):
+    """ops.rms_norm on (B, S, d) launches the model epilogue once and its
+    gradient is the plain form's (fp32)."""
+    from repro_torch.kernels import ops, ref, rmsnorm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    x = _randn(gen, (2, 9, 1536), torch.float32).requires_grad_()
+    scale = (1.0 + 0.1 * _randn(gen, (1536,), torch.float32)
+             ).requires_grad_()
+    ct = _randn(gen, (2, 9, 1536), torch.float32)
+    rmsnorm.reset()
+    y = ops.rms_norm(x, scale, 1e-6)
+    assert rmsnorm.launches == 1 and y.shape == x.shape
+    got = torch.autograd.grad(y, [x, scale], ct)
+    want_y = ref.rms_norm(x, scale, 1e-6)
+    want = torch.autograd.grad(want_y, [x, scale], ct)
+    _close(y, want_y, torch.float32)
     for g, w in zip(got, want):
         _close(g, w, torch.float32)

@@ -1,6 +1,8 @@
 """Serving parity: the port's ``ServeEngine.generate`` against the JAX
-package's on smoke configs with bridged weights. The token streams must be
-identical: more requests than slots (slot reuse), mixed prompt lengths,
+package's on smoke configs with bridged weights: MoE attention models, the
+SSM family (mamba2) and the hybrid (jamba: attention, SSM and MoE in one
+period). The token streams must be identical: more requests than slots
+(slot reuse, SSM carries reset on re-admission), mixed prompt lengths,
 prompts longer than the prefill chunk, and an eos that ends a request
 early."""
 import dataclasses
@@ -49,7 +51,9 @@ def _prompts(vocab, lens, seed=0):
 
 @pytest.mark.parametrize("arch,eos_case", [("qwen2-moe-2.7b-smoke", True),
                                            ("granite-moe-3b-a800m-smoke",
-                                            False)])
+                                            False),
+                                           ("mamba2-780m-smoke", True),
+                                           ("jamba-v0.1-52b-smoke", False)])
 def test_token_streams_match_jax(arch, eos_case):
     jeng, teng = _engines(arch)
     prompts = _prompts(teng.cfg.vocab_size, [5, 23, 40, 9, 17])
@@ -99,5 +103,20 @@ def test_serve_cli_runs_on_cpu_when_asked(capsys):
                       "--gemm-impl", "pallas"])
     out = capsys.readouterr().out
     assert "req2 (len" in out and "decode steps" in out
+    assert all(r.status.value == "ok" and len(r.tokens) == 3
+               for r in eng.finished.values())
+
+
+def test_serve_cli_serves_the_ssm_family(capsys):
+    """--arch of the SSM family runs; --gemm-impl applies to configs with
+    MoE layers only and is ignored here."""
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "mamba2-780m-smoke", "--device", "cpu",
+                      "--requests", "3", "--batch", "2", "--max-seq", "48",
+                      "--chunk", "16", "--prompt-min", "3",
+                      "--prompt-max", "30", "--max-new", "3",
+                      "--gemm-impl", "pallas"])
+    assert "decode steps" in capsys.readouterr().out
+    assert eng.cfg.moe is None
     assert all(r.status.value == "ok" and len(r.tokens) == 3
                for r in eng.finished.values())

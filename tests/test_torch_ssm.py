@@ -150,14 +150,6 @@ def test_ssm_forward_matches_jax(masked):
     np.testing.assert_allclose(_np(ty), np.asarray(jy), **TOL["float32"])
 
 
-def test_ssm_forward_cache_modes_name_the_serving_slice():
-    _, cfg, _, tl = _ssm_layer(4)
-    x = torch.zeros((1, 4, cfg.d_model))
-    for kw in ({"return_cache": True}, {"cache": {"conv": None}}):
-        with pytest.raises(NotImplementedError, match="SSM serving slice"):
-            S.ssm_forward(cfg, cfg.ssm, tl, x, **kw)
-
-
 def test_ssd_op_gradient_matches_jax():
     """The op's backward (ssd_chunked recomputed under autograd) against
     jax.grad of JAX ssd_chunked, for all six inputs."""

@@ -2,8 +2,8 @@
 the JAX package, with weights carried by ``bridge.from_jax``: ``loss_fn``
 and every gradient (remat none and full), three train steps (losses, grad
 norms and parameters), and the padded forward with a mask; fp32 1e-4. The
-serving entry points refuse SSM configs by name, and the training CLI runs
-the family on the CPU when asked."""
+training CLI runs the family on the CPU when asked (serving:
+``test_torch_ssm_serve.py``)."""
 import dataclasses
 import tempfile
 
@@ -133,22 +133,6 @@ def test_padded_forward_matches_jax():
                                        "mask": torch.from_numpy(mask)})
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     assert float(taux) == float(jaux) == 0.0
-
-
-def test_serving_entry_points_refuse_ssm_configs():
-    from repro_torch.serving import ServeEngine
-    cfg = get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="SSM serving slice"):
-        lm.init_cache(cfg, 2, 16, "cpu")
-    with pytest.raises(NotImplementedError, match="SSM serving slice"):
-        ServeEngine(cfg, device="cpu")
-    p = lm.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="SSM serving slice"):
-        lm.decode_step(cfg, p, (), torch.zeros((1, 1), dtype=torch.long),
-                       torch.zeros(1, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="SSM serving slice"):
-        lm.prefill_chunk(cfg, p, (), torch.zeros((1, 4), dtype=torch.long),
-                         0, 4)
 
 
 def test_train_cli_runs_the_ssm_family(monkeypatch):
