@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py              # all eight phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
+  python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
 
 Phases:
   1 build    nvidia-smi's card and power limit; build the CUDA kernels from
@@ -10,9 +11,15 @@ Phases:
   2 kernels  each kernel against its plain PyTorch version on the card, at
              the main paths' shapes and ragged ones, bf16 (tol 2e-2) and
              fp32 (tol 1e-4, TF32 off); median time by CUDA events beside
-             the plain version's, one library call's and the bound. The
-             backward kernels (fused_mlp_dgrad, fused_mlp_wgrad) at the
-             train shape, a ragged R, a column block and all four
+             the plain version's, one library call's and the bound.
+             fused_mlp also at the train shape (R = 320) and at
+             jamba-v0.1-52b's expert width (16 experts, d 4096, f 14336,
+             N 4096, R 320) with its scratch bytes; every bf16 case of
+             fused_mlp and fused_mlp_wgrad must take the wgmma path, and
+             every case of the two must give identical bits on a second
+             call. The backward kernels (fused_mlp_dgrad,
+             fused_mlp_wgrad) at the train shape, a ragged R, a column
+             block and all four
              activations; flash_attention at the qwen2 train shape, a
              GQA shape (mixtral-8x7b's heads) and ragged lengths;
              ssd_forward at the mamba2-780m train shape and ragged ones,
@@ -24,12 +31,14 @@ Phases:
              max_seq 1024, chunk 256: after a warm-up round on an engine of
              its own, 16 requests with prompts of 64-512 tokens and max_new
              32. Launch counters are zeroed before and read after (rmsnorm:
-             2L+1 per prefill_chunk or decode_step call); the plain
-             versions must see no CUDA tensor.
+             2L+1 per prefill_chunk or decode_step call; every fused_mlp
+             launch on the wgmma path); the plain versions must see no
+             CUDA tensor.
   4 logits   the same weights: one stacked prefill_chunk plus 4
              teacher-forced decode_steps through the kernels and through
              the plain versions; fp32 logits compared (first 4 layers in
-             fp32, and all 24 in bf16 beside a second plain path).
+             fp32, and all 24 in bf16 beside a second plain path; every
+             bf16 fused_mlp launch on the wgmma path).
   5 pallas   a short serve with gemm_impl="pallas" (the grouped-GEMM
              kernel), then one full-width MoE layer, prefill and decode
              shapes, "pallas" against "xla".
@@ -41,8 +50,9 @@ Phases:
              pallas_fused, remat full, AdamW), 4096 tokens per step: one
              warm-up step and 3 timed ones, launch counters zeroed before
              and read after (2L fused_mlp and topk_combine, L dgrad and
-             wgrad per step; 2L flash_attention: forward and remat
-             recompute; rmsnorm 2 x 2L + 1: forward, remat recompute and
+             wgrad per step, every fused_mlp and wgrad on the wgmma
+             path; 2L flash_attention: forward and remat recompute;
+             rmsnorm 2 x 2L + 1: forward, remat recompute and
              the final norm). Last, Trainer.run with a checkpoint and a
              fault-hook replay on qwen2-moe-2.7b-smoke.
   7 train_ssm  mamba2-780m at full width and all 48 layers: loss and every
@@ -111,8 +121,14 @@ REPLACES = {
     "ssd_forward": "src/repro/kernels/ssd.py:72",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
 }
-SOURCES = {"fused_mlp_dgrad": "fused_mlp_dgrad.cu",
-           "fused_mlp_wgrad": "fused_mlp_wgrad.cu", "ssd_forward": "ssd.cu"}
+# the main path's kernel source of each (bf16: the wgmma paths of
+# fused_mlp and fused_mlp_wgrad; their general kernels are fused_mlp.cu and
+# fused_mlp_wgrad.cu)
+SOURCES = {"fused_mlp": "fused_mlp_hopper.cu",
+           "fused_mlp_dgrad": "fused_mlp_dgrad.cu",
+           "fused_mlp_wgrad": "fused_mlp_wgrad_hopper.cu",
+           "ssd_forward": "ssd.cu"}
+JAMBA_CASE = "jamba E=16 R=320 d=4096 f=14336 N=4096"
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
 TRAIN_LAYERS = 4
@@ -308,6 +324,16 @@ def kernel_cases():
             for epi in ("model", "tpu"):
                 cases.append(("rmsnorm", f"T={T} d={d} {epi}", dt,
                               dict(T=T, d=d, epi=epi)))
+    # Later cases come last, so the cases above keep the seeded data they
+    # had: fused_mlp at the train shape (R = 320), and at jamba-v0.1-52b's
+    # expert width (d_model 4096, d_expert 14336, 16 experts) at 320 rows
+    # per expert, where the scratch the forward needs is recorded.
+    for dt in ("bf16", "fp32"):
+        cases.append(("fused_mlp", "R=320 expert_major", dt,
+                      dict(R=320, order="expert_major", col=None)))
+    cases.append(("fused_mlp", JAMBA_CASE, "bf16",
+                  dict(R=320, order="expert_major", col=None, E=16, d=4096,
+                       f=14336, N=4096)))
     return cases
 
 
@@ -475,7 +501,26 @@ def mlp_bwd_case(kernel, dt, isz, spec, gen):
     outs = E * R * d if dgrad else n_w1 * E * d * f + E * f * n_out
     flops = (2 * E * R * f * (2 * n_w1 * d + n_out) if dgrad
              else 2 * E * R * f * (2 * n_w1 * d + 2 * n_out))
-    return k, p, p64, lib, (ins + outs) * isz, flops
+    extra = {}
+    if not dgrad:
+        path = fused_mlp.hopper_path(x, wg, wu, wd, dy)
+        extra = {"path": "hopper" if path else "general",
+                 "scratch_bytes": fused_mlp.wgrad_scratch_bytes(E, R, f, glu)
+                 if path else None}
+    return k, p, p64, lib, (ins + outs) * isz, flops, extra
+
+
+@contextlib.contextmanager
+def general_path():
+    """While active, the fused-MLP wrappers take their general kernels for
+    every call."""
+    from repro_torch.kernels import fused_mlp
+    real = fused_mlp.hopper_path
+    fused_mlp.hopper_path = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        fused_mlp.hopper_path = real
 
 
 def run_kernel_case(kernel, dt_name, spec, gen, timed):
@@ -486,7 +531,8 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     from repro_torch.models.common import activate
     dt = torch.bfloat16 if dt_name == "bf16" else torch.float32
     isz = 2 if dt_name == "bf16" else 4
-    E, d, f, N = 64, 2048, 1408, 2048
+    E, d, f, N = (spec.get(k, v) for k, v in (("E", 64), ("d", 2048),
+                                              ("f", 1408), ("N", 2048)))
     if kernel == "fused_mlp":
         R = spec["R"]
         x = _randn((E, R, d), dt, 1.0, gen)
@@ -513,9 +559,17 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         nbytes = (E * R * d + 2 * E * d * f + E * f * n_out
                   + E * R * n_out) * isz
         flops = 2 * E * R * d * f * 2 + 2 * E * R * f * n_out
+        path = fused_mlp.hopper_path(x, wg, wu, wd)
+        scratch = (fused_mlp.fused_mlp_plan(E, R, d, f, n_out)
+                   ["scratch_bytes"] if path else
+                   fused_mlp.general_scratch_bytes(E, R, f, n_out))
+        extra = {"path": "hopper" if path else "general",
+                 "scratch_bytes": scratch,
+                 "general_scratch_bytes":
+                     fused_mlp.general_scratch_bytes(E, R, f, n_out)}
     elif kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad"):
-        k, p, p64, lib, nbytes, flops = mlp_bwd_case(kernel, dt, isz, spec,
-                                                     gen)
+        k, p, p64, lib, nbytes, flops, extra = mlp_bwd_case(kernel, dt, isz,
+                                                            spec, gen)
     elif kernel == "flash_attention":
         k, p, lib, bwd, nbytes, flops = flash_case(dt, isz, spec, gen)
     elif kernel == "ssd_forward":
@@ -561,6 +615,22 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     want = p()
     err, ok = outputs_err(got, want, TOL[dt_name])
     rec = {"max_abs_err": err, "within_tol": ok, "tol": TOL[dt_name]}
+    if kernel in ("fused_mlp", "fused_mlp_wgrad"):
+        # the path the call took, its scratch, and whether a second call
+        # gives the same bits (the partials and products are summed in a
+        # fixed order, without atomics)
+        rec.update(extra)
+        again = k()
+        rec["identical_bits"] = all(
+            torch.equal(a, b) for a, b in _pairs(again, got))
+        if kernel == "fused_mlp_wgrad" and rec["path"] == "hopper":
+            # the same call through the general kernel (as for an unaligned
+            # shape): whether the wgmma kernel gives its bits
+            with general_path():
+                again = k()
+            rec["general_identical_bits"] = all(
+                torch.equal(a, b) for a, b in _pairs(again, got))
+        del again
     if kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad") and dt_name == "bf16":
         # The weight gradients are sums over the rows of products of
         # bf16-rounded factors. Where two routes round an intermediate
@@ -607,12 +677,15 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     return rec
 
 
-def phase_kernels(out):
+def phase_kernels(out, only=()):
+    """Phase 2, over every case or only those of the kernels named."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results = []
     for kernel, label, dt, spec in kernel_cases():
+        if only and kernel not in only:
+            continue
         rec = run_kernel_case(kernel, dt, spec, gen, timed=True)
         rec.update(kernel=kernel, case=label, dtype=dt)
         results.append(rec)
@@ -629,14 +702,29 @@ def phase_kernels(out):
                  f"plain-route floor {rec['floor_max_abs_err']:.2e} / "
                  f"{rec['floor_rel_l2']:.2e}, outside tol "
                  f"{rec['floor_outside_tol'][0]}]")
+        path = ("" if "path" not in rec else
+                f" [{rec['path']} path, scratch {rec['scratch_bytes']} B, "
+                f"identical bits {rec['identical_bits']}"
+                + ("" if "general_identical_bits" not in rec else
+                   f", general kernel's bits "
+                   f"{rec['general_identical_bits']}") + "]")
         log(f"  {kernel:15s} {dt} {label:34s} max_abs_err "
             f"{rec['max_abs_err']:.3e} "
-            f"{'ok' if rec['within_tol'] else 'FAIL'}  {times}{floor}")
+            f"{'ok' if rec['within_tol'] else 'FAIL'}  {times}{floor}{path}")
         torch.cuda.empty_cache()
     out["kernel_cases"] = results
     bad = [f"{r['kernel']} {r['dtype']} {r['case']}" for r in results
            if not r["within_tol"]]
     check(not bad, f"kernels outside tolerance: {bad}")
+    differ = [f"{r['kernel']} {r['dtype']} {r['case']}" for r in results
+              if r.get("identical_bits") is False]
+    check(not differ, f"two calls gave different bits: {differ}")
+    # every bf16 case of the two redesigned kernels at the main paths'
+    # shapes (d, f, N multiples of 8, aligned slices) takes the wgmma path
+    general = [f"{r['kernel']} {r['case']}" for r in results
+               if r["kernel"] in ("fused_mlp", "fused_mlp_wgrad")
+               and r["dtype"] == "bf16" and r["path"] != "hopper"]
+    check(not general, f"bf16 cases on the general path: {general}")
 
 
 # ---------------------------------------------------------------------------
@@ -692,10 +780,12 @@ def read_counts():
                                      grouped_gemm, rmsnorm, ssd,
                                      topk_combine)
     return {"fused_mlp": fused_mlp.launches,
+            "fused_mlp_hopper": fused_mlp.hopper_launches,
             "grouped_gemm": grouped_gemm.launches,
             "topk_combine": topk_combine.launches,
             "fused_mlp_dgrad": fused_mlp.dgrad_launches,
             "fused_mlp_wgrad": fused_mlp.wgrad_launches,
+            "fused_mlp_wgrad_hopper": fused_mlp.wgrad_hopper_launches,
             "flash_attention": flash_attention.launches,
             "ssd_forward": ssd.launches,
             "rmsnorm": rmsnorm.launches}
@@ -822,6 +912,9 @@ def phase_serve(state, out):
     check(rec["launches"]["fused_mlp"] > 0 and
           rec["launches"]["topk_combine"] > 0,
           f"main path did not launch the kernels: {rec['launches']}")
+    # every bf16 forward went through the wgmma kernel
+    check(rec["launches"]["fused_mlp_hopper"] == rec["launches"]["fused_mlp"],
+          f"fused_mlp launches off the wgmma path: {rec['launches']}")
 
 
 def _leaves(tree):
@@ -1023,13 +1116,17 @@ def phase_logits(state, out):
     del p32
     torch.cuda.empty_cache()
     plain = run(cfg, params, plain=True)
+    reset_counts()
     bf16 = compare_logits(run(cfg, params), plain)
+    counts = read_counts()
     floor = compare_logits(run(with_gemm(cfg, "xla"), params, plain=True),
                            plain)
     rec = {"fp32_4_layers": fp32, "bf16_24_layers": bf16,
-           "bf16_24_layers_xla_vs_plain": floor}
+           "bf16_24_layers_xla_vs_plain": floor, "bf16_launches": counts}
     out["logits"] = rec
     log("  " + json.dumps(rec))
+    check(0 < counts["fused_mlp"] == counts["fused_mlp_hopper"],
+          f"bf16 fused_mlp launches off the wgmma path: {counts}")
     check(fp32["rel_l2_err"] <= TOL["fp32"],
           f"fp32 logits rel L2 error {fp32['rel_l2_err']:.3e} > 1e-4")
     check(fp32["argmax_agree"] >= 0.95,
@@ -1235,8 +1332,9 @@ def phase_train(state, out):
     # rmsnorm: the forward's 2L norms, their remat recompute in the
     # backward, and ln_f (outside the checkpointed periods); the norm's
     # backward is plain
-    want = {"fused_mlp": 2 * L * 3, "topk_combine": 2 * L * 3,
-            "fused_mlp_dgrad": L * 3, "fused_mlp_wgrad": L * 3,
+    want = {"fused_mlp": 2 * L * 3, "fused_mlp_hopper": 2 * L * 3,
+            "topk_combine": 2 * L * 3, "fused_mlp_dgrad": L * 3,
+            "fused_mlp_wgrad": L * 3, "fused_mlp_wgrad_hopper": L * 3,
             "grouped_gemm": 0, "flash_attention": 2 * L * 3,
             "ssd_forward": 0, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
@@ -1420,8 +1518,10 @@ def phase_train_ssm(state, out):
     log("  " + json.dumps(rec["train"]))
     # rmsnorm: ln1 and the gated norm per layer, forward and remat
     # recompute, and ln_f
-    want = {"fused_mlp": 0, "topk_combine": 0, "fused_mlp_dgrad": 0,
-            "fused_mlp_wgrad": 0, "grouped_gemm": 0, "flash_attention": 0,
+    want = {"fused_mlp": 0, "fused_mlp_hopper": 0, "topk_combine": 0,
+            "fused_mlp_dgrad": 0, "fused_mlp_wgrad": 0,
+            "fused_mlp_wgrad_hopper": 0, "grouped_gemm": 0,
+            "flash_attention": 0,
             "ssd_forward": 2 * L * 3, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
@@ -1465,9 +1565,12 @@ KERNEL_GROUPS = (
     ("ssd_kernel", "ssd_forward kernel"),
     ("rmsnorm_kernel", "rmsnorm kernel"),
     ("fused_mlp_wgrad", "fused_mlp_wgrad kernel"),
+    ("wgrad_recompute", "fused_mlp_wgrad kernel"),
+    ("wgrad_product", "fused_mlp_wgrad kernel"),
     ("fused_mlp_dgrad", "fused_mlp_dgrad kernel"),
     ("fused_mlp", "fused_mlp kernel"),
     ("sum_partials", "fused_mlp reduce pass"),
+    ("sum_splits", "fused_mlp reduce pass"),
     ("topk_combine", "topk_combine kernel"),
     ("gemm", "library GEMMs"), ("nvjet", "library GEMMs"),
     ("xmma", "library GEMMs"), ("cutlass", "library GEMMs"),
@@ -1606,7 +1709,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA_PHASES}")
+    ap.add_argument("--kernels", default="",
+                    help="phase 2 only: comma-separated kernels to check "
+                         f"(default all of {tuple(REPLACES)})")
     args = ap.parse_args(argv)
+    only_kernels = tuple(k for k in args.kernels.split(",") if k)
+    if set(only_kernels) - set(REPLACES):
+        ap.error(f"unknown kernels {sorted(set(only_kernels) - set(REPLACES))}")
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
     if unknown:
@@ -1650,7 +1759,7 @@ def main(argv=None):
                 log("\n".join(line for line in lib.log.splitlines()
                               if "registers" in line or "==" in line))
             elif name == "kernels":
-                phase_kernels(out)
+                phase_kernels(out, only_kernels)
             elif name == "serve":
                 phase_serve(state, out)
             elif name == "logits":
@@ -1692,6 +1801,8 @@ def main(argv=None):
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     tag = "" if phases == list(PHASES) else "_" + "_".join(phases)
+    if only_kernels:
+        tag += "_" + "_".join(only_kernels)
     (dest / f"chip_smoke{tag}.json").write_text(json.dumps(out, indent=1))
     if failed:
         log(f"chip_smoke: phases failed: {failed}")

@@ -41,6 +41,8 @@ SIGNATURES = {
     "repro_fused_mlp": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL, _P,
                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_chunk": (),
+    "repro_fused_mlp_hopper": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
+                               _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_dgrad": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
                               _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P),
@@ -49,6 +51,9 @@ SIGNATURES = {
                               _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_wgrad_tile": (_I,),
+    "repro_fused_mlp_wgrad_hopper": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL,
+                                     _LL, _P, _LL, _LL, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
                               _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P),
@@ -165,6 +170,12 @@ def require_cuda(name: str, *tensors) -> None:
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{name}: all operands must be on one CUDA device, "
                          f"got {devs}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -1,11 +1,19 @@
-"""Wrappers of the fused expert-MLP CUDA kernels: the forward
-(``csrc/fused_mlp.cu``) and its two backward kernels, dgrad
-(``csrc/fused_mlp_dgrad.cu``) and wgrad (``csrc/fused_mlp_wgrad.cu``).
+"""Wrappers of the fused expert-MLP CUDA kernels: the forward and its two
+backward kernels, dgrad (``csrc/fused_mlp_dgrad.cu``) and wgrad.
+
+The forward and wgrad have two CUDA paths each, chosen by the operands
+before the launch (``hopper_path``): bf16 operands with 16-byte aligned
+bases and row strides and d, f, N multiples of 8 (every main-path call)
+take the wgmma kernels (``csrc/fused_mlp_hopper.cu``,
+``csrc/fused_mlp_wgrad_hopper.cu``); fp32 and other shapes the general
+kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_wgrad.cu``).
 
 The plain versions are ``kernels/ref.fused_mlp_ref``,
 ``fused_mlp_dgrad_ref`` and ``fused_mlp_wgrad_ref``; ``kernels/ops.py``
 picks between kernel and plain version by the tensors' device. Each kernel
-counts its own launches.
+counts its own launches (``launches``, ``wgrad_launches``: both paths),
+and the wgmma paths their own beside them (``hopper_launches``,
+``wgrad_hopper_launches``).
 """
 from __future__ import annotations
 
@@ -18,15 +26,78 @@ from repro_torch.kernels.grouped_gemm import ORDERS
 from repro_torch.kernels.ref import is_glu
 
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu2": 3}
-# kernel launches since the last reset(), one count per kernel
+# kernel launches since the last reset(), one count per kernel, and the
+# wgmma paths' share of the forward's and wgrad's
 launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
+hopper_launches = 0
+wgrad_hopper_launches = 0
+
+# The wgmma forward's tiling (csrc/fused_mlp_hopper.cu): 64 rows per block;
+# a block keeps F_s hidden columns of one f-split in shared memory, F_s a
+# multiple of 128 up to 768.
+HOPPER_BM, HOPPER_FC, HOPPER_FS_MAX = 64, 128, 768
+GENERAL_CHUNK = 128   # csrc/fused_mlp.cu: hidden columns per partial plane
 
 
 def reset() -> None:
-    global launches, dgrad_launches, wgrad_launches
+    global launches, dgrad_launches, wgrad_launches, hopper_launches, \
+        wgrad_hopper_launches
     launches = dgrad_launches = wgrad_launches = 0
+    hopper_launches = wgrad_hopper_launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def hopper_path(rows, w_gate, w_up, w_down, dy=None) -> bool:
+    """Whether a forward (dy None) or wgrad call takes the wgmma kernels:
+    every operand bf16 with a 16-byte aligned base, a unit last stride and
+    leading strides that are multiples of 8 elements, and d, f, N positive
+    multiples of 8. Decided from the operands alone, before any launch;
+    the other calls take the general kernels."""
+    ts = [t for t in (rows, w_gate, w_up, w_down, dy) if t is not None]
+    d, f, N = rows.shape[2], w_up.shape[2], w_down.shape[2]
+    if min(d, f, N) <= 0 or d % 8 or f % 8 or N % 8:
+        return False
+    return all(t.dtype == torch.bfloat16 and t.stride(-1) == 1
+               and t.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in t.stride()[:-1]) for t in ts)
+
+
+def fused_mlp_plan(E: int, R: int, d: int, f: int, N: int,
+                   sm_count: int = 132) -> dict:
+    """The wgmma forward's split of the hidden: F_s as large as shared
+    memory allows (768), lowered by 128 while E * ceil(R / 64) * S blocks
+    would fill fewer than two waves of ``sm_count`` SMs, S = ceil(f / F_s).
+    -> fs, splits, blocks, and scratch_bytes: the fp32 partial planes,
+    S * E * R * N * 4 (written once and read once by the reduce pass)."""
+    mt = _cdiv(R, HOPPER_BM)
+    fs = min(HOPPER_FS_MAX, _cdiv(f, HOPPER_FC) * HOPPER_FC)
+    while fs > HOPPER_FC and E * mt * _cdiv(f, fs) < 2 * sm_count:
+        fs -= HOPPER_FC
+    S = _cdiv(f, fs)
+    return {"fs": fs, "splits": S, "blocks": E * mt * S,
+            "scratch_bytes": S * E * R * N * 4}
+
+
+def general_scratch_bytes(E: int, R: int, f: int, N: int) -> int:
+    """The general forward's fp32 partial planes, one per 128 hidden
+    columns."""
+    return _cdiv(f, GENERAL_CHUNK) * E * R * N * 4
+
+
+def _wgrad_scratch_shape(E: int, R: int, f: int, glu: bool):
+    """The wgmma wgrad's scratch: the recomputed h, dup (and dgate), each
+    (E, R, f) in bf16."""
+    return (3 if glu else 2, E, R, f)
+
+
+def wgrad_scratch_bytes(E: int, R: int, f: int, glu: bool) -> int:
+    n, E, R, f = _wgrad_scratch_shape(E, R, f, glu)
+    return n * E * R * f * 2
 
 
 def _check(name, rows, w_gate, w_up, w_down, activation, dy=None):
@@ -70,7 +141,7 @@ def fused_mlp(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     full weight -> (E, R, N) in the inputs' dtype. The hidden stays in
     shared memory; products accumulate in fp32. Scratch for the fp32
     partial sums of the f-chunks is allocated here."""
-    global launches
+    global launches, hopper_launches
     name = "fused_mlp"
     if order not in ORDERS:
         raise ValueError(f"{name}: unknown order {order!r}")
@@ -81,6 +152,23 @@ def fused_mlp(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     if f == 0:
         return out.zero_()
     lib = build.load()
+    if hopper_path(rows, w_gate, w_up, w_down):
+        plan = fused_mlp_plan(E, R, d, f, N, build.sm_count(rows.device.index
+                                                            or 0))
+        part = torch.empty((plan["splits"], E, R, N), dtype=torch.float32,
+                           device=rows.device)
+        err = lib.lib.repro_fused_mlp_hopper(
+            rows.data_ptr(), rows.stride(0), rows.stride(1),
+            None if w_gate is None else w_gate.data_ptr(), w_up.data_ptr(),
+            w_up.stride(0), w_up.stride(1),
+            w_down.data_ptr(), w_down.stride(0), w_down.stride(1),
+            part.data_ptr(), out.data_ptr(), E, R, d, f, N,
+            ACTIVATIONS[activation], ORDERS[order], plan["fs"],
+            build.stream_ptr(rows))
+        lib.check(name, err)
+        launches += 1
+        hopper_launches += 1
+        return out
     # fp32 partial sums, one (E, R, N) plane per f-chunk (split-f design)
     n_chunks = -(-f // lib.lib.repro_fused_mlp_chunk())
     part = torch.empty((n_chunks, E, R, N), dtype=torch.float32,
@@ -139,10 +227,11 @@ def fused_mlp_wgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     """(dw_gate | None, dw_up, dw_down) of the fused expert MLP for the
     cotangent dy (E, R, N): (E, d, f), (E, d, f), (E, f, N) in the inputs'
     dtype. With a column-sliced w_down/dy, dw_down is that column block and
-    dw_up/dw_gate are the block's partials. The fp32 running sums of the
-    row-tile loop are allocated here, padded to whole tiles, when R spans
-    more than one tile."""
-    global wgrad_launches
+    dw_up/dw_gate are the block's partials. Scratch is allocated here: on
+    the wgmma path the bf16 h, dup (and dgate) of the recompute; on the
+    general path the fp32 running sums of the row-tile loop, padded to
+    whole tiles, when R spans more than one tile."""
+    global wgrad_launches, wgrad_hopper_launches
     name = "fused_mlp_wgrad"
     code, E, R, d, f, N = _check(name, rows, w_gate, w_up, w_down,
                                  activation, dy)
@@ -158,6 +247,22 @@ def fused_mlp_wgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
         return tuple(None if t is None else t.zero_()
                      for t in (dwg, dwu, dwd))
     lib = build.load()
+    if hopper_path(rows, w_gate, w_up, w_down, dy):
+        scratch = torch.empty(_wgrad_scratch_shape(E, R, f, glu), dtype=dt,
+                              device=dev)
+        err = lib.lib.repro_fused_mlp_wgrad_hopper(
+            rows.data_ptr(), rows.stride(0), rows.stride(1),
+            None if w_gate is None else w_gate.data_ptr(), w_up.data_ptr(),
+            w_up.stride(0), w_up.stride(1),
+            w_down.data_ptr(), w_down.stride(0), w_down.stride(1),
+            dy.data_ptr(), dy.stride(0), dy.stride(1), scratch.data_ptr(),
+            None if dwg is None else dwg.data_ptr(), dwu.data_ptr(),
+            dwd.data_ptr(), E, R, d, f, N, ACTIVATIONS[activation],
+            build.stream_ptr(rows))
+        lib.check(name, err)
+        wgrad_launches += 1
+        wgrad_hopper_launches += 1
+        return dwg, dwu, dwd
     bm, bfs, bo = (lib.lib.repro_fused_mlp_wgrad_tile(i) for i in range(3))
     run_g = run_u = run_d = None
     if R > bm:

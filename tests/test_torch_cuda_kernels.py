@@ -1,12 +1,15 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small ragged shapes: every activation, both orders, a column slice, fp32
 (1e-4, TF32 off) and bf16 (2e-2); the backward pair (dgrad, wgrad) also
-at two row tiles and through ops.fused_mlp's autograd; flash attention
-(MHA, GQA, MQA, ragged lengths, causal and not, strided views) and the SSD
-(ragged lengths, small and model-size states, strided views, mixed
-dtypes, an initial and a final state) with their autograd backward; the
-rmsnorm in both epilogues (vector and scalar widths, fp32 and bf16 scales)
-and its autograd op. Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. On the card:
+at two row tiles and through ops.fused_mlp's autograd; the forward's and
+wgrad's wgmma paths (ragged M tiles, split hidden, aligned slices, their
+counters, identical bits on a second call) beside the general kernels;
+flash attention (MHA, GQA, MQA, ragged lengths, causal and not, strided
+views) and the SSD (ragged lengths, small and model-size states, strided
+views, mixed dtypes, an initial and a final state) with their autograd
+backward; the rmsnorm in both epilogues (vector and scalar widths, fp32
+and bf16 scales) and its autograd op. Needs an NVIDIA Hopper GPU and
+nvcc; skips elsewhere. On the card:
 
   python -m pytest -m gpu tests/test_torch_cuda_kernels.py
 """
@@ -96,9 +99,11 @@ def _mlp_operands(gen, dtype, act, E, R, d, f, N, col):
     return x, wg, wu, wd, dy
 
 
-# R = 70 spans two row tiles of the wgrad kernel (running sums in device
-# memory), R = 3 one; f = 136 and 19 are ragged f-chunks; the column slices
-# are strided views of w_down and dy
+# In bf16 the shapes with d, f, N multiples of 8 take the wgmma kernels
+# (R = 70 and 130 span two and three row tiles of the recompute, reduced in
+# registers by the products), d = 17 the general ones (R = 37 two row tiles,
+# running sums in device memory); f = 136 and 19 are ragged f-chunks; the
+# column slices are strided views of w_down and dy
 _BWD_SHAPES = [(3, 200, 136, 136, None), (70, 200, 136, 136, (40, 72)),
                (37, 17, 19, 17, None), (130, 64, 200, 96, (0, 48))]
 
@@ -129,6 +134,112 @@ def test_fused_mlp_wgrad(cuda, dtype, act, R, d, f, N, col):
     for g, w in zip(got, want):
         if w is not None:
             _close(g, w, dtype)
+
+
+def _close_or_floor(got, want, floor):
+    """bf16 wgrad: within 2e-2 of the plain version, or, as chip_smoke.py
+    holds the bf16 weight gradients, within 3x the distance between two
+    plain routes (fp32 and fp64 products with the same bf16 rounding
+    points) in max error, and in rel L2 within 3x that distance or under
+    1e-3 (a quarter of bf16's relative spacing). A weight gradient is a sum
+    over the rows of products of bf16-rounded factors; where two routes
+    round an intermediate (h, dh, dup, dgate) to neighbouring bf16 values,
+    one summand moves by an ulp of its own size, which can exceed 2e-2 of a
+    sum that cancels. At these small shapes only a handful of elements
+    differ between the two plain routes, so their rel L2 is a noisy floor
+    (3.7e-5 where the kernel's fp32 tensor-core sums gave 1.3e-4); a wrong
+    tile, slice or mask moves rel L2 by 1e-2 or more."""
+    torch.cuda.synchronize()
+    g, w, fl = got.float(), want.float(), floor.float()
+    if torch.allclose(g, w, rtol=2e-2, atol=2e-2):
+        return
+    err, f_err = (g - w).abs().max(), (fl - w).abs().max()
+    l2, f_l2 = (g - w).norm() / w.norm(), (fl - w).norm() / w.norm()
+    assert err <= 3 * f_err and l2 <= max(3 * f_l2, 1e-3), (
+        f"max err {err:.3e} (floor {f_err:.3e}), rel L2 {l2:.3e} "
+        f"(floor {f_l2:.3e})")
+
+
+# Shapes of the wgmma paths (bf16; d, f, N multiples of 8): several M tiles
+# with a ragged last one (R = 150, and R = 520: 9 tiles), f split over
+# blocks (S > 1: with 3 experts the plan lowers F_s to 128 to fill the
+# SMs), ragged f and N tails, an aligned column slice of w_down (and dy),
+# a single 8-wide tile
+_HOPPER_SHAPES = [(150, 200, 640, 136, None), (3, 64, 136, 520, None),
+                  (70, 256, 1024, 512, (128, 264)), (64, 8, 8, 8, None),
+                  (520, 64, 192, 72, None)]
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+@pytest.mark.parametrize("R,d,f,N,col", _HOPPER_SHAPES)
+def test_fused_mlp_hopper_path(cuda, act, R, d, f, N, col):
+    """bf16 aligned calls launch the wgmma forward (counted beside the
+    total), match the plain version, and give the same bits twice."""
+    from repro_torch.kernels import fused_mlp, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(R + f + 2)
+    x, wg, wu, wd, _ = _mlp_operands(gen, torch.bfloat16, act, 3, R, d, f,
+                                     N, col)
+    assert fused_mlp.hopper_path(x, wg, wu, wd)
+    fused_mlp.reset()
+    got = fused_mlp.fused_mlp(x, wg, wu, wd, act)
+    assert (fused_mlp.launches, fused_mlp.hopper_launches) == (1, 1)
+    _close(got, ref.fused_mlp_ref(x, wg, wu, wd, act), torch.bfloat16)
+    assert torch.equal(got, fused_mlp.fused_mlp(x, wg, wu, wd, act))
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+@pytest.mark.parametrize("R,d,f,N,col", _HOPPER_SHAPES)
+def test_fused_mlp_wgrad_hopper_path(cuda, act, R, d, f, N, col):
+    """bf16 aligned calls launch the wgmma wgrad, match the plain version,
+    and give the same bits twice."""
+    from repro_torch.kernels import fused_mlp, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(R + f + 3)
+    x, wg, wu, wd, dy = _mlp_operands(gen, torch.bfloat16, act, 3, R, d, f,
+                                      N, col)
+    dy = dy.contiguous()
+    assert fused_mlp.hopper_path(x, wg, wu, wd, dy)
+    fused_mlp.reset()
+    got = fused_mlp.fused_mlp_wgrad(x, wg, wu, wd, dy, act)
+    assert (fused_mlp.wgrad_launches, fused_mlp.wgrad_hopper_launches) == \
+        (1, 1)
+    want = ref.fused_mlp_wgrad_ref(x, wg, wu, wd, dy, act)
+    # the second plain route (fp64 products, the same bf16 rounding points)
+    floor = ref.fused_mlp_wgrad_ref(x, wg, wu, wd, dy, act,
+                                    acc=torch.float64)
+    again = fused_mlp.fused_mlp_wgrad(x, wg, wu, wd, dy, act)
+    for g, w, fl, a in zip(got, want, floor, again):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _close_or_floor(g, w, fl)
+            assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("case", ["fp32", "d=17", "misaligned slice"])
+def test_general_path_takes_the_rest(cuda, case):
+    """fp32, widths that are not multiples of 8 and column slices that do
+    not start 16-byte aligned run the general kernels, counted as such."""
+    from repro_torch.kernels import fused_mlp, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    d = 17 if case == "d=17" else 64
+    col = (4, 64) if case == "misaligned slice" else None
+    x, wg, wu, wd, dy = _mlp_operands(gen, dtype, "swiglu", 2, 70, d, 136,
+                                      72, col)
+    dy = dy.contiguous()
+    assert not fused_mlp.hopper_path(x, wg, wu, wd, dy)
+    fused_mlp.reset()
+    got = fused_mlp.fused_mlp(x, wg, wu, wd, "swiglu")
+    gw = fused_mlp.fused_mlp_wgrad(x, wg, wu, wd, dy, "swiglu")
+    assert (fused_mlp.launches, fused_mlp.hopper_launches,
+            fused_mlp.wgrad_launches,
+            fused_mlp.wgrad_hopper_launches) == (1, 0, 1, 0)
+    _close(got, ref.fused_mlp_ref(x, wg, wu, wd, "swiglu"), dtype)
+    for g, w in zip(gw, ref.fused_mlp_wgrad_ref(x, wg, wu, wd, dy,
+                                                "swiglu")):
+        _close(g, w, dtype)
 
 
 def test_fused_mlp_backward_is_the_kernels(cuda):
