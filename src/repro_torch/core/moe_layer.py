@@ -94,26 +94,33 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
                       rot=None, ep=1)
     else:
         send = buf.reshape(ep, E_loc, C, dw)
-        # at one rank comet_hier is the comet ring's local arm, and coarse
-        # is the naive schedule on the one token slice that matters
-        comet = impl in ("comet", "comet_hier")
-        if comet and mcfg.fused_combine:
-            # streaming layer-1 consumer: one combine per column block
-            blocks, rot = T.transport_comet_blocks(
-                send, w_local, cfg.activation, n_col_blocks=n_col,
-                ring_group=mcfg.ring_group, gemm_impl=gemm_impl)
-            parts = [R.combine(b.reshape(ep * E_loc * C, b.shape[-1]), info,
-                               wts, E_loc, C, rot, ep) for b in blocks]
-            y = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        else:
-            if comet:
-                out, rot = T.transport_comet(send, w_local, cfg.activation,
-                                             n_col_blocks=n_col,
-                                             ring_group=mcfg.ring_group,
-                                             gemm_impl=gemm_impl)
-            else:                                       # naive/coarse/dense
-                out, rot = T.transport_naive(send, w_local, cfg.activation,
-                                             gemm_impl)
+        # at one rank coarse is the naive schedule on the one token slice
+        # that matters
+        if impl in ("comet", "comet_hier"):
+            if impl == "comet_hier":
+                blocks, rot = T.transport_comet_hier(
+                    send, w_local, cfg.activation, n_col_blocks=n_col,
+                    ring_group=mcfg.ring_group,
+                    intra_group=mcfg.intra_group,
+                    wire_dtype=mcfg.wire_dtype, gemm_impl=gemm_impl)
+            else:
+                blocks, rot = T.transport_comet_blocks(
+                    send, w_local, cfg.activation, n_col_blocks=n_col,
+                    ring_group=mcfg.ring_group, gemm_impl=gemm_impl)
+            if mcfg.fused_combine:
+                # streaming layer-1 consumer: one combine per column block
+                parts = [R.combine(b.reshape(ep * E_loc * C, b.shape[-1]),
+                                   info, wts, E_loc, C, rot, ep)
+                         for b in blocks]
+                y = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            else:
+                out = blocks[0] if len(blocks) == 1 else \
+                    torch.cat(blocks, dim=-1)
+                y = R.combine(out.reshape(ep * E_loc * C, dw), info, wts,
+                              E_loc, C, rot, ep)
+        else:                                           # naive/coarse/dense
+            out, rot = T.transport_naive(send, w_local, cfg.activation,
+                                         gemm_impl)
             y = R.combine(out.reshape(ep * E_loc * C, dw), info, wts, E_loc,
                           C, rot, ep)
     if w_asc is not None:

@@ -8,6 +8,9 @@ layout. At one rank every ring and all-to-all degenerates to its local arm:
   comet   - the decomposed ring's local arm: the naive forward, its output
             cut into ``n_col_blocks`` column blocks (the layer-1
             N-decomposition) that a streaming combine consumes one by one.
+  comet_hier - the two-level ring's local arm: the comet arm after the
+            wire format's quantization of the dispatch buffer, applied
+            straight through (``transport_comet_hier``).
   bcast   - the decode path: the expert MLP over the whole (E, C, d) buffer.
 
 The comet arm is an ``autograd.Function`` whose backward consumes the
@@ -38,6 +41,9 @@ from repro_torch.models.common import activate, activate_vjp, is_glu
 GEMM_BACKENDS = ("xla", "pallas", "pallas_fused")
 DEFAULT_GEMM_IMPL = "xla"
 MAX_COL_BLOCKS = 8
+# comet_hier's wire formats (a copy of ``repro.core.adaptive.WIRE_DTYPES``)
+WIRE_DTYPES = ("fp32", "bf16", "fp8_e4m3")
+_FP8_WIRE_MAX = 448.0                  # |max finite| of float8_e4m3fn
 
 
 def legalize_n_col(d_model: int, n_col: int,
@@ -243,15 +249,56 @@ def transport_comet_blocks(send, w, activation: str, n_col_blocks: int = 1,
     return ([out] if n_col == 1 else list(out)), None
 
 
-def transport_comet(send, w, activation: str, n_col_blocks: int = 1,
-                    ring_group: int = 1, gemm_impl: Optional[str] = None):
-    """Full-width comet transport: (recv_out (ep, E_loc, C, d), rot)."""
-    blocks, rot = transport_comet_blocks(send, w, activation,
-                                         n_col_blocks=n_col_blocks,
-                                         ring_group=ring_group,
-                                         gemm_impl=gemm_impl)
-    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-1)
-    return out, rot
+def wire_dtype_supported(wire_dtype: str) -> bool:
+    return wire_dtype in WIRE_DTYPES and (
+        wire_dtype != "fp8_e4m3" or hasattr(torch, "float8_e4m3fn"))
+
+
+def _wire_encode(x, wire_dtype: str, per_chunk: bool = False):
+    """Quantize a payload for the wire: (payload, scale), scale None for
+    the scale-free formats. ``per_chunk`` keeps one symmetric amax scale
+    per leading-axis chunk, else one for the tensor (a copy of the JAX
+    package's ``_wire_encode``)."""
+    if wire_dtype == "fp32":
+        return x, None
+    if wire_dtype == "bf16":
+        return x.to(torch.bfloat16), None
+    assert wire_dtype == "fp8_e4m3", wire_dtype
+    xf = x.float()
+    dims = tuple(range(1, x.dim())) if per_chunk else tuple(range(x.dim()))
+    amax = xf.abs().amax(dim=dims, keepdim=True)
+    scale = amax.clamp_min(1e-12) / _FP8_WIRE_MAX
+    q = (xf / scale).clamp(-_FP8_WIRE_MAX, _FP8_WIRE_MAX)
+    return q.to(torch.float8_e4m3fn), scale
+
+
+def _wire_decode(payload, scale, out_dtype):
+    """Dequantize a payload: the scale multiplies in fp32, then the cast."""
+    if scale is None:
+        return payload.to(out_dtype)
+    return (payload.float() * scale).to(out_dtype)
+
+
+def transport_comet_hier(send, w, activation: str, n_col_blocks: int = 1,
+                         ring_group: int = 1, intra_group: int = 1,
+                         wire_dtype: str = "fp32",
+                         gemm_impl: Optional[str] = None):
+    """The two-level ring's local arm: (blocks, rot) as
+    ``transport_comet_blocks`` returns them. At one rank no hop crosses a
+    wire, but the wire format still quantizes the dispatch buffer, one
+    scale per chunk, straight through (the gradient is the unquantized
+    one), as the JAX package's single-rank path does. ``intra_group``
+    only matters across ranks."""
+    if not wire_dtype_supported(wire_dtype):
+        raise ValueError(f"wire_dtype {wire_dtype!r} not supported here "
+                         f"(known: {WIRE_DTYPES})")
+    if wire_dtype != "fp32":
+        pay, sc = _wire_encode(send, wire_dtype, per_chunk=True)
+        deq = _wire_decode(pay, sc, send.dtype)
+        send = send + (deq - send).detach()
+    return transport_comet_blocks(send, w, activation,
+                                  n_col_blocks=n_col_blocks,
+                                  ring_group=ring_group, gemm_impl=gemm_impl)
 
 
 def transport_bcast(buf_full, w, activation: str,

@@ -47,6 +47,9 @@ SIGNATURES = {
                               _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P),
     "repro_fused_mlp_dgrad_chunk": (),
+    "repro_fused_mlp_dgrad_hopper": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL,
+                                     _LL, _P, _LL, _LL, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _P),
     "repro_fused_mlp_wgrad": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL,
                               _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _P),
@@ -57,6 +60,9 @@ SIGNATURES = {
     "repro_flash_attention": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
                               _P, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P),
+    "repro_flash_attention_hopper": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL,
+                                     _P, _LL, _LL, _LL, _P, _I, _I, _I, _I,
+                                     _I, _I, _I, _P),
     "repro_ssd_forward": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
                           _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P),

@@ -25,13 +25,14 @@
 // h, dup and dgate are written once in bf16, 3 * E * R * f * 2 B = 173 MB
 // at the train shape, and read back by products whose sums stay in
 // registers. Two passes:
-//   1. recompute: one block per (expert, 64-row M tile, 128-column f
-//      tile), each of two consumer warpgroups on 64 of the columns: gate,
-//      up (over d: x slices K-major, Wg/Wu slices MN-major) and dh (over N:
-//      dY slices K-major, Wd slices K-major) in three m64n64 fp32
-//      accumulators; dh rounded to bf16 (fused_mlp.py:304), the activation
-//      and its VJP in fp32, h, dup and dgate cast to bf16 and written to the
-//      scratch (the same rounding points as the general kernel);
+//   1. recompute (fused_mlp_recompute.cuh, shared with the dgrad kernel):
+//      one block per (expert, 64-row M tile, 128-column f tile), each of
+//      two consumer warpgroups on 64 of the columns: gate, up (over d: x
+//      slices K-major, Wg/Wu slices MN-major) and dh (over N: dY slices
+//      K-major, Wd slices K-major) in three m64n64 fp32 accumulators; dh
+//      rounded to bf16 (fused_mlp.py:304), the activation and its VJP in
+//      fp32, h, dup and dgate cast to bf16 and written to the scratch (the
+//      same rounding points as the general kernel);
 //   2. products, one launch for dWd = h^T . dY (output tiles of 128 x 256)
 //      and one for dWu = x^T . dup with dWg = x^T . dgate in the same tile
 //      (128 x 128 each, x^T loaded once), each over all R rows in slices of
@@ -44,166 +45,20 @@
 // persistent, one per SM, each walking many output tiles. Ragged R, d,
 // f and N arrive as zeros from TMA and are masked on store. No atomics: two
 // calls give the same bits.
-#include "common.cuh"
-#include "hopper.cuh"
-
-using namespace repro;
-using namespace repro::hopper;
+#include "fused_mlp_recompute.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BM = 64;   // rows of a recompute tile
-constexpr int BF = 128;  // hidden columns of a recompute tile
-constexpr int BK = 64;   // depth of a ring stage
 constexpr int TM = 64;   // output rows of the products per warpgroup
-constexpr int PANEL = 64 * 128;          // 64 rows of 128 bytes
-constexpr int SLOT1 = 5 * PANEL;         // x, Wg (2), Wu (2) | dY, Wd (2)
 constexpr int SLOT2 = 6 * PANEL;         // A^T (2), B1 (4) | B1, B2 (2)
-constexpr int STAGES1 = 5, STAGES2 = 3;
+constexpr int STAGES2 = 3;
 // the products' output staging, per consumer warpgroup: 64 rows of 256
 // bf16, padded by 16 bytes (conflict-free fragment writes)
 constexpr int OUT_LD = 256 * 2 + 16;
 constexpr int OUT_STAGE = 64 * OUT_LD;
-constexpr size_t SMEM1 = 1024 + STAGES1 * SLOT1 + kBarBytes;
 constexpr size_t SMEM2 =
     1024 + STAGES2 * SLOT2 + 2 * OUT_STAGE + kBarBytes;
 static_assert(SMEM2 <= 232448, "over the 227 KB a block may use");
-
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// ---- launch 1: h, dup, dgate of one (expert, M tile, f tile) --------------
-// Two consumer warpgroups on the same 64 rows, each on 64 of the tile's 128
-// f columns: two independent chains of wgmmas, and the x and dY slices
-// loaded once for both.
-template <bool GLU>
-__global__ void __launch_bounds__(3 * kWarpgroup, 1)
-    wgrad_recompute_kernel(const __grid_constant__ CUtensorMap tm_x,
-                           const __grid_constant__ CUtensorMap tm_g,
-                           const __grid_constant__ CUtensorMap tm_u,
-                           const __grid_constant__ CUtensorMap tm_d,
-                           const __grid_constant__ CUtensorMap tm_y,
-                           bf16* __restrict__ hs, bf16* __restrict__ dus,
-                           bf16* __restrict__ dgs, int E, int R, int d,
-                           int f, int N, int act) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  Ring ring{base, SLOT1, base + STAGES1 * SLOT1, STAGES1};
-  if (threadIdx.x == 0) ring.init(2 * kWarpgroup);
-  __syncthreads();
-  const int MT = (R + BM - 1) / BM, FT = (f + BF - 1) / BF;
-  const int fb = static_cast<int>(blockIdx.x % FT);
-  const int m = static_cast<int>((blockIdx.x / FT) % MT);
-  const int e = static_cast<int>(blockIdx.x / (FT * MT));
-  const int m0 = m * BM, f0 = fb * BF;
-  const int kd = (d + BK - 1) / BK, kn = (N + BK - 1) / BK;
-
-  if (threadIdx.x >= 2 * kWarpgroup) {
-    // one thread issues the TMA copies (out-of-bounds rows and columns
-    // arrive as zeros)
-    if (threadIdx.x != 2 * kWarpgroup) return;
-    for (int kb = 0; kb < kd; ++kb) {
-      const int k0 = kb * BK;
-      ring.acquire();
-      const uint32_t slot = ring.slot(), bar = ring.full();
-      mbar_expect_tx(bar, (GLU ? 5 : 3) * PANEL);
-      tma_load(slot, &tm_x, bar, k0, m0, e);
-      for (int p = 0; p < 2; ++p) {
-        if (GLU)
-          tma_load(slot + (1 + p) * PANEL, &tm_g, bar, f0 + 64 * p, k0, e);
-        tma_load(slot + (3 + p) * PANEL, &tm_u, bar, f0 + 64 * p, k0, e);
-      }
-      ring.next();
-    }
-    for (int nb = 0; nb < kn; ++nb) {
-      const int n0 = nb * BK;
-      ring.acquire();
-      const uint32_t slot = ring.slot(), bar = ring.full();
-      mbar_expect_tx(bar, 3 * PANEL);
-      tma_load(slot, &tm_y, bar, n0, m0, e);
-      // Wd rows f0.. (the product's N) by columns n0.. (its K): K-major B,
-      // 128 rows of 128 bytes, the second warpgroup's half 8 KB in
-      tma_load(slot + PANEL, &tm_d, bar, n0, f0, e);
-      ring.next();
-    }
-  } else {
-    // one stage's wgmmas stay in flight while the next stage lands
-    const int w = threadIdx.x / kWarpgroup;
-    float g[32], u[32], dh[32];
-    zero(g);
-    zero(u);
-    zero(dh);
-    uint32_t held = 0;  // the empty barrier of the stage still in use
-    for (int kb = 0; kb < kd; ++kb) {
-      ring.wait();
-      const uint32_t slot = ring.slot();
-      fence_regs(g);
-      fence_regs(u);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t da = desc_k(slot + kk * 32);
-        if (GLU)
-          wgmma_m64n64<0, 1>(
-              g, da, desc_mn(slot + (1 + w) * PANEL + kk * 2048, PANEL), 1);
-        wgmma_m64n64<0, 1>(
-            u, da, desc_mn(slot + (3 + w) * PANEL + kk * 2048, PANEL), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(g);
-      fence_regs(u);
-      if (held) mbar_arrive(held);
-      held = ring.empty();
-      ring.next();
-    }
-    // gate and up complete before dh's wgmmas start on other registers
-    wgmma_wait<0>();
-    fence_regs(g);
-    fence_regs(u);
-    for (int nb = 0; nb < kn; ++nb) {
-      ring.wait();
-      const uint32_t slot = ring.slot();
-      fence_regs(dh);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n64<0, 0>(dh, desc_k(slot + kk * 32),
-                           desc_k(slot + PANEL + w * PANEL + kk * 32), 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(dh);
-      if (held) mbar_arrive(held);
-      held = ring.empty();
-      ring.next();
-    }
-    wgmma_wait<0>();
-    fence_regs(dh);
-    if (held) mbar_arrive(held);
-    // the VJP on the registers; zero-filled rows and columns are masked
-    const int fw0 = f0 + w * 64;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = m0 + frag_row(i), c = fw0 + frag_col(i);
-      if (r < R && c < f) {
-        float h[2], du[2], dg[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float dhr = __bfloat162float(__float2bfloat16(dh[i + j]));
-          activate_vjp(act, g[i + j], u[i + j], dhr, dg[j], du[j]);
-          h[j] = activate(act, g[i + j], u[i + j]);
-        }
-        const long long o = (static_cast<long long>(e) * R + r) * f + c;
-        store_pair(hs + o, h[0], h[1]);
-        store_pair(dus + o, du[0], du[1]);
-        if (GLU) store_pair(dgs + o, dg[0], dg[1]);
-      }
-    }
-  }
-}
 
 // ---- launch 2: C1 (and C2) = A^T . B1 (and B2), K = the R rows ------------
 // A: (E, R, M) with strides (sae, sar, 1); B1/B2: (E, R, Nc) with strides
@@ -391,38 +246,23 @@ extern "C" int repro_fused_mlp_wgrad_hopper(
   bf16* dus = hs + plane;
   bf16* dgs = glu ? hs + 2 * plane : nullptr;
   // tensor maps: operands and scratch planes as (columns, rows, experts)
-  CUtensorMap tx, tg, tu, td, ty, th, tdu, tdg;
-  cudaError_t err = tensor_map(&tx, x, d, R, E, sxr, sxe);
-  if (err == cudaSuccess) err = tensor_map(&tu, wu, f, d, E, swk, swe);
-  if (err == cudaSuccess && glu) err = tensor_map(&tg, wg, f, d, E, swk, swe);
-  if (err == cudaSuccess) err = tensor_map(&td, wd, N, f, E, sdf, sde, 128);
-  if (err == cudaSuccess) err = tensor_map(&ty, dy, N, R, E, syr, sye);
+  Operands ops;
+  CUtensorMap th, tdu, tdg;
+  cudaError_t err = operand_maps(&ops, x, sxe, sxr, wg, wu, swe, swk, wd,
+                                 sde, sdf, dy, sye, syr, E, R, d, f, N);
   const long long rf = static_cast<long long>(R) * f;
   if (err == cudaSuccess) err = tensor_map(&th, hs, f, R, E, f, rf);
   if (err == cudaSuccess) err = tensor_map(&tdu, dus, f, R, E, f, rf);
   if (err == cudaSuccess && glu) err = tensor_map(&tdg, dgs, f, R, E, f, rf);
   if (err != cudaSuccess) return err;
-  if (!glu) {
-    tg = tu;
-    tdg = tdu;
-  }
-  auto recompute = glu ? wgrad_recompute_kernel<true>
-                       : wgrad_recompute_kernel<false>;
-  err = cudaFuncSetAttribute(recompute,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM1));
-  if (err != cudaSuccess) return err;
-  const long long b1 = static_cast<long long>(E) * ((R + BM - 1) / BM) *
-                       ((f + BF - 1) / BF);
-  recompute<<<static_cast<unsigned>(b1), 3 * kWarpgroup, SMEM1, st>>>(
-      tx, tg, tu, td, ty, hs, dus, dgs, E, R, d, f, N, act);
-  err = cudaGetLastError();
+  if (!glu) tdg = tdu;
+  err = launch_recompute(ops, glu, hs, dus, dgs, E, R, d, f, N, act, st);
   if (err != cudaSuccess) return err;
   // dWd = h^T . dY, then dWu = x^T . dup with dWg = x^T . dgate
   const Product pd{static_cast<bf16*>(dwd), nullptr, f, N};
-  err = launch_product<false>(th, ty, ty, pd, E, R, st);
+  err = launch_product<false>(th, ops.y, ops.y, pd, E, R, st);
   if (err != cudaSuccess) return err;
   const Product pu{static_cast<bf16*>(dwu), static_cast<bf16*>(dwg), d, f};
-  return glu ? launch_product<true>(tx, tdu, tdg, pu, E, R, st)
-             : launch_product<false>(tx, tdu, tdu, pu, E, R, st);
+  return glu ? launch_product<true>(ops.x, tdu, tdg, pu, E, R, st)
+             : launch_product<false>(ops.x, tdu, tdu, pu, E, R, st);
 }

@@ -1,9 +1,11 @@
 // Hopper building blocks of the port's wgmma kernels (fused_mlp_hopper.cu,
-// fused_mlp_wgrad_hopper.cu): an mbarrier-driven ring of shared-memory
-// stages fed by TMA, the tensor maps TMA reads through, the 128-byte
-// swizzled layout that wgmma reads, its matrix descriptors, and
+// fused_mlp_dgrad_hopper.cu, fused_mlp_wgrad_hopper.cu,
+// flash_attention_hopper.cu): an mbarrier-driven ring of shared-memory
+// stages fed by TMA, the 3-d and 4-d tensor maps TMA reads through, the
+// 128-byte swizzled layout that wgmma reads, its matrix descriptors, and
 // wgmma.mma_async (bf16 in, fp32 sums) at m64n64k16, m64n128k16 and
-// m64n256k16.
+// m64n256k16 with A in shared memory, and at m64n64k16 and m64n128k16
+// with A in registers.
 //
 // Why TMA and not cp.async. Both were built, and on an H100 the cp.async
 // version of each kernel was the slower one at every main-path shape:
@@ -34,7 +36,12 @@
 //
 // Accumulator fragment of m64nNk16 (fp32): thread t of the warpgroup holds
 // d[i], i < N / 2, at row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
-// and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
+// and column 8 * (i / 4) + 2 * (t % 4) + i % 2. A register A operand of
+// m64nNk16 (bf16) is four 32-bit registers a[j], each two bf16 of
+// consecutive columns, at the rows and columns of d[2j], d[2j + 1] of a
+// 64 x 16 accumulator: so accumulator elements 8k .. 8k + 7, rounded to
+// bf16 in pairs, are the A operand of the k16 step over columns
+// [16k, 16k + 16).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -87,6 +94,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- registers ---------------------------------------------------------------
+
+// a warpgroup's registers per thread, lowered (producers) or raised
+// (consumers); the kernel's warpgroups take these in one if/else that never
+// joins again, or the compiler ignores them
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- proxies and barriers -------------------------------------------------
 
 // generic-proxy shared-memory writes (by threads) before reads by
@@ -125,26 +147,39 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Host: the tensor map of a 3-d bf16 tensor (n0 innermost; strides s1, s2
-// in elements, multiples of 8; base 16-byte aligned) for boxes of 64 x
-// `rows` x 1 in the 128-byte swizzle, i.e. one panel of the layout above.
-// cuTensorMapEncodeTiled is looked up through the runtime's entry-point
-// query, so the library links without -lcuda. Maps are cached by
-// (pointer, shape, strides, rows): a call with operands seen before
-// encodes nothing.
+// the same for the box at (c0, c1, c2, c3) of a 4-d tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Host: the tensor map of a 3-d or 4-d bf16 tensor (dims[0] innermost;
+// strides[i] in elements between steps of dims[i + 1], multiples of 8;
+// base 16-byte aligned) for boxes of 64 x `rows` (x 1 x 1) in the 128-byte
+// swizzle, i.e. one panel of the layout above. cuTensorMapEncodeTiled is
+// looked up through the runtime's entry-point query, so the library links
+// without -lcuda. Maps are cached by (pointer, rank, shape, strides, rows):
+// a call with operands seen before encodes nothing.
 struct MapKey {
   const void* p;
-  long long n0, n1, n2, s1, s2;
-  int rows;
+  int rank, rows;
+  long long dims[4], strides[3];
   bool operator==(const MapKey& o) const {
-    return p == o.p && n0 == o.n0 && n1 == o.n1 && n2 == o.n2 &&
-           s1 == o.s1 && s2 == o.s2 && rows == o.rows;
+    if (p != o.p || rank != o.rank || rows != o.rows) return false;
+    for (int i = 0; i < rank; ++i)
+      if (dims[i] != o.dims[i] || (i > 0 && strides[i - 1] != o.strides[i - 1]))
+        return false;
+    return true;
   }
 };
 
-inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
-                              long long n1, long long n2, long long s1,
-                              long long s2, int rows = 64) {
+inline cudaError_t encode_map(CUtensorMap* out, const MapKey& key) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -157,7 +192,6 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
   static CUtensorMap maps[kCache];
   static int used = 0, next = 0;
   static Encode encode = nullptr;
-  const MapKey key{p, n0, n1, n2, s1, s2, rows};
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i)
     if (keys[i] == key) {
@@ -174,15 +208,16 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
       return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
-                              static_cast<cuuint64_t>(n1),
-                              static_cast<cuuint64_t>(n2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1) * 2,
-                                 static_cast<cuuint64_t>(s2) * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
+  cuuint64_t dims[4], strides[3];
+  for (int i = 0; i < key.rank; ++i) {
+    dims[i] = static_cast<cuuint64_t>(key.dims[i]);
+    if (i > 0) strides[i - 1] = static_cast<cuuint64_t>(key.strides[i - 1]) * 2;
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(key.rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUtensorMap m;
-  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             static_cast<cuuint32_t>(key.rank), const_cast<void*>(key.p),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -192,6 +227,21 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
   maps[slot] = m;
   *out = m;
   return cudaSuccess;
+}
+
+// (n0, n1, n2) with strides s1, s2
+inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
+                              long long n1, long long n2, long long s1,
+                              long long s2, int rows = 64) {
+  return encode_map(out, MapKey{p, 3, rows, {n0, n1, n2, 1}, {s1, s2, 0}});
+}
+
+// (n0, n1, n2, n3) with strides s1, s2, s3
+inline cudaError_t tensor_map(CUtensorMap* out, const void* p, long long n0,
+                              long long n1, long long n2, long long n3,
+                              long long s1, long long s2, long long s3,
+                              int rows) {
+  return encode_map(out, MapKey{p, 4, rows, {n0, n1, n2, n3}, {s1, s2, s3}});
 }
 
 // ---- the ring ---------------------------------------------------------------
@@ -364,6 +414,58 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16, four registers a[0..3] of this
+// thread, see the note) . B (16 x N, bf16 in shared memory behind the
+// descriptor); TB: 0 K-major, 1 MN-major. The hardware reads a[] after the
+// instruction issues: keep them live (fence_regs) until wgmma_wait.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_ra(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128_ra(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+template <int NR>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // row and column of accumulator element i of this thread (see the note)

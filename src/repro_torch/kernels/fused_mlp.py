@@ -1,18 +1,21 @@
 """Wrappers of the fused expert-MLP CUDA kernels: the forward and its two
-backward kernels, dgrad (``csrc/fused_mlp_dgrad.cu``) and wgrad.
+backward kernels, dgrad and wgrad.
 
-The forward and wgrad have two CUDA paths each, chosen by the operands
-before the launch (``hopper_path``): bf16 operands with 16-byte aligned
-bases and row strides and d, f, N multiples of 8 (every main-path call)
-take the wgmma kernels (``csrc/fused_mlp_hopper.cu``,
-``csrc/fused_mlp_wgrad_hopper.cu``); fp32 and other shapes the general
-kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_wgrad.cu``).
+Each has two CUDA paths, chosen by the operands before the launch
+(``hopper_path``): bf16 operands with 16-byte aligned bases and row
+strides and d, f, N multiples of 8 (every main-path call) take the wgmma
+kernels (``csrc/fused_mlp_hopper.cu``, ``csrc/fused_mlp_dgrad_hopper.cu``,
+``csrc/fused_mlp_wgrad_hopper.cu``; the backward pair shares its
+recompute, ``csrc/fused_mlp_recompute.cuh``); fp32 and other shapes the
+general kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_dgrad.cu``,
+``csrc/fused_mlp_wgrad.cu``).
 
 The plain versions are ``kernels/ref.fused_mlp_ref``,
 ``fused_mlp_dgrad_ref`` and ``fused_mlp_wgrad_ref``; ``kernels/ops.py``
 picks between kernel and plain version by the tensors' device. Each kernel
-counts its own launches (``launches``, ``wgrad_launches``: both paths),
-and the wgmma paths their own beside them (``hopper_launches``,
+counts its own launches (``launches``, ``dgrad_launches``,
+``wgrad_launches``: both paths), and the wgmma paths their own beside them
+(``hopper_launches``, ``dgrad_hopper_launches``,
 ``wgrad_hopper_launches``).
 """
 from __future__ import annotations
@@ -27,25 +30,28 @@ from repro_torch.kernels.ref import is_glu
 
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu2": 3}
 # kernel launches since the last reset(), one count per kernel, and the
-# wgmma paths' share of the forward's and wgrad's
+# wgmma paths' share of each
 launches = 0
 dgrad_launches = 0
 wgrad_launches = 0
 hopper_launches = 0
+dgrad_hopper_launches = 0
 wgrad_hopper_launches = 0
 
 # The wgmma forward's tiling (csrc/fused_mlp_hopper.cu): 64 rows per block;
 # a block keeps F_s hidden columns of one f-split in shared memory, F_s a
 # multiple of 128 up to 768.
 HOPPER_BM, HOPPER_FC, HOPPER_FS_MAX = 64, 128, 768
-GENERAL_CHUNK = 128   # csrc/fused_mlp.cu: hidden columns per partial plane
+# csrc/fused_mlp.cu and csrc/fused_mlp_dgrad.cu: hidden columns per
+# partial plane
+GENERAL_CHUNK = 128
 
 
 def reset() -> None:
     global launches, dgrad_launches, wgrad_launches, hopper_launches, \
-        wgrad_hopper_launches
+        dgrad_hopper_launches, wgrad_hopper_launches
     launches = dgrad_launches = wgrad_launches = 0
-    hopper_launches = wgrad_hopper_launches = 0
+    hopper_launches = dgrad_hopper_launches = wgrad_hopper_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -53,7 +59,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def hopper_path(rows, w_gate, w_up, w_down, dy=None) -> bool:
-    """Whether a forward (dy None) or wgrad call takes the wgmma kernels:
+    """Whether a forward (dy None) or backward call takes the wgmma
+    kernels:
     every operand bf16 with a 16-byte aligned base, a unit last stride and
     leading strides that are multiples of 8 elements, and d, f, N positive
     multiples of 8. Decided from the operands alone, before any launch;
@@ -84,9 +91,20 @@ def fused_mlp_plan(E: int, R: int, d: int, f: int, N: int,
 
 
 def general_scratch_bytes(E: int, R: int, f: int, N: int) -> int:
-    """The general forward's fp32 partial planes, one per 128 hidden
-    columns."""
+    """The general forward's fp32 partial planes, one (E, R, N) per 128
+    hidden columns; the general dgrad's with d for N."""
     return _cdiv(f, GENERAL_CHUNK) * E * R * N * 4
+
+
+def _dgrad_scratch_shape(E: int, R: int, f: int, glu: bool):
+    """The wgmma dgrad's scratch: the recomputed dup (and dgate), each
+    (E, R, f) in bf16."""
+    return (2 if glu else 1, E, R, f)
+
+
+def dgrad_scratch_bytes(E: int, R: int, f: int, glu: bool) -> int:
+    n, E, R, f = _dgrad_scratch_shape(E, R, f, glu)
+    return n * E * R * f * 2
 
 
 def _wgrad_scratch_shape(E: int, R: int, f: int, glu: bool):
@@ -191,9 +209,10 @@ def fused_mlp_dgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
                     dy: torch.Tensor, activation: str) -> torch.Tensor:
     """dX (E, R, d) of the fused expert MLP for the cotangent dy (E, R, N),
     in the inputs' dtype. w_down and dy may be the same column slice of the
-    full output (dX is then that block's part). Scratch for the fp32
-    partial sums of the f-chunks is allocated here."""
-    global dgrad_launches
+    full output (dX is then that block's part). Scratch is allocated here:
+    on the wgmma path the bf16 dup (and dgate) of the recompute; on the
+    general path the fp32 partial sums of the f-chunks."""
+    global dgrad_launches, dgrad_hopper_launches
     name = "fused_mlp_dgrad"
     code, E, R, d, f, N = _check(name, rows, w_gate, w_up, w_down,
                                  activation, dy)
@@ -203,6 +222,22 @@ def fused_mlp_dgrad(rows: torch.Tensor, w_gate: Optional[torch.Tensor],
     if f == 0 or N == 0:
         return out.zero_()
     lib = build.load()
+    if hopper_path(rows, w_gate, w_up, w_down, dy):
+        scratch = torch.empty(
+            _dgrad_scratch_shape(E, R, f, w_gate is not None),
+            dtype=rows.dtype, device=rows.device)
+        err = lib.lib.repro_fused_mlp_dgrad_hopper(
+            rows.data_ptr(), rows.stride(0), rows.stride(1),
+            None if w_gate is None else w_gate.data_ptr(), w_up.data_ptr(),
+            w_up.stride(0), w_up.stride(1),
+            w_down.data_ptr(), w_down.stride(0), w_down.stride(1),
+            dy.data_ptr(), dy.stride(0), dy.stride(1), scratch.data_ptr(),
+            out.data_ptr(), E, R, d, f, N, ACTIVATIONS[activation],
+            build.stream_ptr(rows))
+        lib.check(name, err)
+        dgrad_launches += 1
+        dgrad_hopper_launches += 1
+        return out
     n_chunks = -(-f // lib.lib.repro_fused_mlp_dgrad_chunk())
     part = torch.empty((n_chunks, E, R, d), dtype=torch.float32,
                        device=rows.device)

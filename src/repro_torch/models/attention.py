@@ -2,8 +2,9 @@
 prefill attention, and decode against a contiguous KV cache.
 
 These mirror the JAX package's jnp einsums (``repro.models.attention``),
-scores and softmax in fp32. They are not ``scaled_dot_product_attention``:
-the flash-attention kernel is ported in a later slice. Masks are by
+scores and softmax in fp32. They are not ``scaled_dot_product_attention``;
+the training forward's full-sequence attention goes to the flash-attention
+kernel instead (``models/blocks.attn_apply``). Masks are by
 absolute positions (``q_pos``/``kv_pos``, causal or not) and an optional
 (B, Sk) key validity ``kv_mask``; the JAX functions' ``q_offset`` and
 ``kv_start`` are not ported.

@@ -1,11 +1,12 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small ragged shapes: every activation, both orders, a column slice, fp32
 (1e-4, TF32 off) and bf16 (2e-2); the backward pair (dgrad, wgrad) also
-at two row tiles and through ops.fused_mlp's autograd; the forward's and
-wgrad's wgmma paths (ragged M tiles, split hidden, aligned slices, their
-counters, identical bits on a second call) beside the general kernels;
-flash attention (MHA, GQA, MQA, ragged lengths, causal and not, strided
-views) and the SSD (ragged lengths, small and model-size states, strided
+at two row tiles and through ops.fused_mlp's autograd; the forward's,
+dgrad's and wgrad's wgmma paths (ragged M tiles, split hidden, aligned
+slices, their counters, identical bits on a second call) beside the
+general kernels; flash attention (MHA, GQA, MQA, ragged lengths, causal
+and not, strided views; the wgmma path within twice the general kernel's
+error, its counter, identical bits) and the SSD (ragged lengths, small and model-size states, strided
 views, mixed dtypes, an initial and a final state) with their autograd
 backward; the rmsnorm in both epilogues (vector and scalar widths, fp32
 and bf16 scales) and its autograd op. Needs an NVIDIA Hopper GPU and
@@ -216,6 +217,29 @@ def test_fused_mlp_wgrad_hopper_path(cuda, act, R, d, f, N, col):
             assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+@pytest.mark.parametrize("R,d,f,N,col", _HOPPER_SHAPES)
+def test_fused_mlp_dgrad_hopper_path(cuda, act, R, d, f, N, col):
+    """bf16 aligned calls launch the wgmma dgrad (the shared recompute,
+    then one product over the hidden), match the plain version, and give
+    the same bits twice."""
+    from repro_torch.kernels import fused_mlp, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(R + f + 4)
+    x, wg, wu, wd, dy = _mlp_operands(gen, torch.bfloat16, act, 3, R, d, f,
+                                      N, col)
+    assert fused_mlp.hopper_path(x, wg, wu, wd, dy)
+    fused_mlp.reset()
+    got = fused_mlp.fused_mlp_dgrad(x, wg, wu, wd, dy, act)
+    assert (fused_mlp.dgrad_launches, fused_mlp.dgrad_hopper_launches) == \
+        (1, 1)
+    want = ref.fused_mlp_dgrad_ref(x, wg, wu, wd, dy, act)
+    floor = ref.fused_mlp_dgrad_ref(x, wg, wu, wd, dy, act,
+                                    acc=torch.float64)
+    _close_or_floor(got, want, floor)
+    assert torch.equal(got, fused_mlp.fused_mlp_dgrad(x, wg, wu, wd, dy, act))
+
+
 @pytest.mark.parametrize("case", ["fp32", "d=17", "misaligned slice"])
 def test_general_path_takes_the_rest(cuda, case):
     """fp32, widths that are not multiples of 8 and column slices that do
@@ -233,10 +257,13 @@ def test_general_path_takes_the_rest(cuda, case):
     fused_mlp.reset()
     got = fused_mlp.fused_mlp(x, wg, wu, wd, "swiglu")
     gw = fused_mlp.fused_mlp_wgrad(x, wg, wu, wd, dy, "swiglu")
+    gx = fused_mlp.fused_mlp_dgrad(x, wg, wu, wd, dy, "swiglu")
     assert (fused_mlp.launches, fused_mlp.hopper_launches,
-            fused_mlp.wgrad_launches,
-            fused_mlp.wgrad_hopper_launches) == (1, 0, 1, 0)
+            fused_mlp.wgrad_launches, fused_mlp.wgrad_hopper_launches,
+            fused_mlp.dgrad_launches,
+            fused_mlp.dgrad_hopper_launches) == (1, 0, 1, 0, 1, 0)
     _close(got, ref.fused_mlp_ref(x, wg, wu, wd, "swiglu"), dtype)
+    _close(gx, ref.fused_mlp_dgrad_ref(x, wg, wu, wd, dy, "swiglu"), dtype)
     for g, w in zip(gw, ref.fused_mlp_wgrad_ref(x, wg, wu, wd, dy,
                                                 "swiglu")):
         _close(g, w, dtype)
@@ -294,6 +321,50 @@ def test_flash_attention(cuda, dtype, causal, B, Hq, Hkv, S, hd):
     v = _randn(gen, (B, S, Hkv, hd), dtype).transpose(1, 2)
     got = flash_attention.flash_attention(q, k, v, causal)
     _close(got, ref.flash_attention_ref(q, k, v, causal), dtype)
+
+
+# (B, Hq, Hkv, Sq, Sk, hd): MHA, GQA and MQA, a single query, ragged
+# lengths (partial q and kv tiles), fewer queries than keys, both head
+# widths of the wgmma path
+_FLASH_HOPPER_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 200, 200, 128),
+                        (1, 4, 1, 77, 77, 64), (2, 2, 2, 1, 1, 128),
+                        (1, 2, 1, 300, 300, 128), (2, 4, 2, 100, 300, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,hd", _FLASH_HOPPER_SHAPES)
+def test_flash_attention_hopper_path(cuda, monkeypatch, causal, B, Hq, Hkv,
+                                     Sq, Sk, hd):
+    """bf16 views with head_dim 64 or 128 launch the wgmma kernel (counted
+    beside the total), match the plain version within 2e-2, give the same
+    bits twice, and stay within twice the general kernel's error: the
+    largest over 6 seeded draws on both sides, as chip_smoke.py phase 2
+    holds it (one draw's max error is the ulp of whichever element's bf16
+    rounding happened to flip)."""
+    from repro_torch.kernels import flash_attention, ref
+    err = g_err = 0.0
+    for seed in range(6):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(Sq + Sk + hd + 1000 * seed)
+        q = _randn(gen, (B, Sq, Hq, hd), torch.bfloat16).transpose(1, 2)
+        k = _randn(gen, (B, Sk, Hkv, hd), torch.bfloat16).transpose(1, 2)
+        v = _randn(gen, (B, Sk, Hkv, hd), torch.bfloat16).transpose(1, 2)
+        assert flash_attention.hopper_path(q, k, v)
+        flash_attention.reset()
+        got = flash_attention.flash_attention(q, k, v, causal)
+        assert (flash_attention.launches,
+                flash_attention.hopper_launches) == (1, 1)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        _close(got, want, torch.bfloat16)
+        assert torch.equal(got,
+                           flash_attention.flash_attention(q, k, v, causal))
+        with monkeypatch.context() as mp:
+            mp.setattr(flash_attention, "hopper_path", lambda *a: False)
+            general = flash_attention.flash_attention(q, k, v, causal)
+        assert flash_attention.hopper_launches == 2
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        g_err = max(g_err, float((general.float() - want.float()).abs().max()))
+    assert err <= 2 * g_err, (err, g_err)
 
 
 def _ssd_operands(gen, B, S, nh, hd, ds, xdt, bdt):

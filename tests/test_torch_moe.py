@@ -106,3 +106,69 @@ def test_mlp_col_blocks_concatenate_to_the_full_mlp(gemm_impl):
                               gemm_impl)
     torch.testing.assert_close(torch.cat(blocks, dim=-1), full, rtol=1e-5,
                                atol=1e-5)
+
+
+_WIRES = ["fp32", "bf16", "fp8_e4m3"]
+
+
+@pytest.mark.parametrize("fused_combine", [False, True])
+@pytest.mark.parametrize("wire_dtype", _WIRES)
+def test_comet_hier_wire_matches_jax(wire_dtype, fused_combine):
+    """At one rank comet_hier quantizes the dispatch buffer to the wire
+    format, one scale per chunk, before the comet arm."""
+    _run("qwen2-moe-2.7b-smoke", 6, impl="comet_hier", wire_dtype=wire_dtype,
+         fused_combine=fused_combine, n_col_blocks=2)
+
+
+@pytest.mark.parametrize("fused_combine", [False, True])
+@pytest.mark.parametrize("wire_dtype", _WIRES)
+def test_comet_hier_wire_grads_match_jax(wire_dtype, fused_combine):
+    """The quantization is straight through: jax.grad of the JAX layer
+    against torch.autograd through the port's, for x and every expert
+    weight, fp32 1e-4."""
+    import jax
+    arch, moe_kw = "qwen2-moe-2.7b-smoke", dict(
+        impl="comet_hier", wire_dtype=wire_dtype,
+        fused_combine=fused_combine, n_col_blocks=2)
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                             **moe_kw))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
+    p = _params(cfg, 7)
+    x = np.random.default_rng(8).standard_normal(
+        (2, 6, cfg.d_model)).astype(np.float32)
+
+    def jloss(pp, xx):
+        y, aux = JM.moe_ffn(jcfg, jcfg.moe, pp, xx, AxisCtx())
+        return jnp.sum(y ** 2) + aux
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(_tree(p, jnp.asarray),
+                                               jnp.asarray(x))
+    tp = _tree(p, lambda a: torch.from_numpy(a).requires_grad_())
+    xt = torch.from_numpy(x).requires_grad_()
+    y, aux = M.moe_ffn(cfg, cfg.moe, tp, xt)
+    (torch.sum(y ** 2) + aux).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=1e-4,
+                               atol=1e-4, err_msg="x")
+    for k in jgp["experts"]:
+        np.testing.assert_allclose(tp["experts"][k].grad.numpy(),
+                                   np.asarray(jgp["experts"][k]), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"experts[{k}]")
+    assert np.abs(np.asarray(jgx)).max() > 0
+
+
+def test_comet_hier_rejects_an_unknown_wire_dtype():
+    arch = "qwen2-moe-2.7b-smoke"
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, impl="comet_hier", wire_dtype="int3"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="comet_hier", wire_dtype="int3"))
+    p = _params(cfg, 7)
+    x = np.zeros((2, 6, cfg.d_model), np.float32)
+    with pytest.raises(ValueError, match="int3"):
+        JM.moe_ffn(jcfg, jcfg.moe, _tree(p, jnp.asarray), jnp.asarray(x),
+                   AxisCtx())
+    with pytest.raises(ValueError, match="int3"):
+        M.moe_ffn(cfg, cfg.moe, _tree(p, torch.from_numpy),
+                  torch.from_numpy(x))
