@@ -4,6 +4,7 @@
   python3 chip_smoke.py              # all eight phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
+  python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
 Phases:
   1 build    nvidia-smi's card and power limit; build the CUDA kernels from
@@ -15,9 +16,12 @@ Phases:
              fused_mlp also at the train shape (R = 320) and at
              jamba-v0.1-52b's expert width (16 experts, d 4096, f 14336,
              N 4096, R 320) with its scratch bytes; every bf16 case of
-             fused_mlp, fused_mlp_dgrad, fused_mlp_wgrad and
+             fused_mlp, grouped_gemm, fused_mlp_dgrad, fused_mlp_wgrad and
              flash_attention must take the wgmma path, and every case of
-             the four must give identical bits on a second call. The
+             the five must give identical bits on a second call
+             (grouped_gemm also in the other traversal order, and at
+             decode, M = 4, and on a column block of w_down; its bf16
+             cases are timed beside the general kernel). The
              backward kernels (fused_mlp_dgrad, fused_mlp_wgrad) at the
              train shape, a ragged R, a column block and all four
              activations, in bf16 within 2e-2 or 3x the floor between two
@@ -45,7 +49,8 @@ Phases:
              bf16 fused_mlp launch on the wgmma path).
   5 pallas   a short serve with gemm_impl="pallas" (the grouped-GEMM
              kernel), then one full-width MoE layer, prefill and decode
-             shapes, "pallas" against "xla".
+             shapes, "pallas" against "xla"; every bf16 grouped_gemm
+             launch on the wgmma path.
   6 train    the serving weights are freed first. Loss and every gradient
              of qwen2-moe-2.7b at full width through the kernels and through
              the plain versions: 2 layers in fp32 (rel L2 1e-4 per leaf),
@@ -129,15 +134,16 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
 }
 # the main path's kernel source of each (bf16: the wgmma paths of
-# fused_mlp, fused_mlp_dgrad, fused_mlp_wgrad and flash_attention; their
-# general kernels are <name>.cu)
+# fused_mlp, grouped_gemm, fused_mlp_dgrad, fused_mlp_wgrad and
+# flash_attention; their general kernels are <name>.cu)
 SOURCES = {"fused_mlp": "fused_mlp_hopper.cu",
+           "grouped_gemm": "grouped_gemm_hopper.cu",
            "fused_mlp_dgrad": "fused_mlp_dgrad_hopper.cu",
            "fused_mlp_wgrad": "fused_mlp_wgrad_hopper.cu",
            "flash_attention": "flash_attention_hopper.cu",
            "ssd_forward": "ssd.cu"}
 # the wgmma kernels: their counter beside the kernel's in read_counts()
-HOPPER = ("fused_mlp", "fused_mlp_dgrad", "fused_mlp_wgrad",
+HOPPER = ("fused_mlp", "grouped_gemm", "fused_mlp_dgrad", "fused_mlp_wgrad",
           "flash_attention")
 # seeded draws (the first is the case's own data) over which phase 2 takes
 # the bf16 backward kernels' floor rule at the small shape, and the bf16
@@ -350,6 +356,17 @@ def kernel_cases():
     cases.append(("fused_mlp", JAMBA_CASE, "bf16",
                   dict(R=320, order="expert_major", col=None, E=16, d=4096,
                        f=14336, N=4096)))
+    # the grouped GEMM at decode (8 slots, top-4: C = 4 rows per expert),
+    # gemm1 and gemm2, and gemm2 on a column block of w_down (1024 of
+    # 2048 columns from column 1024, the row stride 2048)
+    for dt in ("bf16", "fp32"):
+        cases.append(("grouped_gemm", "decode gemm1 M=4 expert_major", dt,
+                      dict(M=4, K=2048, N=1408, order="expert_major")))
+        cases.append(("grouped_gemm", "decode gemm2 M=4 n_major", dt,
+                      dict(M=4, K=1408, N=2048, order="n_major")))
+        cases.append(("grouped_gemm", "gemm2 col_slice=(1024,1024) n_major",
+                      dt, dict(M=160, K=1408, N=2048, order="n_major",
+                               col=(1024, 1024))))
     return cases
 
 
@@ -533,10 +550,11 @@ def mlp_bwd_case(kernel, dt, isz, spec, gen):
 
 @contextlib.contextmanager
 def general_path():
-    """While active, the fused-MLP and flash-attention wrappers take their
-    general kernels for every call."""
-    from repro_torch.kernels import flash_attention, fused_mlp
-    real = {m: m.hopper_path for m in (fused_mlp, flash_attention)}
+    """While active, the fused-MLP, grouped-GEMM and flash-attention
+    wrappers take their general kernels for every call."""
+    from repro_torch.kernels import flash_attention, fused_mlp, grouped_gemm
+    real = {m: m.hopper_path for m in (fused_mlp, grouped_gemm,
+                                       flash_attention)}
     for m in real:
         m.hopper_path = lambda *a, **kw: False
     try:
@@ -692,9 +710,13 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         M, K, Nn = spec["M"], spec["K"], spec["N"]
         lhs = _randn((E, M, K), dt, 1.0, gen)
         rhs = _randn((E, K, Nn), dt, K ** -0.5, gen)
+        if spec.get("col") is not None:     # a column block of rhs
+            s, w = spec["col"]
+            rhs = rhs[:, :, s:s + w]
+            Nn = w
 
-        def k():
-            return grouped_gemm.grouped_gemm(lhs, rhs, order=spec["order"])
+        def k(order=spec["order"]):
+            return grouped_gemm.grouped_gemm(lhs, rhs, order=order)
 
         def p():
             return ref.grouped_gemm_ref(lhs, rhs)
@@ -704,6 +726,7 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
 
         nbytes = (E * M * K + E * K * Nn + E * M * Nn) * isz
         flops = 2 * E * M * K * Nn
+        extra = {}
     else:
         T, kk = spec["T"], 4
         rows = _randn((T, kk, d), dt, 1.0, gen)
@@ -740,6 +763,12 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         again = k()
         rec["identical_bits"] = all(
             torch.equal(a, b) for a, b in _pairs(again, got))
+        if kernel == "grouped_gemm":
+            # every tile sums K in one order: the other traversal order
+            # gives the same bits
+            other = ("n_major" if spec["order"] == "expert_major"
+                     else "expert_major")
+            rec["identical_bits"] &= torch.equal(k(order=other), got)
         if rec["path"] == "hopper" and kernel in ("fused_mlp_wgrad",
                                                   "flash_attention"):
             # the same call through the general kernel (as for an unaligned
@@ -789,6 +818,14 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         rec["ms"] = timer(k)
         rec["plain_ms"] = timer(p)
         rec["library_ms"] = None if lib is None else timer(lib)
+        if kernel == "grouped_gemm" and rec.get("path") == "hopper":
+            # the general kernel on the same inputs
+            with general_path():
+                rec["general_ms"] = timer(k)
+            # device time alone, the calls replayed from a CUDA graph (the
+            # eager times above include each call's host work)
+            rec["device_ms"] = graph_ms(lambda i: k(), reps=20)
+            rec["library_device_ms"] = graph_ms(lambda i: lib(), reps=20)
         if spec.get("train") and dt_name == "bf16":
             # the flash/SSD op's backward at the train shape: the plain
             # version recomputed under autograd (no backward kernel, as in
@@ -813,6 +850,10 @@ def phase_kernels(out, only=()):
                else f"{rec['library_ms']:.4f}")
         bwd = ("" if "backward_ms" not in rec
                else f", backward {rec['backward_ms']:.4f}")
+        if "general_ms" in rec:
+            bwd += (f", general kernel {rec['general_ms']:.4f}; graph "
+                    f"{rec['device_ms']:.4f}, library graph "
+                    f"{rec['library_device_ms']:.4f}")
         times = (f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
                  f"library {lib}, bound {rec['bound_ms']:.4f} by "
                  f"{rec['bound_by']}{bwd})")
@@ -962,6 +1003,7 @@ def read_counts():
     return {"fused_mlp": fused_mlp.launches,
             "fused_mlp_hopper": fused_mlp.hopper_launches,
             "grouped_gemm": grouped_gemm.launches,
+            "grouped_gemm_hopper": grouped_gemm.hopper_launches,
             "topk_combine": topk_combine.launches,
             "fused_mlp_dgrad": fused_mlp.dgrad_launches,
             "fused_mlp_dgrad_hopper": fused_mlp.dgrad_hopper_launches,
@@ -1326,6 +1368,11 @@ def phase_pallas(state, out):
     _, rec = serve(cfg, params, 8, 8, 2, "serve_pallas", out)
     check(rec["launches"]["grouped_gemm"] > 0,
           f"pallas serve did not launch grouped_gemm: {rec['launches']}")
+    # every bf16 launch on the wgmma path
+    check(rec["launches"]["grouped_gemm_hopper"]
+          == rec["launches"]["grouped_gemm"],
+          f"pallas serve: grouped_gemm launches off the wgmma path: "
+          f"{rec['launches']}")
     moe = {k: v[0] for k, v in params["layers"][0]["moe"].items()
            if k != "experts"}
     moe["experts"] = {k: v[0] for k, v in
@@ -1343,11 +1390,17 @@ def phase_pallas(state, out):
             c = with_gemm(cfg, impl)
             ys[impl], _ = moe_layer.moe_ffn(c, c.moe, moe, x)
         err, ok = max_err(ys["pallas"], ys["xla"], TOL["bf16"])
+        counts = read_counts()
         res[name] = {"max_abs_err": err, "within_tol": ok,
-                     "grouped_gemm_launches": read_counts()["grouped_gemm"],
+                     "grouped_gemm_launches": counts["grouped_gemm"],
+                     "grouped_gemm_hopper_launches":
+                         counts["grouped_gemm_hopper"],
                      "y_absmean": float(ys["xla"].float().abs().mean())}
         check(res[name]["grouped_gemm_launches"] > 0,
               f"the pallas MoE layer did not launch grouped_gemm ({name})")
+        check(counts["grouped_gemm_hopper"] == counts["grouped_gemm"],
+              f"the pallas MoE layer launched grouped_gemm off the wgmma "
+              f"path ({name}): {counts}")
     out["moe_layer_pallas_vs_xla"] = res
     log("  " + json.dumps(res))
     check(all(r["within_tol"] for r in res.values()),
@@ -1518,7 +1571,8 @@ def phase_train(state, out):
             "topk_combine": 2 * L * 3, "fused_mlp_dgrad": L * 3,
             "fused_mlp_dgrad_hopper": L * 3,
             "fused_mlp_wgrad": L * 3, "fused_mlp_wgrad_hopper": L * 3,
-            "grouped_gemm": 0, "flash_attention": 2 * L * 3,
+            "grouped_gemm": 0, "grouped_gemm_hopper": 0,
+            "flash_attention": 2 * L * 3,
             "flash_attention_hopper": 2 * L * 3,
             "ssd_forward": 0, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
@@ -1705,7 +1759,7 @@ def phase_train_ssm(state, out):
     want = {"fused_mlp": 0, "fused_mlp_hopper": 0, "topk_combine": 0,
             "fused_mlp_dgrad": 0, "fused_mlp_dgrad_hopper": 0,
             "fused_mlp_wgrad": 0, "fused_mlp_wgrad_hopper": 0,
-            "grouped_gemm": 0, "flash_attention": 0,
+            "grouped_gemm": 0, "grouped_gemm_hopper": 0, "flash_attention": 0,
             "flash_attention_hopper": 0,
             "ssd_forward": 2 * L * 3, "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
@@ -1860,6 +1914,15 @@ def kernel_records(out):
         run = (out.get(phase, {}).get("train", {}) if name not in src
                else out.get(src[name], {}))
         extra = {}
+        if name in ("grouped_gemm", "rmsnorm"):   # the decode shape
+            dc = case_rec(name, "decode gemm1 M=4 expert_major"
+                          if name == "grouped_gemm" else "T=8 d=1536 model")
+            extra = {"decode_ms": dc.get("ms"),
+                     "decode_bound_ms": dc.get("bound_ms"),
+                     "decode_library_ms": dc.get("library_ms")}
+            for key in ("general_ms", "device_ms", "library_device_ms"):
+                if key in c:
+                    extra[key] = c[key]
         if name == "ssd_forward":     # the serving chunk, with a state
             sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
             extra = {"serve_ms": sc.get("ms"),

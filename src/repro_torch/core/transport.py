@@ -23,7 +23,10 @@ The GroupGEMM backend is explicit (``gemm_impl=``) through every entry
 point, with the same names as the JAX package:
   "xla"          - torch.bmm, the hidden through device memory.
   "pallas"       - the hand-written grouped GEMM kernel, with the comet
-                   traversal orders (layer 1 takes n_major).
+                   traversal orders (layer 1 takes n_major); forward
+                   only, as in the JAX package: the comet arms call it
+                   with grad mode off and differentiate by hand, the
+                   other arms raise under autograd.
   "pallas_fused" - the hand-written fused expert-MLP kernel: GEMM1 ->
                    activation -> GEMM2 in one kernel, the hidden never in
                    device memory.

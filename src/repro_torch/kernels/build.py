@@ -38,6 +38,8 @@ SIGNATURES = {
     "repro_topk_combine": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_grouped_gemm": (_P, _LL, _LL, _P, _LL, _LL, _P,
                            _I, _I, _I, _I, _I, _I, _P),
+    "repro_grouped_gemm_hopper": (_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp": (_P, _LL, _LL, _P, _P, _LL, _LL, _P, _LL, _LL, _P,
                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_fused_mlp_chunk": (),
@@ -66,7 +68,8 @@ SIGNATURES = {
     "repro_ssd_forward": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
                           _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P),
 }
 
 

@@ -6,8 +6,10 @@ goes to the hand-written kernel; if the kernel cannot be built, loaded or
 launched, the call raises. There is no fallback from the card to the plain
 version.
 
-``fused_mlp`` is differentiable: its backward runs the dgrad and wgrad
-kernels (the counterpart of the JAX package's custom VJP,
+``grouped_gemm`` (the "pallas" backend) is forward only, as the JAX
+package's ``pallas_call`` is: under grad mode it refuses an operand that
+requires grad. ``fused_mlp`` is differentiable: its backward runs the
+dgrad and wgrad kernels (the counterpart of the JAX package's custom VJP,
 ``repro.kernels.fused_mlp._diff_fused``). ``topk_combine_diff`` is the
 combine kernel with the analytic fp32 backward of
 ``repro.kernels.topk_combine._diff_combine``, plain tensor code on both
@@ -51,6 +53,19 @@ def topk_combine(rows, weights):
 
 
 def grouped_gemm(lhs, rhs, order: str = "expert_major"):
+    """The "pallas" GroupGEMM backend's product, forward only: the JAX
+    package's ``pallas_call`` has no VJP, so ``jax.grad`` through it raises.
+    The same here on both devices: under grad mode an operand that
+    requires grad raises, where the card's kernel would otherwise return
+    an output without a ``grad_fn`` and drop the expert gradients. The
+    comet arms call it inside their ``autograd.Function`` forward (grad
+    mode off) and differentiate by hand; serving's weights never require
+    grad."""
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        raise RuntimeError(
+            'grouped_gemm: the "pallas" GroupGEMM backend has no backward '
+            '(as in the JAX package); differentiate through gemm_impl='
+            '"xla" or "pallas_fused", or through impl="comet"')
     if _on_cuda(lhs, rhs):
         return _gg.grouped_gemm(lhs, rhs, order=order)
     return ref.grouped_gemm_ref(lhs, rhs)

@@ -8,8 +8,10 @@ general kernels; flash attention (MHA, GQA, MQA, ragged lengths, causal
 and not, strided views; the wgmma path within twice the general kernel's
 error, its counter, identical bits) and the SSD (ragged lengths, small and model-size states, strided
 views, mixed dtypes, an initial and a final state) with their autograd
-backward; the rmsnorm in both epilogues (vector and scalar widths, fp32
-and bf16 scales) and its autograd op. Needs an NVIDIA Hopper GPU and
+backward; the grouped GEMM's wgmma path at the main paths' shapes (both
+orders, the same bits) and its refusal of gradients; the rmsnorm in both
+epilogues (vector and scalar widths, rows of several warps, fp32 and bf16
+scales) and its autograd op. Needs an NVIDIA Hopper GPU and
 nvcc; skips elsewhere. On the card:
 
   python -m pytest -m gpu tests/test_torch_cuda_kernels.py
@@ -73,6 +75,68 @@ def test_grouped_gemm(cuda, dtype, order, E, M, K, N):
     rhs = _randn(gen, (E, K, N), dtype, K ** -0.5)
     got = grouped_gemm.grouped_gemm(lhs, rhs, order=order)
     _close(got, ref.grouped_gemm_ref(lhs, rhs), dtype)
+
+
+# (E, M, K, N, column slice): qwen2-moe-2.7b's gemm1 and gemm2 at the
+# prefill step (C = 160) and at decode (C = 4), a ragged M, gemm2 on a
+# column block (1024 of 2048 from column 1024), and an M past one tile
+@pytest.mark.parametrize("E,M,K,N,col", [
+    (64, 160, 2048, 1408, None), (64, 160, 1408, 2048, None),
+    (64, 4, 2048, 1408, None), (64, 4, 1408, 2048, None),
+    (64, 37, 2048, 1408, None), (8, 160, 1408, 2048, (1024, 1024)),
+    (3, 300, 136, 200, None)])
+def test_grouped_gemm_hopper_path(cuda, E, M, K, N, col):
+    """bf16 on the wgmma kernel in both orders, within 2e-2 of the plain
+    version; the two orders (and a second call) give the same bits, and
+    the counters show the path."""
+    from repro_torch.kernels import grouped_gemm, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(M + N)
+    lhs = _randn(gen, (E, M, K), torch.bfloat16)
+    rhs = _randn(gen, (E, K, N), torch.bfloat16, K ** -0.5)
+    if col is not None:
+        rhs = rhs[:, :, col[0]:col[0] + col[1]]
+    assert grouped_gemm.hopper_path(lhs, rhs)
+    grouped_gemm.reset()
+    got = {o: grouped_gemm.grouped_gemm(lhs, rhs, order=o)
+           for o in ("expert_major", "n_major")}
+    assert grouped_gemm.launches == grouped_gemm.hopper_launches == 2
+    want = ref.grouped_gemm_ref(lhs, rhs)
+    for o in got:
+        _close(got[o], want, torch.bfloat16)
+    assert torch.equal(got["expert_major"], got["n_major"])
+    assert torch.equal(grouped_gemm.grouped_gemm(lhs, rhs, "n_major"),
+                       got["n_major"])
+
+
+def test_grouped_gemm_fp32_takes_the_general_kernel(cuda):
+    from repro_torch.kernels import grouped_gemm, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    lhs = _randn(gen, (4, 37, 136), torch.float32)
+    rhs = _randn(gen, (4, 136, 200), torch.float32, 136 ** -0.5)
+    grouped_gemm.reset()
+    got = grouped_gemm.grouped_gemm(lhs, rhs)
+    assert (grouped_gemm.launches, grouped_gemm.hopper_launches) == (1, 0)
+    _close(got, ref.grouped_gemm_ref(lhs, rhs), torch.float32)
+
+
+def test_grouped_gemm_op_refuses_gradients_on_the_card(cuda):
+    """The "pallas" backend has no backward: ops.grouped_gemm raises under
+    grad mode for a CUDA operand that requires grad (the kernel's output
+    would carry no grad_fn), and runs without grad mode."""
+    from repro_torch.kernels import grouped_gemm, ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    lhs = _randn(gen, (2, 4, 64), torch.bfloat16)
+    rhs = _randn(gen, (2, 64, 128), torch.bfloat16).requires_grad_()
+    grouped_gemm.reset()
+    with pytest.raises(RuntimeError, match='"pallas" GroupGEMM backend'):
+        ops.grouped_gemm(lhs, rhs)
+    assert grouped_gemm.launches == 0
+    with torch.no_grad():
+        out = ops.grouped_gemm(lhs, rhs)
+    assert grouped_gemm.hopper_launches == 1 and out.shape == (2, 4, 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -497,6 +561,33 @@ def test_rmsnorm(cuda, dtype, epilogue, T, d):
         s16 = scale.to(dtype)
         _close(rmsnorm.rmsnorm(x, s16, 1e-5, epilogue=epilogue),
                plain(x, s16, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("epilogue", ["tpu", "model"])
+@pytest.mark.parametrize("T,d,dtype", [(2048, 3072, torch.bfloat16),
+                                       (2048, 1536, torch.float32),
+                                       (8192, 1536, torch.bfloat16),
+                                       (7, 8192, torch.float32)])
+def test_rmsnorm_rows_of_several_warps_and_strided_rows(cuda, T, d, dtype,
+                                                        epilogue):
+    """Widths whose rows take several warps (mamba2's gated 3072 in bf16,
+    1536 and 8192 in fp32) and a row count past the persistent grid
+    (8192 rows: each row group takes two and more), against the plain
+    version; two calls give the same bits."""
+    from repro_torch.kernels import build, ref, rmsnorm
+    plan = rmsnorm.launch_plan(T, d, torch.finfo(dtype).bits // 8, True,
+                               build.sm_count(0))
+    assert plan["warps_per_row"] > 1 or plan["blocks"] * \
+        plan["rows_per_block"] < T
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T + d)
+    x = _randn(gen, (T, d), dtype)
+    scale = 1.0 + 0.1 * _randn(gen, (d,), torch.float32)
+    got = rmsnorm.rmsnorm(x, scale, 1e-5, epilogue=epilogue)
+    plain = ref.rmsnorm_ref if epilogue == "tpu" else ref.rms_norm
+    _close(got, plain(x, scale, 1e-5), dtype)
+    assert torch.equal(rmsnorm.rmsnorm(x, scale, 1e-5, epilogue=epilogue),
+                       got)
 
 
 def test_rms_norm_op_is_the_kernel_forward(cuda):

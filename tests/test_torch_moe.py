@@ -120,23 +120,19 @@ def test_comet_hier_wire_matches_jax(wire_dtype, fused_combine):
          fused_combine=fused_combine, n_col_blocks=2)
 
 
-@pytest.mark.parametrize("fused_combine", [False, True])
-@pytest.mark.parametrize("wire_dtype", _WIRES)
-def test_comet_hier_wire_grads_match_jax(wire_dtype, fused_combine):
-    """The quantization is straight through: jax.grad of the JAX layer
-    against torch.autograd through the port's, for x and every expert
-    weight, fp32 1e-4."""
+def _jax_and_torch_grads(S, **moe_kw):
+    """jax.grad of the JAX layer and torch.autograd through the port's, for
+    x and every parameter, on qwen2-moe-2.7b-smoke in fp32: (JAX params'
+    grads, JAX x grad, port params with .grad, port x with .grad)."""
     import jax
-    arch, moe_kw = "qwen2-moe-2.7b-smoke", dict(
-        impl="comet_hier", wire_dtype=wire_dtype,
-        fused_combine=fused_combine, n_col_blocks=2)
+    arch = "qwen2-moe-2.7b-smoke"
     jcfg, cfg = jax_config(arch), get_config(arch)
     jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
                                                              **moe_kw))
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
     p = _params(cfg, 7)
     x = np.random.default_rng(8).standard_normal(
-        (2, 6, cfg.d_model)).astype(np.float32)
+        (2, S, cfg.d_model)).astype(np.float32)
 
     def jloss(pp, xx):
         y, aux = JM.moe_ffn(jcfg, jcfg.moe, pp, xx, AxisCtx())
@@ -148,6 +144,10 @@ def test_comet_hier_wire_grads_match_jax(wire_dtype, fused_combine):
     xt = torch.from_numpy(x).requires_grad_()
     y, aux = M.moe_ffn(cfg, cfg.moe, tp, xt)
     (torch.sum(y ** 2) + aux).backward()
+    return jgp, jgx, tp, xt
+
+
+def _assert_expert_grads_match(jgp, jgx, tp, xt):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=1e-4,
                                atol=1e-4, err_msg="x")
     for k in jgp["experts"]:
@@ -155,6 +155,53 @@ def test_comet_hier_wire_grads_match_jax(wire_dtype, fused_combine):
                                    np.asarray(jgp["experts"][k]), rtol=1e-4,
                                    atol=1e-4, err_msg=f"experts[{k}]")
     assert np.abs(np.asarray(jgx)).max() > 0
+
+
+@pytest.mark.parametrize("fused_combine", [False, True])
+@pytest.mark.parametrize("wire_dtype", _WIRES)
+def test_comet_hier_wire_grads_match_jax(wire_dtype, fused_combine):
+    """The quantization is straight through: jax.grad of the JAX layer
+    against torch.autograd through the port's, for x and every expert
+    weight, fp32 1e-4."""
+    _assert_expert_grads_match(*_jax_and_torch_grads(
+        6, impl="comet_hier", wire_dtype=wire_dtype,
+        fused_combine=fused_combine, n_col_blocks=2))
+
+
+@pytest.mark.parametrize("impl,S", [("naive", 6), ("dense", 6),
+                                    ("bcast", 1)])
+def test_pallas_backend_refuses_gradients_as_jax_does(impl, S):
+    """The "pallas" grouped GEMM has no backward: jax.grad through the JAX
+    layer raises in pallas_call, and torch.autograd through the port's
+    raises by name (on the card its kernel's output would carry no
+    grad_fn, and the expert weights would get no gradient)."""
+    with pytest.raises(AssertionError):
+        _jax_and_torch_grads(S, impl=impl, gemm_impl="pallas")
+    arch = "qwen2-moe-2.7b-smoke"
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl=impl, gemm_impl="pallas"))
+    p = _tree(_params(cfg, 7), lambda a: torch.from_numpy(a)
+              .requires_grad_())
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32))
+    with pytest.raises(RuntimeError, match='"pallas" GroupGEMM backend'):
+        M.moe_ffn(cfg, cfg.moe, p, x)
+    # the same layer without gradients (serving) runs
+    with torch.no_grad():
+        y, _ = M.moe_ffn(cfg, cfg.moe, p, x)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("n_col_blocks,fused_combine", [(1, False),
+                                                        (2, True)])
+def test_comet_pallas_grads_match_jax(n_col_blocks, fused_combine):
+    """The comet arm calls the grouped GEMM with grad mode off and has a
+    hand-written backward, in both packages: under "pallas" the gradients
+    of x and every expert weight match JAX at fp32 1e-4."""
+    _assert_expert_grads_match(*_jax_and_torch_grads(
+        6, impl="comet", gemm_impl="pallas", n_col_blocks=n_col_blocks,
+        fused_combine=fused_combine))
 
 
 def test_comet_hier_rejects_an_unknown_wire_dtype():

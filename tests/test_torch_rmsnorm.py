@@ -121,3 +121,60 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.ones((4, 64))
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm.rmsnorm(x, torch.ones(64), epilogue="model")
+
+
+# (T, d, itemsize, vec): mamba2-780m's prefill step (2048 rows of 1536, its
+# gated norm at 3072), qwen2's 2048, decode (8 rows: a row over up to 8
+# warps, at 1536 and at the gated 3072), a train step's 8192 rows, jamba's
+# gated width 8192, fp32, and scalar widths; warps per row, loads per lane, rows per block, threads and
+# blocks on an H100 (132 SMs)
+@pytest.mark.parametrize("T,d,isz,vec,wpr,nv,groups,threads,blocks", [
+    (2048, 1536, 2, True, 1, 6, 8, 256, 256),
+    (2048, 2048, 2, True, 1, 8, 8, 256, 256),
+    (2048, 3072, 2, True, 2, 6, 4, 256, 264),
+    (8, 1536, 2, True, 8, 1, 1, 256, 8),
+    (8, 3072, 2, True, 8, 2, 1, 256, 8),
+    (8192, 1536, 2, True, 1, 6, 8, 256, 264),
+    (5, 8192, 2, True, 8, 4, 1, 256, 5),
+    (2048, 1536, 4, True, 2, 6, 4, 256, 264),
+    (5, 8192, 4, True, 8, 8, 1, 256, 5),
+    (3, 1001, 2, False, 8, 4, 1, 256, 3),
+    (4, 100, 2, False, 4, 1, 1, 128, 4),
+    (8, 64, 2, True, 1, 1, 1, 32, 8),
+])
+def test_rmsnorm_launch_plan(T, d, isz, vec, wpr, nv, groups, threads,
+                             blocks):
+    plan = rmsnorm.launch_plan(T, d, isz, vec, sm_count=132)
+    assert (plan["warps_per_row"], plan["vectors_per_lane"],
+            plan["rows_per_block"], plan["threads"], plan["blocks"]) == \
+        (wpr, nv, groups, threads, blocks)
+    lanes = 16 // isz if vec else 1
+    assert plan["lanes"] == lanes and plan["vectors"] * lanes == d
+    # the lanes of a row cover it, each with at most 8 loads (for fewer
+    # rows than SMs, one load where 8 warps' lanes cover the row); a block
+    # is at most 512 threads; every row has a group, and no more than
+    # RESIDENT_WARPS warps' worth of blocks per SM are launched
+    assert 32 * wpr * nv >= plan["vectors"]
+    assert nv <= rmsnorm.MAX_VECTORS and threads <= rmsnorm.MAX_THREADS
+    if T < 132 and plan["vectors"] <= 32 * rmsnorm.LATENCY_WARPS:
+        assert nv == 1
+    assert -(-T // groups) >= blocks
+    assert blocks * threads // 32 <= 132 * rmsnorm.RESIDENT_WARPS
+    # a block per row for fewer rows than SMs, the scale then in each
+    # lane's registers; else shared by the block's rows in shared memory
+    regs = plan["scale_in_registers"]
+    assert regs == (T < 132 and nv <= rmsnorm.REG_SCALE_VECTORS)
+    if regs:
+        assert (groups, blocks) == (1, T)
+    assert plan["smem_bytes"] == (0 if regs else 4 * d)
+
+
+@pytest.mark.parametrize("d,isz,vec", [(32768 + 8, 2, True),
+                                       (4097, 2, False), (16388, 4, True)])
+def test_rmsnorm_launch_plan_refuses_widths_past_the_limit(d, isz, vec):
+    """The same limit as before the redesign: 512 threads x 8 loads."""
+    with pytest.raises(ValueError, match="exceeds"):
+        rmsnorm.launch_plan(4, d, isz, vec)
+    lanes = 16 // isz if vec else 1
+    widest = rmsnorm.launch_plan(4, 512 * 8 * lanes, isz, vec)
+    assert (widest["warps_per_row"], widest["vectors_per_lane"]) == (16, 8)
