@@ -34,6 +34,20 @@ Phases:
              and with an initial and a final state at the serving chunk
              shape and a ragged one; rmsnorm in both epilogues at the
              paths' widths and the JAX test's shapes, non-unit scales.
+             Later cases: ssd_forward at jamba-v0.1-52b's SSM shape (128
+             heads, d_state 16) and at a small shape. At the small shape,
+             the train shape and the serving chunk, over 8 seeded draws,
+             the tensor-core kernel is held to its rule against the fp64
+             sequential oracle (ssd.ORACLE_*: y's max error within 2x
+             the general kernel's and its pooled rel L2 within 1.1x;
+             h_final's rel L2 within 2^-16), and the rule must reject
+             the kernel's arithmetic with one bf16 term
+             (ref.ssd_split_ref); every bf16 ssd_forward case takes the
+             tensor-core path, gives the same bits twice, and is timed
+             beside the general kernel and from a CUDA graph;
+             topk_combine at k 2 and 8 (d 2048 and 4096), every case
+             with the bits of the plain j-order sum, twice, and a graph
+             device time.
   3 serve    ServeEngine on the full qwen2-moe-2.7b (24 layers, bf16,
              seeded weights on the card), gemm_impl="pallas_fused", 8 slots,
              max_seq 1024, chunk 256: after a warm-up round on an engine of
@@ -70,13 +84,15 @@ Phases:
              in bf16 (beside a second plain route at chunk 64); then the
              train step (bf16, remat full, AdamW), 4 x 2048 tokens: one
              warm-up step and 3 timed ones, 2 x 48 ssd_forward launches
-             per step (rmsnorm 2 x 96 + 1).
+             per step, every one on the tensor-core path (rmsnorm
+             2 x 96 + 1).
   8 serve_ssm  qwen2's serving weights are freed first. ServeEngine on
              the whole mamba2-780m (48 layers, bf16, seeded weights on
              the card), 8 slots, max_seq 2048, chunk 256: after a warm-up
              round on an engine of its own, 16 requests with prompts of
              64-1024 tokens and max_new 32.
-             ssd_forward launches 48 per prefill_chunk call, rmsnorm 97
+             ssd_forward launches 48 per prefill_chunk call (every one
+             on the tensor-core path), rmsnorm 97
              (2L+1) per prefill_chunk or decode_step call; the plain
              versions see no CUDA tensor. Then teacher-forced logits as in
              phase 4: 4 layers in fp32 (1e-4), all 48 in bf16 beside a
@@ -141,14 +157,17 @@ SOURCES = {"fused_mlp": "fused_mlp_hopper.cu",
            "fused_mlp_dgrad": "fused_mlp_dgrad_hopper.cu",
            "fused_mlp_wgrad": "fused_mlp_wgrad_hopper.cu",
            "flash_attention": "flash_attention_hopper.cu",
-           "ssd_forward": "ssd.cu"}
-# the wgmma kernels: their counter beside the kernel's in read_counts()
+           "ssd_forward": "ssd_hopper.cu"}
+# the kernels with a Hopper path (wgmma; the SSD's tensor-core mma):
+# their counter beside the kernel's in read_counts()
 HOPPER = ("fused_mlp", "grouped_gemm", "fused_mlp_dgrad", "fused_mlp_wgrad",
-          "flash_attention")
+          "flash_attention", "ssd_forward")
 # seeded draws (the first is the case's own data) over which phase 2 takes
 # the bf16 backward kernels' floor rule at the small shape, and the bf16
 # wgmma flash kernel's error beside the general kernel's
 DRAWS = 8
+# calls in the topk_combine case's CUDA graph (its device time)
+TOPK_REPS = 21
 JAMBA_CASE = "jamba E=16 R=320 d=4096 f=14336 N=4096"
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
@@ -324,7 +343,8 @@ def kernel_cases():
         for label, spec in (
                 ("train B4 S2048 nh48 hd64 ds128", dict(B=4, S=2048, nh=48,
                                                         hd=64, ds=128,
-                                                        train=True)),
+                                                        train=True,
+                                                        draws=DRAWS)),
                 ("B2 S1000 nh8 hd64 ds128", dict(B=2, S=1000, nh=8, hd=64,
                                                  ds=128)),
                 ("B2 S77 nh2 hd32 ds16", dict(B=2, S=77, nh=2, hd=32,
@@ -334,7 +354,8 @@ def kernel_cases():
         # chunk (8 rows of 256) and a ragged one
         for label, spec in (
                 ("serve state A8 C256 nh48 hd64 ds128",
-                 dict(B=8, S=256, nh=48, hd=64, ds=128, state=True)),
+                 dict(B=8, S=256, nh=48, hd=64, ds=128, state=True,
+                      draws=DRAWS)),
                 ("state A1 C100 nh48 hd64 ds128",
                  dict(B=1, S=100, nh=48, hd=64, ds=128, state=True))):
             cases.append(("ssd_forward", label, dt, spec))
@@ -367,6 +388,20 @@ def kernel_cases():
         cases.append(("grouped_gemm", "gemm2 col_slice=(1024,1024) n_major",
                       dt, dict(M=160, K=1408, N=2048, order="n_major",
                                col=(1024, 1024))))
+    # the SSD at jamba-v0.1-52b's SSM layers (128 heads of 64, d_state
+    # 16) on 2048 tokens, and a small shape over seeded draws (the
+    # tensor-core kernel against the fp64 oracle beside the general one)
+    cases.append(("ssd_forward", "jamba B1 S2048 nh128 hd64 ds16", "bf16",
+                  dict(B=1, S=2048, nh=128, hd=64, ds=16)))
+    cases.append(("ssd_forward", "B2 S130 nh3 hd64 ds32 oracle", "bf16",
+                  dict(B=2, S=130, nh=3, hd=64, ds=32, draws=DRAWS)))
+    # the top-k combine at top-2 (mixtral, phi3.5, jamba) and top-8
+    # (granite, qwen3), at qwen2's width and at 4096
+    for dt in ("bf16", "fp32"):
+        for kk in (2, 8):
+            for d in (2048, 4096):
+                cases.append(("topk_combine", f"T=2048 k={kk} d={d}", dt,
+                              dict(T=2048, k=kk, d=d)))
     return cases
 
 
@@ -405,13 +440,16 @@ def flash_case(dt, isz, spec, gen):
 
 
 def ssd_case(dt, spec, gen):
-    """(kernel fn, plain fn, library fn, backward fn, bytes, flops) of an
-    SSD case. x, B and C are slices of one conv-output-like tensor, as the
-    model passes them; dt, A, D are fp32. There is no single PyTorch call
-    for the SSD: no library yardstick. The FLOPs count the chunked form at
-    the kernel's chunk Q: per (batch, chunk) C . B^T (shared by the heads),
-    per (batch, head, chunk) the (Q, Q) . (Q, hd) product and the two
-    (Q, ds) . (ds, hd) state products; all of them fp32."""
+    """(kernel fn, plain fn, library fn, backward fn, bytes, (flops, flops
+    on the tensor-core path), (fp64 oracle fn, one-term emulation fn)) of
+    an SSD case. x, B and C
+    are slices of one conv-output-like tensor, as the model passes them;
+    dt, A, D are fp32. There is no single PyTorch call for the SSD: no
+    library yardstick. The FLOPs count the chunked form at the kernels'
+    chunk Q: per (batch, chunk) C . B^T (shared by the heads), per (batch,
+    head, chunk) the (Q, Q) . (Q, hd) product and the two (Q, ds) .
+    (ds, hd) state products: fp32 on the general path; on the tensor-core
+    path the last three once per bf16 term."""
     import torch
     import torch.nn.functional as F
 
@@ -441,6 +479,15 @@ def ssd_case(dt, spec, gen):
     def bwd():   # the op's backward, at the kernel's chunk
         return ref.ssd_vjp(*ins, ssd.CHUNK, ct, (True,) * 6)
 
+    def orc():   # the fp64 sequential oracle, as kf returns
+        out = ref.ssd_ref(*ins, acc=torch.float64, h0=h0, return_state=True)
+        return out[0] if h0 is None else out
+
+    def one_term():   # the tensor-core arithmetic with one bf16 term
+        out = ref.ssd_split_ref(*ins, h0, terms=1, slab=ssd.HOPPER_SLAB,
+                                chunk=ssd.CHUNK)
+        return out[0] if h0 is None else out
+
     isz = 2 if dt == torch.bfloat16 else 4
     nbytes = (2 * B * S * nh * hd + 2 * B * S * ds) * isz \
         + B * S * nh * 4 + 2 * nh * 4
@@ -448,9 +495,12 @@ def ssd_case(dt, spec, gen):
         nbytes += 2 * B * nh * ds * hd * 4
     Q = ssd.CHUNK
     nc = -(-S // Q)
-    flops = 2 * B * nc * Q * Q * ds + B * nh * nc * (
-        2 * Q * Q * hd + 2 * 2 * Q * ds * hd)
-    return kf, pf, None, bwd, nbytes, flops
+    cb = 2 * B * nc * Q * Q * ds
+    rest = B * nh * nc * (2 * Q * Q * hd + 2 * 2 * Q * ds * hd)
+    # the tensor-core path: C.B^T of exact bf16 products, the other three
+    # products once per bf16 term of their fp32 operand
+    tc_flops = cb + ssd.HOPPER_TERMS * rest
+    return kf, pf, None, bwd, nbytes, (cb + rest, tc_flops), (orc, one_term)
 
 
 def rmsnorm_case(dt, isz, spec, gen):
@@ -550,11 +600,12 @@ def mlp_bwd_case(kernel, dt, isz, spec, gen):
 
 @contextlib.contextmanager
 def general_path():
-    """While active, the fused-MLP, grouped-GEMM and flash-attention
+    """While active, the fused-MLP, grouped-GEMM, flash-attention and SSD
     wrappers take their general kernels for every call."""
-    from repro_torch.kernels import flash_attention, fused_mlp, grouped_gemm
+    from repro_torch.kernels import (flash_attention, fused_mlp,
+                                     grouped_gemm, ssd)
     real = {m: m.hopper_path for m in (fused_mlp, grouped_gemm,
-                                       flash_attention)}
+                                       flash_attention, ssd)}
     for m in real:
         m.hopper_path = lambda *a, **kw: False
     try:
@@ -610,6 +661,72 @@ def flash_stats(runs):
                                         for n, _, w in runs),
             "differ": sum(int((n != w).sum()) for n, _, w in runs),
             "general_differ": sum(int((g != w).sum()) for _, g, w in runs)}
+
+
+def ssd_oracle_sums(new, general, oracle, one_term):
+    """One draw's sums for the SSD rule: the tensor-core kernel's output,
+    the general kernel's, the fp64 oracle's and the one-term emulation's
+    on the same inputs, each y or (y, h_final). Max errors and squared
+    errors of y against the oracle (in that order: tensor-core, general,
+    one term), and of h_final's where there is one."""
+    outs = (new, general, one_term)
+    y = [t[0] if isinstance(t, tuple) else t for t in outs]
+    oy = oracle[0] if isinstance(oracle, tuple) else oracle
+    sums = {"max": [float((t.double() - oy).abs().max()) for t in y],
+            "sq": [float((t.double() - oy).norm() ** 2) for t in y],
+            "den": float(oy.norm() ** 2)}
+    if isinstance(oracle, tuple):
+        sums["h_sq"] = [float((t[1].double() - oracle[1]).norm() ** 2)
+                        for t in outs]
+        sums["h_den"] = float(oracle[1].norm() ** 2)
+    return sums
+
+
+def ssd_oracle_runs(dt, spec, gens):
+    """ssd_oracle_sums of an SSD case, one per generator."""
+    runs = []
+    for g in gens:
+        case = ssd_case(dt, spec, g)
+        kf, fns = case[0], case[-1]
+        new = kf()
+        with general_path():
+            general = kf()
+        runs.append(ssd_oracle_sums(new, general, fns[0](), fns[1]()))
+    return runs
+
+
+def ssd_oracle_stats(runs):
+    """The tensor-core SSD kernel's rule (kernels/ssd.py, ORACLE_*) over
+    seeded draws (ssd_oracle_sums): y's max error against the fp64
+    sequential oracle (the largest over the draws) at most
+    ORACLE_MAX_RATIO x the general kernel's, its rel L2 (pooled) at most
+    ORACLE_L2_RATIO x; with a state, h_final's pooled rel L2 at most
+    ORACLE_STATE_L2. Both kernels round y to bf16, so both y errors are
+    near half an ulp of the largest outputs; the rel L2 margin tells the
+    kernel's two bf16 terms from one (the emulation's, which must fail
+    it: ``rejects_one_term``)."""
+    from repro_torch.kernels import ssd
+    den = sum(r["den"] for r in runs)
+    l2 = [(sum(r["sq"][i] for r in runs) / den) ** 0.5 for i in range(3)]
+    mx = [max(r["max"][i] for r in runs) for i in range(3)]
+    rec = {"draws": len(runs), "oracle_max_abs_err": mx[0],
+           "general_oracle_max_abs_err": mx[1],
+           "one_term_oracle_max_abs_err": mx[2], "oracle_rel_l2": l2[0],
+           "general_oracle_rel_l2": l2[1], "one_term_oracle_rel_l2": l2[2]}
+    ok = (mx[0] <= ssd.ORACLE_MAX_RATIO * mx[1]
+          and l2[0] <= ssd.ORACLE_L2_RATIO * l2[1])
+    rejects = l2[2] > ssd.ORACLE_L2_RATIO * l2[1]
+    if "h_sq" in runs[0]:
+        h_den = sum(r["h_den"] for r in runs)
+        h_l2 = [(sum(r["h_sq"][i] for r in runs) / h_den) ** 0.5
+                for i in range(3)]
+        rec.update(state_oracle_rel_l2=h_l2[0],
+                   general_state_oracle_rel_l2=h_l2[1],
+                   one_term_state_oracle_rel_l2=h_l2[2])
+        ok = ok and h_l2[0] <= ssd.ORACLE_STATE_L2
+        rejects = rejects and h_l2[2] > ssd.ORACLE_STATE_L2
+    rec.update(within_general=bool(ok), rejects_one_term=bool(rejects))
+    return rec
 
 
 def floor_runs(kernel, dt, isz, spec, gens):
@@ -703,7 +820,9 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         k, p, lib, bwd, nbytes, flops = flash_case(dt, isz, spec, gen)
         extra = {}
     elif kernel == "ssd_forward":
-        k, p, lib, bwd, nbytes, flops = ssd_case(dt, spec, gen)
+        k, p, lib, bwd, nbytes, (flops, tc_flops), oracle_fns = ssd_case(
+            dt, spec, gen)
+        extra = {}
     elif kernel == "rmsnorm":
         k, p, lib, nbytes, flops = rmsnorm_case(dt, isz, spec, gen)
     elif kernel == "grouped_gemm":
@@ -728,7 +847,7 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         flops = 2 * E * M * K * Nn
         extra = {}
     else:
-        T, kk = spec["T"], 4
+        T, kk = spec["T"], spec.get("k", 4)
         rows = _randn((T, kk, d), dt, 1.0, gen)
         w = torch.softmax(torch.randn((T, kk), device="cuda",
                                       generator=gen), dim=-1)
@@ -745,6 +864,20 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
 
         nbytes = T * kk * d * isz + T * kk * 4 + T * d * isz
         flops = 2 * T * kk * d
+        extra = {}
+        # the graph's TOPK_REPS calls cycle through copies of the rows (no
+        # new random draws): at least three, and as many as hold four
+        # times the card's L2 (at T 8 all of them fit in it, as a decode
+        # step's rows do, fresh from the expert GEMM)
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        n = min(TOPK_REPS, max(3, -(-4 * l2 // rows.nbytes)))
+        copies = [rows] + [rows.clone() for _ in range(n - 1)]
+
+        def k_i(i):
+            return topk_combine.topk_combine(copies[i % n], w)
+
+        def lib_i(i):
+            return torch.einsum("tkd,tk->td", copies[i % n], w_lib)
     reset_counts()
     got = k()
     torch.cuda.synchronize()
@@ -752,8 +885,13 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     want = p()
     err, ok = outputs_err(got, want, TOL[dt_name])
     rec = {"max_abs_err": err, "within_tol": ok, "tol": TOL[dt_name]}
+    if kernel == "topk_combine":
+        # a second call, and the plain j-order sum, give the kernel's bits
+        rec["identical_bits"] = torch.equal(k(), got)
+        rec["ordered_bits"] = torch.equal(ref.topk_combine_ordered(rows, w),
+                                          got)
     if kernel in HOPPER:
-        # the path the call took (by the wgmma path's counter), its
+        # the path the call took (by the Hopper path's counter), its
         # scratch, and whether a second call gives the same bits (the
         # partials and products are summed in a fixed order, without
         # atomics)
@@ -769,6 +907,19 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
             other = ("n_major" if spec["order"] == "expert_major"
                      else "expert_major")
             rec["identical_bits"] &= torch.equal(k(order=other), got)
+        if rec["path"] == "hopper" and kernel == "ssd_forward" \
+                and spec.get("draws", 1) > 1:
+            # the tensor-core kernel's rule against the fp64 sequential
+            # oracle, over seeded draws
+            with general_path():
+                general = k()
+            first = ssd_oracle_sums(got, general, oracle_fns[0](),
+                                    oracle_fns[1]())
+            del general
+            rec.update(ssd_oracle_stats(
+                [first] + ssd_oracle_runs(dt, spec, _extra_draws(spec))))
+            ok = ok and rec["within_general"]
+            rec["within_tol"] = ok
         if rec["path"] == "hopper" and kernel in ("fused_mlp_wgrad",
                                                   "flash_attention"):
             # the same call through the general kernel (as for an unaligned
@@ -802,11 +953,14 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         ok = rec["within_tol_all_draws"] or rec["within_floor"]
         rec["within_tol"] = ok
     del got, want
-    # the SSD's products and the norm's statistics are fp32 whatever the
-    # inputs' dtype
-    b_ms, b_by = bound_ms(nbytes, flops,
-                          "fp32" if kernel in ("ssd_forward", "rmsnorm")
-                          else dt_name)
+    # the norm's statistics and the general SSD kernel's products are fp32
+    # whatever the inputs' dtype; the tensor-core SSD's products are bf16,
+    # counted once per bf16 term of their fp32 operand
+    if kernel == "ssd_forward" and rec.get("path") == "hopper":
+        flops, fdt = tc_flops, "bf16"
+    else:
+        fdt = "fp32" if kernel in ("ssd_forward", "rmsnorm") else dt_name
+    b_ms, b_by = bound_ms(nbytes, flops, fdt)
     rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
     if timed:
         iters = 10 if dt_name == "bf16" else 3
@@ -818,14 +972,30 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         rec["ms"] = timer(k)
         rec["plain_ms"] = timer(p)
         rec["library_ms"] = None if lib is None else timer(lib)
-        if kernel == "grouped_gemm" and rec.get("path") == "hopper":
+        if kernel in ("grouped_gemm", "ssd_forward") \
+                and rec.get("path") == "hopper":
             # the general kernel on the same inputs
             with general_path():
                 rec["general_ms"] = timer(k)
+        if rec.get("path") == "hopper" and kernel in ("grouped_gemm",
+                                                      "ssd_forward"):
             # device time alone, the calls replayed from a CUDA graph (the
             # eager times above include each call's host work)
             rec["device_ms"] = graph_ms(lambda i: k(), reps=20)
-            rec["library_device_ms"] = graph_ms(lambda i: lib(), reps=20)
+            if lib is not None:
+                rec["library_device_ms"] = graph_ms(lambda i: lib(), reps=20)
+        if kernel == "topk_combine":
+            rec["device_ms"] = graph_ms(k_i, reps=TOPK_REPS)
+            rec["library_device_ms"] = graph_ms(lib_i, reps=TOPK_REPS)
+            rec["copies"] = n
+            # 200 calls back to back, per call: the wrapper's host work
+            # where it exceeds the kernel's device time (decode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                k()
+            torch.cuda.synchronize()
+            rec["back_to_back_ms"] = (time.perf_counter() - t0) / 200 * 1e3
         if spec.get("train") and dt_name == "bf16":
             # the flash/SSD op's backward at the train shape: the plain
             # version recomputed under autograd (no backward kernel, as in
@@ -851,9 +1021,13 @@ def phase_kernels(out, only=()):
         bwd = ("" if "backward_ms" not in rec
                else f", backward {rec['backward_ms']:.4f}")
         if "general_ms" in rec:
-            bwd += (f", general kernel {rec['general_ms']:.4f}; graph "
-                    f"{rec['device_ms']:.4f}, library graph "
-                    f"{rec['library_device_ms']:.4f}")
+            bwd += f", general kernel {rec['general_ms']:.4f}"
+        if "device_ms" in rec:
+            bwd += f"; graph {rec['device_ms']:.4f}" + (
+                "" if "library_device_ms" not in rec else
+                f", library graph {rec['library_device_ms']:.4f}")
+        if "back_to_back_ms" in rec:
+            bwd += f"; back to back {rec['back_to_back_ms']:.4f}"
         times = (f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
                  f"library {lib}, bound {rec['bound_ms']:.4f} by "
                  f"{rec['bound_by']}{bwd})")
@@ -878,7 +1052,23 @@ def phase_kernels(out, only=()):
                    f"{rec['draws_max_abs_err']:.3e}, "
                    f"{rec['differ']} elements differ; general kernel's "
                    f"{rec['general_max_abs_err']:.3e}, "
-                   f"{rec['general_differ']} differ") + "]")
+                   f"{rec['general_differ']} differ")
+                + ("" if "oracle_max_abs_err" not in rec else
+                   f"; over {rec['draws']} draws against the fp64 oracle "
+                   f"max err {rec['oracle_max_abs_err']:.3e}, rel L2 "
+                   f"{rec['oracle_rel_l2']:.3e}; general kernel's "
+                   f"{rec['general_oracle_max_abs_err']:.3e}, "
+                   f"{rec['general_oracle_rel_l2']:.3e}; one term's "
+                   f"{rec['one_term_oracle_max_abs_err']:.3e}, "
+                   f"{rec['one_term_oracle_rel_l2']:.3e}")
+                + ("" if "state_oracle_rel_l2" not in rec else
+                   f"; h_final rel L2 {rec['state_oracle_rel_l2']:.3e}, "
+                   f"general {rec['general_state_oracle_rel_l2']:.3e}, "
+                   f"one term {rec['one_term_state_oracle_rel_l2']:.3e}")
+                + "]")
+        if "ordered_bits" in rec:
+            path = (f" [j-order bits {rec['ordered_bits']}, identical bits "
+                    f"{rec['identical_bits']}]")
         log(f"  {kernel:15s} {dt} {label:34s} max_abs_err "
             f"{rec['max_abs_err']:.3e} "
             f"{'ok' if rec['within_tol'] else 'FAIL'}  {times}{floor}{path}")
@@ -890,9 +1080,17 @@ def phase_kernels(out, only=()):
     differ = [f"{r['kernel']} {r['dtype']} {r['case']}" for r in results
               if r.get("identical_bits") is False]
     check(not differ, f"two calls gave different bits: {differ}")
+    unordered = [f"{r['kernel']} {r['dtype']} {r['case']}" for r in results
+                 if r.get("ordered_bits") is False]
+    check(not unordered,
+          f"topk_combine off the plain j-order sum's bits: {unordered}")
+    # the SSD rule is tight enough to reject one bf16 term where it runs
+    weak = [f"{r['kernel']} {r['case']}" for r in results
+            if r.get("rejects_one_term") is False]
+    check(not weak, f"the SSD oracle rule passes one bf16 term: {weak}")
     # every bf16 case of the redesigned kernels at the main paths' shapes
-    # (d, f, N multiples of 8, aligned slices; head_dim 64 or 128) takes
-    # the wgmma path
+    # (d, f, N multiples of 8, aligned slices; head_dim 64 or 128; the
+    # SSD's head_dim a multiple of 32, d_state of 16) takes the Hopper path
     general = [f"{r['kernel']} {r['case']}" for r in results
                if r["kernel"] in HOPPER
                and r["dtype"] == "bf16" and r["path"] != "hopper"]
@@ -910,6 +1108,7 @@ def phase_rule_seeds(out, bases=16):
     import torch
     cases = [(k, label, spec) for k, label, dt, spec in kernel_cases()
              if dt == "bf16" and spec.get("draws", 1) > 1
+             and k != "ssd_forward"
              and (k != "flash_attention" or spec["S"] <= 1000)]
     res = []
     for kernel, label, spec in cases:
@@ -1012,6 +1211,7 @@ def read_counts():
             "flash_attention": flash_attention.launches,
             "flash_attention_hopper": flash_attention.hopper_launches,
             "ssd_forward": ssd.launches,
+            "ssd_forward_hopper": ssd.hopper_launches,
             "rmsnorm": rmsnorm.launches}
 
 
@@ -1222,6 +1422,10 @@ def phase_serve_ssm(state, out):
     check(rec["launches"]["ssd_forward"] == L * calls["prefill_chunk"],
           f"ssd_forward launches {rec['launches']['ssd_forward']}, expected "
           f"{L} x {calls['prefill_chunk']} prefill_chunk calls")
+    # every bf16 serving chunk's SSD went through the tensor-core kernel
+    check(rec["launches"]["ssd_forward_hopper"]
+          == rec["launches"]["ssd_forward"],
+          f"ssd_forward launches off the tensor-core path: {rec['launches']}")
 
     # teacher-forced logits: one stacked prefill_chunk (4 rows x 256, valid
     # lengths 97-256) and 4 decode_steps, kernels against plain versions.
@@ -1574,7 +1778,8 @@ def phase_train(state, out):
             "grouped_gemm": 0, "grouped_gemm_hopper": 0,
             "flash_attention": 2 * L * 3,
             "flash_attention_hopper": 2 * L * 3,
-            "ssd_forward": 0, "rmsnorm": (2 * 2 * L + 1) * 3}
+            "ssd_forward": 0, "ssd_forward_hopper": 0,
+            "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -1761,7 +1966,8 @@ def phase_train_ssm(state, out):
             "fused_mlp_wgrad": 0, "fused_mlp_wgrad_hopper": 0,
             "grouped_gemm": 0, "grouped_gemm_hopper": 0, "flash_attention": 0,
             "flash_attention_hopper": 0,
-            "ssd_forward": 2 * L * 3, "rmsnorm": (2 * 2 * L + 1) * 3}
+            "ssd_forward": 2 * L * 3, "ssd_forward_hopper": 2 * L * 3,
+            "rmsnorm": (2 * 2 * L + 1) * 3}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -1803,6 +2009,7 @@ KERNEL_GROUPS = (
     ("flash_kernel", "flash_attention kernel"),
     ("flash_hopper_kernel", "flash_attention kernel"),
     ("ssd_kernel", "ssd_forward kernel"),
+    ("ssd_hopper_kernel", "ssd_forward kernel"),
     ("rmsnorm_kernel", "rmsnorm kernel"),
     ("fused_mlp_wgrad", "fused_mlp_wgrad kernel"),
     ("wgrad_product", "fused_mlp_wgrad kernel"),
@@ -1920,16 +2127,24 @@ def kernel_records(out):
             extra = {"decode_ms": dc.get("ms"),
                      "decode_bound_ms": dc.get("bound_ms"),
                      "decode_library_ms": dc.get("library_ms")}
-            for key in ("general_ms", "device_ms", "library_device_ms"):
-                if key in c:
-                    extra[key] = c[key]
+        for key in ("general_ms", "device_ms", "library_device_ms",
+                    "back_to_back_ms"):
+            if key in c:
+                extra[key] = c[key]
+        if name in HOPPER:            # launches on the Hopper path
+            extra["hopper_launches"] = run.get("launches", {}).get(
+                f"{name}_hopper", 0)
         if name == "ssd_forward":     # the serving chunk, with a state
             sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
-            extra = {"serve_ms": sc.get("ms"),
-                     "serve_bound_ms": sc.get("bound_ms"),
-                     "serve_plain_ms": sc.get("plain_ms"),
-                     "serve_launches": out.get("serve_ssm", {}).get(
-                         "launches", {}).get(name, 0)}
+            serve_l = out.get("serve_ssm", {}).get("launches", {})
+            extra.update({"serve_ms": sc.get("ms"),
+                          "serve_device_ms": sc.get("device_ms"),
+                          "serve_general_ms": sc.get("general_ms"),
+                          "serve_bound_ms": sc.get("bound_ms"),
+                          "serve_plain_ms": sc.get("plain_ms"),
+                          "serve_launches": serve_l.get(name, 0),
+                          "serve_hopper_launches": serve_l.get(
+                              f"{name}_hopper", 0)})
         recs.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/"

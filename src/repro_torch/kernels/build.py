@@ -35,7 +35,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "repro_topk_combine": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_topk_combine": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_grouped_gemm": (_P, _LL, _LL, _P, _LL, _LL, _P,
                            _I, _I, _I, _I, _I, _I, _P),
     "repro_grouped_gemm_hopper": (_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I,
@@ -68,6 +68,9 @@ SIGNATURES = {
     "repro_ssd_forward": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
                           _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_ssd_forward_hopper": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
+                                 _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P),
 }

@@ -174,6 +174,18 @@ def topk_combine_ref(rows, weights):
     return out.to(rows.dtype)
 
 
+def topk_combine_ordered(rows, weights):
+    """topk_combine_ref summed in j order, each step a rounded fp32
+    product and a rounded add: the order of the top-k combine kernel,
+    whose bits it gives."""
+    acc = torch.zeros(rows.shape[::2], dtype=torch.float32,
+                      device=rows.device)
+    w = weights.float()
+    for j in range(rows.shape[1]):
+        acc = acc + w[:, j, None] * rows[:, j].float()
+    return acc.to(rows.dtype)
+
+
 def _attention_fp32(q, k, v, causal):
     """The body of flash_attention_ref, also recomputed by its VJP."""
     hd, Hq, Hkv = q.shape[3], q.shape[1], k.shape[1]
@@ -276,14 +288,19 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int,
     return y.to(x.dtype), h
 
 
-def ssd_ref(x, dt, A, Bm, Cm, D):
+def ssd_ref(x, dt, A, Bm, Cm, D, acc=None, h0=None, return_state=False):
     """Sequential SSD recurrence oracle, O(S) steps (the JAX package's
     ``ref.ssd_ref`` and ``models.ssm.ssd_reference``). x: (B, S, nh, hd);
-    dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S, ds)."""
+    dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S, ds); h0: optional
+    (B, nh, ds, hd) initial state (None = a zero state). Every step in fp32
+    and y in x's dtype; or, given ``acc`` (torch.float64: the oracle the
+    kernels' errors are taken against), every step and y in ``acc``.
+    Returns y, or (y, h_final) with ``return_state``."""
     Bsz, S, nh, hd = x.shape
     ds = Bm.shape[-1]
-    f32 = torch.float32
-    h = torch.zeros((Bsz, nh, ds, hd), dtype=f32, device=x.device)
+    f32 = torch.float32 if acc is None else acc
+    h = (torch.zeros((Bsz, nh, ds, hd), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
     xf, dtf, bf, cf = x.to(f32), dt.to(f32), Bm.to(f32), Cm.to(f32)
     ys = []
     for t in range(S):
@@ -293,7 +310,73 @@ def ssd_ref(x, dt, A, Bm, Cm, D):
              + bf[:, t][:, None, :, None] * xd[:, :, None, :])
         ys.append(torch.einsum("bs,bhsp->bhp", cf[:, t], h))
     y = torch.stack(ys, dim=1) + D[None, None, :, None] * xf
-    return y.to(x.dtype)
+    y = y.to(x.dtype if acc is None else acc)
+    return (y, h) if return_state else y
+
+
+def _bf16_terms(v, terms):
+    """v as ``terms`` bf16 terms (fp32 tensors): each is bf16 of what the
+    terms before it left."""
+    out = []
+    for _ in range(terms):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def ssd_split_ref(x, dt, A, Bm, Cm, D, h0=None, terms=2, slab=32,
+                  chunk=64):
+    """(y, h_final) by the tensor-core SSD kernel's arithmetic
+    (csrc/ssd_hopper.cu), in plain torch: chunks of ``chunk``, slabs of
+    ``slab`` head_dim columns, the cumsum as a rounded product and a
+    sequential fp32 sum, every fp32 operand of a product (M = C.B^T *
+    exp(cum_i - cum_j) * dt_j, h, W = x * dt * exp(total - cum)) split into
+    ``terms`` bf16 terms beside the exact bf16 one (x, B or C), the
+    products summed in fp32. The kernel's bits are not the aim (the sums'
+    order differs): its error is, for a ``terms`` the kernel does not build
+    as well. A ragged tail is padded with identity steps, as the kernel's
+    zero-filled rows are. x, Bm, Cm bf16; dt, A, D, h0 fp32."""
+    Bsz, S, nh, hd = x.shape
+    ds, Q = Bm.shape[-1], chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, dtf, Bf, Cf = (F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, dt, Bm, Cm))
+    h = (torch.zeros((Bsz, nh, ds, hd), device=x.device) if h0 is None
+         else h0.clone())
+    y = torch.empty((Bsz, nc * Q, nh, hd), device=x.device)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        la = dtf[:, sl] * A                             # rounded products
+        cum = torch.empty_like(la)
+        run = torch.zeros((Bsz, nh), device=x.device)
+        for r in range(Q):                              # sequential sum
+            run = run + la[:, r]
+            cum[:, r] = run
+        total = cum[:, -1]
+        cb = Cf[:, sl] @ Bf[:, sl].transpose(1, 2)      # exact products
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf"))
+        m = cb[..., None] * torch.exp(diff) * dtf[:, sl][:, None, :, :]
+        m_terms = _bf16_terms(m, terms)                 # (B, i, j, nh)
+        dec = torch.exp(total[:, None] - cum)           # (B, Q, nh)
+        for p0 in range(0, hd, slab):                   # the slabs
+            ps = slice(p0, p0 + slab)
+            xs = xf[:, sl, :, ps]
+            hs = h[..., ps]
+            y_intra = sum(torch.einsum("bijh,bjhp->bihp", t, xs)
+                          for t in m_terms)
+            y_h = sum(torch.einsum("bis,bhsp->bihp", Cf[:, sl], t)
+                      for t in _bf16_terms(hs, terms))
+            y[:, sl, :, ps] = (y_intra + torch.exp(cum)[..., None] * y_h
+                               + D[None, None, :, None] * xs)
+            w = xs * dtf[:, sl][..., None] * dec[..., None]
+            st = sum(torch.einsum("bjs,bjhp->bhsp", Bf[:, sl], t)
+                     for t in _bf16_terms(w, terms))
+            h[..., ps] = hs * torch.exp(total)[..., None, None] + st
+    return y[:, :S].to(x.dtype), h
 
 
 def _ssd_padded(x, dt, A, Bm, Cm, D, chunk, h0=None):

@@ -8,7 +8,11 @@ general kernels; flash attention (MHA, GQA, MQA, ragged lengths, causal
 and not, strided views; the wgmma path within twice the general kernel's
 error, its counter, identical bits) and the SSD (ragged lengths, small and model-size states, strided
 views, mixed dtypes, an initial and a final state) with their autograd
-backward; the grouped GEMM's wgmma path at the main paths' shapes (both
+backward; the SSD's tensor-core path at phase 2's shapes with and without
+a state (its counter, the same bits, its error against the fp64 oracle
+within twice the general kernel's) and the general path for the rest;
+the top-k combine for every k the archs use, with the bits of the plain
+j-order sum; the grouped GEMM's wgmma path at the main paths' shapes (both
 orders, the same bits) and its refusal of gradients; the rmsnorm in both
 epilogues (vector and scalar widths, rows of several warps, fp32 and bf16
 scales) and its autograd op. Needs an NVIDIA Hopper GPU and
@@ -609,3 +613,151 @@ def test_rms_norm_op_is_the_kernel_forward(cuda):
     _close(y, want_y, torch.float32)
     for g, w in zip(got, want):
         _close(g, w, torch.float32)
+
+
+def _ssd_conv_operands(gen, B, S, nh, hd, ds, state):
+    """bf16 x, B and C as slices of one conv output (the model's layout),
+    fp32 dt, A, D; an fp32 initial state when ``state``."""
+    conv = _randn(gen, (B, S, nh * hd + 2 * ds), torch.bfloat16)
+    x = conv[..., :nh * hd].reshape(B, S, nh, hd)
+    Bm, Cm = conv[..., nh * hd:nh * hd + ds], conv[..., nh * hd + ds:]
+    dt = torch.nn.functional.softplus(_randn(gen, (B, S, nh),
+                                             torch.float32))
+    A = -torch.exp(_randn(gen, (nh,), torch.float32, 0.3))
+    D = torch.ones((nh,), device="cuda")
+    h0 = _randn(gen, (B, nh, ds, hd), torch.float32) if state else None
+    return (x, dt, A, Bm, Cm, D), h0
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("B,S,nh,hd,ds", [(4, 2048, 48, 64, 128),
+                                          (8, 256, 48, 64, 128),
+                                          (2, 1000, 8, 64, 128),
+                                          (1, 2048, 128, 64, 16)])
+def test_ssd_hopper_path(cuda, state, B, S, nh, hd, ds):
+    """The tensor-core SSD at phase 2's shapes (mamba2-780m's train shape
+    and serving chunk, a ragged length, jamba's SSM layers) against the
+    plain chunked form, y and the final state; its counter; the same bits
+    on a second call."""
+    from repro_torch.kernels import ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + nh + ds)
+    ins, h0 = _ssd_conv_operands(gen, B, S, nh, hd, ds, state)
+    assert ssd.hopper_path(*ins)
+    ssd.reset()
+    y, hf = ssd.ssd_forward_state(*ins, h0)
+    y2 = ssd.ssd_forward(*ins) if h0 is None else None
+    assert ssd.launches == ssd.hopper_launches == (1 if state else 2)
+    want_y, want_h = ref.ssd_state_ref(*ins, h0, chunk=ssd.CHUNK)
+    _close(y, want_y, torch.bfloat16)
+    _close(hf, want_h, torch.bfloat16)
+    again_y, again_h = ssd.ssd_forward_state(*ins, h0)
+    assert torch.equal(again_y, y) and torch.equal(again_h, hf)
+    if y2 is not None:
+        assert torch.equal(y2, y)
+
+
+def test_ssd_hopper_error_beside_the_general_kernel(cuda, monkeypatch):
+    """Over 8 seeded draws at a small shape, the tensor-core kernel's y is
+    within its rule of the general kernel's error against the fp64
+    sequential oracle: max error ORACLE_MAX_RATIO x, pooled rel L2
+    ORACLE_L2_RATIO x."""
+    from repro_torch.kernels import ref, ssd
+    err = g_err = num = g_num = den = 0.0
+    for seed in range(8):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + seed)
+        ins, _ = _ssd_conv_operands(gen, 2, 130, 3, 64, 32, False)
+        want = ref.ssd_ref(*ins, acc=torch.float64)
+        got = ssd.ssd_forward(*ins).double()
+        with monkeypatch.context() as mp:
+            mp.setattr(ssd, "hopper_path", lambda *a: False)
+            general = ssd.ssd_forward(*ins).double()
+        err = max(err, float((got - want).abs().max()))
+        g_err = max(g_err, float((general - want).abs().max()))
+        num += float((got - want).norm() ** 2)
+        g_num += float((general - want).norm() ** 2)
+        den += float(want.norm() ** 2)
+    assert err <= ssd.ORACLE_MAX_RATIO * g_err, (err, g_err)
+    assert num <= ssd.ORACLE_L2_RATIO ** 2 * g_num, (num / den, g_num / den)
+
+
+@pytest.mark.parametrize("B,S,state", [(4, 2048, False), (8, 256, True)])
+def test_ssd_hopper_oracle_at_the_main_shapes(cuda, monkeypatch, B, S,
+                                              state):
+    """The same rule over 3 seeded draws at mamba2-780m's train shape and
+    its serving chunk from a state, where h_final's pooled rel L2 against
+    the oracle is held to ORACLE_STATE_L2 too."""
+    from repro_torch.kernels import ref, ssd
+    err = g_err = num = g_num = den = h_num = h_den = 0.0
+    for seed in range(3):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(200 + seed)
+        ins, h0 = _ssd_conv_operands(gen, B, S, 48, 64, 128, state)
+        want, want_h = ref.ssd_ref(*ins, acc=torch.float64, h0=h0,
+                                   return_state=True)
+        got, got_h = ssd.ssd_forward_state(*ins, h0)
+        with monkeypatch.context() as mp:
+            mp.setattr(ssd, "hopper_path", lambda *a: False)
+            general = ssd.ssd_forward_state(*ins, h0)[0].double()
+        got = got.double()
+        err = max(err, float((got - want).abs().max()))
+        g_err = max(g_err, float((general - want).abs().max()))
+        num += float((got - want).norm() ** 2)
+        g_num += float((general - want).norm() ** 2)
+        den += float(want.norm() ** 2)
+        h_num += float((got_h.double() - want_h).norm() ** 2)
+        h_den += float(want_h.norm() ** 2)
+        del want, want_h, got, got_h, general
+    assert err <= ssd.ORACLE_MAX_RATIO * g_err, (err, g_err)
+    assert num <= ssd.ORACLE_L2_RATIO ** 2 * g_num, (num / den, g_num / den)
+    assert (h_num / h_den) ** 0.5 <= ssd.ORACLE_STATE_L2, h_num / h_den
+
+
+def test_ssd_general_path_takes_the_rest(cuda):
+    """fp32 operands, a head_dim that is no multiple of 32 and an initial
+    state 4 bytes off an 8-byte boundary take the general kernel; its
+    counter stays."""
+    from repro_torch.kernels import ref, ssd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    ins = _ssd_operands(gen, 2, 100, 3, 24, 32, torch.bfloat16,
+                        torch.bfloat16)
+    ins32 = _ssd_operands(gen, 2, 100, 3, 64, 32, torch.float32,
+                          torch.float32)
+    ssd.reset()
+    for args, dtype in ((ins, torch.bfloat16), (ins32, torch.float32)):
+        assert not ssd.hopper_path(*args)
+        _close(ssd.ssd_forward(*args),
+               ref.ssd_chunked_ref(*args, chunk=ssd.CHUNK), dtype)
+    assert ssd.launches == 2 and ssd.hopper_launches == 0
+    conv_ins, _ = _ssd_conv_operands(gen, 2, 100, 3, 64, 32, False)
+    h0 = _randn(gen, (2 * 3 * 32 * 64 + 1,), torch.float32)[1:] \
+        .view(2, 3, 32, 64)
+    assert ssd.hopper_path(*conv_ins)
+    assert not ssd.hopper_path(*conv_ins, h0)
+    y, hf = ssd.ssd_forward_state(*conv_ins, h0)
+    want_y, want_h = ref.ssd_state_ref(*conv_ins, h0, chunk=ssd.CHUNK)
+    _close(y, want_y, torch.bfloat16)
+    _close(hf, want_h, torch.bfloat16)
+    assert ssd.launches == 3 and ssd.hopper_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("T,d", [(2048, 2048), (8, 4096), (37, 100)])
+def test_topk_combine_bits(cuda, dtype, k, T, d):
+    """Every k the archs use, the templated (2, 4, 8) and the generic
+    instance, prefill and decode rows and a width of no whole 16-byte
+    pieces: within the tolerance of topk_combine_ref, the bits of the
+    plain j-order sum, the same bits twice."""
+    from repro_torch.kernels import ref, topk_combine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(T + k + d)
+    rows = _randn(gen, (T, k, d), dtype)
+    w = torch.softmax(_randn(gen, (T, k), torch.float32), dim=-1)
+    got = topk_combine.topk_combine(rows, w)
+    _close(got, ref.topk_combine_ref(rows, w), dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.topk_combine_ordered(rows, w))
+    assert torch.equal(topk_combine.topk_combine(rows, w), got)
