@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all eight phases, one card
+  python3 chip_smoke.py              # all nine phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
@@ -97,6 +97,22 @@ Phases:
              versions see no CUDA tensor. Then teacher-forced logits as in
              phase 4: 4 layers in fp32 (1e-4), all 48 in bf16 beside a
              second plain route (the SSD at chunk 64 against 256).
+  9 ranked   the earlier phases' state is freed first. The port's self-test
+             CLI at --device cuda (one NCCL rank per GPU: world 1 here;
+             every check must pass). Then one qwen2-moe-2.7b MoE layer at
+             full width (E 64, top-4, d 2048, f 1408, bf16, pallas_fused,
+             4 x 1024 tokens) through the ranked moe_ffn over a one-rank
+             NCCL context and without a context, forward and backward, for
+             naive, coarse and comet (ring_group 1, two column blocks,
+             fused combine): the same bits, counters zeroed before and
+             read after (every fused_mlp, dgrad and wgrad launch on the
+             wgmma path; the plain versions see no CUDA tensor). Then the
+             comet ring's producer (mlp_col_blocks, one column-sliced
+             fused_mlp per block) at the shapes one rank of a 4-rank ring
+             runs (16 experts, rows g x C for ring_group g = 1, 2) against
+             the column slices of the whole product (bf16 tolerance),
+             timed beside it. Last, a gloo context handed a CUDA tensor
+             must raise by name.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -106,7 +122,9 @@ one admission round and 8 decode steps of the serve configuration
 torch.profiler (device time by kernel); ``--only build,rule_seeds`` how
 steady the phase-2 rules taken over seeded draws are (the bf16 backward
 kernels' floor, the wgmma flash kernel beside the general one), on 16
-independent sets of draws, one draw against all 8.
+independent sets of draws, one draw against all 8; ``--only nccl_pair``
+what NCCL does with two ranks on the one card (an all-reduce of a CUDA
+tensor, each rank's outcome recorded).
 
 Prints the card line, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -135,10 +153,10 @@ PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
-          "train", "train_ssm")
+          "train", "train_ssm", "ranked")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
-                "profile_train_ssm", "rule_seeds")
+                "profile_train_ssm", "rule_seeds", "nccl_pair")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -179,6 +197,10 @@ SSM_ARCH = "mamba2-780m"
 SSM_SEQ, SSM_BATCH = 2048, 4
 # the SSM serve phase: prompts up to 1024 tokens in 8 slots of 2048
 SSM_SERVE = dict(max_seq=2048, prompt_max=1024)
+# the ranked phase: one qwen2-moe-2.7b MoE layer on 4 x 1024 tokens, and
+# the ring producer's shapes at one rank of a 4-rank ring
+RANKED_TOKENS = (4, 1024)
+RING_RANKS = 4
 
 
 class PhaseFailed(Exception):
@@ -1978,6 +2000,244 @@ def phase_train_ssm(state, out):
     out["train_ssm"] = rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the ranked MoE layer
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def world1(backend):
+    """A default process group of one rank on ``backend``, meeting through
+    a file in a temporary directory; destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def ranked_ctx(seq_shard=False):
+    from repro_torch.parallel.mesh import AxisCtx, make_mesh
+    return AxisCtx(mesh=make_mesh((1, 1), ("data", "model")),
+                   dp_axes=("data",), model_axis="model",
+                   seq_shard=seq_shard)
+
+
+def ranked_selftest(rec):
+    """The port's self-test CLI at --device cuda: one NCCL rank per GPU."""
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.selftest", "--device",
+         "cuda", "--case", "moe", "--timeout", "240"], capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    rec["selftest"] = {"rc": proc.returncode, "checks": len(lines),
+                       "passed": sum(ln.startswith("[PASS]") for ln in lines),
+                       "s": time.perf_counter() - t0}
+    log("  selftest --device cuda: " + json.dumps(rec["selftest"]))
+    check(proc.returncode == 0 and lines
+          and rec["selftest"]["passed"] == len(lines),
+          f"selftest --device cuda failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+
+
+def ranked_layer(rec):
+    """One qwen2-moe-2.7b MoE layer at full width (bf16, pallas_fused,
+    RANKED_TOKENS) through the ranked moe_ffn over a one-rank NCCL context
+    and without one, forward and backward: the same bits, every MoE
+    kernel launch on the wgmma path, every tensor on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe_layer as M
+    cfg = get_config(ARCH)
+    m0 = dataclasses.replace(cfg.moe, gemm_impl="pallas_fused")
+    d, E, f = cfg.d_model, m0.num_experts, m0.d_expert
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    base = {"router": _randn((d, E), torch.bfloat16, d ** -0.5, gen),
+            "experts": {
+                "w_gate": _randn((1, E, d, f), torch.bfloat16, d ** -0.5,
+                                 gen),
+                "w_up": _randn((1, E, d, f), torch.bfloat16, d ** -0.5, gen),
+                "w_down": _randn((1, E, f, d), torch.bfloat16, f ** -0.5,
+                                 gen)}}
+    x = _randn(RANKED_TOKENS + (d,), torch.bfloat16, 1.0, gen)
+
+    def fwd_bwd(mcfg, ctx):
+        params = {"router": base["router"].clone().requires_grad_(True),
+                  "experts": {k: v.clone().requires_grad_(True)
+                              for k, v in base["experts"].items()}}
+        y, aux = M.moe_ffn(cfg, mcfg, params, x, ctx)
+        leaves = [params["router"]] + [params["experts"][k]
+                                       for k in sorted(params["experts"])]
+        grads = torch.autograd.grad((y.float() ** 2).sum() + aux, leaves)
+        return [y, aux, *grads]
+
+    ctx = ranked_ctx()
+    res = {}
+    for name, kw in (("naive", {}), ("coarse", {}),
+                     ("comet", dict(ring_group=1, n_col_blocks=2,
+                                    fused_combine=True))):
+        mcfg = dataclasses.replace(m0, impl=name, **kw)
+        runs, r = {}, {}
+        for tag, c in (("no_ctx", None), ("ctx", ctx)):
+            reset_counts()
+            with PlainGuard() as guard:
+                runs[tag] = fwd_bwd(mcfg, c)
+                torch.cuda.synchronize()
+            counts = read_counts()
+            r[tag] = {"launches": counts, "plain_calls_on_cuda":
+                      guard.cuda_calls,
+                      "ms": median_ms(lambda: fwd_bwd(mcfg, c), iters=5)}
+            for k in ("fused_mlp", "fused_mlp_dgrad", "fused_mlp_wgrad"):
+                check(counts[k] > 0 and counts[f"{k}_hopper"] == counts[k],
+                      f"ranked {name} ({tag}): {k} launches off the wgmma "
+                      f"path or none: {counts}")
+            check(counts["topk_combine"] > 0,
+                  f"ranked {name} ({tag}): no topk_combine launch")
+            check(guard.cuda_calls == 0, f"ranked {name} ({tag}): plain "
+                  f"versions saw CUDA tensors {guard.cuda_calls} times")
+            check(all(t.is_cuda for t in runs[tag]),
+                  f"ranked {name} ({tag}): a result off the card")
+        r["same_bits"] = all(torch.equal(a, b)
+                             for a, b in zip(runs["no_ctx"], runs["ctx"]))
+        r["y_absmean"] = float(runs["ctx"][0].detach().float().abs()
+                               .mean())
+        res[name] = r
+        log(f"  ranked {name}: " + json.dumps(r))
+        check(r["same_bits"], f"ranked {name}: the world-1 NCCL context "
+              f"does not give the context-less bits")
+    rec["layer"] = {"tokens": list(RANKED_TOKENS), "impls": res}
+
+
+def ring_producer(rec):
+    """The ring's per-macro-step producer (``mlp_col_blocks`` under
+    pallas_fused, one column-sliced fused_mlp per block) at the shapes one
+    rank of a RING_RANKS-rank ring runs: E_loc = E / ranks experts, rows
+    g * C for ring_group g, C from routing.capacity at the layer's local
+    tokens; held against the column slices of the whole product at the
+    bf16 tolerance and timed beside it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing as R
+    from repro_torch.core import transport as T
+    from repro_torch.kernels import fused_mlp
+    cfg = get_config(ARCH)
+    m = cfg.moe
+    d, f, act = cfg.d_model, m.d_expert, cfg.activation
+    E_loc = m.num_experts // RING_RANKS
+    C = R.capacity(RANKED_TOKENS[0] * RANKED_TOKENS[1], m.top_k,
+                   m.num_experts, m.capacity_factor)
+    n_col, blk = 2, d // 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    w = {"w_gate": _randn((E_loc, d, f), torch.bfloat16, d ** -0.5, gen),
+         "w_up": _randn((E_loc, d, f), torch.bfloat16, d ** -0.5, gen),
+         "w_down": _randn((E_loc, f, d), torch.bfloat16, f ** -0.5, gen)}
+    res = {}
+    for g in (1, 2):
+        rows = _randn((E_loc, g * C, d), torch.bfloat16, 1.0, gen)
+        whole = T._mlp_out(rows, w, act, "pallas_fused")
+        fused_mlp.reset()
+        blocks = T.mlp_col_blocks(rows, w, act, n_col, blk, "pallas_fused")
+        torch.cuda.synchronize()
+        launches = (fused_mlp.launches, fused_mlp.hopper_launches)
+        errs = [max_err(b, whole[..., i * blk:(i + 1) * blk], TOL["bf16"])
+                for i, b in enumerate(blocks)]
+        R_ = g * C
+        nbytes = 2 * (E_loc * R_ * d + 3 * E_loc * d * f + E_loc * R_ * d)
+        flops = 2 * E_loc * R_ * 3 * d * f
+        whole_bound, by = bound_ms(nbytes, flops, "bf16")
+        r = {"E_loc": E_loc, "rows": R_, "C": C, "n_col": n_col,
+             "launches": launches[0], "hopper_launches": launches[1],
+             "max_abs_err": max(e for e, _ in errs),
+             "within_tol": all(o for _, o in errs),
+             "blocks_ms": median_ms(lambda: T.mlp_col_blocks(
+                 rows, w, act, n_col, blk, "pallas_fused")),
+             "whole_ms": median_ms(lambda: T._mlp_out(rows, w, act,
+                                                      "pallas_fused")),
+             "whole_bound_ms": whole_bound, "whole_bound_by": by}
+        res[f"ring_group{g}"] = r
+        log(f"  mlp_col_blocks E_loc {E_loc} rows {R_}: " + json.dumps(r))
+        check(launches == (n_col, n_col),
+              f"mlp_col_blocks launches {launches}, expected {n_col} on the "
+              f"wgmma path")
+        check(r["within_tol"], f"mlp_col_blocks at rows {R_} disagrees "
+              f"with the whole product: {r['max_abs_err']}")
+    rec["col_blocks"] = res
+
+
+def phase_ranked(state, out):
+    import torch
+
+    from repro_torch.parallel import collectives as CL
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    rec = {}
+    ranked_selftest(rec)
+    with world1("nccl"):
+        ranked_layer(rec)
+    ring_producer(rec)
+    # a gloo communicator handed a CUDA tensor raises by name
+    with world1("gloo"):
+        ctx = ranked_ctx(seq_shard=True)
+        try:
+            CL.psum(torch.ones(4, device="cuda"), ctx.model_group)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+    rec["gloo_cuda_refusal"] = raised
+    log(f"  gloo + CUDA tensor: {raised!r}")
+    check("gloo communicator takes cpu" in raised,
+          f"a gloo context took a CUDA tensor: {raised!r}")
+    out["ranked"] = rec
+
+
+def _pair_probe(path):
+    """One rank of the two-NCCL-ranks-on-one-card probe: an all-reduce of
+    a CUDA tensor; writes its outcome to ``path``.<rank>."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    try:
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        res = {"ok": True, "sum": t.tolist()}
+    except Exception as e:            # the probe's outcome, recorded
+        res = {"ok": False, "error": f"{type(e).__name__}: {e}"[:2000]}
+    Path(f"{path}.{rank}").write_text(json.dumps(res))
+    return 0 if res["ok"] else 1
+
+
+def phase_nccl_pair(out):
+    """Two NCCL ranks on the one card: what NCCL does with them."""
+    import tempfile
+
+    from repro_torch.launch import selftest
+    with tempfile.TemporaryDirectory() as tmp:
+        base = f"{tmp}/probe"
+        try:
+            selftest.spawn(2, _pair_probe, (base,), device="cuda",
+                           timeout=120.0)
+            spawn = "ok"
+        except (RuntimeError, TimeoutError) as e:
+            spawn = f"{type(e).__name__}: {e}"
+        ranks = {r: json.loads(Path(f"{base}.{r}").read_text())
+                 for r in range(2) if Path(f"{base}.{r}").exists()}
+    out["nccl_pair"] = {"spawn": spawn, "ranks": ranks}
+    log("  two NCCL ranks on one card: " + json.dumps(out["nccl_pair"]))
+
+
 def profile_step(state, key, out_key, out):
     """Device time by kernel name over one train step of a train phase."""
     import torch
@@ -2211,7 +2471,8 @@ def main(argv=None):
     # state
     order = ("build", "kernels", "rule_seeds", "serve", "logits", "pallas",
              "profile", "serve_ssm", "profile_serve_ssm", "train",
-             "profile_train", "train_ssm", "profile_train_ssm")
+             "profile_train", "train_ssm", "profile_train_ssm", "ranked",
+             "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -2256,6 +2517,10 @@ def main(argv=None):
             elif name == "profile_train_ssm":
                 check("train_ssm" in state, "needs the train_ssm phase")
                 profile_step(state, "train_ssm", "profile_train_ssm", out)
+            elif name == "ranked":
+                phase_ranked(state, out)
+            elif name == "nccl_pair":
+                phase_nccl_pair(out)
             status = "ok"
         except Exception as e:                 # report, then fail the run
             import traceback

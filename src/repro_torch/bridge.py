@@ -4,7 +4,9 @@
 tree with every leaf converted by ``np.asarray`` and returns the port's
 parameters with the same nesting and the same stacked (n_periods, ...)
 layer leaves. bf16 goes through fp32, which is exact. Every leaf's shape
-and dtype is checked against the port's ``model_schema``.
+and dtype is checked against the port's ``model_schema``, or against
+``schema`` when one is given (e.g. ``core.moe_layer.moe_schema`` for one
+MoE layer's tree).
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ def _skeleton(schema: Tree) -> Tree:
     return None
 
 
-def from_jax(params_np: Tree, cfg, device: DeviceLike = None) -> Tree:
+def from_jax(params_np: Tree, cfg, device: DeviceLike = None,
+             schema: Tree = None) -> Tree:
     dev = resolve_device(device)
-    schema = lm.model_schema(cfg)
+    schema = lm.model_schema(cfg) if schema is None else schema
     dt = dtype_of(cfg.param_dtype)
     out = _skeleton(schema)
     src = dict(tree_leaves(params_np))

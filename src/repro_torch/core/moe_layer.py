@@ -1,19 +1,23 @@
-"""The MoE block at one rank: router -> shared-tensor dispatch -> transport
--> combine.
+"""The MoE block: router -> shared-tensor dispatch -> transport -> combine.
 
 Expert weights keep the JAX package's pre-sharded storage (W, E_loc, d, f)
-with W the model-axis size, here 1, so a parameter tree bridged from the
-JAX package is used as it is.
+with W the model-axis size, so a parameter tree bridged from the JAX
+package is used as it is. With no context (or an inactive one) the block
+runs at one rank. With an ``AxisCtx`` over torch.distributed, each rank
+calls ``moe_ffn`` with its own tokens and its own entry of the expert
+storage (leading dim 1), as the JAX package's ``shard_map`` body sees them;
+``parallel/sharding.py`` cuts a global batch and the packed weights.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import routing as R
 from repro_torch.core import transport as T
 from repro_torch.models.common import ParamDecl, ffn_schema, is_glu
+from repro_torch.parallel.mesh import AxisCtx
 
 IMPLS = ("naive", "coarse", "comet", "comet_hier", "bcast", "dense")
 
@@ -69,27 +73,50 @@ def pack_expert_weights(full: Dict[str, torch.Tensor], ep: int,
 
 
 def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
-              w_desc=None, w_asc=None):
-    """x: (B, S, d) tokens. Returns (y, aux). ``w_desc``/``w_asc`` are the
-    BigMac projections: the router sees full-width tokens, dispatch to
-    combine runs at wire width, and the ascend restores d_model."""
+              w_desc=None, w_asc=None, ctx: Optional[AxisCtx] = None):
+    """x: (B, S, d) this rank's tokens. Returns (y, aux). ``w_desc``/
+    ``w_asc`` are the BigMac projections: the router sees full-width
+    tokens, dispatch to combine runs at wire width, and the ascend restores
+    d_model. ``ctx`` None (or inactive) is one rank; an active context's
+    ``seq_shard`` and ``dp_axes`` say how the tokens are sharded."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     E = mcfg.num_experts
-    idx, wts, aux = R.router(xt, router_w, mcfg)
+    ranked = ctx is not None and ctx.active
+    token_group = None
+    if ranked:
+        token_axes = tuple(ctx.dp_axes)
+        if ctx.seq_shard and S > 1:
+            token_axes = token_axes + (ctx.model_axis,)
+        if token_axes:
+            token_group = ctx.mesh.group(token_axes)
+    idx, wts, aux = R.router(xt, router_w, mcfg, token_group)
     C = R.capacity(B * S, mcfg.top_k, E, mcfg.capacity_factor)
-    ep, E_loc = 1, E
-    w_local = {k: v[0] for k, v in experts.items()}           # strip W = 1
+    ep = ctx.ep if ranked else 1
+    E_loc = E // ep
+    w_local = {k: v[0] for k, v in experts.items()}       # strip the shard dim
 
     xe = xt if w_desc is None else (xt @ w_desc).to(xt.dtype)
     dw = xe.shape[-1]                                   # wire (or full) width
 
+    def ascend(y):
+        y = y if w_asc is None else (y @ w_asc).to(y.dtype)
+        return y.reshape(B, S, d)
+
     impl = mcfg.impl
     if impl not in IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}")
+    if impl == "coarse" and ranked and ctx.world > 1:
+        # the coarse schedule dispatches per token slice: the full-batch
+        # dispatch is not built
+        y = _coarse(cfg, mcfg, ctx, xe, idx, wts, E, C, w_local, gemm_impl)
+        return ascend(y), aux
+
     buf, info = R.build_dispatch(xe, idx, E, C)                      # (E,C,dw)
-    if impl == "bcast" or (impl != "dense" and S == 1):
-        out = T.transport_bcast(buf, w_local, cfg.activation, gemm_impl)
+    seq_shard = ranked and ctx.seq_shard
+    if impl == "bcast" or (impl != "dense" and S == 1 and not seq_shard):
+        out = T.transport_bcast(buf, w_local, cfg.activation, gemm_impl,
+                                ctx=ctx)
         y = R.combine(out.reshape(E * C, dw), info, wts, E_loc=E, C=C,
                       rot=None, ep=1)
     else:
@@ -102,11 +129,11 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
                     send, w_local, cfg.activation, n_col_blocks=n_col,
                     ring_group=mcfg.ring_group,
                     intra_group=mcfg.intra_group,
-                    wire_dtype=mcfg.wire_dtype, gemm_impl=gemm_impl)
+                    wire_dtype=mcfg.wire_dtype, gemm_impl=gemm_impl, ctx=ctx)
             else:
                 blocks, rot = T.transport_comet_blocks(
                     send, w_local, cfg.activation, n_col_blocks=n_col,
-                    ring_group=mcfg.ring_group, gemm_impl=gemm_impl)
+                    ring_group=mcfg.ring_group, gemm_impl=gemm_impl, ctx=ctx)
             if mcfg.fused_combine:
                 # streaming layer-1 consumer: one combine per column block
                 parts = [R.combine(b.reshape(ep * E_loc * C, b.shape[-1]),
@@ -120,24 +147,78 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
                               E_loc, C, rot, ep)
         else:                                           # naive/coarse/dense
             out, rot = T.transport_naive(send, w_local, cfg.activation,
-                                         gemm_impl)
+                                         gemm_impl, ctx=ctx)
             y = R.combine(out.reshape(ep * E_loc * C, dw), info, wts, E_loc,
                           C, rot, ep)
-    if w_asc is not None:
-        y = (y @ w_asc).to(y.dtype)
-    return y.reshape(B, S, d), aux
+    # aux is already pmean'd over the token group inside the router
+    return ascend(y), aux
 
 
-def moe_ffn(cfg, mcfg, params, x, n_col: int = 0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (y, aux). At one rank the layer-1 column split
-    only slices output columns of the same product, so ``n_col`` comes from
-    the caller or the config (default 1), legalized as the JAX package
-    legalizes it; the cost-model resolution of the JAX package's plan cache
-    is not ported yet."""
+def _coarse(cfg, mcfg, ctx, xt, idx, wts, E, C, w_local, gemm_impl=None):
+    """FasterMoE-style: n token slices, each a full (all-to-all -> MLP ->
+    all-to-all) round. ``C`` is the full-batch capacity of the outer
+    routing pass, reused when the one slice is the batch (n == 1); n > 1
+    takes each slice's own capacity."""
+    n = max(1, mcfg.coarse_chunks)
+    Tn, d = xt.shape
+    while Tn % n:
+        n -= 1
+    Ts = Tn // n
+    Cs = C if n == 1 else R.capacity(Ts, mcfg.top_k, E, mcfg.capacity_factor)
+    ep = ctx.ep
+    E_loc = E // ep
+    outs = []
+    for i in range(n):
+        sl = slice(i * Ts, (i + 1) * Ts)
+        buf, info = R.build_dispatch(xt[sl], idx[sl], E, Cs)
+        send = buf.reshape(ep, E_loc, Cs, d)
+        out, _ = T.transport_naive(send, w_local, cfg.activation, gemm_impl,
+                                   ctx=ctx)
+        outs.append(R.combine(out.reshape(ep * E_loc * Cs, d), info,
+                              wts[sl], E_loc, Cs, None, ep))
+    return torch.cat(outs, dim=0)
+
+
+def resolve_token_sharding(ctx: Optional[AxisCtx], B: int, S: int):
+    """(seq_sharded, dp_axes) for a global (B, S) batch: the one place the
+    token sharding is decided. Sequence sharding needs S divisible by the
+    model axis; a batch indivisible by dp is replicated over dp."""
+    if ctx is None or not ctx.active:
+        return False, ()
+    seq_sharded = ctx.seq_shard and S > 1 and S % ctx.model_size == 0
+    dp_axes = (ctx.dp_axes
+               if ctx.dp_size > 1 and B % ctx.dp_size == 0 else ())
+    return seq_sharded, dp_axes
+
+
+def local_token_count(ctx: Optional[AxisCtx], B: int, S: int) -> int:
+    """Tokens per model-axis group for a global (B, S) batch, from
+    ``resolve_token_sharding``: the M of the plan-shape key."""
+    seq_sharded, dp_axes = resolve_token_sharding(ctx, B, S)
+    dp = ctx.dp_size if dp_axes else 1
+    ms = ctx.model_size if seq_sharded else 1
+    return max(1, B * S // (dp * ms))
+
+
+def moe_ffn(cfg, mcfg, params, x, ctx: Optional[AxisCtx] = None,
+            n_col: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) this rank's tokens. Returns (y, aux).
+
+    With no context (or an inactive one) this is the one-rank layer. With
+    a ranked context, ``params["experts"]`` holds this rank's entry of the
+    packed storage (leading dim 1), and ``ctx.seq_shard``/``ctx.dp_axes``
+    say how x was cut from the global batch, as
+    ``parallel.sharding.shard_tokens`` returns them (the JAX package's
+    ``moe_ffn`` resolves them from the global shape inside its jit).
+
+    ``n_col`` comes from the caller or the config (default 1), legalized
+    as the JAX package legalizes it; the column split changes no value
+    beyond fp32 rounding. The JAX package's cost-model choice when both
+    are 0 (``adaptive.resolve_n_col``) and its plan-cache resolution wait
+    for the port of ``core/adaptive.py``."""
     n_col = T.legalize_n_col(cfg.d_model, n_col or mcfg.n_col_blocks or 1)
     y, aux = _moe_body(cfg, mcfg, n_col, T._impl(mcfg.gemm_impl), x,
                        params["router"], params["experts"],
-                       w_desc=params.get("w_desc"), w_asc=params.get("w_asc"))
+                       w_desc=params.get("w_desc"), w_asc=params.get("w_asc"),
+                       ctx=ctx)
     return y, aux
-

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import collectives as CL
 
 
 @dataclass
@@ -30,9 +31,14 @@ def capacity(T: int, k: int, E: int, factor: float, multiple: int = 4) -> int:
     return c
 
 
-def router(x, w_router, mcfg):
+def router(x, w_router, mcfg, token_group=None):
     """x: (T, d). Returns (idx (T, k), weights (T, k) fp32, aux loss fp32).
-    The logits are an fp32 product whatever the compute dtype."""
+    The logits are an fp32 product whatever the compute dtype.
+
+    token_group: the process group (``parallel.mesh.Group``) over which the
+    tokens are sharded; the load-balance statistics (me, ce) are pmean'd
+    over it before their product, so the aux loss is the same under any
+    sharding."""
     logits = x.float() @ w_router.float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, mcfg.top_k, dim=-1)
@@ -46,6 +52,9 @@ def router(x, w_router, mcfg):
                   torch.ones(idx.numel(), dtype=torch.float32,
                              device=x.device))
     ce = ce / max(idx.numel(), 1)
+    if token_group is not None:
+        me = CL.pmean(me, token_group)
+        ce = CL.pmean(ce, token_group)
     aux = E * torch.sum(me * ce) * mcfg.aux_loss_coef
     return idx, w, aux
 

@@ -6,7 +6,9 @@
 Runs on the card; ``main(argv, device="cpu")`` runs the same on the CPU
 (small configs). Checkpoints are restart-safe (``training/trainer.py``).
 ``--mesh``, ``--plan-cache``, ``--distributed`` and ``--sp-residual`` need
-parts of the system that are not ported yet and raise.
+parts of the system that are not ported yet and raise: the model-level mesh
+path and its train step (the ranked MoE layer itself is ported), the
+plan-cache resolution, and the sequence-parallel residual.
 """
 from __future__ import annotations
 
@@ -34,11 +36,18 @@ def main(argv=None, device=None):
     ap.add_argument("--distributed", action="store_true",
                     help="multi-process training")
     args = ap.parse_args(argv)
-    for flag, on in (("--mesh", args.mesh), ("--plan-cache", args.plan_cache),
-                     ("--distributed", args.distributed),
-                     ("--sp-residual", args.sp_residual)):
+    mesh_path = ("the model-level mesh path and its train step are not "
+                 "ported yet (the ranked MoE layer is)")
+    for flag, on, what in (
+            ("--mesh", args.mesh, mesh_path),
+            ("--distributed", args.distributed, mesh_path),
+            ("--plan-cache", args.plan_cache,
+             "the plan-cache resolution (core/adaptive.py) is not ported "
+             "yet"),
+            ("--sp-residual", args.sp_residual,
+             "the sequence-parallel residual is not ported yet")):
         if on:
-            raise NotImplementedError(f"{flag}: not ported yet")
+            raise NotImplementedError(f"{flag}: {what}")
 
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.training.trainer import Trainer, TrainerConfig

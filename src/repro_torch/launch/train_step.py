@@ -73,8 +73,11 @@ def make_train_fn(cfg, optim: AdamW, accum: int):
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what}: needs the ranked transports, a "
-                               f"later slice of the port")
+    return NotImplementedError(
+        f"{what}: the model-level mesh path (parameters and caches sharded "
+        f"over a mesh, and its train step) is not ported yet; the ranked "
+        f"MoE layer is (core.moe_layer.moe_ffn with a parallel.mesh."
+        f"AxisCtx)")
 
 
 def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,

@@ -761,3 +761,70 @@ def test_topk_combine_bits(cuda, dtype, k, T, d):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.topk_combine_ordered(rows, w))
     assert torch.equal(topk_combine.topk_combine(rows, w), got)
+
+
+@pytest.fixture
+def world1(tmp_path):
+    """A default process group of one rank on the given backend, and the
+    (data 1, model 1) context over it; destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import AxisCtx, make_mesh
+    made = []
+
+    def init(backend, seq_shard=False):
+        dist.init_process_group(backend, init_method=f"file://{tmp_path}/"
+                                f"{backend}", world_size=1, rank=0)
+        made.append(backend)
+        return AxisCtx(mesh=make_mesh((1, 1), ("data", "model")),
+                       dp_axes=("data",), model_axis="model",
+                       seq_shard=seq_shard)
+    yield init
+    if made:
+        dist.destroy_process_group()
+
+
+def test_gloo_context_refuses_cuda_tensors(cuda, world1):
+    """A gloo communicator takes CPU tensors: a CUDA tensor raises by name,
+    in a collective and through moe_ffn's router statistics."""
+    from repro_torch.launch import selftest as ST
+    from repro_torch.parallel import collectives as CL
+    ctx = world1("gloo", seq_shard=True)
+    with pytest.raises(ValueError, match="gloo communicator takes cpu"):
+        CL.psum(torch.ones(4, device="cuda"), ctx.model_group)
+    prob = ST.problem()
+    with pytest.raises(ValueError, match="gloo communicator takes cpu"):
+        ST.run_cell(prob, ctx, "naive", seq_shard=True, device="cuda")
+
+
+@pytest.mark.parametrize("dtype,gemm_impl", [(torch.float32, "xla"),
+                                             (torch.bfloat16,
+                                              "pallas_fused")])
+def test_world1_nccl_moe_ffn_gives_the_contextless_bits(cuda, world1, dtype,
+                                                        gemm_impl):
+    """At world 1 the ranked moe_ffn takes the one-rank arms, as the JAX
+    package does: outputs, aux and gradients with the context-less bits,
+    for naive, coarse and comet (two column blocks, fused combine)."""
+    import dataclasses
+
+    from repro_torch.core import moe_layer as M
+    from repro_torch.launch import selftest as ST
+    ctx = world1("nccl")
+    prob = ST.problem("qwen2-moe-2.7b-smoke", E=0, f=0, top_k=0)
+    x = torch.from_numpy(prob["x"]).cuda().to(dtype)
+    for impl, kw in (("naive", {}), ("coarse", {}),
+                     ("comet", dict(n_col_blocks=2, fused_combine=True))):
+        mcfg = dataclasses.replace(prob["mcfg"], impl=impl,
+                                   gemm_impl=gemm_impl, **kw)
+        runs = []
+        for c in (None, ctx):
+            router, packed = ST._params(prob, 1, 1, "cuda")
+            params = {"router": router.to(dtype).requires_grad_(True),
+                      "experts": {k: v.to(dtype).requires_grad_(True)
+                                  for k, v in packed.items()}}
+            y, aux = M.moe_ffn(prob["cfg"], mcfg, params, x, c)
+            ((y.float() ** 2).sum() + aux).backward()
+            runs.append([y, aux, params["router"].grad]
+                        + [params["experts"][k].grad for k in sorted(packed)])
+        for a, b in zip(*runs):
+            assert a.is_cuda and torch.equal(a, b), impl
