@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all nine phases, one card
+  python3 chip_smoke.py              # all ten phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
@@ -113,6 +113,24 @@ Phases:
              the column slices of the whole product (bf16 tolerance),
              timed beside it. Last, a gloo context handed a CUDA tensor
              must raise by name.
+ 10 mesh_train  the earlier phases' state is freed first. On a world-1
+             NCCL group, phase 6's configuration (qwen2-moe-2.7b at full
+             width, 4 layers, bf16, comet, pallas_fused, remat full, 4 x
+             1024 tokens) built twice from one seed: through
+             build_train_step without a mesh and on the (1, 1) mesh; one
+             step each on one batch, the loss and every updated leaf
+             (parameters and AdamW moments) within rel L2 2e-2, with the
+             count of leaves that gave identical bits. Then 3 timed steps
+             of the mesh step after that warm-up, counters zeroed before
+             and read after: phase 6's launch counts, every fused_mlp,
+             dgrad, wgrad and flash_attention launch on the wgmma path,
+             the plain versions seeing no CUDA tensor; step ms, tokens/s
+             and max_memory_allocated beside phase 6's. Last, ``torchrun
+             -m repro_torch.launch.train --mesh 1,1 --distributed`` on
+             qwen2-moe-2.7b-smoke (4 steps, finite losses) and the port's
+             self-test at ``--device cuda --case all`` (every check must
+             pass). One NCCL rank per card: the comet ring's overlap is
+             not measured here.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -153,7 +171,7 @@ PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
-          "train", "train_ssm", "ranked")
+          "train", "train_ssm", "ranked", "mesh_train")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "rule_seeds", "nccl_pair")
@@ -2028,24 +2046,27 @@ def ranked_ctx(seq_shard=False):
                    seq_shard=seq_shard)
 
 
-def ranked_selftest(rec):
+def ranked_selftest(rec, case="moe"):
     """The port's self-test CLI at --device cuda: one NCCL rank per GPU."""
     import os
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.selftest", "--device",
-         "cuda", "--case", "moe", "--timeout", "240"], capture_output=True,
+         "cuda", "--case", case, "--timeout", "240"], capture_output=True,
         text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
-    rec["selftest"] = {"rc": proc.returncode, "checks": len(lines),
+    rec["selftest"] = {"case": case, "rc": proc.returncode,
+                       "checks": len(lines),
                        "passed": sum(ln.startswith("[PASS]") for ln in lines),
+                       "train_checks": [ln for ln in lines if "mesh_" in ln],
                        "s": time.perf_counter() - t0}
-    log("  selftest --device cuda: " + json.dumps(rec["selftest"]))
+    log(f"  selftest --device cuda --case {case}: "
+        + json.dumps(rec["selftest"]))
     check(proc.returncode == 0 and lines
           and rec["selftest"]["passed"] == len(lines),
-          f"selftest --device cuda failed:\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
+          f"selftest --device cuda --case {case} failed:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
 
 
 def ranked_layer(rec):
@@ -2200,6 +2221,189 @@ def phase_ranked(state, out):
     check("gloo communicator takes cpu" in raised,
           f"a gloo context took a CUDA tensor: {raised!r}")
     out["ranked"] = rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the mesh train step
+# ---------------------------------------------------------------------------
+
+
+def _state_leaves(state):
+    """{(part, *path): leaf} of every parameter and AdamW moment."""
+    from repro_torch.models.common import tree_leaves
+    return {(part,) + path: t
+            for part, tree in (("params", state["params"]),
+                               ("m", state["opt"]["m"]),
+                               ("v", state["opt"]["v"]))
+            for path, t in tree_leaves(tree)}
+
+
+def mesh_vs_meshless(rec):
+    """Phase 6's configuration through build_train_step without a mesh and
+    on a (1, 1) mesh over the world-1 NCCL group, one step each from one
+    seed on one batch: the loss and every updated leaf compared (the
+    mesh-less state goes to the host first: two states do not fit one
+    card beside a step). Returns the mesh run (built, state, batches)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import make_mesh
+    cfg = train_cfg(TRAIN_LAYERS, "bfloat16")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    batches = [train_batch(cfg, step=i) for i in range(4)]
+    runs = {}
+    for tag, m in (("meshless", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        built = build_train_step(cfg, shape, m)
+        params = lm.init_params(cfg, seed=3, device="cuda")
+        batch = batches[0]
+        if m is not None:
+            params = SH.to_mesh(params, cfg, built["ctx"])
+            batch = SP.local_batch(batch, built["batch_pspecs"], m)
+        st = {"params": params, "opt": AdamW().init(params), "step": 0}
+        del params
+        t0 = time.perf_counter()
+        st, met = built["fn"](st, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        runs[tag] = {"loss": loss, "grad_norm": float(met["grad_norm"]),
+                     "skipped": met["skipped"],
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9}
+        if m is None:
+            ref = {k: t.detach().to("cpu", copy=True)
+                   for k, t in _state_leaves(st).items()}
+            del st, built
+        else:
+            got = {k: t.detach() for k, t in _state_leaves(st).items()}
+            kept = (built, st, batches)
+    check(set(got) == set(ref), "the two states hold different leaves")
+    # leaf by leaf on the card: the mesh-less leaf comes back from the host
+    same, errs = 0, {}
+    for k, want in ref.items():
+        w = want.to("cuda")
+        same += bool(torch.equal(got[k], w))
+        errs["/".join(map(str, k))] = rel_l2(got[k], w)
+        del w
+    worst = max(errs, key=errs.get)
+    lerr = abs(runs["mesh"]["loss"] - runs["meshless"]["loss"]) / abs(
+        runs["meshless"]["loss"])
+    rec["compare"] = {"runs": runs, "leaves": len(ref),
+                      "identical_bits": same, "loss_rel_err": lerr,
+                      "worst_leaf": worst, "worst_rel_l2": errs[worst]}
+    log("  mesh (1, 1) vs mesh-less, one step: " + json.dumps(rec["compare"]))
+    log(f"  {same} of {len(ref)} leaves (parameters and moments) gave "
+        f"identical bits")
+    check(not runs["mesh"]["skipped"] and not runs["meshless"]["skipped"],
+          f"a step was skipped: {runs}")
+    check(lerr <= TOL["bf16"] and errs[worst] <= TOL["bf16"],
+          f"mesh vs mesh-less: loss rel err {lerr:.3e}, {worst} rel L2 "
+          f"{errs[worst]:.3e} > {TOL['bf16']}")
+    return kept
+
+
+def mesh_timed_steps(rec, out, kept):
+    """Three timed steps of the mesh step after the compared one (its
+    warm-up): phase 6's launch counts on the wgmma path, no plain call on
+    a CUDA tensor, step time and memory beside phase 6's."""
+    import types
+
+    import numpy as np
+    built, st, batches = kept
+    from repro_torch.launch import specs as SP
+    mesh = built["ctx"].mesh
+    local = [SP.local_batch(b, built["batch_pspecs"], mesh)
+             for b in batches[1:]]
+    st, steps, counts, plain_calls = train_steps(
+        types.SimpleNamespace(built=built), st, local)
+    import torch
+    L = TRAIN_LAYERS
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    ms = statistics.median(s["ms"] for s in steps)
+    p6 = out.get("train", {}).get("train", {})
+    rec["train"] = {
+        "layers": L, "tokens_per_step": tokens, "steps": steps,
+        "step_ms_median": ms, "tokens_per_s": tokens / ms * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "plain_calls_on_cuda": plain_calls,
+        "phase6_step_ms_median": p6.get("step_ms_median"),
+        "phase6_tokens_per_s": p6.get("tokens_per_s"),
+        "phase6_max_memory_allocated_gb": p6.get("max_memory_allocated_gb")}
+    log("  mesh step: " + json.dumps(rec["train"]))
+    if p6:
+        log(f"  mesh step {ms:.1f} ms ({tokens / ms * 1e3:.0f} tokens/s, "
+            f"{rec['train']['max_memory_allocated_gb']:.1f} GB) beside "
+            f"phase 6's {p6['step_ms_median']:.1f} ms "
+            f"({p6['tokens_per_s']:.0f} tokens/s, "
+            f"{p6['max_memory_allocated_gb']:.1f} GB)")
+    want = {"fused_mlp": 2 * L * 3, "fused_mlp_hopper": 2 * L * 3,
+            "topk_combine": 2 * L * 3, "fused_mlp_dgrad": L * 3,
+            "fused_mlp_dgrad_hopper": L * 3,
+            "fused_mlp_wgrad": L * 3, "fused_mlp_wgrad_hopper": L * 3,
+            "grouped_gemm": 0, "grouped_gemm_hopper": 0,
+            "flash_attention": 2 * L * 3,
+            "flash_attention_hopper": 2 * L * 3,
+            "ssd_forward": 0, "ssd_forward_hopper": 0,
+            "rmsnorm": (2 * 2 * L + 1) * 3}
+    check(counts == want, f"mesh step launches {counts}, expected {want} "
+          f"(3 steps)")
+    check(plain_calls == 0,
+          f"plain versions saw CUDA tensors {plain_calls} times")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+              and not s["skipped"] for s in steps),
+          f"non-finite or skipped mesh steps: {steps}")
+
+
+def mesh_train_cli(rec):
+    """``torchrun -m repro_torch.launch.train --mesh 1,1 --distributed``
+    on qwen2-moe-2.7b-smoke, 4 steps: exit 0 with finite losses."""
+    import math
+    import os
+    import re
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+             "--arch", ARCH + "-smoke", "--mesh", "1,1", "--distributed",
+             "--steps", "4", "--batch", "4", "--seq", "64", "--ckpt-dir",
+             ckpt], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    m = re.search(r"final_step=(\d+) restarts=(\d+) loss (\S+) -> (\S+)",
+                  proc.stdout)
+    rec["cli"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                  "line": m.group(0) if m else None}
+    log("  torchrun launch.train --mesh 1,1 --distributed: "
+        + json.dumps(rec["cli"]))
+    check(proc.returncode == 0 and m and m.group(1) == "4"
+          and all(math.isfinite(float(m.group(i))) for i in (3, 4)),
+          f"torchrun launch.train failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+
+
+def phase_mesh_train(state, out):
+    import torch
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    rec = {}
+    with world1("nccl"):
+        kept = mesh_vs_meshless(rec)
+        mesh_timed_steps(rec, out, kept)
+        del kept
+    torch.cuda.empty_cache()
+    mesh_train_cli(rec)
+    ranked_selftest(rec, case="all")
+    out["mesh_train"] = rec
 
 
 def _pair_probe(path):
@@ -2394,6 +2598,10 @@ def kernel_records(out):
         if name in HOPPER:            # launches on the Hopper path
             extra["hopper_launches"] = run.get("launches", {}).get(
                 f"{name}_hopper", 0)
+        mesh_l = out.get("mesh_train", {}).get("train", {}).get(
+            "launches", {})
+        if mesh_l:                    # the mesh train step's 3 steps
+            extra["mesh_train_launches"] = mesh_l.get(name, 0)
         if name == "ssd_forward":     # the serving chunk, with a state
             sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
             serve_l = out.get("serve_ssm", {}).get("launches", {})
@@ -2472,7 +2680,7 @@ def main(argv=None):
     order = ("build", "kernels", "rule_seeds", "serve", "logits", "pallas",
              "profile", "serve_ssm", "profile_serve_ssm", "train",
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
-             "nccl_pair")
+             "mesh_train", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -2519,6 +2727,8 @@ def main(argv=None):
                 profile_step(state, "train_ssm", "profile_train_ssm", out)
             elif name == "ranked":
                 phase_ranked(state, out)
+            elif name == "mesh_train":
+                phase_mesh_train(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

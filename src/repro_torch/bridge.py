@@ -6,7 +6,9 @@ parameters with the same nesting and the same stacked (n_periods, ...)
 layer leaves. bf16 goes through fp32, which is exact. Every leaf's shape
 and dtype is checked against the port's ``model_schema``, or against
 ``schema`` when one is given (e.g. ``core.moe_layer.moe_schema`` for one
-MoE layer's tree).
+MoE layer's tree). ``from_jax_sharded`` goes on to this rank's shard of
+the port's mesh tree (``parallel.sharding.to_mesh``), so a ranked test
+hands both packages the same weights.
 """
 from __future__ import annotations
 
@@ -69,6 +71,14 @@ def from_jax(params_np: Tree, cfg, device: DeviceLike = None,
         except TypeError as e:
             raise TypeError(f"{path}: {e}") from None
     return out
+
+
+def from_jax_sharded(params_np: Tree, cfg, ctx, fsdp: bool = True,
+                     device: DeviceLike = None) -> Tree:
+    """This rank's shard of the mesh tree under ``ctx`` (a ranked
+    ``AxisCtx``), from the JAX package's one-rank tree as numpy."""
+    from repro_torch.parallel import sharding as SH
+    return SH.to_mesh(from_jax(params_np, cfg, device), cfg, ctx, fsdp)
 
 
 def to_numpy(params: Tree) -> Tree:

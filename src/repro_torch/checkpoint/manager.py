@@ -10,6 +10,11 @@ a background thread and overlap the next steps. numpy has no bfloat16, so
 a bf16 leaf is stored as its 16-bit pattern and its dtype is recorded.
 Leaves that are Python numbers (the optimizer's count, the step) are
 stored as 0-d arrays and restored as numbers.
+
+A state sharded over a mesh is saved whole, in the one-rank layout
+(``save_sharded``: gathered by every rank, written by one), and cut again
+at restore (``restore_sharded``): the checkpoint holds no layout, so it
+restores onto any mesh, or onto none.
 """
 from __future__ import annotations
 
@@ -133,6 +138,30 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def save_sharded(self, step: int, state: Tree, gather, writer: bool,
+                     wait: bool = False):
+        """Collective: ``gather(state)`` (every rank calls it) gives the
+        whole state in the one-rank layout, which the ``writer`` rank
+        saves."""
+        whole = gather(state)
+        if writer:
+            self.save(step, whole, wait=wait)
+
+    def sync(self):
+        """Every rank of the default process group waits until the
+        writer's save has committed (call on every rank before reading
+        the directory)."""
+        import torch.distributed as dist
+        self.wait()
+        dist.barrier()
+
+    def restore_sharded(self, target: Tree, shard, step: Optional[int] = None,
+                        device=None) -> Tuple[Tree, int]:
+        """The whole state (``restore``'s ``target``: the one-rank layout),
+        cut to this rank's shard by ``shard``. Call ``sync`` first."""
+        whole, step = self.restore(target, step, device)
+        return shard(whole), step
 
     # --------------------------------------------------------------- restore
     def all_steps(self) -> List[int]:

@@ -53,22 +53,36 @@ def moe_schema(cfg, mcfg, W: int = 1, etp: int = 1) -> Dict:
 
 def pack_expert_weights(full: Dict[str, torch.Tensor], ep: int,
                         etp: int) -> Dict[str, torch.Tensor]:
-    """Logical (E, d, f)/(E, f, d) weights -> the pre-sharded
-    (W, E_loc, ...) storage layout."""
+    """Logical (..., E, d, f)/(..., E, f, d) weights -> the pre-sharded
+    (..., W, E_loc, d, f_loc) storage layout, W = ep * etp in model-rank
+    order (rank g * etp + t holds expert group g's f-slice t). Leading
+    dimensions (the layers' (n_periods,) stacking) are kept."""
     out = {}
     for name, w in full.items():
-        E_loc = w.shape[0] // ep
+        E_loc = w.shape[-3] // ep
+        fdim = -2 if name == "w_down" else -1
+        f_loc = w.shape[fdim] // etp
         packed = []
         for g in range(ep):
+            sl = w.narrow(-3, g * E_loc, E_loc)
             for t in range(etp):
-                sl = w[g * E_loc:(g + 1) * E_loc]
-                if name == "w_down":
-                    f_loc = w.shape[1] // etp
-                    packed.append(sl[:, t * f_loc:(t + 1) * f_loc, :])
-                else:
-                    f_loc = w.shape[2] // etp
-                    packed.append(sl[:, :, t * f_loc:(t + 1) * f_loc])
-        out[name] = torch.stack(packed)
+                packed.append(sl.narrow(fdim, t * f_loc, f_loc))
+        out[name] = torch.stack(packed, dim=w.dim() - 3)
+    return out
+
+
+def unpack_expert_weights(packed: Dict[str, torch.Tensor], ep: int,
+                          etp: int) -> Dict[str, torch.Tensor]:
+    """The inverse of ``pack_expert_weights``: (..., W, E_loc, ...) ->
+    the logical (..., E, ...) weights."""
+    out = {}
+    for name, w in packed.items():
+        wdim = w.dim() - 4
+        fdim = -2 if name == "w_down" else -1
+        groups = [torch.cat([w.select(wdim, g * etp + t)
+                             for t in range(etp)], dim=fdim)
+                  for g in range(ep)]
+        out[name] = torch.cat(groups, dim=-3)
     return out
 
 

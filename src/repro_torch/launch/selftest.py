@@ -1,8 +1,9 @@
-"""Ranked self-test of the port's MoE layer, the counterpart of the JAX
-package's ``launch/selftest.py --case moe``:
+"""Ranked self-test of the port, the counterpart of the JAX package's
+``launch/selftest.py``:
 
   python -m repro_torch.launch.selftest --device cpu --ranks 4 --case moe
-  python -m repro_torch.launch.selftest --device cuda --case moe
+  python -m repro_torch.launch.selftest --device cpu --ranks 4 --case all
+  python -m repro_torch.launch.selftest --device cuda --case all
 
 ``--device cpu`` spawns ``--ranks`` processes joined by gloo; ``--device
 cuda`` one NCCL rank per visible GPU. The problem is the JAX self-test's
@@ -16,9 +17,19 @@ held against the port's own one-rank ``moe_ffn`` at the JAX self-test's
 bounds (``FWD_REL``, ``AUX_ABS``, ``GRAD_REL``). Rank 0 prints one
 ``[PASS]``/``[FAIL]`` line per check; the exit code is 0 iff all pass.
 Every spawn has a time limit and kills its ranks when it runs out, so a
-deadlocked rank fails the run instead of hanging it. ``--case all`` (the
-JAX self-test's mesh train steps) raises: the model-level mesh path is not
-ported.
+deadlocked rank fails the run instead of hanging it.
+
+``--case all`` adds, and ``--case train`` runs alone, the JAX self-test's
+mesh train steps (``repro/launch/selftest.py:151-163``): four Trainer
+steps of granite-moe-3b-a800m-smoke and of jamba-v0.1-52b-smoke on a
+(ranks / mp, mp) mesh, mp = min(4, ranks), whose losses must be finite
+and not rise by more than 1; the port also holds them against its own
+mesh-less Trainer on the same seed (``LOSS_REL``). Both runs take the
+no-drop capacity (``trainer.smoke_train``): a mesh routes its local
+tokens, so a dropping capacity drops other tokens than one rank does.
+
+``mesh_cells`` runs the model-level cells of ``tests/test_torch_mesh_
+train.py`` on the ranks, reading their weights and batches from files.
 """
 from __future__ import annotations
 
@@ -38,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.core import moe_layer as M
 from repro_torch.core import transport as T
 from repro_torch.device import resolve_device
@@ -51,7 +62,9 @@ from repro_torch.parallel.mesh import AxisCtx, choose_ep, make_mesh
 FWD_REL = 2e-5        # forward and decode broadcast, max abs / max |ref|
 AUX_ABS = 1e-4        # aux loss, absolute
 GRAD_REL = 5e-5       # gradients, max abs / max |ref|
+LOSS_REL = 2e-5       # a mesh run's losses against the mesh-less run's
 SELFTEST_ARCH = "granite-moe-3b-a800m-smoke"
+TRAIN_ARCHS = ("granite-moe-3b-a800m-smoke", "jamba-v0.1-52b-smoke")
 
 
 def problem(arch: str = SELFTEST_ARCH, E: int = 8, f: int = 64,
@@ -313,8 +326,54 @@ def moe_cells(device: str = "cpu") -> int:
     return len(failures)
 
 
-def _moe_rank(device: str) -> int:
-    return 1 if moe_cells(device) else 0
+def train_cells(device: str = "cpu") -> int:
+    """The mesh train steps of ``TRAIN_ARCHS``, each beside the mesh-less
+    Trainer on the same seed (rank 0 runs it and shares its losses).
+    Returns the number of failed checks (the same on every rank)."""
+    import math
+    import traceback
+
+    from repro_torch.training.trainer import smoke_train
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mp = min(4, n)
+    mesh = make_mesh((n // mp, mp), ("data", "model"))
+    failures = 0
+    for arch in TRAIN_ARCHS:
+        try:
+            got = smoke_train(arch, mesh, 4, device, no_drop=True)
+            want = [smoke_train(arch, None, 4, device, no_drop=True)
+                    if rank == 0 else None]
+            dist.broadcast_object_list(want, src=0)
+            want = want[0]
+            ok = (all(math.isfinite(v) for v in got)
+                  and got[-1] < got[0] + 1.0)
+            err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            res = [(f"mesh_train {arch}", ok,
+                    f"loss {got[0]:.3f} -> {got[-1]:.3f}"),
+                   (f"mesh_vs_local {arch}", err < LOSS_REL,
+                    f"max rel {err:.2e} over {len(got)} steps "
+                    f"(dp{n // mp} mp{mp})")]
+        except Exception as e:        # reported as a failed check
+            traceback.print_exc()
+            res = [(f"mesh_train {arch}", False, str(e)[:200])]
+        for name, ok, detail in res:
+            if rank == 0:
+                print(f"[{'PASS' if ok else 'FAIL'}] {name} {detail}",
+                      flush=True)
+            failures += not ok
+    return failures
+
+
+def _selftest_rank(device: str, case: str) -> int:
+    failures = 0
+    if case in ("moe", "all"):
+        failures += moe_cells(device)
+    if case in ("train", "all"):
+        failures += train_cells(device)
+        if dist.get_rank() == 0:
+            print(f"\n{'OK' if not failures else 'FAILURES'}: {failures} "
+                  f"failed in all", flush=True)
+    return 1 if failures else 0
 
 
 # ---------------------------------------------------------------------------
@@ -386,27 +445,243 @@ def _census_job(prob, ctx: AxisCtx, ring_group: int = 1, n_col: int = 1):
             "block_bytes": send[0].numel() * send.element_size() // n_col}
 
 
+# ---------------------------------------------------------------------------
+# model-level cells for the tests: weights and batches read from files
+# ---------------------------------------------------------------------------
+
+
+def cell_config(arch: str, over: Optional[Dict] = None):
+    """``arch``'s config with ``over``'s replacements: top-level fields,
+    and the "moe" and "attn" sub-configs' fields under those keys."""
+    cfg = get_config(arch)
+    over = dict(over or {})
+    for key in ("moe", "attn"):
+        if key in over:
+            cfg = dataclasses.replace(cfg, **{key: dataclasses.replace(
+                getattr(cfg, key), **over.pop(key))})
+    return dataclasses.replace(cfg, **over)
+
+
+def _flat(tree) -> Dict[str, np.ndarray]:
+    """Copies of the leaves (a CPU tensor's numpy view would follow the
+    in-place updates of the next step) under flat "a/b/c" keys."""
+    from repro_torch.models.common import tree_leaves
+    return {"/".join(map(str, p)): np.array(
+        t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+        for p, t in tree_leaves(tree)}
+
+
+def _unflat(cfg, flat: Dict[str, np.ndarray], prefix: str = ""):
+    """The one-rank tree of ``cfg`` from flat "a/b/c" keys."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map_path
+    return tree_map_path(lambda p, _: flat[prefix + "/".join(map(str, p))],
+                         lm.model_schema(cfg))
+
+
+def _batch(data, key: str, device) -> Dict[str, torch.Tensor]:
+    return {k.split("/", 1)[1]: torch.from_numpy(data[k]).long().to(device)
+            for k in data.files if k.startswith(key + "/")}
+
+
+def _grad_job(job, data, mesh, device):
+    from repro_torch import bridge
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.train_step import _reduce_over_dp, _unflatten
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    cfg = cell_config(job["arch"], job.get("over"))
+    fsdp = job.get("fsdp", True)
+    ctx = SH.make_ctx(cfg, mesh, seq_shard=job.get("seq_shard", True))
+    params = bridge.from_jax_sharded(_unflat(cfg, data, "params/"), cfg,
+                                     ctx, fsdp, device)
+    batch = _batch(data, "batch", device)
+    B, S = batch["tokens"].shape
+    pspecs = SP.train_batch_pspecs(cfg, ShapeConfig("cell", S, B, "train"),
+                                   1, ctx.dp_axes)
+    batch = SP.local_batch(batch, pspecs, mesh)
+    leaves = [t.requires_grad_(True) for _, t in tree_leaves(params)]
+    loss, met = lm.loss_fn(cfg, params, batch, ctx, fsdp)
+    grads = list(torch.autograd.grad(loss, leaves))
+    specs = [sp for _, sp in tree_leaves(
+        SH.state_specs(cfg, ctx, fsdp)["params"])]
+    _reduce_over_dp(ctx, grads, specs)
+    g = SH.from_mesh(_unflatten(params, grads), cfg, ctx, fsdp)
+    return {"loss": loss.item(), "aux": met["aux"].item(),
+            "xent": met["xent"].item(),
+            **{"grad/" + k: v for k, v in _flat(g).items()}}
+
+
+def _adamw_job(job, data, mesh, device):
+    """Two AdamW steps (``accum`` microbatches each) through
+    ``build_train_step`` on the mesh: after each, the gathered params and
+    moments; the local shapes of every leaf of params, m and v beside
+    what the specs cut from the global shapes; with ``nan_rank`` a
+    first step whose gradients are made non-finite on that rank only."""
+    from repro_torch import bridge
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = cell_config(job["arch"], job.get("over"))
+    accum, fsdp = job.get("accum", 1), job.get("fsdp", True)
+    optim = AdamW(lr=cosine_schedule(*job["lr"]), eps=job.get("eps", 1e-8))
+    tok = data["batch0/tokens"]                 # (B, S) or (accum, mb, S)
+    shape = ShapeConfig("cell", tok.shape[-1], tok.size // tok.shape[-1],
+                        "train")
+    built = build_train_step(cfg, shape, mesh, optim, accum, fsdp=fsdp)
+    ctx = built["ctx"]
+    params = bridge.from_jax_sharded(_unflat(cfg, data, "params/"), cfg,
+                                     ctx, fsdp, device)
+    state = {"params": params, "opt": optim.init(params), "step": 0}
+    out = {}
+    pspecs = built["state_specs"]["params"]
+    decls = dict(tree_leaves(lm.model_schema(cfg, ctx)))
+    for name, tree in (("params", state["params"]),
+                       ("m", state["opt"]["m"]), ("v", state["opt"]["v"])):
+        for (path, t), (_, sp) in zip(tree_leaves(tree),
+                                      tree_leaves(pspecs)):
+            want = [n // SH._cut(mesh, e)[0]
+                    for n, e in zip(decls[path].shape, sp)]
+            key = "/".join(map(str, path))
+            out[f"shape/{name}/{key}"] = np.array([list(t.shape), want])
+    steps = []
+    if job.get("nan_rank") is not None:
+        steps.append(("nan", "batch0"))
+    steps += [(f"step{i}", f"batch{i}") for i in range(2)]
+    for tag, bkey in steps:
+        batch = SP.local_batch(_batch(data, bkey, device),
+                               built["batch_pspecs"], mesh)
+        hook = None
+        if tag == "nan" and dist.get_rank() == job["nan_rank"]:
+            leaf = next(t for _, t in tree_leaves(state["params"]))
+            hook = leaf.requires_grad_(True).register_hook(lambda g: g * float("nan"))
+        before = _flat(state["params"]) if tag == "nan" else None
+        state, met = built["fn"](state, batch)
+        if hook is not None:
+            hook.remove()
+        skipped = [None] * dist.get_world_size()
+        dist.all_gather_object(skipped, met["skipped"])
+        out[f"{tag}/skipped"] = np.array(skipped)
+        out[f"{tag}/loss"] = float(met["loss"])
+        out[f"{tag}/grad_norm"] = float(met["grad_norm"])
+        if tag == "nan":
+            after = _flat(state["params"])
+            out["nan/unchanged"] = all(np.array_equal(before[k], after[k])
+                                       for k in before)
+            continue
+        whole = SH.gather_state(state, cfg, ctx, fsdp)
+        for name, tree in (("params", whole["params"]),
+                           ("m", whole["opt"]["m"]),
+                           ("v", whole["opt"]["v"])):
+            out.update({f"{tag}/{name}/{k}": v
+                        for k, v in _flat(tree).items()})
+    return out
+
+
+def _roundtrip_job(job, mesh, device):
+    """``gather_params(shard_params(full))`` against ``full``, bit for bit,
+    for the mesh tree of the arch's seeded one-rank weights."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    cfg = cell_config(job["arch"], job.get("over"))
+    ctx = SH.make_ctx(cfg, mesh)
+    specs = SH.param_specs(lm.model_schema(cfg, ctx), mesh, job["fsdp"])
+    full = SH.pack_params(lm.init_params(cfg, 0, device), ctx)
+    back = SH.gather_params(SH.shard_params(full, specs, mesh), specs, mesh)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_leaves(full), tree_leaves(back)))
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, same)
+    return {"same": np.array(flags)}
+
+
+def _trainer_job(job, mesh, device):
+    """Trainer.run on the mesh twice: uninterrupted, and with a fault hook
+    that raises once before step ``fail_at`` (the loop restores the last
+    checkpoint, every ``ckpt_every`` steps, and replays)."""
+    import tempfile
+
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = cell_config(job["arch"], job.get("over"))
+    shape = ShapeConfig("cell", job["seq"], job["batch"], "train")
+    out = {}
+    for tag in ("clean", "replay"):
+        d = [tempfile.mkdtemp(prefix="repro_torch_cell_")
+             if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(d, src=0)
+        fired = []
+
+        def hook(step):
+            if tag == "replay" and step == job["fail_at"] and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        tcfg = TrainerConfig(ckpt_dir=d[0], ckpt_every=job["ckpt_every"],
+                             log_every=10_000, keep=2)
+        res = Trainer(cfg, shape, mesh, tcfg, fault_hook=hook,
+                      device=device).run(job["steps"])
+        out[f"{tag}/losses"] = np.array([m["loss"] for m in res["metrics"]])
+        out[f"{tag}/steps"] = np.array([m["step"] for m in res["metrics"]])
+        out[f"{tag}/restarts"] = res["restarts"]
+    return out
+
+
+def _cli_job(job, device):
+    """``launch.train.main`` with ``job["argv"]`` on the initialised
+    process group."""
+    from repro_torch.launch import train
+    res = train.main(list(job["argv"]), device=device)
+    return {"losses": np.array([m["loss"] for m in res["metrics"]]),
+            "final_step": res["final_step"]}
+
+
+def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
+    """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
+    rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
+    0). A job: name, kind ("grad", "adamw", "roundtrip", "trainer",
+    "cli"), arch and ``over`` (``cell_config``); "grad" and "adamw" read
+    the one-rank weights ("params/<leaf>") and batches ("batch*/<key>")
+    from ``in_dir/<data>.npz``. Results are gathered into the one-rank
+    layout. Gloo ranks: every tensor on the CPU."""
+    device = "cpu"
+    mesh = make_mesh(tuple(layout), ("data", "model"))
+    for job in jobs:
+        kind = job["kind"]
+        if kind in ("grad", "adamw"):
+            data = np.load(Path(in_dir) / f"{job['data']}.npz")
+            res = (_grad_job if kind == "grad" else _adamw_job)(
+                job, data, mesh, device)
+        elif kind == "roundtrip":
+            res = _roundtrip_job(job, mesh, device)
+        elif kind == "trainer":
+            res = _trainer_job(job, mesh, device)
+        else:
+            res = _cli_job(job, device)
+        if dist.get_rank() == 0:
+            np.savez(Path(out_dir) / f"{job['name']}.npz", **res)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--ranks", type=int, default=0,
                     help="gloo ranks (--device cpu; default 4); on cuda one "
                          "rank per visible GPU")
-    ap.add_argument("--case", default="moe", choices=("moe", "all"))
+    ap.add_argument("--case", default="moe", choices=("moe", "train", "all"))
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before every rank is killed")
     args = ap.parse_args(argv)
-    if args.case == "all":
-        raise NotImplementedError(
-            "--case all: the mesh train steps (the model-level mesh path "
-            "and its train step) are not ported yet; run --case moe")
     if args.device == "cuda":
         resolve_device("cuda")
         n = torch.cuda.device_count()
     else:
         n = args.ranks or 4
     try:
-        spawn(n, _moe_rank, (args.device,), args.device, args.timeout)
+        spawn(n, _selftest_rank, (args.device, args.case), args.device,
+              args.timeout)
     except (RuntimeError, TimeoutError) as e:
         print(f"selftest: {e}", file=sys.stderr)
         return 1

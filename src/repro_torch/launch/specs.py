@@ -1,5 +1,6 @@
-"""Train batch shapes for every (arch x shape) cell: the port's copy of
-``repro.launch.specs`` without partition specs (one rank has no mesh).
+"""Train batch shapes for every (arch x shape) cell (the port's copy of
+``repro.launch.specs``), the batch's partition specs on a mesh, and this
+rank's rows of a global batch.
 """
 from __future__ import annotations
 
@@ -34,3 +35,27 @@ def train_batch_specs(cfg, shape, accum: int) -> Dict[str, Tuple[int, ...]]:
         return {"frames": shp(S, cfg.d_model), "tokens": shp(Sd),
                 "labels": shp(Sd)}
     return {"tokens": shp(S), "labels": shp(S)}
+
+
+def train_batch_pspecs(cfg, shape, accum: int,
+                       dp_axes: Tuple[str, ...] = ("data",)) -> Dict:
+    """The partition spec of each entry of ``train_batch_specs``: the
+    microbatch rows split over ``dp_axes`` (the leading (accum,) axis and
+    the rest whole), as the JAX package's ``train_batch_specs`` gives
+    them."""
+    from repro_torch.parallel.sharding import P
+    dp = (dp_axes if len(dp_axes) != 1 else dp_axes[0]) or None
+    lead = (None, dp) if legal_accum(shape.global_batch, accum) > 1 \
+        else (dp,)
+    return {k: P(*(lead + (None,) * (len(v) - len(lead))))
+            for k, v in train_batch_specs(cfg, shape, accum).items()}
+
+
+def local_batch(batch: Dict, pspecs: Dict, mesh) -> Dict:
+    """This rank's rows of a global batch (numpy arrays or tensors), cut
+    as ``pspecs`` says."""
+    import torch
+
+    from repro_torch.parallel.sharding import shard_leaf
+    return {k: shard_leaf(torch.as_tensor(v), pspecs[k], mesh)
+            for k, v in batch.items()}

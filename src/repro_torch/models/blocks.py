@@ -2,19 +2,34 @@
 the training forward (``apply_layer``, the sequential form of the JAX
 package's ``block_segments``) and the two cached serving modes,
 single-token decode and chunked prefill, of both layer kinds. No
-cross-attention yet."""
+cross-attention yet.
+
+The training forward also runs on a mesh (a ranked ``AxisCtx``): each
+rank holds its rows of the batch, the same on every model rank, and its
+slice of the parameters as ``parallel.sharding.param_specs`` cuts them
+(the data-axis cuts already gathered, ``lm.forward``). Attention shards
+over the model axis as the JAX package's explicit ``shard_map`` does
+(``attn_case``), the MoE block calls the ranked ``moe_ffn``, and the
+dense FFN is column- then row-parallel where its width divides. Around
+them the collectives are Megatron's conjugate pairs
+(``parallel.collectives``): every model rank computes the same loss.
+"""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.moe_layer import moe_ffn, moe_schema
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDecl, apply_norm, apply_rope,
-                                       ffn_apply, ffn_schema, norm_schema)
+                                       ffn_apply, ffn_schema, model_sharded,
+                                       norm_schema)
+from repro_torch.parallel import collectives as CL
 
 
 def attn_schema(cfg, a) -> Dict[str, ParamDecl]:
@@ -34,7 +49,14 @@ def attn_schema(cfg, a) -> Dict[str, ParamDecl]:
     return s
 
 
-def layer_schema(cfg, pos: int) -> Dict:
+def _ranked(ctx) -> bool:
+    return ctx is not None and ctx.active
+
+
+def layer_schema(cfg, pos: int, ctx=None) -> Dict:
+    """One layer position's schema. On a mesh the experts are stored
+    packed for the model axis: (W, E_loc, ...) with W its size
+    (``repro/models/blocks.py:35-53``)."""
     if cfg.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
@@ -46,50 +68,145 @@ def layer_schema(cfg, pos: int) -> Dict:
     if cfg.d_ff > 0 or cfg.is_moe_layer(pos):
         s["ln2"] = norm_schema(cfg, cfg.d_model)
         if cfg.is_moe_layer(pos):
-            s["moe"] = moe_schema(cfg, cfg.moe, W=1, etp=1)
+            W = ctx.model_size if _ranked(ctx) else 1
+            etp = ctx.etp if ctx is not None else 1
+            s["moe"] = moe_schema(cfg, cfg.moe, W, etp)
         else:
             s["ffn"] = ffn_schema(cfg, cfg.d_model, cfg.d_ff)
     return s
 
 
+def _proj(a, p_attn, h, name):
+    """One of the q/k/v projections with its bias, heads split: h (B, S,
+    d) -> (B, S, H*, hd); the head count is what the weight holds."""
+    B, S, _ = h.shape
+    t = h @ p_attn["w" + name]
+    if "b" + name in p_attn:
+        t = t + p_attn["b" + name].to(t.dtype)
+    return t.reshape(B, S, -1, a.head_dim)
+
+
 def _qkv_proj(a, p_attn, h):
     """QKV projection + bias + head reshape. h: (B, S, d) -> q/k/v
     (B, S, H*, hd)."""
+    return tuple(_proj(a, p_attn, h, n) for n in "qkv")
+
+
+def _moe_ranked(cfg, pm, h, ctx):
+    """The ranked MoE block inside a model whose ranks all compute the
+    same loss. h: this rank's rows (B, S, d), the same on every model
+    rank. Under sequence sharding each model rank takes its slice of the
+    sequence (``scatter_to``) and y is gathered back (``gather_from``);
+    otherwise every model rank routes the same tokens, whose y each holds
+    alike. ``moe_ffn``'s collectives keep the JAX transposes, under which
+    the ranks' losses sum to the loss: ``grad_share`` hands it shares of
+    the cotangents of what several ranks hold alike (y over the model
+    ranks, aux over every rank), and ``copy_to`` sums the shares of the
+    router's and the tokens' gradients back over the model group."""
     B, S, _ = h.shape
-    q = h @ p_attn["wq"]
-    k = h @ p_attn["wk"]
-    v = h @ p_attn["wv"]
-    if "bq" in p_attn:
-        q = q + p_attn["bq"].to(q.dtype)
-        k = k + p_attn["bk"].to(k.dtype)
-        v = v + p_attn["bv"].to(v.dtype)
-    return (q.reshape(B, S, a.n_heads, a.head_dim),
-            k.reshape(B, S, a.n_kv_heads, a.head_dim),
-            v.reshape(B, S, a.n_kv_heads, a.head_dim))
+    G = ctx.model_group
+    m = ctx.model_size
+    seq = ctx.seq_shard and S > 1 and S % m == 0
+    # the context moe_ffn's body runs under: what sharding.shard_tokens
+    # returns for the global batch (B * dp rows, which dp divides)
+    body_ctx = dataclasses.replace(
+        ctx, seq_shard=seq, dp_axes=ctx.dp_axes if ctx.dp_size > 1 else ())
+    params = {k: (CL.copy_to(v, G) if k in ("router", "w_desc", "w_asc")
+                  else v) for k, v in pm.items() if k != "shared"}
+    x = CL.scatter_to(h, G, 1) if seq else CL.copy_to(h, G)
+    y, aux = moe_ffn(cfg, cfg.moe, params, x, body_ctx,
+                     n_col=cfg.moe.n_col_blocks)
+    y = CL.gather_from(y, G, 1) if seq else CL.grad_share(y, m)
+    return y, CL.grad_share(aux, dist.get_world_size())
 
 
-def _mlp_tail(cfg, p, x):
+def _mlp_tail(cfg, p, x, ctx=None):
     """ln2 -> (MoE | FFN) -> residual. Returns (x, aux loss fp32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ln2" not in p:
         return x, aux
     h = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
-        h, aux = moe_ffn(cfg, cfg.moe, p["moe"], h,
-                         n_col=cfg.moe.n_col_blocks)
+        if _ranked(ctx):
+            h, aux = _moe_ranked(cfg, p["moe"], h, ctx)
+        else:
+            h, aux = moe_ffn(cfg, cfg.moe, p["moe"], h,
+                             n_col=cfg.moe.n_col_blocks)
         if "shared" in p["moe"]:
+            # reads the mid residual, as the JAX package's f_shared
             h = h + ffn_apply(cfg, p["moe"]["shared"],
-                              apply_norm(cfg, p["ln2"], x))
+                              apply_norm(cfg, p["ln2"], x), ctx,
+                              cfg.moe.d_expert * cfg.moe.num_shared_experts)
     else:
-        h = ffn_apply(cfg, p["ffn"], h)
+        h = ffn_apply(cfg, p["ffn"], h, ctx, cfg.d_ff)
     return x + h.to(x.dtype), aux
 
 
+def attn_case(ctx, a, Sq: int) -> str:
+    """How attention shards over the model axis (``repro/models/
+    blocks.py:61-84``):
+
+      heads  - Hq and Hkv both divide the axis: head sharding;
+      qheads - only Hq divides: q sharded over heads, K/V whole on every
+               rank;
+      seq    - heads don't divide: each rank takes a slice of the queries,
+               K/V whole;
+      none   - nothing divides: every rank computes it whole.
+    """
+    m = ctx.model_size if _ranked(ctx) else 1
+    if m == 1:
+        return "none"
+    if a.n_heads % m == 0 and a.n_kv_heads % m == 0:
+        return "heads"
+    if a.n_heads % m == 0:
+        return "qheads"
+    if Sq % m == 0 and Sq > 1:
+        return "seq"
+    return "none"
+
+
+def _local_kv(k, v, kv_map, rep: int):
+    """K/V for local q heads whose global-to-local kv map is ``kv_map``:
+    the contiguous slice of kv heads when every kv head serves ``rep``
+    consecutive local q heads (GQA as it stands), else the kv heads taken
+    per q head (rep 1)."""
+    H_l = len(kv_map)
+    base = kv_map[0]
+    if H_l % rep == 0 and kv_map == [base + i // rep for i in range(H_l)]:
+        return (k[:, :, base:base + H_l // rep],
+                v[:, :, base:base + H_l // rep])
+    idx = torch.tensor(kv_map, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_core(a, causal, use_rope, q, k, v, qp, kp, kv_mask,
+               head_base: int = 0, kv_base: int = 0, flash: bool = False):
+    """The per-rank attention body (``repro/models/blocks.py:87-113``).
+    q: (B, Sq_l, H_l, hd); k/v: (B, Sk, Hkv_l, hd); qp/kp: absolute
+    positions (B, Sq_l)/(B, Sk). ``head_base``/``kv_base``: the global
+    index of the first local q/kv head, from which each local q head
+    finds its kv head (every sharding case). ``flash``: the region is the
+    kernel's case (causal, unmasked, positions arange(S) on both sides),
+    sent to ``ops.flash_attention``."""
+    if use_rope:
+        q = apply_rope(q, qp, a.rope_theta)
+        k = apply_rope(k, kp, a.rope_theta)
+    rep = a.n_heads // a.n_kv_heads
+    kv_map = [(head_base + i) // rep - kv_base for i in range(q.shape[2])]
+    k, v = _local_kv(k, v, kv_map, rep)
+    if flash:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True)
+        return o.transpose(1, 2)
+    return A.attention(q, k, v, qp, kp, q_block=a.q_block,
+                       kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+
+
 def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
-               kv_mask=None, arange_positions: bool = False):
-    """Full-sequence self-attention at one rank (blocks.py:116 of the JAX
-    package). x: (B, S, d); positions: (B, S) or (1, S) absolute positions
-    (RoPE and the causal mask); kv_mask: optional (B, S) key validity;
+               kv_mask=None, arange_positions: bool = False, ctx=None):
+    """Full-sequence self-attention (blocks.py:116 of the JAX package).
+    x: (B, S, d); positions: (B, S) or (1, S) absolute positions (RoPE and
+    the causal mask); kv_mask: optional (B, S) key validity;
     ``arange_positions``: the caller built positions as arange(S) (the
     training forward without a mask). Returns the o-projection (B, S, d).
 
@@ -97,43 +214,117 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
     ``__fusable__flash`` region computes exactly what its flash kernel
     computes, and the port sends it to ``ops.flash_attention`` (the
     hand-written kernel on a CUDA tensor). Every other case keeps the
-    plain attention, as the JAX package does."""
+    plain attention, as the JAX package does. With a ranked ``ctx`` the
+    heads shard as ``attn_case`` says; the ``seq`` case's query positions
+    are a slice, so it takes the plain attention."""
     a = cfg.attn
     B, S, _ = x.shape
-    q, k, v = _qkv_proj(a, p, x)
     positions = positions.expand(B, S)
-    if use_rope:
-        q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
-    if causal and kv_mask is None and arange_positions:
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True)
-        o = o.transpose(1, 2)
-    else:
-        if kv_mask is not None:
-            kv_mask = kv_mask.expand(B, S)
-        o = A.attention(q, k, v, positions, positions, q_block=a.q_block,
-                        kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+    if kv_mask is not None:
+        kv_mask = kv_mask.expand(B, S)
+    flash = causal and kv_mask is None and arange_positions
+    if _ranked(ctx) and ctx.model_size > 1:
+        return _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope,
+                            kv_mask, flash)
+    q, k, v = _qkv_proj(a, p, x)
+    o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
+                   kv_mask, flash=flash)
     return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
 
 
+def _whole(p, ctx, keys, full: int):
+    """The leaves ``keys`` of an attention tree whole on every model rank:
+    gathered where a head width of ``full`` columns is stored cut (rows
+    of wo), as they are otherwise."""
+    G = ctx.model_group
+    out = {}
+    for k in keys:
+        if k in p:
+            cut = model_sharded(ctx, full)
+            out[k] = CL.gather_from(p[k], G, 0 if k == "wo"
+                                    else p[k].dim() - 1) if cut else p[k]
+    return out
+
+
+def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
+                 flash):
+    """attn_apply on a model axis of m > 1 ranks. x and positions are
+    the same on every model rank; so is the result."""
+    a = cfg.attn
+    B, S, _ = x.shape
+    hd = a.head_dim
+    G, m, r = ctx.model_group, ctx.model_size, ctx.model_rank
+    Hq, Hkv = a.n_heads, a.n_kv_heads
+    kv_keys = ("wk", "bk", "wv", "bv")
+    case = ("padded" if a.pad_heads and (Hq % m or Hkv % m)
+            else attn_case(ctx, a, S))
+    if case in ("heads", "qheads"):
+        # q over heads with this rank's columns of wq (rows of wo), the
+        # partial o-projections summed over the model group
+        xq = CL.copy_to(x, G)
+        q = _proj(a, p, xq, "q")
+        if case == "heads":
+            k, v = _proj(a, p, xq, "k"), _proj(a, p, xq, "v")
+        else:
+            # K/V whole on every rank, each rank's q heads reading some
+            # of them: the cotangents summed over the group
+            w = _whole(p, ctx, kv_keys, Hkv * hd)
+            k = CL.copy_to(_proj(a, w, x, "k"), G)
+            v = CL.copy_to(_proj(a, w, x, "v"), G)
+        o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
+                       kv_mask, r * q.shape[2],
+                       r * k.shape[2] if case == "heads" else 0, flash)
+        return CL.reduce_from(o.reshape(B, S, -1) @ p["wo"], G)
+    # padded / seq / none: every rank projects with the whole weights
+    w = {**_whole(p, ctx, ("wq", "bq", "wo"), Hq * hd),
+         **_whole(p, ctx, kv_keys, Hkv * hd)}
+    q, k, v = _qkv_proj(a, w, x)
+    if case == "padded":
+        # pad the kv heads up to the axis, keep the group ratio for q:
+        # zero K/V give dummy heads a zero output, and real q head h keeps
+        # kv head h // rep; then heads as above, gathered back whole
+        Hkv_p = -(-Hkv // m) * m
+        ap = dataclasses.replace(a, n_heads=Hkv_p * (Hq // Hkv),
+                                 n_kv_heads=Hkv_p)
+        q, k, v = (CL.scatter_to(torch.nn.functional.pad(
+            t, (0, 0, 0, n - t.shape[2])), G, 2)
+            for t, n in ((q, ap.n_heads), (k, Hkv_p), (v, Hkv_p)))
+        o = _attn_core(ap, causal, use_rope, q, k, v, positions, positions,
+                       kv_mask, r * q.shape[2], r * k.shape[2], flash)
+        o = CL.gather_from(o, G, 2)[:, :, :Hq]
+    elif case == "seq":
+        # this rank's slice of the queries (their gradient gathered back),
+        # all of K/V (their cotangents summed)
+        Sl = S // m
+        o = _attn_core(a, causal, use_rope, CL.scatter_to(q, G, 1),
+                       CL.copy_to(k, G), CL.copy_to(v, G),
+                       positions[:, r * Sl:(r + 1) * Sl], positions, kv_mask)
+        o = CL.gather_from(o, G, 1)
+    else:
+        o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
+                       kv_mask, flash=flash)
+    return o.reshape(B, S, Hq * hd) @ w["wo"]
+
+
 def apply_layer(cfg, pos: int, p, x, positions, mask=None,
-                arange_positions: bool = False):
+                arange_positions: bool = False, ctx=None):
     """The training forward of one layer (blocks.py:361 of the JAX package,
     written sequentially): ln1 -> (attention | SSM) -> residual -> ln2 ->
     (MoE | FFN) -> residual. mask: optional (B, S) validity; pad keys are
     excluded from attention and pad steps are identities of the SSM scan.
-    ``arange_positions``: see attn_apply. Returns (x, aux loss fp32)."""
+    ``arange_positions``: see attn_apply. ``ctx``: a ranked context (the
+    module docstring), or None at one rank. Returns (x, aux loss fp32)."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) == "a":
         a = cfg.attn
         h = attn_apply(cfg, p["attn"], h, positions, a.causal,
                        a.rope_theta > 0, kv_mask=mask,
-                       arange_positions=arange_positions)
+                       arange_positions=arange_positions, ctx=ctx)
     else:
-        h, _ = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask)
+        h, _ = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask,
+                               ctx=ctx)
     x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x)
+    return _mlp_tail(cfg, p, x, ctx)
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos):

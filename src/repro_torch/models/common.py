@@ -14,6 +14,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import collectives as CL
 # the plain model norm and the activations live beside the kernels whose
 # plain versions they are; the model layer names them here, as the JAX
 # package's models/common does
@@ -133,11 +134,27 @@ def ffn_schema(cfg, d, hidden) -> Dict[str, ParamDecl]:
     return s
 
 
-def ffn_apply(cfg, p, x):
+def model_sharded(ctx, full: int) -> bool:
+    """Whether a dimension of ``full`` entries mapped to the model axis is
+    stored cut over it (``parallel.sharding.decl_spec``: when it divides);
+    never on a model axis of one rank."""
+    return (ctx is not None and ctx.active and ctx.model_size > 1
+            and full % ctx.model_size == 0)
+
+
+def ffn_apply(cfg, p, x, ctx=None, hidden: int = 0):
+    """The dense FFN. With a ranked context and its ``hidden`` (ffn) width
+    stored cut over the model axis: column-parallel gate/up, row-parallel
+    down, the partial outputs all-reduced (Megatron); otherwise every rank
+    computes it whole. x is the same on every model rank."""
+    tp = model_sharded(ctx, hidden)
+    if tp:
+        x = CL.copy_to(x, ctx.model_group)
     gate = x @ p["w_gate"] if "w_gate" in p else None
     up = x @ p["w_up"]
     h = activate(cfg.activation, gate, up)
-    return h @ p["w_down"]
+    y = h @ p["w_down"]
+    return CL.reduce_from(y, ctx.model_group) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -175,21 +192,58 @@ def _xent_chunk(hc, w_out, lc, logit_dtype):
     return ((lse - tgt) * mask).sum(), mask.sum()
 
 
+def _xent_chunk_vocab(hc, w_out, lc, logit_dtype, group):
+    """One chunk against this rank's vocab slice ``w_out`` (d, V / m): the
+    logsumexp's max and sum of exponentials reduced over the model group,
+    the target logit from the rank whose slice holds it."""
+    hc = CL.copy_to(hc, group)
+    logits = hc.to(logit_dtype) @ w_out.to(logit_dtype)
+    Vl = logits.shape[-1]
+    # the max only steadies the exponentials: its gradient cancels
+    gmax = CL.all_reduce_(logits.detach().amax(dim=-1), group, op="max")
+    sumexp = CL.reduce_from(torch.exp(logits - gmax[..., None]).sum(dim=-1),
+                            group)
+    lse = gmax + torch.log(sumexp)
+    ids = lc.long() - group.index * Vl
+    inside = (ids >= 0) & (ids < Vl)
+    tgt = torch.gather(logits, -1, ids.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = CL.reduce_from(torch.where(inside, tgt, torch.zeros_like(tgt)),
+                         group)
+    mask = (lc >= 0).to(logit_dtype)
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
 def chunked_xent(h, w_out, labels, chunk: int = 1024,
-                 logit_dtype=torch.float32):
+                 logit_dtype=torch.float32, ctx=None, vocab: int = 0):
     """h: (B, S, d); w_out: (d, V); labels: (B, S), -1 = ignore. Returns
     (mean loss over the kept labels, their count), as
     ``repro.models.common.chunked_xent``. Each sequence chunk's
     (B, chunk, V) logits are recomputed in the backward
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``), so
-    only one chunk's logits are alive at a time."""
+    only one chunk's logits are alive at a time.
+
+    With a ranked context, h holds this rank's rows of the batch (the same
+    on every model rank), and ``w_out`` this rank's vocab slice when the
+    ``vocab`` size is stored cut over the model axis. The sums and counts
+    are reduced over the dp axes, so every rank returns the global mean
+    (what the JAX package's jit computes from the global batch)."""
     S = h.shape[1]
     chunk = min(chunk, S)
     tot = torch.zeros((), dtype=logit_dtype, device=h.device)
     cnt = torch.zeros((), dtype=logit_dtype, device=h.device)
+    vocab_cut = model_sharded(ctx, vocab)
     for s0 in range(0, S, chunk):
-        l, c = checkpoint(_xent_chunk, h[:, s0:s0 + chunk], w_out,
-                          labels[:, s0:s0 + chunk], logit_dtype,
-                          use_reentrant=False)
+        sl = slice(s0, s0 + chunk)
+        if vocab_cut:
+            l, c = checkpoint(_xent_chunk_vocab, h[:, sl], w_out,
+                              labels[:, sl], logit_dtype, ctx.model_group,
+                              use_reentrant=False)
+        else:
+            l, c = checkpoint(_xent_chunk, h[:, sl], w_out, labels[:, sl],
+                              logit_dtype, use_reentrant=False)
         tot, cnt = tot + l, cnt + c
+    if ctx is not None and ctx.active and ctx.dp_size > 1:
+        dp = ctx.mesh.group(ctx.dp_axes)
+        tot = CL.reduce_from(tot, dp)
+        cnt = CL.all_reduce_(cnt.detach().clone(), dp)
     return tot / torch.clamp(cnt, min=1.0), cnt

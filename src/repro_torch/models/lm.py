@@ -6,6 +6,10 @@ is a list over period positions of trees whose leaves carry a leading
 (n_periods,) axis, and the KV cache has the same stacking. Where JAX scans
 over periods, the port loops in Python and takes views of period ``n``.
 The cache is updated in place.
+
+The training forward and loss also run on a mesh: with a ranked
+``AxisCtx`` each rank holds its rows of the batch and its shard of the
+parameters (``parallel.sharding.to_mesh``); see ``forward``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,9 @@ from repro_torch.models import blocks as B
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDecl, apply_norm,
                                        chunked_xent, init_from_schema,
-                                       norm_schema, tree_map)
+                                       model_sharded, norm_schema, tree_map)
+from repro_torch.parallel import collectives as CL
+from repro_torch.parallel import sharding as SH
 
 Tree = Any
 
@@ -38,7 +44,7 @@ def _stack(schema: Tree, n: int) -> Tree:
                     schema)
 
 
-def model_schema(cfg) -> Dict:
+def model_schema(cfg, ctx=None) -> Dict:
     d, V = cfg.d_model, cfg.vocab_size
     s: Dict[str, Any] = {"embed": ParamDecl((V, d), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
@@ -49,7 +55,7 @@ def model_schema(cfg) -> Dict:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not stack "
                          f"by period {p}")
     n_periods = cfg.n_layers // p
-    s["layers"] = [_stack(B.layer_schema(cfg, pos), n_periods)
+    s["layers"] = [_stack(B.layer_schema(cfg, pos, ctx), n_periods)
                    for pos in range(p)]
     return s
 
@@ -120,24 +126,36 @@ def _embed(cfg, params, tokens):
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(cfg, params, batch):
+def embed_inputs(cfg, params, batch, ctx=None):
     """Token embeddings (or the stub frontend's ``embeds``) in the compute
-    dtype."""
+    dtype. With a ranked context whose vocab is stored cut over the model
+    axis, each rank looks up the ids its slice holds (zeros elsewhere) and
+    the rows are summed over the model group."""
     if cfg.n_enc_layers:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet")
     if "embeds" in batch:
         return batch["embeds"].to(dtype_of(cfg.compute_dtype))
-    return _embed(cfg, params, batch["tokens"])
+    if not model_sharded(ctx, cfg.vocab_size):
+        return _embed(cfg, params, batch["tokens"])
+    table = params["embed"]
+    Vl = table.shape[0]
+    ids = batch["tokens"].long() - ctx.model_rank * Vl
+    inside = (ids >= 0) & (ids < Vl)
+    rows = table[ids.clamp(0, Vl - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=
+                                                            rows.dtype))
+    return CL.reduce_from(rows, ctx.model_group).to(
+        dtype_of(cfg.compute_dtype))
 
 
-def _forward_inputs(cfg, params, batch):
+def _forward_inputs(cfg, params, batch, ctx=None):
     """Embeddings, pad-aware positions, the mask, and whether the
     positions are the default arange(S): with ``mask`` (B, S) a row's
     position is its rank among its valid tokens (left padding starts at 0
     at the first real token). The flag is known here, where the positions
     are built, so no layer has to compare them on the device."""
-    h = embed_inputs(cfg, params, batch)
+    h = embed_inputs(cfg, params, batch, ctx)
     Bsz, Ssz, _ = h.shape
     mask = batch.get("mask")
     arange = False
@@ -152,43 +170,84 @@ def _forward_inputs(cfg, params, batch):
     return h, positions, mask, arange
 
 
-def _period_body(cfg, h, lp, positions, mask, arange):
-    """The layers of one period: returns (h, the period's aux loss)."""
+def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None):
+    """The layers of one period: returns (h, the period's aux loss). On a
+    mesh the period's leaves cut over the data axes are gathered first
+    (inside the remat region: the recompute gathers them again)."""
+    if specs is not None:
+        lp = SH.fsdp_gather_tree(lp, specs, ctx, drop=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos in range(period_of(cfg)):
         h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
-                             arange_positions=arange)
+                             arange_positions=arange, ctx=ctx)
         aux = aux + a
     return h, aux
 
 
-def forward(cfg, params, batch):
-    """Returns (h_final (B, S, d), aux loss fp32, None). With
+def _top_level(cfg, params, ctx, specs):
+    """The embedding, head and final norm, the data-axis cuts gathered."""
+    top = {k: v for k, v in params.items() if k != "layers"}
+    if specs is None:
+        return top
+    return SH.fsdp_gather_tree(top, {k: specs[k] for k in top}, ctx)
+
+
+def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
+    """Returns (h_final (B, S, d), aux loss fp32, the top-level leaves as
+    used). With
     ``cfg.remat == "full"`` every period runs under a non-reentrant
     ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of its
-    scan body): its activations are recomputed in the backward."""
+    scan body): its activations are recomputed in the backward.
+
+    ``ctx``: None (or inactive) at one rank. A ranked context is the JAX
+    package's mesh step, one rank of it: ``params`` is this rank's shard
+    as ``parallel.sharding.param_specs(..., fsdp)`` cuts the mesh tree,
+    ``batch`` this rank's rows, the same on every model rank. The leaves
+    cut over the data axes are gathered per period (their gradients
+    reduce-scattered); everything else follows ``models/blocks.py``. The
+    recompute under remat issues the same collectives in the same order
+    on every rank."""
     if cfg.block_schedule:
         raise NotImplementedError("block_schedule: the whole-graph schedule "
                                   "is not ported yet")
-    h, positions, mask, arange = _forward_inputs(cfg, params, batch)
+    specs = None
+    if ctx is not None and ctx.active:
+        if cfg.sp_residual:
+            raise NotImplementedError("sp_residual: the sequence-parallel "
+                                      "residual is not ported yet")
+        specs = SH.param_specs(model_schema(cfg, ctx), ctx.mesh, fsdp)
+    params = {**_top_level(cfg, params, ctx, specs),
+              "layers": params["layers"]}
+    h, positions, mask, arange = _forward_inputs(cfg, params, batch, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     p = period_of(cfg)
     for n in range(cfg.n_layers // p):
         lp = [_period(params["layers"][pos], n) for pos in range(p)]
+        lspecs = None if specs is None else specs["layers"]
         if cfg.remat == "full" and torch.is_grad_enabled():
             h, a = checkpoint(_period_body, cfg, h, lp, positions, mask,
-                              arange, use_reentrant=False)
+                              arange, ctx, lspecs, use_reentrant=False)
         else:
-            h, a = _period_body(cfg, h, lp, positions, mask, arange)
+            h, a = _period_body(cfg, h, lp, positions, mask, arange, ctx,
+                                lspecs)
         aux = aux + a
-    return apply_norm(cfg, params["ln_f"], h), aux, None
+    return apply_norm(cfg, params["ln_f"], h), aux, params
 
 
-def loss_fn(cfg, params, batch):
+def forward(cfg, params, batch, ctx=None, fsdp: bool = True):
+    """Returns (h_final (B, S, d), aux loss fp32, None): ``_forward``."""
+    return _forward(cfg, params, batch, ctx, fsdp)[:2] + (None,)
+
+
+def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
     """Mean next-token cross-entropy (labels -1 ignored) plus the MoE aux
-    loss. Returns (loss, {"xent", "aux", "tokens"})."""
-    h, aux, _ = forward(cfg, params, batch)
-    loss, cnt = chunked_xent(h, output_head(cfg, params), batch["labels"])
+    loss. Returns (loss, {"xent", "aux", "tokens"}). With a ranked
+    context (``forward``) every rank returns the global loss: the mean
+    over every rank's tokens, as the JAX package's mesh step computes it
+    from the global batch."""
+    h, aux, top = _forward(cfg, params, batch, ctx, fsdp)
+    loss, cnt = chunked_xent(h, output_head(cfg, top), batch["labels"],
+                             ctx=ctx, vocab=cfg.vocab_size)
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 

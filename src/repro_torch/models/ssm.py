@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamDecl
+from repro_torch.models.common import ParamDecl, model_sharded
+from repro_torch.parallel import collectives as CL
 
 
 def ssm_schema(cfg, s) -> Dict[str, ParamDecl]:
@@ -37,6 +38,26 @@ def ssm_schema(cfg, s) -> Dict[str, ParamDecl]:
         "norm_scale": ParamDecl((d_in,), ("ssm_inner",), "ones"),
         "out_proj": ParamDecl((d_in, d), ("ssm_inner", "embed")),
     }
+
+
+# the leaves stored cut over the model axis (ssm_in, ssm_conv, ssm_inner)
+# and the dimension cut (repro/models/ssm.py:22-29)
+_MODEL_DIMS = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "norm_scale": 0,
+               "out_proj": 0}
+
+
+def whole_params(cfg, s, p, ctx):
+    """The block's parameters whole on every model rank: the leaves stored
+    cut over the model axis gathered (``collectives.gather_from``: every
+    model rank then computes the block alike, and each keeps its slice of
+    the gradient)."""
+    if ctx is None or not ctx.active:
+        return p
+    schema = ssm_schema(cfg, s)
+    return {k: (CL.gather_from(v, ctx.model_group, _MODEL_DIMS[k])
+                if k in _MODEL_DIMS and model_sharded(
+                    ctx, schema[k].shape[_MODEL_DIMS[k]]) else v)
+            for k, v in p.items()}
 
 
 def _split_proj(cfg, s, zxbcdt):
@@ -78,7 +99,7 @@ def _conv_window(conv_state, conv_in, valid_len, W):
 
 
 def ssm_forward(cfg, s, p, x, cache=None, return_cache=False, mask=None,
-                valid_len=None):
+                valid_len=None, ctx=None):
     """The Mamba-2 block. x: (B, S, d). ``cache``: None for the training
     forward and the prefill, else {"conv" (B, W-1, C), "state" (B, nh, ds,
     hd) fp32}: the single-token decode recurrence when S == 1, the chunked
@@ -88,8 +109,11 @@ def ssm_forward(cfg, s, p, x, cache=None, return_cache=False, mask=None,
     identity steps (conv input and dt zeroed, ``repro/models/ssm.py:
     165-176``). valid_len: () or (B,) valid leading tokens of a
     continuation chunk: the new conv window is taken after the last valid
-    token. Returns (y, new cache or None); the cache passed in is not
-    written."""
+    token. ``ctx``: a ranked context of the training forward, whose rank
+    holds its slice of the leaves cut over the model axis
+    (``whole_params``). Returns (y, new cache or None); the cache passed
+    in is not written."""
+    p = whole_params(cfg, s, p, ctx)
     d_in = s.expand * cfg.d_model
     nh = d_in // s.head_dim
     chunk_cont = cache is not None and x.shape[1] > 1

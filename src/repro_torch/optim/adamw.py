@@ -31,10 +31,26 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
+def global_norm(tree: Tree, specs: Tree = None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor).
+
+    Sharded (``specs`` and the ``mesh`` they cut over): ``tree`` holds this
+    rank's slice of every leaf, each slice the same on the ranks that hold
+    it. Each rank sums its slices' squares, each divided by the number of
+    ranks that hold that slice, and the sums are all-reduced over every
+    rank: each distinct slice counts once, a replicated leaf once, so the
+    norm (and the clip) is the one-rank norm of the whole tree. A
+    non-finite slice on any rank makes the norm non-finite on every rank."""
     leaves = [t for _, t in tree_leaves(tree)]
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in leaves))
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in leaves))
+    from repro_torch.parallel import collectives as CL
+    from repro_torch.parallel import sharding as SH
+    spec_leaves = [sp for _, sp in tree_leaves(specs)]
+    sq = sum(torch.sum(t.float() ** 2) / SH.replicas(sp, mesh)
+             for t, sp in zip(leaves, spec_leaves))
+    sq = CL.all_reduce_(sq.reshape(1), mesh.group(mesh.axis_names))
+    return torch.sqrt(sq[0])
 
 
 @dataclass(frozen=True)

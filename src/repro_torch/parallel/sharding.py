@@ -1,24 +1,302 @@
-"""Context construction, and one rank's share of a global batch and of the
-packed expert weights.
+"""Logical-axis rules (MaxText-style), context construction, and one
+rank's share of the global arrays.
 
-The JAX package hands ``shard_map`` the global arrays with partition specs
-(``moe_layer.moe_ffn``'s ``in_specs``): tokens split over dp (when B
-divides) and over the model axis (under sequence sharding), the packed
-expert storage (W, E_loc, ...) split over the model axis, the router
-replicated. In torch each rank is handed its own share: ``shard_tokens``
-and ``shard_experts`` cut it, ``gather_tokens`` and ``gather_experts``
-assemble the global arrays back (for tests and the self-test).
+Parameters: the JAX package's rules map each schema leaf's logical axes
+to mesh axes (``make_rules``, ``decl_spec``, ``param_specs``), and
+``jax.jit`` places every leaf by its spec. Here each rank keeps only its
+slice: ``shard_params`` cuts a global tree by the specs and
+``gather_params`` assembles it back (a collective). The global tree of a
+mesh differs from the one-rank tree only in the packed expert storage
+(W, E_loc, ...), W the model-axis size: ``to_mesh`` and ``from_mesh`` go
+between the one-rank tree and this rank's shard of the mesh tree, the
+layout-free form that checkpoints and the tests use.
+
+Tokens: the JAX package hands ``shard_map`` the global arrays with
+partition specs (``moe_layer.moe_ffn``'s ``in_specs``): tokens split over
+dp (when B divides) and over the model axis (under sequence sharding), the
+packed expert storage split over the model axis, the router replicated.
+``shard_tokens`` and ``shard_experts`` cut a rank's share,
+``gather_tokens`` and ``gather_experts`` assemble the global arrays back
+(for tests and the self-test).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.moe_layer import resolve_token_sharding
+from repro_torch.core.moe_layer import (pack_expert_weights,
+                                        resolve_token_sharding,
+                                        unpack_expert_weights)
+from repro_torch.models.common import ParamDecl, tree_map, tree_map_path
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel.mesh import AxisCtx, Mesh, choose_ep
+
+Tree = Any
+# a spec entry: no mesh axis, one, or several (row-major over them)
+Entry = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec:
+    """One mesh-axis entry per dimension (``jax.sharding.PartitionSpec``).
+    Not a tuple, so the tree helpers take it as a leaf; compares equal to
+    the tuple of its entries."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries: Entry):
+        self.entries = tuple(entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other):
+        if isinstance(other, PartitionSpec):
+            return self.entries == other.entries
+        return isinstance(other, tuple) and self.entries == other
+
+    def __hash__(self):
+        return hash(self.entries)
+
+    def __repr__(self):
+        return f"P{self.entries!r}"
+
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the spec shards over."""
+        out = []
+        for e in self.entries:
+            if e is not None:
+                out += [e] if isinstance(e, str) else list(e)
+        return tuple(out)
+
+
+P = PartitionSpec
+
+
+# logical axes used by the schemas:
+#   vocab, embed, embed_v (norm vectors), qheads, kvheads, ffn,
+#   expert_shard, experts_v, ssm_in, ssm_conv, ssm_inner, ssm_heads, layers
+def make_rules(fsdp: bool) -> Dict[str, Optional[str]]:
+    return {
+        "vocab": "model",
+        "embed": "data" if fsdp else None,
+        "embed_v": None,
+        "qheads": "model",
+        "kvheads": "model",
+        "ffn": "model",
+        "expert_shard": "model",
+        "experts_v": None,
+        "ssm_in": "model",
+        "ssm_conv": "model",
+        "ssm_inner": "model",
+        "ssm_heads": None,
+        "layers": None,
+    }
+
+
+def decl_spec(decl: ParamDecl, rules: Dict[str, Optional[str]],
+              axis_sizes: Dict[str, int]) -> PartitionSpec:
+    axes = []
+    used = set()
+    for dim, logical in zip(decl.shape, decl.logical):
+        ax = rules.get(logical) if logical is not None else None
+        if ax is not None and (dim % axis_sizes.get(ax, 1) != 0
+                               or ax in used):
+            ax = None                  # non-divisible or repeated: replicate
+        if ax is not None:
+            used.add(ax)
+        axes.append(ax)
+    return P(*axes)
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    return dict(mesh) if isinstance(mesh, dict) else dict(mesh.shape)
+
+
+def param_specs(schema: Tree, mesh, fsdp: bool) -> Tree:
+    """The spec of every leaf of ``schema``; ``mesh`` is a ``Mesh`` or its
+    axis sizes (a dict)."""
+    rules, sizes = make_rules(fsdp), _sizes(mesh)
+    return tree_map(lambda d: decl_spec(d, rules, sizes), schema)
+
+
+def state_specs(cfg, ctx: AxisCtx, fsdp: bool = True) -> Dict:
+    """The train state's specs (``repro.launch.train_step.state_specs``):
+    AdamW's moments are cut as the parameters are."""
+    from repro_torch.models import lm
+    pspecs = param_specs(lm.model_schema(cfg, ctx), ctx.mesh, fsdp)
+    return {"params": pspecs,
+            "opt": {"m": pspecs, "v": pspecs, "count": P()},
+            "step": P()}
+
+
+# ---------------------------------------------------------------------------
+# one rank's slice of a global array, and back
+# ---------------------------------------------------------------------------
+
+
+def _entry_axes(entry: Entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _cut(mesh: Mesh, entry: Entry, coords=None) -> Tuple[int, int]:
+    """(pieces, this rank's piece) of a dimension with spec ``entry``."""
+    co = mesh.coords if coords is None else coords
+    n, i = 1, 0
+    for a in _entry_axes(entry):
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + co[a]
+    return n, i
+
+
+def shard_leaf(full: torch.Tensor, spec: PartitionSpec,
+               mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``full``; a leaf no dimension of which is cut
+    is returned as it is."""
+    t = full
+    for dim, entry in enumerate(spec):
+        n, i = _cut(mesh, entry)
+        if n > 1:
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(full.shape)} does "
+                                 f"not split {n} ways (spec {spec})")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, i * size, size)
+    return t if t is full else t.clone(memory_format=torch.contiguous_format)
+
+
+def gather_leaf(local: torch.Tensor, spec: PartitionSpec,
+                mesh: Mesh) -> torch.Tensor:
+    """The global array from every rank's slice: collective over the ranks
+    that hold the pieces (every rank calls it)."""
+    axes = spec.axes()
+    if not axes or all(mesh.shape[a] == 1 for a in axes):
+        return local
+    group = mesh.group(axes)
+    CL.check_device("gather_leaf", group, local)
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(group.size)]
+    dist.all_gather(parts, local, group=group.pg)
+    shape = [s * _cut(mesh, e)[0] for s, e in zip(local.shape, spec)]
+    out = local.new_empty(shape)
+    for rank, part in zip(group.ranks, parts):
+        co = mesh.coords_of(rank)
+        idx = []
+        for s, e in zip(local.shape, spec):
+            i = _cut(mesh, e, co)[1]
+            idx.append(slice(i * s, (i + 1) * s))
+        out[tuple(idx)] = part
+    return out
+
+
+def _spec_at(specs: Tree, path) -> PartitionSpec:
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def shard_params(full: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    return tree_map_path(lambda path, t: shard_leaf(
+        t, _spec_at(specs, path), mesh), full)
+
+
+def gather_params(local: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    """Collective: every rank calls it and gets the whole tree."""
+    return tree_map_path(lambda path, t: gather_leaf(
+        t, _spec_at(specs, path), mesh), local)
+
+
+def _expert_trees(params: Tree):
+    """The expert dicts of every MoE layer position."""
+    return [lp["moe"]["experts"] for lp in params["layers"]
+            if "moe" in lp]
+
+
+def pack_params(params: Tree, ctx: AxisCtx) -> Tree:
+    """The one-rank tree (stacked experts (n_periods, 1, E, ...)) as the
+    mesh's global tree (n_periods, W, E_loc, ...), the other leaves as
+    they are (``pack_expert_weights`` on every MoE layer position)."""
+    out = tree_map(lambda t: t, params)
+    for ew in _expert_trees(out):
+        packed = pack_expert_weights({k: v[:, 0] for k, v in ew.items()},
+                                     ctx.ep, ctx.etp)
+        ew.update(packed)
+    return out
+
+
+def unpack_params(params: Tree, ctx: AxisCtx) -> Tree:
+    """The inverse of ``pack_params``."""
+    out = tree_map(lambda t: t, params)
+    for ew in _expert_trees(out):
+        full = unpack_expert_weights(ew, ctx.ep, ctx.etp)
+        ew.update({k: v[:, None] for k, v in full.items()})
+    return out
+
+
+def to_mesh(params: Tree, cfg, ctx: AxisCtx, fsdp: bool = True) -> Tree:
+    """This rank's shard of the mesh tree, from the one-rank tree (or an
+    optimizer moment tree of the same layout)."""
+    specs = state_specs(cfg, ctx, fsdp)["params"]
+    return shard_params(pack_params(params, ctx), specs, ctx.mesh)
+
+
+def from_mesh(local: Tree, cfg, ctx: AxisCtx, fsdp: bool = True) -> Tree:
+    """The one-rank tree from every rank's shard (collective)."""
+    specs = state_specs(cfg, ctx, fsdp)["params"]
+    return unpack_params(gather_params(local, specs, ctx.mesh), ctx)
+
+
+def gather_state(state: Dict, cfg, ctx: AxisCtx, fsdp: bool = True) -> Dict:
+    """The train state in the one-rank layout, from every rank's shard
+    (collective): parameters and AdamW moments gathered whole."""
+    opt = state["opt"]
+    return {"params": from_mesh(state["params"], cfg, ctx, fsdp),
+            "opt": {"m": from_mesh(opt["m"], cfg, ctx, fsdp),
+                    "v": from_mesh(opt["v"], cfg, ctx, fsdp),
+                    "count": opt["count"]},
+            "step": state["step"]}
+
+
+def shard_state(state: Dict, cfg, ctx: AxisCtx, fsdp: bool = True) -> Dict:
+    """This rank's shard of a train state in the one-rank layout."""
+    opt = state["opt"]
+    return {"params": to_mesh(state["params"], cfg, ctx, fsdp),
+            "opt": {"m": to_mesh(opt["m"], cfg, ctx, fsdp),
+                    "v": to_mesh(opt["v"], cfg, ctx, fsdp),
+                    "count": opt["count"]},
+            "step": state["step"]}
+
+
+def fsdp_gather_tree(tree: Tree, specs: Tree, ctx: AxisCtx,
+                     drop: int = 0) -> Tree:
+    """Every leaf stored sharded over a data axis, gathered whole on that
+    dimension (``collectives.fsdp_gather``: its gradient is reduce-
+    scattered). ``drop`` leading spec entries are skipped (1 for one
+    period's slice of the stacked layer leaves)."""
+    def one(path, t):
+        for dim, entry in enumerate(_spec_at(specs, path)[drop:]):
+            axes = tuple(a for a in _entry_axes(entry)
+                         if a != ctx.model_axis)
+            if axes:
+                t = CL.fsdp_gather(t, ctx.mesh.group(axes), dim)
+        return t
+    return tree_map_path(one, tree)
+
+
+def replicas(spec: PartitionSpec, mesh: Mesh) -> int:
+    """How many ranks hold each slice of a leaf with ``spec``."""
+    return math.prod(mesh.shape.values()) // math.prod(
+        mesh.shape[a] for a in spec.axes())
 
 
 def make_ctx(cfg, mesh: Optional[Mesh], seq_shard: bool = True) -> AxisCtx:

@@ -1,4 +1,5 @@
-"""Fault-tolerant training loop at one rank (``repro.training.trainer``).
+"""Fault-tolerant training loop (``repro.training.trainer``), at one rank
+or on a mesh.
 
 * Checkpoint/restart: periodic async atomic snapshots; when a step fails
   the loop restores the last committed checkpoint and replays from there.
@@ -10,9 +11,13 @@
   norm is NaN/inf; after ``nan_limit`` consecutive skips the loop escalates
   to checkpoint replay.
 
-The elastic path (``rescale``, ``reshard_state``) needs a mesh and comes
-with the ranked transports. The trainer runs on the card unless it is
-given ``device="cpu"``.
+On a mesh (a ``parallel.mesh.Mesh`` over an initialised process group)
+every rank runs the loop: it holds its shard of the state and feeds its
+rows of each global batch; checkpoints are saved whole by rank 0 in the
+one-rank layout and cut again at restore (``checkpoint.manager``), so the
+fault-hook replay restores onto the same shards. The elastic path
+(``rescale``, ``reshard_state``) is not ported yet. The trainer runs on
+the card unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,14 +28,17 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager, TensorSpec
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.launch import specs as SP
 from repro_torch.launch.train_step import build_train_step
 from repro_torch.models import lm
 from repro_torch.models.common import tree_map
 from repro_torch.optim.adamw import AdamW
+from repro_torch.parallel import sharding as SH
 
 Tree = Any
 
@@ -95,14 +103,20 @@ class Trainer:
                  tcfg: TrainerConfig = TrainerConfig(),
                  optim: Optional[AdamW] = None,
                  fault_hook: Optional[Callable] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, fsdp: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.shape = shape
+        self.mesh = mesh
         self.tcfg = tcfg
         self.optim = optim or AdamW()
+        self.fsdp = fsdp
         self.fault_hook = fault_hook          # tests inject failures here
-        self.built = build_train_step(cfg, shape, mesh, self.optim)
+        self.built = build_train_step(cfg, shape, mesh, self.optim,
+                                      fsdp=fsdp)
+        self.ctx = self.built["ctx"]
+        # on a mesh every rank takes part in a save; rank 0 writes
+        self.writer = mesh is None or dist.get_rank() == 0
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.monitor = StragglerMonitor(tcfg.straggler_factor)
         self.metrics_log: List[Dict[str, float]] = []
@@ -113,25 +127,50 @@ class Trainer:
 
     # ------------------------------------------------------------------ state
     def init_state(self, seed: Optional[int] = None) -> Dict:
-        """Seeded weights on the trainer's device, zero AdamW moments."""
+        """Seeded weights on the trainer's device, zero AdamW moments. On a
+        mesh: this rank's shard of the weights the one-rank trainer draws
+        from the same seed."""
         params = lm.init_params(self.cfg, self.tcfg.seed if seed is None
                                 else seed, self.device)
+        if self.mesh is not None:
+            params = SH.to_mesh(params, self.cfg, self.ctx, self.fsdp)
         return {"params": params, "opt": self.optim.init(params), "step": 0}
 
     def restore_or_init(self) -> Tuple[Dict, int]:
+        if self.mesh is not None:
+            self.ckpt.sync()                  # every rank sees one latest
         if self.ckpt.latest_step() is not None:
+            if self.mesh is not None:
+                return self.ckpt.restore_sharded(
+                    abstract_state(self.cfg),
+                    lambda s: SH.shard_state(s, self.cfg, self.ctx,
+                                             self.fsdp), device=self.device)
             return self.ckpt.restore(abstract_state(self.cfg),
                                      device=self.device)
         return self.init_state(), 0
 
+    def save(self, step: int, state: Dict, wait: bool = False):
+        """A checkpoint of ``state`` (collective on a mesh)."""
+        if self.mesh is None:
+            self.ckpt.save(step, state, wait=wait)
+            return
+        self.ckpt.save_sharded(
+            step, state, lambda s: SH.gather_state(s, self.cfg, self.ctx,
+                                                   self.fsdp),
+            self.writer, wait=wait)
+
     # ------------------------------------------------------------------- run
     def _device_batch(self, np_batch: Dict[str, np.ndarray]):
-        def conv(a):
-            t = torch.from_numpy(a)
+        """The global batch on the device; on a mesh this rank's rows."""
+        def conv(t):
             if not t.is_floating_point():
                 t = t.long()
             return t.to(self.device)
-        return {k: conv(v) for k, v in np_batch.items()}
+        batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+        if self.mesh is not None:
+            batch = SP.local_batch(batch, self.built["batch_pspecs"],
+                                   self.mesh)
+        return {k: conv(v) for k, v in batch.items()}
 
     def run(self, num_steps: int) -> Dict[str, Any]:
         """Train with checkpoint/restart. Returns a summary dict."""
@@ -144,7 +183,8 @@ class Trainer:
                 restarts += 1
                 if restarts > self.tcfg.max_restarts:
                     raise
-                self.ckpt.wait()
+                if self.mesh is None:
+                    self.ckpt.wait()
                 print(f"[trainer] failure after step {step} "
                       f"({type(e).__name__}: {e}); restoring from "
                       f"step {self.ckpt.latest_step() or 0} "
@@ -152,7 +192,7 @@ class Trainer:
                 state = None                  # free it before the restore
                 state, step = self.restore_or_init()
                 self._consec_nans = 0
-        self.ckpt.save(step, state, wait=True)
+        self.save(step, state, wait=True)
         return {"final_step": step, "restarts": restarts,
                 "stragglers": list(self.monitor.flagged),
                 "nan_skips": self.nan_skips,
@@ -205,5 +245,49 @@ class Trainer:
                       f"({dt * 1e3:.0f} ms)")
             if step % self.tcfg.ckpt_every == 0 and self._consec_nans == 0:
                 # never checkpoint mid-NaN-streak
-                self.ckpt.save(step, state)
+                self.save(step, state)
         return state, step
+
+
+# ---------------------------------------------------------------------------
+# self-test entry (runs on every rank of an initialised process group)
+# ---------------------------------------------------------------------------
+
+
+def smoke_train(arch: str, mesh, steps: int = 4, device: DeviceLike = None,
+                no_drop: bool = False) -> List[float]:
+    """The losses of ``steps`` Trainer steps of ``arch`` on ``mesh`` (None:
+    one rank) at the self-test's shape: 64 tokens, max(4, 2 x dp) rows.
+    ``no_drop`` sets the MoE capacity factor to the expert count, so a
+    mesh routes every token as one rank does. On a mesh rank 0 picks the
+    checkpoint directory; without one each rank has its own."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    cfg = get_config(arch)
+    if no_drop and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    dp = mesh.shape.get("data", 1) if mesh is not None else 1
+    shape = ShapeConfig("smoke", seq_len=64, global_batch=max(4, 2 * dp),
+                        kind="train")
+    ckpt = [tempfile.mkdtemp(prefix="repro_torch_st_")
+            if mesh is None or dist.get_rank() == 0 else None]
+    if mesh is not None:
+        dist.broadcast_object_list(ckpt, src=0)
+    tcfg = TrainerConfig(ckpt_dir=ckpt[0], ckpt_every=10_000,
+                         log_every=10_000)
+    out = Trainer(cfg, shape, mesh, tcfg, device=device).run(steps)
+    return [m["loss"] for m in out["metrics"]]
+
+
+def smoke_mesh_train(arch: str, n_dev: int, steps: int = 4,
+                     device: DeviceLike = None) -> Tuple[float, float]:
+    """(first loss, last loss) of ``steps`` steps on a (n_dev / mp, mp)
+    ("data", "model") mesh, mp = min(4, n_dev), of the initialised
+    process group's n_dev ranks (``repro/training/trainer.py:267``)."""
+    from repro_torch.parallel.mesh import make_mesh
+    mp = min(4, n_dev)
+    mesh = make_mesh((n_dev // mp, mp), ("data", "model"))
+    losses = smoke_train(arch, mesh, steps, device)
+    return losses[0], losses[-1]

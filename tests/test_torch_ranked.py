@@ -215,11 +215,6 @@ def test_selftest_cli_passes_on_4_gloo_ranks():
     assert "OK: 0 failed" in proc.stdout
 
 
-def test_selftest_case_all_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ST.main(["--device", "cpu", "--case", "all"])
-
-
 @pytest.mark.parametrize("ep,etp", [(4, 1), (2, 2), (1, 4), (8, 1), (4, 2)])
 @pytest.mark.parametrize("gs,ts", [(1, 0), (-1, 0), (-3, 1), (2, -1),
                                    (0, 1)])
@@ -264,8 +259,6 @@ def test_problem_weights_cross_by_from_jax(pname):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh", "2,2"], "model-level mesh path"),
-    (["--distributed"], "model-level mesh path"),
     (["--plan-cache", "plans.json"], "plan-cache"),
     (["--sp-residual"], "sequence-parallel residual")])
 def test_train_flags_name_what_is_not_ported(argv, what, tmp_path):
@@ -273,14 +266,6 @@ def test_train_flags_name_what_is_not_ported(argv, what, tmp_path):
     with pytest.raises(NotImplementedError, match=what):
         train.main(["--arch", "qwen2-moe-2.7b-smoke", "--ckpt-dir",
                     str(tmp_path)] + argv, device="cpu")
-
-
-def test_build_train_step_on_a_mesh_names_the_mesh_path():
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.launch.train_step import build_train_step
-    with pytest.raises(NotImplementedError, match="model-level mesh path"):
-        build_train_step(get_config("qwen2-moe-2.7b-smoke"),
-                         ShapeConfig("train", 16, 2, "train"), mesh=object())
 
 
 class _StubMesh:

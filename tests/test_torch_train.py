@@ -293,6 +293,6 @@ def test_entry_points_need_a_gpu_unless_given_the_cpu(monkeypatch):
         out = train.main(["--arch", ARCH, "--steps", "2", "--batch", "2",
                           "--seq", "16", "--ckpt-dir", t], device="cpu")
         assert out["final_step"] == 2
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(RuntimeError, match="process group"):
             train.main(["--arch", ARCH, "--mesh", "2,2", "--ckpt-dir", t],
                        device="cpu")
