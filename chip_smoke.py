@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all ten phases, one card
+  python3 chip_smoke.py              # all eleven phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
@@ -131,6 +131,30 @@ Phases:
              self-test at ``--device cuda --case all`` (every check must
              pass). One NCCL rank per card: the comet ring's overlap is
              not measured here.
+ 11 plan     the earlier phases' state is freed first. Adaptive workload
+             assignment on h100_nvlink, through launch/tune.py: (a) the
+             cost model's plans for the qwen2-moe-2.7b layer at ep 1
+             (train at 4 x 1024 tokens, prefill at an 8 x 256 chunk,
+             decode at 8 tokens); (b) --measured at world 1 on phase 9's
+             layer (bf16, the config's capacity), twice per phase: every
+             candidate timed by CUDA events over 20 calls (train: forward
+             and backward over xla and
+             pallas_fused; prefill and decode: forward over xla, pallas
+             and pallas_fused), counters zeroed before each and read after
+             (pallas_fused: fused_mlp, and in train dgrad and wgrad, on the
+             wgmma path; pallas: grouped_gemm on it; every candidate
+             topk_combine), each beside its modeled ms, the card's pick
+             beside the model's; the winners written to a cache in a
+             temporary directory. (c) per phase, moe_ffn with the cache
+             gives the bits of moe_ffn under the plan's knobs
+             (plan.apply); (d) phase 6's configuration trains 3 steps
+             through build_train_step with the cache (finite, none
+             skipped), its first loss with the bits of the explicit
+             knobs', and launch/train.py --plan-cache trains the smoke
+             config; (e) phase 3's engine with the cache serves 8
+             requests, all ok, every prefill chunk on the prefill plan and
+             every decode step on the decode plan with the launches they
+             name. At world 1 no ring hop is timed.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -171,7 +195,7 @@ PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
-          "train", "train_ssm", "ranked", "mesh_train")
+          "train", "train_ssm", "ranked", "mesh_train", "plan")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "rule_seeds", "nccl_pair")
@@ -219,6 +243,14 @@ SSM_SERVE = dict(max_seq=2048, prompt_max=1024)
 # the ring producer's shapes at one rank of a 4-rank ring
 RANKED_TOKENS = (4, 1024)
 RING_RANKS = 4
+# the plan phase: the cache's hardware key, and the (batch, seq) of each
+# latency phase's key: the train step's 4 x 1024 tokens, the serving
+# engine's stacked 8 x 256 prefill chunk and its 8-slot decode step
+PLAN_HW = "h100_nvlink"
+PLAN_SHAPES = {"train": (4, 1024), "prefill": (8, 256), "decode": (8, 1)}
+PLAN_TOKENS = {k: b * s for k, (b, s) in PLAN_SHAPES.items()}
+PLAN_ITERS = 20
+PLAN_ROUNDS = 2
 
 
 class PhaseFailed(Exception):
@@ -1282,7 +1314,7 @@ def with_gemm(cfg, gemm_impl):
 
 
 def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
-          max_seq=1024, chunk=256, prompt_max=512):
+          max_seq=1024, chunk=256, prompt_max=512, engine_kw=None):
     import numpy as np
     import torch
 
@@ -1290,14 +1322,15 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     from repro_torch.serving import ServeEngine
     # warm-up on an engine of its own (first-call set-up of the CUDA
     # libraries and the kernels' module), so the timed run is a warm server
+    engine_kw = engine_kw or {}
     warm = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
-                       chunk=chunk, device="cuda")
+                       chunk=chunk, device="cuda", **engine_kw)
     for p in make_trace(cfg.vocab_size, batch, 64, prompt_max, seed + 100):
         warm.submit(p, max_new=2)
     warm.run()
     del warm
     eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
-                      chunk=chunk, device="cuda")
+                      chunk=chunk, device="cuda", **engine_kw)
     prompts = make_trace(cfg.vocab_size, n_req, 64, prompt_max, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2406,6 +2439,420 @@ def phase_mesh_train(state, out):
     out["mesh_train"] = rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: adaptive workload assignment (the plan cache and the tuner)
+# ---------------------------------------------------------------------------
+
+
+def _moe_spy(sink):
+    """While active, appends (impl, ring_group, n_col, gemm_impl, tokens)
+    of every moe_ffn body to ``sink`` (a list, or None to record
+    nothing)."""
+    from repro_torch.core import moe_layer as M
+    real = M._moe_body
+
+    def spy(cfg, mcfg, n_col, gemm_impl, x, *a, **kw):
+        if sink is not None:
+            sink.append((mcfg.impl, mcfg.ring_group, n_col, gemm_impl,
+                         x.shape[0] * x.shape[1]))
+        return real(cfg, mcfg, n_col, gemm_impl, x, *a, **kw)
+
+    @contextlib.contextmanager
+    def cm():
+        M._moe_body = spy
+        try:
+            yield sink
+        finally:
+            M._moe_body = real
+    return cm()
+
+
+def _backend_launches_ok(gemm_impl, d, train=False):
+    """Whether the launch deltas ``d`` are those of a MoE under
+    ``gemm_impl``: pallas_fused launches fused_mlp (and with ``train``
+    dgrad and wgrad), pallas grouped_gemm, xla neither; every launch on
+    the wgmma path, and topk_combine in every case."""
+    fused = ("fused_mlp",) + (("fused_mlp_dgrad", "fused_mlp_wgrad")
+                              if train else ())
+    if d["topk_combine"] <= 0:
+        return False
+    if gemm_impl == "pallas_fused":
+        return (all(d[k] > 0 and d[f"{k}_hopper"] == d[k] for k in fused)
+                and d["grouped_gemm"] == 0)
+    if gemm_impl == "pallas":
+        return (d["grouped_gemm"] > 0
+                and d["grouped_gemm_hopper"] == d["grouped_gemm"]
+                and d["fused_mlp"] == 0)
+    return d["fused_mlp"] == 0 and d["grouped_gemm"] == 0
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def plan_model_backed(rec, path):
+    """(a) launch.tune, model-backed, h100_nvlink, the qwen2 layer at ep 1:
+    train at 4 x 1024 tokens, prefill at an 8 x 256 chunk, decode at 8."""
+    from repro_torch.launch import tune
+    res = tune.main(["--hw", PLAN_HW, "--models", ARCH, "--ep", "1",
+                     "--phase", "train", "prefill", "decode", "--M",
+                     str(PLAN_TOKENS["prefill"]), str(PLAN_TOKENS["train"]),
+                     "--decode-M", str(PLAN_TOKENS["decode"]), "--out",
+                     path])
+    rec["model"] = {f"{plan.phase}/M{s.M}": plan.to_json()
+                    for _, s, plan in res["rows"]}
+    check(len(res["rows"]) == 5 and all(p.source == "model"
+                                        for _, _, p in res["rows"]),
+          f"model-backed tune: {res['rows']}")
+
+
+def plan_measured(rec, path):
+    """(b) launch.tune --measured at world 1 on phase 9's layer (E 64,
+    top-4, d 2048, f 1408, bf16, the config's capacity), PLAN_ROUNDS
+    times per phase (the cache keeps the last round's winners): every
+    candidate timed (train: forward and backward over xla and
+    pallas_fused; prefill and decode: forward over xla, pallas and
+    pallas_fused), its launches counted, its modeled ms on h100_nvlink
+    beside its measured ms, the card's pick beside the model's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptive as A
+    from repro_torch.launch import tune
+    cfg = get_config(ARCH)
+    per_cand = []
+    real = A.make_timing_measure
+
+    def counted(*a, **kw):
+        inner = real(*a, **kw)
+
+        def measure(plan):
+            torch.cuda.synchronize()
+            reset_counts()
+            with PlainGuard() as guard:
+                t = inner(plan)
+            per_cand.append({"plan": plan, "launches": read_counts(),
+                             "plain_calls_on_cuda": guard.cuda_calls})
+            return t
+        return measure
+
+    def one_round(phase, B, S):
+        per_cand.clear()
+        gemm = (["xla", "pallas_fused"] if phase == "train"
+                else ["xla", "pallas", "pallas_fused"])
+        t0 = time.perf_counter()
+        out = tune.main(["--measured", "--hw", PLAN_HW, "--arch", ARCH,
+                         "--batch", str(B), "--seq", str(S), "--phase",
+                         phase, "--capacity-factor",
+                         str(cfg.moe.capacity_factor), "--iters",
+                         str(PLAN_ITERS), "--force", "--gemm", *gemm,
+                         "--out", path])
+        (_, s, won), = out["rows"]
+        model = A.phase_measure(A.H100_NVL, s, phase)
+        launches = {_plan_tag(c["plan"]): c for c in per_cand}
+        cands = []
+        for plan, t, err in out["timed"]:
+            c = launches.get(_plan_tag(plan), {})
+            ok = bool(c) and _backend_launches_ok(
+                plan.gemm_impl, c["launches"], train=phase == "train")
+            cands.append({"plan": _plan_tag(plan),
+                          "ms": None if t is None else t * 1e3,
+                          "model_ms": model(plan) * 1e3, "error": err,
+                          "launches_ok": ok,
+                          "plain_calls_on_cuda": c.get("plain_calls_on_cuda"),
+                          "launches": c.get("launches")})
+        done = [c for c in cands if c["ms"] is not None]
+        model_pick = min(done, key=lambda c: c["model_ms"])["plan"]
+        r = {"key": A.PlanCache.key(s, A.H100_NVL, phase), "tokens": [B, S],
+             "candidates": cands, "card_pick": _plan_tag(won),
+             "card_pick_ms": won.measured_s * 1e3, "model_pick": model_pick,
+             "same_pick": model_pick == _plan_tag(won),
+             "analytic_plan": _plan_tag(A.analytic_plan(s, A.H100_NVL,
+                                                        phase)),
+             "s": time.perf_counter() - t0}
+        log(f"  measured {phase} ({B} x {S} tokens), {len(cands)} "
+            f"candidates: card picks {r['card_pick']} "
+            f"({r['card_pick_ms']:.3f} ms), the model {r['model_pick']}: "
+            f"{'same' if r['same_pick'] else 'differ'}; analytic_plan "
+            f"{r['analytic_plan']}")
+        for c in cands:
+            log(f"    {c['plan']:<34} card "
+                + ("failed: " + c["error"] if c["ms"] is None
+                   else f"{c['ms']:8.3f} ms") + f"  model "
+                f"{c['model_ms']:8.3f} ms")
+        check(all(c["ms"] is not None for c in cands),
+              f"measured {phase}: candidates failed: "
+              f"{[c for c in cands if c['ms'] is None]}")
+        check(all(c["launches_ok"] and c["plain_calls_on_cuda"] == 0
+                  for c in cands),
+              f"measured {phase}: launches do not match the backends: "
+              f"{[c for c in cands if not c['launches_ok']]}")
+        return r
+
+    res = {phase: {"rounds": []} for phase in PLAN_SHAPES}
+    A.make_timing_measure = counted
+    try:
+        for _ in range(PLAN_ROUNDS):
+            for phase, (B, S) in PLAN_SHAPES.items():
+                res[phase]["rounds"].append(one_round(phase, B, S))
+    finally:
+        A.make_timing_measure = real
+    for phase, r in res.items():
+        picks = [x["card_pick"] for x in r["rounds"]]
+        r["card_pick_stable"] = len(set(picks)) == 1
+        log(f"  {phase}: the card's picks over {PLAN_ROUNDS} rounds "
+            f"{picks}; the model's {r['rounds'][-1]['model_pick']}")
+    rec["measured"] = res
+
+
+def _plan_tag(plan):
+    return (f"{plan.impl} rg{plan.ring_group} nc{plan.n_col_blocks} "
+            f"{plan.gemm_impl} fc{int(plan.fused_combine)}")
+
+
+def _plan_layer(seed=21):
+    """Phase 9's layer: qwen2-moe-2.7b's MoE at full width, bf16, seeded
+    weights on the card (router, packed experts)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.d_expert
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    base = {"router": _randn((d, E), torch.bfloat16, d ** -0.5, gen),
+            "experts": {
+                "w_gate": _randn((1, E, d, f), torch.bfloat16, d ** -0.5,
+                                 gen),
+                "w_up": _randn((1, E, d, f), torch.bfloat16, d ** -0.5, gen),
+                "w_down": _randn((1, E, f, d), torch.bfloat16, f ** -0.5,
+                                 gen)}}
+    return cfg, base, gen
+
+
+def plan_layer_bits(rec, path):
+    """(c) per phase, moe_ffn with the cache against moe_ffn under the
+    cached plan's knobs set explicitly (plan.apply: plan_override): the
+    same bits (the train phase also every gradient), the kernels the plan
+    names launched."""
+    import torch
+
+    from repro_torch.core import adaptive as A
+    from repro_torch.core import moe_layer as M
+    cfg, base, gen = _plan_layer()
+    res = {}
+    for phase, (B, S) in PLAN_SHAPES.items():
+        x = _randn((B, S, cfg.d_model), torch.bfloat16, 1.0, gen)
+        m_cache = dataclasses.replace(cfg.moe, plan_cache=path,
+                                      plan_hw=PLAN_HW, plan_phase=phase,
+                                      impl="naive", gemm_impl="xla")
+        s = A.plan_shape(cfg.moe, cfg.d_model, B * S, 1, 1)
+        plan = A.load_plan_cache(path).get(s, A.H100_NVL, phase)
+        check(plan is not None and plan.source == "measured",
+              f"no measured {phase} plan in the cache: {plan}")
+        train = phase == "train"
+
+        def run(mcfg):
+            params = {"router": base["router"].clone().requires_grad_(train),
+                      "experts": {k: v.clone().requires_grad_(train)
+                                  for k, v in base["experts"].items()}}
+            with torch.set_grad_enabled(train):
+                y, aux = M.moe_ffn(cfg, mcfg, params, x)
+                if not train:
+                    return [y, aux]
+                leaves = [params["router"]] + [
+                    params["experts"][k] for k in sorted(params["experts"])]
+                return [y.detach(), aux.detach(), *torch.autograd.grad(
+                    (y.float() ** 2).sum() + aux, leaves)]
+
+        torch.cuda.synchronize()
+        reset_counts()
+        ran = []
+        with PlainGuard() as guard, _moe_spy(ran):
+            got = run(m_cache)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        want = run(plan.apply(cfg.moe))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        r = {"plan": _plan_tag(plan), "ran": [list(t) for t in ran],
+             "same_bits": same, "launches": counts,
+             "plain_calls_on_cuda": guard.cuda_calls,
+             "finite": all(bool(t.float().isfinite().all()) for t in got)}
+        res[phase] = r
+        log(f"  layer with the cache, {phase}: " + json.dumps(
+            {k: v for k, v in r.items() if k != "launches"}))
+        check(ran and all(t[:4] == (plan.impl, plan.ring_group,
+                                    plan.n_col_blocks, plan.gemm_impl)
+                          for t in ran),
+              f"{phase}: the layer did not run the cached plan: {ran}")
+        check(same and r["finite"], f"{phase}: the cache's plan does not "
+              f"give the bits of its explicit knobs")
+        check(_backend_launches_ok(plan.gemm_impl, counts, train) and
+              guard.cuda_calls == 0,
+              f"{phase}: launches {counts} do not match {plan.gemm_impl}")
+    rec["layer"] = res
+
+
+def plan_train(rec, path):
+    """(d) phase 6's configuration through build_train_step with the plan
+    cache (what Trainer and launch/train.py build): 3 steps, finite, none
+    skipped; its first step's loss against the step built with the
+    cached train plan's knobs set explicitly, from the same seed and
+    batch. Then launch/train.py --plan-cache on the smoke config (its
+    checkpoint at full width would be 35 GB)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import adaptive as A
+    from repro_torch.launch import train
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+    cfg = train_cfg(TRAIN_LAYERS, "bfloat16")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [train_batch(cfg, step=i) for i in range(3)]
+    s = A.plan_shape(cfg.moe, cfg.d_model, TRAIN_SEQ * TRAIN_BATCH, 1, 1)
+    plan = A.load_plan_cache(path).get(s, A.H100_NVL, "train")
+    explicit = dataclasses.replace(cfg, moe=plan.apply(cfg.moe))
+    runs = {}
+    for tag, c, kw, n in (("explicit", explicit, {}, 1),
+                          ("cache", cfg, dict(plan_cache=path,
+                                              plan_hw=PLAN_HW), 3)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        built = build_train_step(c, shape, **kw)
+        params = lm.init_params(c, seed=5, device="cuda")
+        st = {"params": params, "opt": AdamW().init(params), "step": 0}
+        del params
+        steps = []
+        reset_counts()
+        ran = []
+        with PlainGuard() as guard, _moe_spy(ran):
+            for b in batches[:n]:
+                t0 = time.perf_counter()
+                st, met = built["fn"](st, b)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                steps.append({"loss": loss, "loss_hex": loss.hex(),
+                              "skipped": met["skipped"],
+                              "grad_norm": float(met["grad_norm"]),
+                              "ms": (time.perf_counter() - t0) * 1e3})
+        runs[tag] = {"steps": steps, "launches": read_counts(),
+                     "plain_calls_on_cuda": guard.cuda_calls,
+                     "moe_knobs": sorted({t[:4] for t in ran})}
+        del st, built
+    same = runs["cache"]["steps"][0]["loss_hex"] == \
+        runs["explicit"]["steps"][0]["loss_hex"]
+    rec["train"] = {"plan": _plan_tag(plan), "runs": runs,
+                    "first_loss_same_bits": same}
+    log("  train step with the cache: " + json.dumps(rec["train"]))
+    check(runs["cache"]["moe_knobs"] == [(plan.impl, plan.ring_group,
+                                          plan.n_col_blocks, plan.gemm_impl)],
+          f"train: the MoE layers ran {runs['cache']['moe_knobs']}")
+    check(all(math.isfinite(st["loss"]) and not st["skipped"]
+              for st in runs["cache"]["steps"]),
+          f"train with the cache: {runs['cache']['steps']}")
+    check(same, "train: the first step's loss with the cache differs from "
+          "the explicit knobs'")
+    check(_backend_launches_ok(plan.gemm_impl, runs["cache"]["launches"],
+                               train=True)
+          and runs["cache"]["plain_calls_on_cuda"] == 0,
+          f"train launches {runs['cache']['launches']} do not match "
+          f"{plan.gemm_impl}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        res = train.main(["--arch", ARCH + "-smoke", "--steps", "3",
+                          "--batch", "4", "--seq", "64", "--plan-cache",
+                          path, "--plan-hw", PLAN_HW, "--ckpt-dir", ckpt],
+                         device="cuda")
+    ls = [m["loss"] for m in res["metrics"]]
+    rec["cli"] = {"losses": ls, "final_step": res["final_step"],
+                  "skipped": [m["skipped"] for m in res["metrics"]],
+                  "s": time.perf_counter() - t0}
+    log("  launch/train.py --plan-cache (smoke): " + json.dumps(rec["cli"]))
+    check(res["final_step"] == 3 and all(math.isfinite(v) for v in ls)
+          and not any(rec["cli"]["skipped"]),
+          f"launch/train.py --plan-cache: {rec['cli']}")
+
+
+def plan_serve(rec, path):
+    """(e) phase 3's engine (qwen2-moe-2.7b whole, bf16, 8 slots, max_seq
+    1024, chunk 256) with the cache: 8 requests all ok; every prefill
+    chunk's MoE layers run the cache's prefill plan and every decode
+    step's its decode plan, with the launches of the kernels each names."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptive as A
+    from repro_torch.models import lm
+    cfg = get_config(ARCH)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    plans = {ph: A.load_plan_cache(path).get(A.plan_shape(
+        cfg.moe, cfg.d_model, PLAN_TOKENS[ph], 1, 1), A.H100_NVL, ph)
+        for ph in ("prefill", "decode")}
+    calls = []
+    saved = {n: getattr(lm, n) for n in ("prefill_chunk", "decode_step")}
+
+    def wrap(name, real):
+        def f(*a, **kw):
+            ran = []
+            before = read_counts()
+            with _moe_spy(ran):
+                res = real(*a, **kw)
+            calls.append((name, ran, _delta(read_counts(), before)))
+            return res
+        return f
+
+    for n, real in saved.items():
+        setattr(lm, n, wrap(n, real))
+    try:
+        _, srec = serve(cfg, params, 8, 32, 0, "serve", {},
+                        engine_kw=dict(plan_cache=path, plan_hw=PLAN_HW))
+    finally:
+        for n, real in saved.items():
+            setattr(lm, n, real)
+    bad = []
+    for name, ran, d in calls:
+        plan = plans["prefill" if name == "prefill_chunk" else "decode"]
+        knobs = {t[:4] for t in ran}
+        if knobs != {(plan.impl, plan.ring_group, plan.n_col_blocks,
+                      plan.gemm_impl)} or not _backend_launches_ok(
+                plan.gemm_impl, d):
+            bad.append((name, sorted(knobs), d))
+    rec["serve"] = {"plans": {k: _plan_tag(v) for k, v in plans.items()},
+                    "model_calls": len(calls), "mismatched_calls": bad[:4],
+                    **{k: srec[k] for k in ("requests", "launches",
+                                            "prefill_tok_s",
+                                            "decode_ms_per_step", "wall_s")}}
+    log("  serve with the cache: " + json.dumps(rec["serve"]))
+    check(not bad, f"serve: {len(bad)} model calls ran other plans or "
+          f"launches: {bad[:4]}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_plan(state, out):
+    import tempfile
+
+    import torch
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_model_backed(rec, f"{tmp}/model.json")
+        path = f"{tmp}/plans.json"
+        plan_measured(rec, path)
+        plan_layer_bits(rec, path)
+        plan_train(rec, path)
+        torch.cuda.empty_cache()
+        plan_serve(rec, path)
+    out["plan"] = rec
+
+
 def _pair_probe(path):
     """One rank of the two-NCCL-ranks-on-one-card probe: an all-reduce of
     a CUDA tensor; writes its outcome to ``path``.<rank>."""
@@ -2602,6 +3049,10 @@ def kernel_records(out):
             "launches", {})
         if mesh_l:                    # the mesh train step's 3 steps
             extra["mesh_train_launches"] = mesh_l.get(name, 0)
+        plan_l = out.get("plan", {}).get("train", {}).get("runs", {}).get(
+            "cache", {}).get("launches", {})
+        if plan_l:                    # 3 train steps on the cached plan
+            extra["plan_train_launches"] = plan_l.get(name, 0)
         if name == "ssd_forward":     # the serving chunk, with a state
             sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
             serve_l = out.get("serve_ssm", {}).get("launches", {})
@@ -2680,7 +3131,7 @@ def main(argv=None):
     order = ("build", "kernels", "rule_seeds", "serve", "logits", "pallas",
              "profile", "serve_ssm", "profile_serve_ssm", "train",
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
-             "mesh_train", "nccl_pair")
+             "mesh_train", "plan", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -2729,6 +3180,8 @@ def main(argv=None):
                 phase_ranked(state, out)
             elif name == "mesh_train":
                 phase_mesh_train(state, out)
+            elif name == "plan":
+                phase_plan(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import adaptive as A
 from repro_torch.core import routing as R
 from repro_torch.core import transport as T
 from repro_torch.models.common import ParamDecl, ffn_schema, is_glu
@@ -225,12 +226,25 @@ def moe_ffn(cfg, mcfg, params, x, ctx: Optional[AxisCtx] = None,
     ``parallel.sharding.shard_tokens`` returns them (the JAX package's
     ``moe_ffn`` resolves them from the global shape inside its jit).
 
-    ``n_col`` comes from the caller or the config (default 1), legalized
-    as the JAX package legalizes it; the column split changes no value
-    beyond fp32 rounding. The JAX package's cost-model choice when both
-    are 0 (``adaptive.resolve_n_col``) and its plan-cache resolution wait
-    for the port of ``core/adaptive.py``."""
-    n_col = T.legalize_n_col(cfg.d_model, n_col or mcfg.n_col_blocks or 1)
+    Schedule resolution, as in the JAX package: when ``mcfg.plan_cache``
+    (or $REPRO_PLAN_CACHE) is set and ``mcfg.plan_override`` is not, the
+    transport, ring_group, n_col and GroupGEMM backend come from the plan
+    cache for this shape and ``mcfg.plan_phase`` (a missing cache or entry
+    takes the cost model's plan); otherwise the explicit knobs apply, and
+    an ``n_col`` of 0 (from the caller and the config) is the cost model's
+    column split (``adaptive.resolve_n_col``). The plan's backend rides
+    ``mcfg.gemm_impl`` into the body. The plan key's M is the tokens of
+    one model-axis group, which is x's own count: the JAX package's
+    ``local_token_count`` of the global batch."""
+    toks_local = max(1, x.shape[0] * x.shape[1])
+    ranked = ctx is not None and ctx.active
+    ep, etp = (ctx.ep, ctx.etp) if ranked else (1, 1)
+    if A.plan_lookup_enabled(mcfg):
+        plan = A.resolve_plan(mcfg, cfg.d_model, toks_local, ep, etp)
+        mcfg = plan.apply(mcfg)
+        n_col = plan.n_col_blocks
+    if n_col == 0:
+        n_col = A.resolve_n_col(mcfg, cfg.d_model, toks_local, ep, etp)
     y, aux = _moe_body(cfg, mcfg, n_col, T._impl(mcfg.gemm_impl), x,
                        params["router"], params["experts"],
                        w_desc=params.get("w_desc"), w_asc=params.get("w_asc"),

@@ -58,38 +58,16 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.adaptive import (WIRE_DTYPES, legalize_n_col,
+                                       legalize_ring_group,
+                                       wire_dtype_supported)
 from repro_torch.kernels import ops
 from repro_torch.models.common import activate, activate_vjp, is_glu
 from repro_torch.parallel import collectives as CL
 
 GEMM_BACKENDS = ("xla", "pallas", "pallas_fused")
 DEFAULT_GEMM_IMPL = "xla"
-MAX_COL_BLOCKS = 8
-# comet_hier's wire formats (a copy of ``repro.core.adaptive.WIRE_DTYPES``)
-WIRE_DTYPES = ("fp32", "bf16", "fp8_e4m3")
 _FP8_WIRE_MAX = 448.0                  # |max finite| of float8_e4m3fn
-
-
-def legalize_n_col(d_model: int, n_col: int,
-                   max_blocks: int = MAX_COL_BLOCKS) -> int:
-    """Largest legal layer-1 column split <= the requested one: clamped to
-    [1, max_blocks] and decremented until it divides d_model (a copy of
-    ``repro.core.adaptive.legalize_n_col``)."""
-    n = max(1, min(int(n_col), max_blocks))
-    while d_model % n:
-        n -= 1
-    return n
-
-
-def legalize_ring_group(ep: int, ring_group: int) -> int:
-    """Largest legal macro-step fusion <= the requested one: clamped to
-    [1, ep] and decremented until it divides ep (a copy of
-    ``repro.core.adaptive.legalize_ring_group``)."""
-    ep = max(1, ep)
-    g = max(1, min(int(ring_group), ep))
-    while ep % g:
-        g -= 1
-    return g
 
 
 def _ranked(ctx) -> bool:
@@ -594,11 +572,6 @@ def transport_comet(send, w, activation: str, n_col_blocks: int = 1,
                                          ring_group=ring_group,
                                          gemm_impl=gemm_impl, ctx=ctx)
     return (blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-1)), rot
-
-
-def wire_dtype_supported(wire_dtype: str) -> bool:
-    return wire_dtype in WIRE_DTYPES and (
-        wire_dtype != "fp8_e4m3" or hasattr(torch, "float8_e4m3fn"))
 
 
 def _wire_encode(x, wire_dtype: str, per_chunk: bool = False):

@@ -90,6 +90,38 @@ def fused_mlp_plan(E: int, R: int, d: int, f: int, N: int,
             "scratch_bytes": S * E * R * N * 4}
 
 
+# csrc/fused_mlp_hopper.cu's shared memory: the split's hidden in 8 KB
+# panels (64 rows of 128 bytes per 64 hidden columns) and a ring of 40 KB
+# TMA stages (x, Wg, Wu | Wd), at least 3 and at most 8 of them, beside 1 KB
+# of alignment and the ring's barriers, within what a block may use.
+HOPPER_PANEL = 64 * 128
+HOPPER_SLOT = 5 * HOPPER_PANEL
+HOPPER_MIN_STAGES, HOPPER_MAX_STAGES = 3, 8
+HOPPER_BAR_BYTES = 2 * HOPPER_MAX_STAGES * 8
+HOPPER_SMEM_MAX = 232448
+
+
+def hopper_stages(fs: int) -> int:
+    """The TMA ring's stages beside a split of ``fs`` hidden columns
+    (``stages_for`` in csrc/fused_mlp_hopper.cu)."""
+    left = HOPPER_SMEM_MAX - 1024 - HOPPER_BAR_BYTES - fs // 64 * HOPPER_PANEL
+    return min(left // HOPPER_SLOT, HOPPER_MAX_STAGES)
+
+
+def hopper_smem_bytes(fs: int) -> int:
+    """Dynamic shared memory of one wgmma forward block at a split of
+    ``fs`` hidden columns (``smem_for`` in csrc/fused_mlp_hopper.cu)."""
+    return (1024 + hopper_stages(fs) * HOPPER_SLOT
+            + fs // 64 * HOPPER_PANEL + HOPPER_BAR_BYTES)
+
+
+def hopper_fits(fs: int) -> bool:
+    """Whether a split of ``fs`` hidden columns leaves the ring its
+    minimum stages within one block's shared memory."""
+    return (0 < fs <= HOPPER_FS_MAX and hopper_stages(fs) >= HOPPER_MIN_STAGES
+            and hopper_smem_bytes(fs) <= HOPPER_SMEM_MAX)
+
+
 def general_scratch_bytes(E: int, R: int, f: int, N: int) -> int:
     """The general forward's fp32 partial planes, one (E, R, N) per 128
     hidden columns; the general dgrad's with d for N."""

@@ -512,6 +512,50 @@ def _grad_job(job, data, mesh, device):
             **{"grad/" + k: v for k, v in _flat(g).items()}}
 
 
+def _plan_job(job, data, mesh, device):
+    """A plan-cache cell: rank 0 writes a cache (``job["cache"]``) holding
+    ``job["plan"]`` (a ``Plan.to_json``) under the h100_nvlink train key of
+    the cell's MoE shape, its M the JAX package's ``local_token_count`` of
+    the global batch; then every rank runs the grad job with the cache
+    set. Records the knobs each ``moe_ffn`` body ran under and its tokens
+    ("ran/*"), and the key's M; a layer that raises (a ranked comet_hier
+    plan) records its error ("raised") instead of the grad job's
+    results."""
+    from repro_torch.core import adaptive as A
+    cfg = cell_config(job["arch"], job.get("over"))
+    ctx = SH.make_ctx(cfg, mesh, seq_shard=job.get("seq_shard", True))
+    B, S = data["batch/tokens"].shape
+    toks = M.local_token_count(ctx, B, S)
+    if dist.get_rank() == 0:
+        s = A.plan_shape(cfg.moe, cfg.d_model, toks, ctx.ep, ctx.etp)
+        A.PlanCache(job["cache"]).put(s, A.H100_NVL,
+                                      A.Plan.from_json(job["plan"]))
+    dist.barrier()
+    over = dict(job.get("over") or {})
+    over["moe"] = {**over.get("moe", {}), "plan_cache": job["cache"],
+                   "plan_hw": "h100_nvlink"}
+    ran = []
+    real = M._moe_body
+
+    def spy(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw):
+        ran.append([mcfg.impl, mcfg.ring_group, n_col, gemm_impl,
+                    int(mcfg.fused_combine), x.shape[0] * x.shape[1]])
+        return real(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw)
+
+    M._moe_body = spy
+    try:
+        res = _grad_job({**job, "over": over}, data, mesh, device)
+    except NotImplementedError as e:
+        res = {"raised": str(e)}
+    finally:
+        M._moe_body = real
+    res["key_tokens"] = toks
+    for i, name in enumerate(("impl", "ring_group", "n_col", "gemm_impl",
+                              "fused_combine", "tokens")):
+        res[f"ran/{name}"] = np.array([r[i] for r in ran])
+    return res
+
+
 def _adamw_job(job, data, mesh, device):
     """Two AdamW steps (``accum`` microbatches each) through
     ``build_train_step`` on the mesh: after each, the gathered params and
@@ -640,19 +684,19 @@ def _cli_job(job, device):
 def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
-    0). A job: name, kind ("grad", "adamw", "roundtrip", "trainer",
-    "cli"), arch and ``over`` (``cell_config``); "grad" and "adamw" read
-    the one-rank weights ("params/<leaf>") and batches ("batch*/<key>")
-    from ``in_dir/<data>.npz``. Results are gathered into the one-rank
+    0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
+    "trainer", "cli"), arch and ``over`` (``cell_config``); "grad",
+    "plan" and "adamw" read the one-rank weights ("params/<leaf>") and
+    batches ("batch*/<key>") from ``in_dir/<data>.npz``. Results are gathered into the one-rank
     layout. Gloo ranks: every tensor on the CPU."""
     device = "cpu"
     mesh = make_mesh(tuple(layout), ("data", "model"))
     for job in jobs:
         kind = job["kind"]
-        if kind in ("grad", "adamw"):
+        if kind in ("grad", "plan", "adamw"):
             data = np.load(Path(in_dir) / f"{job['data']}.npz")
-            res = (_grad_job if kind == "grad" else _adamw_job)(
-                job, data, mesh, device)
+            res = {"grad": _grad_job, "plan": _plan_job,
+                   "adamw": _adamw_job}[kind](job, data, mesh, device)
         elif kind == "roundtrip":
             res = _roundtrip_job(job, mesh, device)
         elif kind == "trainer":

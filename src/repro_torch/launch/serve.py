@@ -7,7 +7,11 @@ GPU, random weights from a seed.
   python -m repro_torch.launch.serve --arch mamba2-780m --max-seq 2048 \
       --prompt-max 1024
 
-``--gemm-impl`` applies to configs with MoE layers only.
+``--gemm-impl`` applies to configs with MoE layers only. ``--plan-cache``
+resolves every MoE layer's schedule from a tuned plan cache instead
+(``launch/tune.py`` writes one): prefill chunks take its ``prefill``
+entries, decode steps its ``decode`` ones, keyed by ``--plan-hw``
+(default h100_nvlink).
 
 Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
 numpy RNG. ``--device cpu`` runs on the CPU (small configs only).
@@ -51,6 +55,12 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=256)
     ap.add_argument("--gemm-impl", default="pallas_fused",
                     choices=("xla", "pallas", "pallas_fused"))
+    ap.add_argument("--plan-cache", default=None,
+                    help="tuned plan cache (JSON) the MoE layers resolve "
+                         "their schedule from")
+    ap.add_argument("--plan-hw", default="",
+                    help="hardware key for plan lookup (default "
+                         "h100_nvlink)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
@@ -64,7 +74,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, gemm_impl=args.gemm_impl))
     eng = ServeEngine(cfg, max_seq=args.max_seq, batch_size=args.batch,
-                      seed=args.seed, chunk=args.chunk, device=args.device)
+                      seed=args.seed, chunk=args.chunk, device=args.device,
+                      plan_cache=args.plan_cache, plan_hw=args.plan_hw)
     prompts = make_trace(cfg.vocab_size, args.requests, args.prompt_min,
                          args.prompt_max, args.seed)
     t0 = time.perf_counter()

@@ -12,8 +12,10 @@ one GPU per LOCAL_RANK; gloo on the CPU), or uses the one already
 initialised. ``--mesh data,model`` lays the process group's ranks out as
 that mesh (sizes multiplying to its world size) and trains the mesh step.
 Checkpoints are restart-safe (``training/trainer.py``). ``--plan-cache``
-and ``--sp-residual`` need parts of the system that are not ported yet
-and raise: the plan-cache resolution and the sequence-parallel residual.
+resolves every MoE layer's schedule from a tuned plan cache
+(``launch/tune.py`` writes one), keyed by ``--plan-hw`` (default
+h100_nvlink). ``--sp-residual`` needs the sequence-parallel residual,
+which is not ported yet, and raises.
 """
 from __future__ import annotations
 
@@ -58,19 +60,15 @@ def main(argv=None, device=None):
     ap.add_argument("--plan-cache", default="",
                     help="tuned adaptive-transport plan cache (JSON)")
     ap.add_argument("--plan-hw", default="",
-                    help="hardware key for plan lookup (with --plan-cache)")
+                    help="hardware key for plan lookup (default "
+                         "h100_nvlink)")
     ap.add_argument("--sp-residual", action="store_true")
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group torchrun describes")
     args = ap.parse_args(argv)
-    for flag, on, what in (
-            ("--plan-cache", args.plan_cache,
-             "the plan-cache resolution (core/adaptive.py) is not ported "
-             "yet"),
-            ("--sp-residual", args.sp_residual,
-             "the sequence-parallel residual is not ported yet")):
-        if on:
-            raise NotImplementedError(f"{flag}: {what}")
+    if args.sp_residual:
+        raise NotImplementedError("--sp-residual: the sequence-parallel "
+                                  "residual is not ported yet")
 
     import torch.distributed as dist
 
@@ -98,7 +96,9 @@ def main(argv=None, device=None):
         shape = ShapeConfig("train", seq_len=args.seq,
                             global_batch=args.batch, kind="train")
         tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir,
-                             ckpt_every=args.ckpt_every)
+                             ckpt_every=args.ckpt_every,
+                             plan_cache=args.plan_cache,
+                             plan_hw=args.plan_hw)
         out = Trainer(cfg, shape, mesh, tcfg, device=device).run(args.steps)
         ls = [m["loss"] for m in out["metrics"]]
         if not dist.is_initialized() or dist.get_rank() == 0:

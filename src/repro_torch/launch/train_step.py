@@ -16,6 +16,7 @@ guard decides the same on every rank.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -29,6 +30,20 @@ from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.mesh import AxisCtx
 
 Tree = Any
+
+
+def _with_plan_cache(cfg, plan_cache: Optional[str], plan_hw: str = "",
+                     phase: str = "train"):
+    """``cfg`` with a tuned-plan cache path, its hardware key and a latency
+    phase threaded into the MoE config, so every ``moe_ffn`` under the step
+    resolves its schedule from the phase's cache entry (train: fwd+bwd,
+    prefill: chunk throughput, decode: per-step latency)."""
+    if not plan_cache or cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, plan_cache=plan_cache,
+                                     plan_hw=plan_hw, plan_override=False,
+                                     plan_phase=phase))
 
 
 def _unflatten(like: Tree, leaves):
@@ -114,14 +129,19 @@ def make_train_fn(cfg, ctx: Optional[AxisCtx], optim: AdamW, accum: int,
 
 def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,
                      accum: int = 0, fsdp: bool = True,
-                     seq_shard: bool = True, schedule: str = ""):
+                     seq_shard: bool = True,
+                     plan_cache: Optional[str] = None, plan_hw: str = "",
+                     schedule: str = ""):
     """Returns {"fn": step, "batch_structs": the global batch's entry
     shapes, "accum", "ctx"} and, on a mesh (a ``parallel.mesh.Mesh`` with
     ("data", "model") axes), "state_specs" and "batch_pspecs": how the
     state and the batch are cut over it. ``fsdp`` cuts the parameters'
     embed dimension over the data axes, ``seq_shard`` shards the MoE
-    tokens over the sequence, as in the JAX package. A block schedule
-    raises (not ported)."""
+    tokens over the sequence, as in the JAX package. ``plan_cache`` (and
+    its hardware key ``plan_hw``) resolves every MoE layer's train-phase
+    schedule from a tuned plan cache (``_with_plan_cache``). A block
+    schedule raises (not ported)."""
+    cfg = _with_plan_cache(cfg, plan_cache, plan_hw)
     if schedule:
         raise NotImplementedError("schedule: the whole-graph schedule is "
                                   "not ported yet")

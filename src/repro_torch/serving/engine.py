@@ -12,6 +12,9 @@ the JAX engine, so both engines route the same tokens through the MoE.
 Attention, SSM and hybrid configs go through the same code: the cache
 holds K/V or SSM carries per layer kind (``lm.init_cache``), and a slot's
 SSM carry is reset inside the prefill step where a request starts.
+With a tuned plan cache (``plan_cache``, ``plan_hw``) every MoE layer of a
+prefill chunk resolves the cache's ``prefill`` entry and of a decode step
+its ``decode`` entry, as the JAX engine's step builders thread them.
 
 Not ported yet: the paged cache, deadlines and load shedding, cancel,
 NaN quarantine, snapshot/restore and fault injection, and the
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.train_step import _with_plan_cache
 from repro_torch.models import lm
 
 
@@ -139,9 +143,16 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 plan_cache: Optional[str] = None, plan_hw: str = ""):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the configs the chunk and decode calls run under: each MoE layer
+        # resolves its phase's plan from the cache, if one is given
+        self.prefill_cfg = _with_plan_cache(cfg, plan_cache, plan_hw,
+                                            "prefill")
+        self.decode_cfg = _with_plan_cache(cfg, plan_cache, plan_hw,
+                                           "decode")
         self.max_seq = max_seq
         self.B = batch_size                       # decode slots
         # a chunk that divides max_seq tiles the cache exactly, so the last
@@ -294,7 +305,7 @@ class ServeEngine:
                 toks[a, :len(part)] = part
             offs = np.full((A,), j * C, np.int64)
             logits, self.cache = lm.prefill_chunk(
-                self.cfg, self.params, self.cache, self._tensor(toks),
+                self.prefill_cfg, self.params, self.cache, self._tensor(toks),
                 self._tensor(offs), self._tensor(valids), slots_t)
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             last = nchunks == j + 1
@@ -331,7 +342,7 @@ class ServeEngine:
     def _decode_once(self):
         t0 = time.perf_counter()
         logits, self.cache = lm.decode_step(
-            self.cfg, self.params, self.cache,
+            self.decode_cfg, self.params, self.cache,
             self._tensor(self.last_tok[:, None]), self._tensor(self.pos))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.decode_s += time.perf_counter() - t0

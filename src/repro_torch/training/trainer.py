@@ -80,6 +80,11 @@ class TrainerConfig:
     # after this many CONSECUTIVE skipped (non-finite) steps the loop
     # escalates to checkpoint replay: the state itself is poisoned
     nan_limit: int = 3
+    # tuned plans (core/adaptive.py): every moe_ffn under the train step
+    # resolves its schedule (transport, ring_group, n_col, gemm backend)
+    # from this cache's train-phase entries, keyed by plan_hw
+    plan_cache: str = ""
+    plan_hw: str = ""
 
 
 def abstract_state(cfg) -> Dict:
@@ -113,7 +118,8 @@ class Trainer:
         self.fsdp = fsdp
         self.fault_hook = fault_hook          # tests inject failures here
         self.built = build_train_step(cfg, shape, mesh, self.optim,
-                                      fsdp=fsdp)
+                                      fsdp=fsdp, plan_cache=tcfg.plan_cache,
+                                      plan_hw=tcfg.plan_hw)
         self.ctx = self.built["ctx"]
         # on a mesh every rank takes part in a save; rank 0 writes
         self.writer = mesh is None or dist.get_rank() == 0

@@ -108,10 +108,21 @@ REFS = {
     "gqa6": ("qwen2-0.5b-smoke", {"attn": {"n_heads": 6, "n_kv_heads": 2}}),
     "pad6": ("qwen2-0.5b-smoke", {"attn": {"n_heads": 6, "n_kv_heads": 2,
                                            "pad_heads": True}}),
+    "mixtral": ("mixtral-8x7b-smoke", _no_drop("mixtral-8x7b-smoke")),
+    "phi35": ("phi3.5-moe-smoke", _no_drop("phi3.5-moe-smoke")),
+    "mamba2": ("mamba2-780m-smoke", {}),
 }
 NAIVE = {"impl": "naive"}
+COARSE = {"impl": "coarse"}
 COMET1 = {"impl": "comet", "ring_group": 1, "n_col_blocks": 2}
 COMET2 = {"impl": "comet", "ring_group": 2, "n_col_blocks": 2}
+
+
+def _ep(knobs, ep):
+    """``knobs`` at an expert-parallel group of ``ep`` ranks (etp the rest
+    of the model axis)."""
+    return {**knobs, "ep": ep}
+
 # (layout, ref, moe replacements, seq_shard, other replacements, fsdp)
 CELLS = {
     "dp1mp4-qmoe-naive-sp1": ("dp1mp4", "qmoe", NAIVE, True, {}, True),
@@ -144,12 +155,51 @@ CELLS = {
     "dp4mp1-qmoe-comet1-sp1": ("dp4mp1", "qmoe", COMET1, True, {}, True),
     "dp4mp1-granite-naive-sp0": ("dp4mp1", "granite", NAIVE, False, {},
                                  True),
+    # ep > 1: the ring and the all-to-alls cross ranks
+    "dp1mp4-qmoe-ep4-naive-sp1": ("dp1mp4", "qmoe", _ep(NAIVE, 4), True, {},
+                                  True),
+    "dp1mp4-qmoe-ep4-coarse-sp1": ("dp1mp4", "qmoe", _ep(COARSE, 4), True,
+                                   {}, True),
+    "dp1mp4-qmoe-ep4-comet1-sp1": ("dp1mp4", "qmoe", _ep(COMET1, 4), True,
+                                   {}, True),
+    "dp1mp4-qmoe-ep4-comet2-sp0": ("dp1mp4", "qmoe", _ep(COMET2, 4), False,
+                                   {}, True),
+    "dp1mp4-qmoe-ep2etp2-comet1-sp1": ("dp1mp4", "qmoe", _ep(COMET1, 2),
+                                       True, {}, True),
+    "dp1mp4-qmoe-ep2etp2-naive-sp0": ("dp1mp4", "qmoe", _ep(NAIVE, 2),
+                                      False, {}, True),
+    "dp1mp4-qmoe_shared-ep4-comet1-sp1": ("dp1mp4", "qmoe_shared",
+                                          _ep(COMET1, 4), True, {}, True),
+    "dp1mp4-granite-ep4-comet2-sp1": ("dp1mp4", "granite", _ep(COMET2, 4),
+                                      True, {}, True),
+    "dp1mp4-mixtral-ep4-comet1-sp1": ("dp1mp4", "mixtral", _ep(COMET1, 4),
+                                      True, {}, True),
+    "dp1mp4-phi35-ep4-comet2-sp1": ("dp1mp4", "phi35", _ep(COMET2, 4), True,
+                                    {}, True),
+    "dp1mp4-mamba2": ("dp1mp4", "mamba2", None, True, {}, True),
+    "dp2mp2-qmoe-ep2-comet1-sp1": ("dp2mp2", "qmoe", _ep(COMET1, 2), True,
+                                   {}, True),
+    "dp2mp2-qmoe-ep2-naive-sp0": ("dp2mp2", "qmoe", _ep(NAIVE, 2), False,
+                                  {}, True),
+    "dp2mp2-mamba2": ("dp2mp2", "mamba2", None, True, {}, True),
+}
+# plan-cache cells at ep 4 (``selftest._plan_job``): the cache's plan for
+# the cell's train key runs in place of the config's naive knobs; a
+# comet_hier plan across ranks raises by name. name -> (plan, seq_shard)
+PLAN_CELLS = {
+    "dp1mp4-qmoe-ep4-plan": (dict(impl="comet", ring_group=2,
+                                  n_col_blocks=2, gemm_impl="xla",
+                                  fused_combine=True), True),
+    "dp1mp4-qmoe-ep4-plan-hier": (dict(impl="comet_hier", ring_group=1,
+                                       n_col_blocks=1, intra_group=2), True),
 }
 # AdamW runs: name -> (layout, accum, the rank whose gradient is made
-# non-finite on a first step, or None)
-ADAMW = {"dp2mp2-accum1": ("dp2mp2", 1, None),
-         "dp2mp2-accum2": ("dp2mp2", 2, None),
-         "dp1mp4-accum1-nan": ("dp1mp4", 1, 2)}
+# non-finite on a first step, or None, the expert-parallel group: 0 for
+# the config's)
+ADAMW = {"dp2mp2-accum1": ("dp2mp2", 1, None, 0),
+         "dp2mp2-accum2": ("dp2mp2", 2, None, 0),
+         "dp1mp4-accum1-nan": ("dp1mp4", 1, 2, 0),
+         "dp1mp4-ep4-accum1": ("dp1mp4", 1, None, 4)}
 TRAINER = dict(arch="qwen2-moe-2.7b-smoke", batch=4, seq=32, steps=5,
                ckpt_every=2, fail_at=3)
 
@@ -233,11 +283,18 @@ def _jobs(layout, in_dir, ckpt_dir):
             jobs.append(dict(name=name, kind="grad", arch=REFS[ref][0],
                              over=_cell_over(ref, moe, other), data=ref,
                              seq_shard=seq, fsdp=fsdp))
-    for name, (lay, accum, nan_rank) in ADAMW.items():
+    for name, (plan, seq) in PLAN_CELLS.items():
+        if name.startswith(layout):
+            jobs.append(dict(name=name, kind="plan", arch=REFS["qmoe"][0],
+                             over=_cell_over("qmoe", _ep(NAIVE, 4), {}),
+                             data="qmoe", seq_shard=seq, plan=plan,
+                             cache=str(Path(in_dir) / f"{name}.json")))
+    for name, (lay, accum, nan_rank, ep) in ADAMW.items():
         if lay == layout:
+            moe = _ep(COMET1, ep) if ep else COMET1
             jobs.append(dict(name=name, kind="adamw",
                              arch=REFS["qmoe"][0],
-                             over=_cell_over("qmoe", COMET1, {}),
+                             over=_cell_over("qmoe", moe, {}),
                              data=f"qmoe_accum{accum}", accum=accum,
                              lr=LR, eps=EPS, nan_rank=nan_rank))
     if layout in ("dp1mp4", "dp2mp2"):
@@ -398,6 +455,8 @@ def test_cells_reach_every_attention_case():
     cases = set()
     for layout, ref, moe, seq, other, _ in CELLS.values():
         cfg = ST.cell_config(REFS[ref][0], _cell_over(ref, moe, other))
+        if cfg.attn is None:              # mamba2: no attention layer
+            continue
         a, m = cfg.attn, LAYOUTS[layout][1]
         padded = a.pad_heads and m > 1 and (a.n_heads % m or
                                             a.n_kv_heads % m)
@@ -414,7 +473,7 @@ def test_cells_reach_every_attention_case():
 
 @pytest.mark.parametrize("name", list(ADAMW))
 def test_adamw_steps_match_jax(run, name):
-    layout, accum, _ = ADAMW[name]
+    layout, accum = ADAMW[name][:2]
     got = _load(run, layout, name)
     for j, want in enumerate(run[1]["steps"][accum]):
         assert abs(float(got[f"step{j}/loss"]) - want["loss"]) <= \
@@ -438,6 +497,39 @@ def test_state_is_stored_as_the_specs_cut_it(run, name):
     # the packed experts (n_periods, W, E_loc, d, f): one entry of W here
     experts = [k for k in keys if "experts/w_up" in k]
     assert len(experts) == 3 and all(got[k][0][1] == 1 for k in experts)
+
+
+def test_plan_cache_cell_runs_the_cached_plan(run):
+    """At ep 4 the cached plan (comet, ring_group 2, two column blocks,
+    fused combine) runs in every MoE layer in place of the config's naive
+    knobs, keyed by the JAX package's local token count, and the loss and
+    gradients still match JAX's one-rank step."""
+    name = "dp1mp4-qmoe-ep4-plan"
+    got = _load(run, "dp1mp4", name)
+    plan = PLAN_CELLS[name][0]
+    n_moe = 2                          # qwen2-moe smoke: a MoE every layer
+    assert got["ran/impl"].tolist() == [plan["impl"]] * n_moe
+    assert got["ran/ring_group"].tolist() == [plan["ring_group"]] * n_moe
+    assert got["ran/n_col"].tolist() == [plan["n_col_blocks"]] * n_moe
+    assert got["ran/gemm_impl"].tolist() == [plan["gemm_impl"]] * n_moe
+    assert got["ran/fused_combine"].tolist() == [1] * n_moe
+    # sequence sharded over the 4 model ranks: B * S / 4 tokens each
+    assert int(got["key_tokens"]) == B * S // 4
+    assert got["ran/tokens"].tolist() == [B * S // 4] * n_moe
+    want = run[1]["grads"]["qmoe"]
+    assert abs(float(got["loss"]) - want["loss"]) <= LOSS_REL * abs(
+        want["loss"])
+    assert abs(float(got["aux"]) - want["aux"]) < AUX_ABS
+    errs = {k: _rel(got["grad/" + k], v) for k, v in want["grads"].items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] < GRAD_REL, (worst, errs[worst])
+
+
+def test_ranked_comet_hier_plan_raises_by_name(run):
+    got = _load(run, "dp1mp4", "dp1mp4-qmoe-ep4-plan-hier")
+    assert "transport_comet_hier" in str(got["raised"])
+    assert "not ported" in str(got["raised"])
+    assert got["ran/impl"].tolist() == ["comet_hier"]
 
 
 def test_nonfinite_gradient_on_one_rank_is_skipped_on_every_rank(run):

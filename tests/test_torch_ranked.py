@@ -262,10 +262,19 @@ def test_problem_weights_cross_by_from_jax(pname):
     (["--plan-cache", "plans.json"], "plan-cache"),
     (["--sp-residual"], "sequence-parallel residual")])
 def test_train_flags_name_what_is_not_ported(argv, what, tmp_path):
+    """``--sp-residual`` raises by name; ``--plan-cache``, ported since,
+    trains (a missing cache file resolves the cost model's plans)."""
     from repro_torch.launch import train
+    base = ["--arch", "qwen2-moe-2.7b-smoke", "--ckpt-dir",
+            str(tmp_path / "ckpt")]
+    if what == "plan-cache":
+        argv = ["--plan-cache", str(tmp_path / argv[1]), "--steps", "1",
+                "--batch", "2", "--seq", "8"]
+        out = train.main(base + argv, device="cpu")
+        assert out["final_step"] == 1
+        return
     with pytest.raises(NotImplementedError, match=what):
-        train.main(["--arch", "qwen2-moe-2.7b-smoke", "--ckpt-dir",
-                    str(tmp_path)] + argv, device="cpu")
+        train.main(base + argv, device="cpu")
 
 
 class _StubMesh:
