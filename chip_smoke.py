@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all eleven phases, one card
+  python3 chip_smoke.py              # all twelve phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
@@ -103,10 +103,16 @@ Phases:
              full width (E 64, top-4, d 2048, f 1408, bf16, pallas_fused,
              4 x 1024 tokens) through the ranked moe_ffn over a one-rank
              NCCL context and without a context, forward and backward, for
-             naive, coarse and comet (ring_group 1, two column blocks,
-             fused combine): the same bits, counters zeroed before and
+             naive, coarse, comet (ring_group 1, two column blocks, fused
+             combine) and comet_hier at those knobs on the bf16 and the
+             fp8_e4m3 wire: the same bits, counters zeroed before and
              read after (every fused_mlp, dgrad and wgrad launch on the
-             wgmma path; the plain versions see no CUDA tensor). Then the
+             wgmma path; the plain versions see no CUDA tensor). At world 1
+             every impl takes its one-rank arm with or without the context
+             (comet_hier: the wire's straight-through quantization, then
+             the local arm), so no ring, permute or wire crosses NCCL
+             here; the ranks' paths run in tests/test_torch_ranked.py on
+             gloo CPU ranks. Then the
              comet ring's producer (mlp_col_blocks, one column-sliced
              fused_mlp per block) at the shapes one rank of a 4-rank ring
              runs (16 experts, rows g x C for ring_group g = 1, 2) against
@@ -155,10 +161,29 @@ Phases:
              requests, all ok, every prefill chunk on the prefill plan and
              every decode step on the decode plan with the launches they
              name. At world 1 no ring hop is timed.
+ 12 serve_hybrid  the earlier phases' state is freed first. ServeEngine on
+             jamba-v0.1-52b at one period (8 layers: 1 attention, 7 Mamba,
+             4 MoE of 16 experts at f 14336, top-2) and every published
+             width (13.27 B parameters, bf16, seeded weights on the card),
+             gemm_impl="pallas_fused", 8 slots, max_seq 2048, chunk 256:
+             after a warm-up round on an engine of its own, 16 requests
+             with prompts of 64-1024 tokens and max_new 32. Counters zeroed
+             before and read after: fused_mlp and topk_combine as the
+             resolved plans of the 4 MoE layers in every prefill_chunk and
+             decode_step call give them (every fused_mlp launch on the
+             wgmma path), ssd_forward 7 per prefill_chunk call (all on the
+             tensor-core path), rmsnorm 24 per call; the plain versions see
+             no CUDA tensor. Then teacher-forced logits as in phase 4: bf16
+             at the period beside a second plain route (xla, the SSD at
+             chunk 64), and fp32 at the period (weights drawn anew from the
+             seed once the bf16 ones are freed; the phase fails where
+             they do not fit) at 1e-4. Phase 2 holds each kernel at the
+             shapes this phase launches it at (HYBRID_CASES).
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
-(``--only build,serve_ssm,profile_serve_ssm`` of the serve_ssm one),
+(``--only build,serve_ssm,profile_serve_ssm`` of the serve_ssm one,
+``--only build,profile_serve_hybrid`` of the serve_hybrid one),
 ``--only build,train,profile_train`` one train step of the train phase and
 ``--only build,train_ssm,profile_train_ssm`` one of train_ssm, under
 torch.profiler (device time by kernel); ``--only build,rule_seeds`` how
@@ -195,10 +220,12 @@ PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4}
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
-          "train", "train_ssm", "ranked", "mesh_train", "plan")
+          "train", "train_ssm", "ranked", "mesh_train", "plan",
+          "serve_hybrid")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
-                "profile_train_ssm", "rule_seeds", "nccl_pair")
+                "profile_train_ssm", "profile_serve_hybrid", "rule_seeds",
+                "nccl_pair")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -229,6 +256,16 @@ DRAWS = 8
 # calls in the topk_combine case's CUDA graph (its device time)
 TOPK_REPS = 21
 JAMBA_CASE = "jamba E=16 R=320 d=4096 f=14336 N=4096"
+# phase 12's decode and stateful SSD shapes, held in phase 2
+HYBRID_DECODE_CASE = "jamba decode E=16 R=4 d=4096 f=14336 N=4096"
+HYBRID_SSD_CASE = "jamba serve state A8 C256 nh128 hd64 ds16"
+# the bf16 phase-2 cases at the shapes phase 12 launches each kernel at
+HYBRID_CASES = {
+    "fused_mlp": (JAMBA_CASE, HYBRID_DECODE_CASE),
+    "topk_combine": ("T=2048 k=2 d=4096", "T=8 k=2 d=4096"),
+    "ssd_forward": (HYBRID_SSD_CASE,),
+    "rmsnorm": tuple(f"T={T} d={d} model" for T in (2048, 8)
+                     for d in (4096, 8192))}
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
 TRAIN_LAYERS = 4
@@ -251,6 +288,11 @@ PLAN_SHAPES = {"train": (4, 1024), "prefill": (8, 256), "decode": (8, 1)}
 PLAN_TOKENS = {k: b * s for k, (b, s) in PLAN_SHAPES.items()}
 PLAN_ITERS = 20
 PLAN_ROUNDS = 2
+# the hybrid serve phase: jamba-v0.1-52b at one period (8 layers: 1
+# attention, 7 Mamba, 4 MoE of 16 experts at f 14336) and every published
+# width; prompts up to 1024 tokens in 8 slots of 2048
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_SERVE = dict(max_seq=2048, prompt_max=1024)
 
 
 class PhaseFailed(Exception):
@@ -474,6 +516,26 @@ def kernel_cases():
             for d in (2048, 4096):
                 cases.append(("topk_combine", f"T=2048 k={kk} d={d}", dt,
                               dict(T=2048, k=kk, d=d)))
+    # phase 12's shapes (jamba-v0.1-52b served at one period): the SSD
+    # with a state at the serving chunk (8 rows of 256, 128 heads of 64,
+    # d_state 16), fused_mlp at the 8-slot decode step's broadcast
+    # (capacity(8, 2, 16, 1.25) = 4 rows per expert), and rmsnorm at
+    # d_model 4096 and the gated width 8192 at a 2048-row prefill step and
+    # 8-row decode, and topk_combine at the decode step's top-2
+    cases.append(("ssd_forward", HYBRID_SSD_CASE, "bf16",
+                  dict(B=8, S=256, nh=128, hd=64, ds=16, state=True,
+                       draws=DRAWS)))
+    cases.append(("ssd_forward", HYBRID_SSD_CASE, "fp32",
+                  dict(B=8, S=256, nh=128, hd=64, ds=16, state=True)))
+    cases.append(("fused_mlp", HYBRID_DECODE_CASE, "bf16",
+                  dict(R=4, order="expert_major", col=None, E=16, d=4096,
+                       f=14336, N=4096)))
+    for dt in ("bf16", "fp32"):
+        for T, d in ((2048, 4096), (2048, 8192), (8, 4096), (8, 8192)):
+            cases.append(("rmsnorm", f"T={T} d={d} model", dt,
+                          dict(T=T, d=d, epi="model")))
+        cases.append(("topk_combine", "T=8 k=2 d=4096", dt,
+                      dict(T=8, k=2, d=4096)))
     return cases
 
 
@@ -1314,7 +1376,8 @@ def with_gemm(cfg, gemm_impl):
 
 
 def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
-          max_seq=1024, chunk=256, prompt_max=512, engine_kw=None):
+          max_seq=1024, chunk=256, prompt_max=512, engine_kw=None,
+          moe_sink=None):
     import numpy as np
     import torch
 
@@ -1335,7 +1398,8 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with PlainGuard() as guard, count_model_calls({}) as calls:
+    with PlainGuard() as guard, count_model_calls({}) as calls, \
+            _moe_spy(moe_sink):
         t0 = time.perf_counter()
         rids = [eng.submit(p, max_new=max_new) for p in prompts]
         eng.run()
@@ -2137,10 +2201,16 @@ def ranked_layer(rec):
 
     ctx = ranked_ctx()
     res = {}
-    for name, kw in (("naive", {}), ("coarse", {}),
-                     ("comet", dict(ring_group=1, n_col_blocks=2,
-                                    fused_combine=True))):
-        mcfg = dataclasses.replace(m0, impl=name, **kw)
+    ring = dict(ring_group=1, n_col_blocks=2, fused_combine=True)
+    for name, kw in (("naive", dict(impl="naive")),
+                     ("coarse", dict(impl="coarse")),
+                     ("comet", dict(impl="comet", **ring)),
+                     ("comet_hier-bf16", dict(impl="comet_hier",
+                                              wire_dtype="bf16", **ring)),
+                     ("comet_hier-fp8_e4m3", dict(
+                         impl="comet_hier", wire_dtype="fp8_e4m3",
+                         **ring))):
+        mcfg = dataclasses.replace(m0, **kw)
         runs, r = {}, {}
         for tag, c in (("no_ctx", None), ("ctx", ctx)):
             reset_counts()
@@ -2445,16 +2515,17 @@ def phase_mesh_train(state, out):
 
 
 def _moe_spy(sink):
-    """While active, appends (impl, ring_group, n_col, gemm_impl, tokens)
-    of every moe_ffn body to ``sink`` (a list, or None to record
-    nothing)."""
+    """While active, appends (impl, ring_group, n_col, gemm_impl, tokens,
+    fused_combine, sequence length) of every moe_ffn body to ``sink`` (a
+    list, or None to record nothing)."""
     from repro_torch.core import moe_layer as M
     real = M._moe_body
 
     def spy(cfg, mcfg, n_col, gemm_impl, x, *a, **kw):
         if sink is not None:
             sink.append((mcfg.impl, mcfg.ring_group, n_col, gemm_impl,
-                         x.shape[0] * x.shape[1]))
+                         x.shape[0] * x.shape[1], mcfg.fused_combine,
+                         x.shape[1]))
         return real(cfg, mcfg, n_col, gemm_impl, x, *a, **kw)
 
     @contextlib.contextmanager
@@ -2853,6 +2924,149 @@ def phase_plan(state, out):
     out["plan"] = rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: a hybrid model served at full width
+# ---------------------------------------------------------------------------
+
+
+def hybrid_cfg(dtype="bfloat16", chunk=0, gemm_impl="pallas_fused"):
+    """jamba-v0.1-52b at one period (8 layers, the least depth the port's
+    period stacking takes) and every published width; ``chunk`` sets the
+    SSD chunk of a plain route (the model's is 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import period_of
+    cfg = get_config(HYBRID_ARCH)
+    cfg = with_gemm(dataclasses.replace(
+        cfg, n_layers=period_of(cfg), param_dtype=dtype,
+        compute_dtype=dtype), gemm_impl)
+    if chunk:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=chunk))
+    return cfg
+
+
+def moe_serve_launches(cfg, ran):
+    """(fused_mlp, topk_combine) launches of the MoE bodies in ``ran``
+    (``_moe_spy`` records) at world 1 under pallas_fused: one fused_mlp a
+    body (a comet arm's local forward and the decode broadcast run the
+    expert MLP whole), and one topk_combine a body, or one a column block
+    of the resolved plan where a comet arm streams the combine."""
+    from repro_torch.core.transport import legalize_n_col
+    width = cfg.moe.wire_dim or cfg.d_model
+    comb = sum(legalize_n_col(width, n_col)
+               if fc and impl in ("comet", "comet_hier") and S > 1 else 1
+               for impl, _, n_col, _, _, fc, S in ran)
+    return len(ran), comb
+
+
+def phase_serve_hybrid(state, out):
+    """jamba-v0.1-52b at one full-width period served through the MoE, SSD
+    and rmsnorm kernels, then its teacher-forced logits against the plain
+    versions: bf16 beside a second plain route, and fp32 once the bf16
+    weights are freed (the phase fails where they do not fit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    cfg = hybrid_cfg()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  {HYBRID_ARCH}, {cfg.n_layers} layers: {n_params / 1e9:.2f} B "
+        f"parameters in bf16 on the card, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    ran = []
+    eng, rec = serve(cfg, params, 16, 32, 0, "serve_hybrid", out,
+                     moe_sink=ran, **HYBRID_SERVE)
+    del eng                           # it holds the weights
+    L, calls = rec["launches"], rec["model_calls"]
+    n_calls = calls["prefill_chunk"] + calls["decode_step"]
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    n_ssm = sum(cfg.layer_kind(i) != "a" for i in range(cfg.n_layers))
+    fused, comb = moe_serve_launches(cfg, ran)
+    rec.update({"arch": HYBRID_ARCH, "n_layers": cfg.n_layers,
+                "params_b": n_params / 1e9, "moe_bodies": len(ran),
+                "moe_knobs": sorted({tuple(t[:4]) + (bool(t[5]),)
+                                     for t in ran}),
+                "expected": {"fused_mlp": fused, "topk_combine": comb,
+                             "ssd_forward": n_ssm * calls["prefill_chunk"]}})
+    log("  hybrid launches: " + json.dumps(
+        {k: rec[k] for k in ("moe_bodies", "moe_knobs", "expected")}))
+    check(len(ran) == n_moe * n_calls,
+          f"{len(ran)} MoE bodies, expected {n_moe} x {n_calls} calls")
+    check(L["fused_mlp"] == fused == L["fused_mlp_hopper"],
+          f"fused_mlp launches {L['fused_mlp']} (wgmma "
+          f"{L['fused_mlp_hopper']}), expected {fused}")
+    check(L["topk_combine"] == comb,
+          f"topk_combine launches {L['topk_combine']}, expected {comb}")
+    check(L["ssd_forward"] == n_ssm * calls["prefill_chunk"]
+          == L["ssd_forward_hopper"],
+          f"ssd_forward launches {L['ssd_forward']} (tensor-core "
+          f"{L['ssd_forward_hopper']}), expected {n_ssm} x "
+          f"{calls['prefill_chunk']} prefill_chunk calls")
+
+    # teacher-forced logits (phase 4's rows): bf16 at the period beside a
+    # second plain route (the xla backend, the SSD at chunk 64)
+    rng = np.random.default_rng(1)
+    plens = np.array([256, 200, 97, 160])
+    toks = rng.integers(1, cfg.vocab_size, (4, 256))
+    nxt = rng.integers(1, cfg.vocab_size, (4, 4))
+
+    def run(c, p, plain=False):
+        with plain_ops() if plain else contextlib.nullcontext():
+            return teacher_forced_logits(c, p, toks, plens, nxt)
+
+    plain = run(cfg, params, plain=True)
+    reset_counts()
+    bf16 = compare_logits(run(cfg, params), plain)
+    counts = read_counts()
+    floor = compare_logits(run(hybrid_cfg(chunk=64, gemm_impl="xla"),
+                               params, plain=True), plain)
+    del params, plain
+    torch.cuda.empty_cache()
+    # fp32 at the period: 4 bytes a parameter, drawn anew from the seed,
+    # and the general fp32 kernels' scratch (4.7 GB at this prefill)
+    c32 = hybrid_cfg("float32")
+    need, free = 4 * n_params + 12e9, torch.cuda.mem_get_info()[0]
+    check(need <= free, f"the fp32 logits need {need / 1e9:.1f} GB, "
+                        f"{free / 1e9:.1f} GB free once the bf16 weights "
+                        f"are freed")
+    p32 = lm.init_params(c32, seed=0, device="cuda")
+    fp32 = compare_logits(run(c32, p32), run(c32, p32, plain=True))
+    del p32
+    torch.cuda.empty_cache()
+    logits = {"bf16_8_layers": bf16, "bf16_8_layers_xla_chunk64_vs_plain":
+              floor, "fp32_8_layers": fp32, "bf16_launches": counts}
+    out["serve_hybrid_logits"] = logits
+    log("  " + json.dumps(logits))
+    check(0 < counts["fused_mlp"] == counts["fused_mlp_hopper"] and
+          0 < counts["ssd_forward"] == counts["ssd_forward_hopper"],
+          f"bf16 logits: launches off the wgmma/tensor-core paths: {counts}")
+    bound = max(TOL["bf16"], 3 * floor["rel_l2_err"])
+    check(bf16["rel_l2_err"] <= bound,
+          f"bf16 logits rel L2 error {bf16['rel_l2_err']:.3e} > {bound:.3e}")
+    check(fp32["rel_l2_err"] <= TOL["fp32"],
+          f"fp32 logits rel L2 error {fp32['rel_l2_err']:.3e} > 1e-4")
+    check(fp32["argmax_agree"] >= 0.95,
+          f"fp32 argmax agreement {fp32['argmax_agree']:.2f} < 0.95")
+
+
+def phase_profile_hybrid(state, out):
+    """phase_profile of phase 12's configuration, its weights drawn anew
+    from the seed."""
+    import torch
+
+    from repro_torch.models import lm
+    state.clear()
+    torch.cuda.empty_cache()
+    cfg = hybrid_cfg()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    phase_profile(cfg, params, out, "profile_serve_hybrid", **HYBRID_SERVE)
+
+
 def _pair_probe(path):
     """One rank of the two-NCCL-ranks-on-one-card probe: an all-reduce of
     a CUDA tensor; writes its outcome to ``path``.<rank>."""
@@ -3053,6 +3267,15 @@ def kernel_records(out):
             "cache", {}).get("launches", {})
         if plan_l:                    # 3 train steps on the cached plan
             extra["plan_train_launches"] = plan_l.get(name, 0)
+        hybrid_l = out.get("serve_hybrid", {}).get("launches", {})
+        if hybrid_l:                  # jamba-v0.1-52b served at one period
+            extra["serve_hybrid_launches"] = hybrid_l.get(name, 0)
+        if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
+            extra["serve_hybrid_cases"] = {
+                case: {k: case_rec(name, case).get(k) for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms", "path")}
+                for case in HYBRID_CASES[name]}
         if name == "ssd_forward":     # the serving chunk, with a state
             sc = case_rec(name, "serve state A8 C256 nh48 hd64 ds128")
             serve_l = out.get("serve_ssm", {}).get("launches", {})
@@ -3131,7 +3354,8 @@ def main(argv=None):
     order = ("build", "kernels", "rule_seeds", "serve", "logits", "pallas",
              "profile", "serve_ssm", "profile_serve_ssm", "train",
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
-             "mesh_train", "plan", "nccl_pair")
+             "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
+             "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -3182,6 +3406,10 @@ def main(argv=None):
                 phase_mesh_train(state, out)
             elif name == "plan":
                 phase_plan(state, out)
+            elif name == "serve_hybrid":
+                phase_serve_hybrid(state, out)
+            elif name == "profile_serve_hybrid":
+                phase_profile_hybrid(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

@@ -37,7 +37,15 @@ Across ranks (``parallel/collectives.py`` over torch.distributed):
             over the transposed dispatch permutes, dW summed in fp32.
   bcast   - each rank runs its own experts over the whole buffer and one
             psum over the model axis merges them.
-  comet_hier - not ported across ranks: it raises.
+  comet_hier - the comet ring on two levels (``transport_comet_hier``): the
+            EP axis cut into nodes of ``intra_group`` groups, every shift
+            split into a node shift and a local shift, the inter-node
+            sub-steps first so the slow hops overlap the most compute.
+            Dispatch chunks and combine partials travel in the wire format
+            (fp32, bf16 or fp8_e4m3 with a per-chunk fp32 scale), each
+            encoded once; gradients travel at the native width. The flat
+            ring is this ring on one node with the fp32 wire: one
+            ``autograd.Function`` (``_CometRing``) runs both.
 
 The GroupGEMM backend is explicit (``gemm_impl=``) through every entry
 point, with the same names as the JAX package:
@@ -58,7 +66,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.adaptive import (WIRE_DTYPES, legalize_n_col,
+from repro_torch.core.adaptive import (WIRE_DTYPES, hier_step_classes,
+                                       hier_step_order,
+                                       legalize_intra_group, legalize_n_col,
                                        legalize_ring_group,
                                        wire_dtype_supported)
 from repro_torch.kernels import ops
@@ -282,20 +292,46 @@ class _CometLocalArm(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# comet across ranks: the decomposed ring and its hand-scheduled backward
+# comet across ranks: the decomposed ring and its hand-scheduled backward,
+# flat (one node) or two-level (intra-node x inter-node), with a wire format
 # ---------------------------------------------------------------------------
 
 
-def _perm(ctx, group_shift: int, tp_shift: int):
-    """Permutation over the model axis: (g, t) -> ((g + group_shift) % ep,
+def _hier_perm(ctx, ig: int, node_shift: int, loc_shift: int,
+               tp_shift: int):
+    """Permutation over the model axis with the EP group index factored as
+    (node, local) with ``ig`` groups a node: (node, loc, t) ->
+    ((node + node_shift) % n_nodes, (loc + loc_shift) % ig,
     (t + tp_shift) % etp)."""
     W, etp, ep = ctx.world, ctx.etp, ctx.ep
+    nn = ep // ig
     pairs = []
     for r in range(W):
-        g, t = r // etp, r % etp
-        pairs.append((r, ((g + group_shift) % ep) * etp
-                      + (t + tp_shift) % etp))
+        grp, t = divmod(r, etp)
+        nd, lc = divmod(grp, ig)
+        dg = ((nd + node_shift) % nn) * ig + (lc + loc_shift) % ig
+        pairs.append((r, dg * etp + (t + tp_shift) % etp))
     return pairs
+
+
+def _hier_dst(g_r: int, sn: int, sl: int, ig: int, nn: int) -> int:
+    """The chunk slot group ``g_r`` dispatches at sub-step (sn, sl): the
+    destination group reached by shifting -sn nodes and -sl local slots."""
+    return ((g_r // ig - sn) % nn) * ig + (g_r % ig - sl) % ig
+
+
+def _hier_dest_order(g_r: int, ep: int, ig: int) -> List[int]:
+    """order[dest]: the sub-step (in ``hier_step_order``) that carried
+    group ``g_r``'s chunk for destination group ``dest``; the inverse of
+    ``_hier_dst``."""
+    nn = ep // ig
+    order = []
+    for dd in range(ep):
+        sn = (g_r // ig - dd // ig) % nn
+        sl = (g_r % ig - dd % ig) % ig
+        order.append((0 if sl == 0 else (nn - 1) * ig + sl) if sn == 0
+                     else (sn - 1) * ig + sl + 1)
+    return order
 
 
 def comet_ring_segments(ep: int, ring_group: int, n_col_blocks: int) -> dict:
@@ -313,49 +349,88 @@ def comet_ring_segments(ep: int, ring_group: int, n_col_blocks: int) -> dict:
     }
 
 
-def _census_note(census, op: str, x, pairs):
-    """Record one executed permute (payload bytes and pairs) in the
-    caller's ``census`` list; None records nothing."""
+def comet_hier_segments(ep: int, ring_group: int, n_col_blocks: int,
+                        intra_group: int) -> dict:
+    """Segment counts of one two-level forward ring: the flat ring's (the
+    hierarchy re-routes hops, it adds or removes none), plus the hops of
+    each link class, ig - 1 within a node and ep - ig across nodes."""
+    seg = comet_ring_segments(ep, ring_group, n_col_blocks)
+    ig = legalize_intra_group(ep, intra_group)
+    seg["intra_hops"] = ig - 1
+    seg["inter_hops"] = max(0, ep - ig)
+    return seg
+
+
+def _census_note(census, op: str, x, pairs, **extra):
+    """Record one executed permute (payload bytes, pairs and ``extra``) in
+    the caller's ``census`` list; None records nothing."""
     if census is not None:
         census.append({"op": op, "bytes": x.numel() * x.element_size(),
-                       "pairs": [list(p) for p in pairs]})
+                       "pairs": [list(p) for p in pairs], **extra})
 
 
-def _dyn_chunk(send, g: int):
-    """send: (ep, E_loc, C, d) -> chunk g (E_loc, C, d)."""
-    return send[g]
+def _wire_send(ctx, payload, scale, pairs):
+    """A wire payload and its scale (None for the scale-free formats)
+    posted on the same permute: (payload, scale) in flight."""
+    return (CL.ppermute(payload, ctx, pairs),
+            None if scale is None else CL.ppermute(scale, ctx, pairs))
+
+
+def _wire_wait(sent, out_dtype):
+    """The decoded tensor of a ``_wire_send`` (or of a local pair)."""
+    payload, scale = sent
+    return _wire_decode(CL.wait(payload),
+                        None if scale is None else CL.wait(scale), out_dtype)
 
 
 def _comet_ring_fwd(ctx, send, w, activation: str, n_col: int, blk: int,
-                    g: int, gemm_impl: Optional[str], census=None):
-    """The forward ring. Returns (blocks, rows_steps, preacts_steps):
-    ``blocks`` the n_col column blocks (ep, E_loc, C, blk), chunk slot s
-    holding the outputs for destination group (g_r - s) % ep;
-    ``rows_steps`` each macro-step's dispatched rows and ``preacts_steps``
-    its (gate | None, up), the backward's saved residuals. The fused
-    backend saves rows only (its dgrad/wgrad kernels recompute the hidden),
-    so ``preacts_steps`` is None there."""
+                    g: int, ig: int, wire_dtype: str,
+                    gemm_impl: Optional[str], census=None):
+    """The forward ring over ``ig`` groups a node (ig = ep: the flat ring,
+    one node). Returns (blocks, rows_steps, preacts_steps): ``blocks`` the
+    n_col column blocks (ep, E_loc, C, blk) in sub-step order, sub-step s
+    (``hier_step_order``) holding the outputs for destination group
+    ``_hier_dst(g_r, *shifts[s])``; ``rows_steps`` each macro-step's
+    dispatched rows (as decoded from the wire) and ``preacts_steps`` its
+    (gate | None, up), the backward's saved residuals. The fused backend
+    saves rows only (its dgrad/wgrad kernels recompute the hidden), so
+    ``preacts_steps`` is None there.
+
+    Wire format: every dispatch chunk is encoded once, before any permute,
+    so its bytes are the same whichever sub-step or link class carries it;
+    its fp32 scale rides the same permute. Each combine partial is encoded
+    once before its one return hop. Decoding multiplies in fp32."""
     ep, E_loc, C, d = send.shape
     etp = ctx.etp
+    nn = ep // ig
     n_steps = ep // g
     g_r, t_r = divmod(ctx.model_rank, etp)
     fused = _impl(gemm_impl) == "pallas_fused"
+    shifts = hier_step_order(ep, ig)
+    classes = None if census is None else hier_step_classes(ep, ig)
+    pay, scales = _wire_encode(send, wire_dtype, per_chunk=True)
 
     def dispatch(step):
         """Posts the macro-step's dispatch permutes: per source chunk j,
-        the etp receives (slot 0, tp shift 0 is the local chunk)."""
+        the etp receives (sub-step 0, tp shift 0 is the local chunk)."""
         posted = []
         for j in range(g):
             s = step * g + j
-            to_send = _dyn_chunk(send, (g_r - s) % ep).contiguous()
+            sn, sl = shifts[s]
+            hd = _hier_dst(g_r, sn, sl, ig, nn)
+            chunk = (pay[hd].contiguous(),
+                     None if scales is None else scales[hd].contiguous())
             recvs = []
             for o in range(etp):
                 if s == 0 and o == 0:
-                    recvs.append(to_send)                    # local first
+                    recvs.append(chunk)                      # local first
                 else:
-                    pairs = _perm(ctx, -s, o)
-                    _census_note(census, "disp", to_send, pairs)
-                    recvs.append(CL.ppermute(to_send, ctx, pairs))
+                    pairs = _hier_perm(ctx, ig, -sn, -sl, o)
+                    if census is not None:
+                        _census_note(census, "disp", chunk[0], pairs,
+                                     step=s, cls=classes[s], chunk=hd,
+                                     wire=chunk)
+                    recvs.append(_wire_send(ctx, *chunk, pairs))
             posted.append(recvs)
         return posted
 
@@ -371,7 +446,7 @@ def _comet_ring_fwd(ctx, send, w, activation: str, n_col: int, blk: int,
             nxt = dispatch(step + 1)
         chunk_rows = []
         for recvs in posted:
-            got = [CL.wait(p) for p in recvs]
+            got = [_wire_wait(p, send.dtype) for p in recvs]
             if etp == 1:
                 chunk_rows.append(got[0])                    # (E_loc, C, d)
             else:
@@ -404,41 +479,57 @@ def _comet_ring_fwd(ctx, send, w, activation: str, n_col: int, blk: int,
                     obj = obj.reshape(E_loc, etp, C, -1)[:, t_r]
                 obj = obj.contiguous()
                 if s == 0:
-                    col_blocks[b][s] = obj
+                    col_blocks[b][s] = (obj, None)
                 else:
-                    pairs = _perm(ctx, s, 0)
-                    _census_note(census, "comb", obj, pairs)
-                    col_blocks[b][s] = CL.ppermute(obj, ctx, pairs)
+                    sn, sl = shifts[s]
+                    pb, psc = _wire_encode(obj, wire_dtype)
+                    pairs = _hier_perm(ctx, ig, sn, sl, 0)
+                    if census is not None:
+                        _census_note(census, "comb", pb, pairs, step=s,
+                                     cls=classes[s])
+                    col_blocks[b][s] = _wire_send(ctx, pb, psc, pairs)
 
-    blocks = tuple(torch.stack([CL.wait(p) for p in cb])
+    blocks = tuple(torch.stack([_wire_wait(p, send.dtype) for p in cb])
                    for cb in col_blocks)            # n_col x (ep,E_loc,C,blk)
     return blocks, rows_steps, preacts_steps
 
 
 def _comet_ring_bwd(ctx, rows_steps, preacts_steps, w, cts,
-                    activation: str, n_col: int, blk: int, g: int,
+                    activation: str, n_col: int, blk: int, g: int, ig: int,
                     send_shape, send_dtype, gemm_impl: Optional[str]):
-    """The backward ring: the forward's schedule in reverse roles. Per
-    macro-step the dY column blocks of its chunk slots travel the reverse
-    return permutes (slot 0 is local; the next step's are posted before
-    this one computes) and, under ETP, are scattered at this rank's tp and
-    psum'd over the subgroup (the transpose of the forward's psum and
-    take); the per-chunk dgrad/wgrad consumes them block by block while the
-    dX chunks ride the transposed dispatch permutes back to their source
-    rank. The arrivals for a chunk are summed (which also merges the etp
-    partials), and dW accumulates over macro-steps in fp32."""
+    """The backward ring: the forward's schedule in reverse roles, on the
+    same permutes, at the native width (the wire format never touches a
+    gradient: the gradient is the unquantized one, straight through). Per
+    macro-step the dY column blocks of its sub-steps travel the inverse
+    return permutes (sub-step 0 is local; the next step's are posted
+    before this one computes) and, under ETP, are scattered at this
+    rank's tp and psum'd over the subgroup (the transpose of the forward's
+    psum and take); the per-chunk dgrad/wgrad consumes them block by block
+    while the dX chunks ride the inverse dispatch permutes back to their
+    source rank. The arrivals for a chunk are summed (which also merges
+    the etp partials), and dW accumulates over macro-steps in fp32.
+    ``cts`` are in sub-step order."""
     ep, E_loc, C, d = send_shape
     etp = ctx.etp
+    nn = ep // ig
     n_steps = ep // g
     Rc = etp * C
     g_r, t_r = divmod(ctx.model_rank, etp)
     dev = rows_steps[0].device
+    shifts = hier_step_order(ep, ig)
 
     def dy_posted(step):
-        return [[cts[b][s].to(send_dtype).contiguous() if s == 0 else
-                 CL.ppermute(cts[b][s].to(send_dtype), ctx, _perm(ctx, -s, 0))
-                 for s in range(step * g, (step + 1) * g)]
-                for b in range(n_col)]
+        out = []
+        for b in range(n_col):
+            row = []
+            for s in range(step * g, (step + 1) * g):
+                ct = cts[b][s].to(send_dtype).contiguous()
+                sn, sl = shifts[s]
+                row.append(ct if s == 0 else
+                           CL.ppermute(ct, ctx, _hier_perm(ctx, ig, -sn,
+                                                           -sl, 0)))
+            out.append(row)
+        return out
 
     d_send = torch.zeros(send_shape, dtype=send_dtype, device=dev)
     dw_acc: Dict[str, torch.Tensor] = {
@@ -473,9 +564,10 @@ def _comet_ring_bwd(ctx, rows_steps, preacts_steps, w, cts,
         for k in dw_acc:
             dw_acc[k] += dw[k].float()
 
-        # dX: transposed dispatch permutes back to the source
+        # dX: inverse dispatch permutes back to the source
         for j in range(g):
             s = step * g + j
+            sn, sl = shifts[s]
             dcr = d_rows[:, j * Rc:(j + 1) * Rc]
             if etp > 1:
                 by_u = dcr.reshape(E_loc, etp, C, d)
@@ -484,10 +576,11 @@ def _comet_ring_bwd(ctx, rows_steps, preacts_steps, w, cts,
                 piece = (by_u[:, (t_r - o) % etp] if etp > 1
                          else dcr).contiguous()
                 arrivals.append(piece if s == 0 and o == 0 else
-                                CL.ppermute(piece, ctx, _perm(ctx, s, -o)))
-            dx_flight.append(((g_r - s) % ep, arrivals))
+                                CL.ppermute(piece, ctx, _hier_perm(
+                                    ctx, ig, sn, sl, -o)))
+            dx_flight.append((_hier_dst(g_r, sn, sl, ig, nn), arrivals))
     # the summed arrivals are the gradient of the chunk this rank
-    # dispatched at slot s
+    # dispatched at that sub-step
     for slot, arrivals in dx_flight:
         tot = None
         for p in arrivals:
@@ -499,37 +592,40 @@ def _comet_ring_bwd(ctx, rows_steps, preacts_steps, w, cts,
 
 class _CometRing(torch.autograd.Function):
     """The ranked comet ring (the JAX package's ``custom_vjp`` around
-    ``_comet_ring_fwd``/``_comet_ring_bwd``): the forward returns the
-    ``n_col`` streamed column blocks and keeps the per-step rows (and, for
-    the unfused backends, the pre-activations); the backward is the
+    ``_comet_ring_fwd``/``_comet_ring_bwd`` and around
+    ``_comet_hier_fwd``/``_comet_hier_bwd``, which differ only in their
+    permutes and wire): the forward returns the ``n_col`` streamed column
+    blocks in sub-step order and keeps the per-step rows (and, for the
+    unfused backends, the pre-activations); the backward is the
     hand-scheduled ring."""
 
     @staticmethod
-    def forward(fctx, send, axis_ctx, keys, activation, n_col, g, gemm_impl,
-                census, *ws):
+    def forward(fctx, send, axis_ctx, keys, activation, n_col, g, ig,
+                wire_dtype, gemm_impl, census, *ws):
         w = dict(zip(keys, ws))
         blk = send.shape[-1] // n_col
         blocks, rows_steps, preacts_steps = _comet_ring_fwd(
-            axis_ctx, send, w, activation, n_col, blk, g, gemm_impl, census)
+            axis_ctx, send, w, activation, n_col, blk, g, ig, wire_dtype,
+            gemm_impl, census)
         fctx.save_for_backward(*ws)
         fctx.steps = (rows_steps, preacts_steps)
-        fctx.args = (axis_ctx, keys, activation, n_col, blk, g, gemm_impl,
-                     tuple(send.shape), send.dtype)
+        fctx.args = (axis_ctx, keys, activation, n_col, blk, g, ig,
+                     gemm_impl, tuple(send.shape), send.dtype)
         return blocks
 
     @staticmethod
     def backward(fctx, *cts):
-        (axis_ctx, keys, activation, n_col, blk, g, gemm_impl, send_shape,
-         send_dtype) = fctx.args
+        (axis_ctx, keys, activation, n_col, blk, g, ig, gemm_impl,
+         send_shape, send_dtype) = fctx.args
         w = dict(zip(keys, fctx.saved_tensors))
         rows_steps, preacts_steps = fctx.steps
-        # cts[b]: (ep, E_loc, C, blk), indexed by chunk slot
+        # cts[b]: (ep, E_loc, C, blk), in sub-step order
         d_send, dw = _comet_ring_bwd(axis_ctx, rows_steps, preacts_steps, w,
-                                     cts, activation, n_col, blk, g,
+                                     cts, activation, n_col, blk, g, ig,
                                      send_shape, send_dtype, gemm_impl)
         fctx.steps = None
-        return (d_send, None, None, None, None, None, None, None,
-                *(dw[k] for k in keys))
+        return (d_send, None, None, None, None, None, None, None, None,
+                None, *(dw[k] for k in keys))
 
 
 def transport_comet_blocks(send, w, activation: str, n_col_blocks: int = 1,
@@ -546,8 +642,9 @@ def transport_comet_blocks(send, w, activation: str, n_col_blocks: int = 1,
     steps); larger g reads the expert weights fewer times and overlaps
     less. At one rank the forward is exactly the naive path and rot is
     None; the backward is ``_CometLocalArm``'s. Across ranks the ring and
-    its backward ring are ``_CometRing``; ``census``, a list, records
-    every forward permute."""
+    its backward ring are ``_CometRing`` on one node of ep groups (whose
+    sub-step s is the flat shift s); ``census``, a list, records every
+    forward permute."""
     ep, E_loc, C, d = send.shape
     n_col = legalize_n_col(d, n_col_blocks)
     keys = tuple(sorted(w))
@@ -556,8 +653,9 @@ def transport_comet_blocks(send, w, activation: str, n_col_blocks: int = 1,
                                    *(w[k] for k in keys))
         return ([out] if n_col == 1 else list(out)), None
     g = legalize_ring_group(ep, ring_group)
-    blocks = _CometRing.apply(send, ctx, keys, activation, n_col, g,
-                              gemm_impl, census, *(w[k] for k in keys))
+    blocks = _CometRing.apply(send, ctx, keys, activation, n_col, g, ep,
+                              "fp32", gemm_impl, census,
+                              *(w[k] for k in keys))
     return list(blocks), ctx.model_rank // ctx.etp
 
 
@@ -602,29 +700,45 @@ def _wire_decode(payload, scale, out_dtype):
 def transport_comet_hier(send, w, activation: str, n_col_blocks: int = 1,
                          ring_group: int = 1, intra_group: int = 1,
                          wire_dtype: str = "fp32",
-                         gemm_impl: Optional[str] = None, ctx=None):
-    """The two-level ring's local arm: (blocks, rot) as
-    ``transport_comet_blocks`` returns them. At one rank no hop crosses a
-    wire, but the wire format still quantizes the dispatch buffer, one
-    scale per chunk, straight through (the gradient is the unquantized
-    one), as the JAX package's single-rank path does. ``intra_group``
-    only matters across ranks, where the two-level ring is not ported: a
-    ranked context raises instead of running the flat ring."""
-    if _ranked(ctx):
-        raise NotImplementedError(
-            "transport_comet_hier: the two-level ring across ranks "
-            "(_comet_hier_fwd/_bwd, _hier_perm) is not ported yet; "
-            "impl='comet' runs the flat ring")
+                         gemm_impl: Optional[str] = None, ctx=None,
+                         census=None):
+    """The fifth transport: comet's decomposed schedule on the two-level
+    ring, ``intra_group`` EP groups a node (legalized to divide ep), the
+    inter-node sub-steps first (``hier_step_order``), payloads on the wire
+    format ``wire_dtype``. Returns (blocks, rot) as
+    ``transport_comet_blocks`` does, with rot None: the streamed column
+    blocks are reordered into destination order (slot s holds the outputs
+    of this rank's tokens for group s), outside the ring's
+    ``autograd.Function``, so autograd transposes the reorder and the
+    backward ring sees its cotangents in sub-step order.
+
+    At one rank no hop crosses a wire, but the wire format still quantizes
+    the dispatch buffer, one scale per chunk, straight through (the
+    gradient is the unquantized one), as the JAX package's single-rank
+    path does."""
     if not wire_dtype_supported(wire_dtype):
         raise ValueError(f"wire_dtype {wire_dtype!r} not supported here "
                          f"(known: {WIRE_DTYPES})")
-    if wire_dtype != "fp32":
-        pay, sc = _wire_encode(send, wire_dtype, per_chunk=True)
-        deq = _wire_decode(pay, sc, send.dtype)
-        send = send + (deq - send).detach()
-    return transport_comet_blocks(send, w, activation,
-                                  n_col_blocks=n_col_blocks,
-                                  ring_group=ring_group, gemm_impl=gemm_impl)
+    if not _ranked(ctx):
+        if wire_dtype != "fp32":
+            pay, sc = _wire_encode(send, wire_dtype, per_chunk=True)
+            deq = _wire_decode(pay, sc, send.dtype)
+            send = send + (deq - send).detach()
+        return transport_comet_blocks(send, w, activation,
+                                      n_col_blocks=n_col_blocks,
+                                      ring_group=ring_group,
+                                      gemm_impl=gemm_impl)
+    ep, E_loc, C, d = send.shape
+    n_col = legalize_n_col(d, n_col_blocks)
+    g = legalize_ring_group(ep, ring_group)
+    ig = legalize_intra_group(ep, intra_group)
+    keys = tuple(sorted(w))
+    blocks = _CometRing.apply(send, ctx, keys, activation, n_col, g, ig,
+                              wire_dtype, gemm_impl, census,
+                              *(w[k] for k in keys))
+    order = torch.tensor(_hier_dest_order(ctx.model_rank // ctx.etp, ep, ig),
+                         device=send.device)
+    return [b.index_select(0, order) for b in blocks], None
 
 
 def transport_bcast(buf_full, w, activation: str,

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import multiprocessing
 import os
@@ -149,14 +150,17 @@ def local_run(prob, mcfg, x: torch.Tensor, grads: bool, device):
 def run_cell(prob, ctx: AxisCtx, impl: str, ring_group: int = 1,
              n_col: int = 0, fused_combine: bool = False,
              seq_shard: bool = False, decode: bool = False,
-             grads: bool = False, device="cpu") -> Dict:
+             grads: bool = False, device="cpu", intra_group: int = 1,
+             wire_dtype: str = "fp32", gemm_impl: str = "") -> Dict:
     """One ranked cell, collective over every rank: the global x cut to
     this rank's share, the ranked ``moe_ffn``, and (with ``grads``) the
     backward of ``rank_loss``. Returns the gathered global y, aux and the
     reduced gradients (router (d, E), experts packed (W, E_loc, ...))."""
     mcfg = dataclasses.replace(prob["mcfg"], impl=impl,
                                ring_group=ring_group, n_col_blocks=n_col,
-                               fused_combine=fused_combine)
+                               fused_combine=fused_combine,
+                               intra_group=intra_group,
+                               wire_dtype=wire_dtype, gemm_impl=gemm_impl)
     x = torch.from_numpy(prob["x"]).to(device)
     if decode:
         x = x[:, :1]
@@ -386,8 +390,8 @@ def dump_cells(layout, jobs: List[Dict], out_dir: str) -> int:
     rank) and writes each job's gathered results to ``out_dir/<name>.npz``
     (rank 0). A job: name, problem (``problem``'s keyword arguments), ep,
     etp, and ``run_cell``'s keywords; kind "census" records the permutes of
-    one ``transport_comet_blocks`` forward, kind "hier" the error that
-    impl="comet_hier" raises."""
+    one ``transport_comet_blocks`` forward, kind "hier" those of
+    ``transport_comet_hier`` forwards (``_census_job``)."""
     mesh = make_mesh(tuple(layout), ("data", "model"))
     probs: Dict[str, Dict] = {}
     for job in jobs:
@@ -400,14 +404,8 @@ def dump_cells(layout, jobs: List[Dict], out_dir: str) -> int:
         prob = probs[key]
         ctx = AxisCtx(mesh=mesh, dp_axes=("data",), model_axis="model",
                       ep=job.pop("ep"), etp=job.pop("etp"))
-        if kind == "census":
+        if kind in ("census", "hier"):
             res = _census_job(prob, ctx, **job)
-        elif kind == "hier":
-            try:
-                run_cell(prob, ctx, "comet_hier", **job)
-                res = {"raised": ""}
-            except NotImplementedError as e:
-                res = {"raised": str(e)}
         else:
             r = run_cell(prob, ctx, **job)
             res = {"y": r["y"].numpy(), "aux": r["aux"]}
@@ -423,9 +421,37 @@ def dump_cells(layout, jobs: List[Dict], out_dir: str) -> int:
     return 0
 
 
-def _census_job(prob, ctx: AxisCtx, ring_group: int = 1, n_col: int = 1):
+def wire_digest(payload, scale=None) -> str:
+    """A digest of a wire payload's bits and its scale's (if any)."""
+    h = hashlib.sha1()
+    for t in (payload, scale):
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _census_bits(census):
+    """``census`` with each dispatch's wire tensors (payload, scale)
+    replaced by the scale's bytes and the digest of their bits."""
+    for c in census:
+        wire = c.pop("wire", None)
+        if wire is not None:
+            pay, sc = wire
+            c["scale_bytes"] = 0 if sc is None else \
+                sc.numel() * sc.element_size()
+            c["digest"] = wire_digest(pay, sc)
+    return census
+
+
+def _census_job(prob, ctx: AxisCtx, ring_group: int = 1, n_col: int = 1,
+                intra_groups=(), wires=("fp32",)):
     """One ranked comet forward on a seeded dispatch buffer, its permutes
-    recorded by ``census``; the segment counts and chunk bytes beside."""
+    recorded by ``census``; the segment counts and chunk bytes beside.
+    With ``intra_groups``, one ``transport_comet_hier`` forward at each
+    node size and wire format instead, under "ig<ig>-<wire>", each beside
+    the digests of the dispatch chunks as encoded once from the whole
+    buffer."""
     cfg, mcfg = prob["cfg"], prob["mcfg"]
     E, d = mcfg.num_experts, cfg.d_model
     C = 8
@@ -433,16 +459,42 @@ def _census_job(prob, ctx: AxisCtx, ring_group: int = 1, n_col: int = 1):
     send = torch.randn((ctx.ep, E // ctx.ep, C, d), generator=gen)
     _, packed = _params(prob, ctx.ep, ctx.etp, "cpu")
     w = {k: v[0] for k, v in SH.shard_experts(ctx, packed).items()}
-    census: List[Dict] = []
-    with torch.no_grad():
-        T.transport_comet_blocks(send, w, cfg.activation, n_col_blocks=n_col,
-                                 ring_group=ring_group, ctx=ctx,
-                                 census=census)
     n_col = T.legalize_n_col(d, n_col)
-    return {"census": census,
-            "segments": T.comet_ring_segments(ctx.ep, ring_group, n_col),
-            "chunk_bytes": send[0].numel() * send.element_size(),
-            "block_bytes": send[0].numel() * send.element_size() // n_col}
+    chunk_elems = send[0].numel()
+
+    def sizes(census):
+        return {"census": _census_bits(census),
+                "chunk_bytes": chunk_elems * send.element_size(),
+                "block_bytes": chunk_elems * send.element_size() // n_col}
+
+    if not intra_groups:
+        census: List[Dict] = []
+        with torch.no_grad():
+            T.transport_comet_blocks(send, w, cfg.activation,
+                                     n_col_blocks=n_col,
+                                     ring_group=ring_group, ctx=ctx,
+                                     census=census)
+        return {**sizes(census), "segments": T.comet_ring_segments(
+            ctx.ep, ring_group, n_col)}
+    runs = {}
+    for ig in intra_groups:
+        for wire in wires:
+            census = []
+            with torch.no_grad():
+                T.transport_comet_hier(send, w, cfg.activation,
+                                       n_col_blocks=n_col,
+                                       ring_group=ring_group,
+                                       intra_group=ig, wire_dtype=wire,
+                                       ctx=ctx, census=census)
+            pay, sc = T._wire_encode(send, wire, per_chunk=True)
+            digests = [wire_digest(pay[c], None if sc is None else sc[c])
+                       for c in range(ctx.ep)]
+            runs[f"ig{ig}-{wire}"] = {
+                **sizes(census), "chunk_digests": digests,
+                "segments": T.comet_hier_segments(ctx.ep, ring_group,
+                                                  n_col, ig),
+                "classes": T.hier_step_classes(ctx.ep, ig)}
+    return {"runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -501,14 +553,26 @@ def _grad_job(job, data, mesh, device):
                                    1, ctx.dp_axes)
     batch = SP.local_batch(batch, pspecs, mesh)
     leaves = [t.requires_grad_(True) for _, t in tree_leaves(params)]
-    loss, met = lm.loss_fn(cfg, params, batch, ctx, fsdp)
+    carried = []                   # the residual entering each period
+    real = lm._period_body
+
+    def spy(cfg_, h, *a, **kw):
+        carried.append(list(h.shape))
+        return real(cfg_, h, *a, **kw)
+
+    lm._period_body = spy
+    try:
+        loss, met = lm.loss_fn(cfg, params, batch, ctx, fsdp)
+    finally:
+        lm._period_body = real
     grads = list(torch.autograd.grad(loss, leaves))
     specs = [sp for _, sp in tree_leaves(
         SH.state_specs(cfg, ctx, fsdp)["params"])]
     _reduce_over_dp(ctx, grads, specs)
     g = SH.from_mesh(_unflatten(params, grads), cfg, ctx, fsdp)
     return {"loss": loss.item(), "aux": met["aux"].item(),
-            "xent": met["xent"].item(),
+            "xent": met["xent"].item(), "carried": np.array(carried),
+            "sp_split": lm.sp_split(cfg, ctx, S),
             **{"grad/" + k: v for k, v in _flat(g).items()}}
 
 
@@ -518,9 +582,7 @@ def _plan_job(job, data, mesh, device):
     the cell's MoE shape, its M the JAX package's ``local_token_count`` of
     the global batch; then every rank runs the grad job with the cache
     set. Records the knobs each ``moe_ffn`` body ran under and its tokens
-    ("ran/*"), and the key's M; a layer that raises (a ranked comet_hier
-    plan) records its error ("raised") instead of the grad job's
-    results."""
+    ("ran/*"), and the key's M, beside the grad job's results."""
     from repro_torch.core import adaptive as A
     cfg = cell_config(job["arch"], job.get("over"))
     ctx = SH.make_ctx(cfg, mesh, seq_shard=job.get("seq_shard", True))
@@ -539,19 +601,18 @@ def _plan_job(job, data, mesh, device):
 
     def spy(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw):
         ran.append([mcfg.impl, mcfg.ring_group, n_col, gemm_impl,
-                    int(mcfg.fused_combine), x.shape[0] * x.shape[1]])
+                    int(mcfg.fused_combine), mcfg.intra_group,
+                    x.shape[0] * x.shape[1]])
         return real(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw)
 
     M._moe_body = spy
     try:
         res = _grad_job({**job, "over": over}, data, mesh, device)
-    except NotImplementedError as e:
-        res = {"raised": str(e)}
     finally:
         M._moe_body = real
     res["key_tokens"] = toks
     for i, name in enumerate(("impl", "ring_group", "n_col", "gemm_impl",
-                              "fused_combine", "tokens")):
+                              "fused_combine", "intra_group", "tokens")):
         res[f"ran/{name}"] = np.array([r[i] for r in ran])
     return res
 

@@ -14,8 +14,8 @@ that mesh (sizes multiplying to its world size) and trains the mesh step.
 Checkpoints are restart-safe (``training/trainer.py``). ``--plan-cache``
 resolves every MoE layer's schedule from a tuned plan cache
 (``launch/tune.py`` writes one), keyed by ``--plan-hw`` (default
-h100_nvlink). ``--sp-residual`` needs the sequence-parallel residual,
-which is not ported yet, and raises.
+h100_nvlink). ``--sp-residual`` carries the residual between blocks as
+each model rank's slice of the sequence (``models/lm.sp_split``).
 """
 from __future__ import annotations
 
@@ -66,9 +66,6 @@ def main(argv=None, device=None):
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group torchrun describes")
     args = ap.parse_args(argv)
-    if args.sp_residual:
-        raise NotImplementedError("--sp-residual: the sequence-parallel "
-                                  "residual is not ported yet")
 
     import torch.distributed as dist
 
@@ -90,6 +87,8 @@ def main(argv=None, device=None):
                     else ("pod", "data", "model"))
             mesh = make_mesh(sizes, axes)
         cfg = get_config(args.arch)
+        if args.sp_residual:
+            cfg = dataclasses.replace(cfg, sp_residual=True)
         if args.impl and cfg.moe is not None:
             cfg = dataclasses.replace(
                 cfg, moe=dataclasses.replace(cfg.moe, impl=args.impl))

@@ -202,9 +202,15 @@ def _ranked_main(args_dict) -> int:
     cache = PlanCache(args.out)
     if dist.get_rank() != 0:
         cache.path = None             # every rank reads, rank 0 writes
-    rows, _ = tune_measured(args, HW[args.hw], cache,
-                            torch.device("cpu"), ctx)
+    rows, timed = tune_measured(args, HW[args.hw], cache,
+                                torch.device("cpu"), ctx)
     if dist.get_rank() == 0:
+        for p, t, err in timed:
+            print(f"# timed {p.impl} rg{p.ring_group} nc{p.n_col_blocks} "
+                  f"{p.gemm_impl} fc{int(p.fused_combine)} ig{p.intra_group}"
+                  f" {p.wire_dtype}: "
+                  + (f"{t * 1e3:.3f} ms" if err == "" else f"failed: {err}"),
+                  flush=True)
         for row in rows:
             print(plan_row(*row), flush=True)
         cache.save()

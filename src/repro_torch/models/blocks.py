@@ -92,7 +92,28 @@ def _qkv_proj(a, p_attn, h):
     return tuple(_proj(a, p_attn, h, n) for n in "qkv")
 
 
-def _moe_ranked(cfg, pm, h, ctx):
+def sp_norm(cfg, pn, x, ctx, sp: bool):
+    """``apply_norm``. Under the sequence-parallel residual (``sp``) x is
+    this rank's slice of the sequence, so the norm's parameters enter
+    through ``copy_to``: each rank's share of their gradient is summed
+    over the model group into the whole gradient."""
+    if sp:
+        pn = {k: CL.copy_to(v, ctx.model_group) for k, v in pn.items()}
+    return apply_norm(cfg, pn, x)
+
+
+def _seq_whole(fn, h, ctx, sp: bool):
+    """``fn`` over the whole sequence. Under the sequence-parallel residual
+    (``sp``) h is this rank's slice of the sequence: it is gathered for
+    ``fn`` (``gather_from``) and ``fn``'s result, the same on every model
+    rank, cut back to the slice (``scatter_to``)."""
+    if not sp:
+        return fn(h)
+    G = ctx.model_group
+    return CL.scatter_to(fn(CL.gather_from(h, G, 1)), G, 1)
+
+
+def _moe_ranked(cfg, pm, h, ctx, sliced: bool = False):
     """The ranked MoE block inside a model whose ranks all compute the
     same loss. h: this rank's rows (B, S, d), the same on every model
     rank. Under sequence sharding each model rank takes its slice of the
@@ -102,43 +123,57 @@ def _moe_ranked(cfg, pm, h, ctx):
     the ranks' losses sum to the loss: ``grad_share`` hands it shares of
     the cotangents of what several ranks hold alike (y over the model
     ranks, aux over every rank), and ``copy_to`` sums the shares of the
-    router's and the tokens' gradients back over the model group."""
-    B, S, _ = h.shape
+    router's and the tokens' gradients back over the model group.
+
+    ``sliced``: h is already this rank's slice of the sequence (the
+    sequence-parallel residual), and so is the y returned; under sequence
+    sharding the slice is routed as it is, with no gather."""
     G = ctx.model_group
     m = ctx.model_size
+    S = h.shape[1] * (m if sliced else 1)
     seq = ctx.seq_shard and S > 1 and S % m == 0
+    if sliced and not seq:
+        y, aux = _moe_ranked(cfg, pm, CL.gather_from(h, G, 1), ctx)
+        return CL.scatter_to(y, G, 1), aux
     # the context moe_ffn's body runs under: what sharding.shard_tokens
     # returns for the global batch (B * dp rows, which dp divides)
     body_ctx = dataclasses.replace(
         ctx, seq_shard=seq, dp_axes=ctx.dp_axes if ctx.dp_size > 1 else ())
     params = {k: (CL.copy_to(v, G) if k in ("router", "w_desc", "w_asc")
                   else v) for k, v in pm.items() if k != "shared"}
-    x = CL.scatter_to(h, G, 1) if seq else CL.copy_to(h, G)
+    if sliced:
+        x = h
+    else:
+        x = CL.scatter_to(h, G, 1) if seq else CL.copy_to(h, G)
     y, aux = moe_ffn(cfg, cfg.moe, params, x, body_ctx,
                      n_col=cfg.moe.n_col_blocks)
-    y = CL.gather_from(y, G, 1) if seq else CL.grad_share(y, m)
+    if not sliced:
+        y = CL.gather_from(y, G, 1) if seq else CL.grad_share(y, m)
     return y, CL.grad_share(aux, dist.get_world_size())
 
 
-def _mlp_tail(cfg, p, x, ctx=None):
-    """ln2 -> (MoE | FFN) -> residual. Returns (x, aux loss fp32)."""
+def _mlp_tail(cfg, p, x, ctx=None, sp: bool = False):
+    """ln2 -> (MoE | FFN) -> residual. Returns (x, aux loss fp32). ``sp``:
+    x is this rank's slice of the sequence (``apply_layer``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ln2" not in p:
         return x, aux
-    h = apply_norm(cfg, p["ln2"], x)
+    h = sp_norm(cfg, p["ln2"], x, ctx, sp)
     if "moe" in p:
         if _ranked(ctx):
-            h, aux = _moe_ranked(cfg, p["moe"], h, ctx)
+            h, aux = _moe_ranked(cfg, p["moe"], h, ctx, sp)
         else:
             h, aux = moe_ffn(cfg, cfg.moe, p["moe"], h,
                              n_col=cfg.moe.n_col_blocks)
         if "shared" in p["moe"]:
             # reads the mid residual, as the JAX package's f_shared
-            h = h + ffn_apply(cfg, p["moe"]["shared"],
-                              apply_norm(cfg, p["ln2"], x), ctx,
-                              cfg.moe.d_expert * cfg.moe.num_shared_experts)
+            h = h + _seq_whole(lambda t: ffn_apply(
+                cfg, p["moe"]["shared"], t, ctx,
+                cfg.moe.d_expert * cfg.moe.num_shared_experts),
+                sp_norm(cfg, p["ln2"], x, ctx, sp), ctx, sp)
     else:
-        h = ffn_apply(cfg, p["ffn"], h, ctx, cfg.d_ff)
+        h = _seq_whole(lambda t: ffn_apply(cfg, p["ffn"], t, ctx, cfg.d_ff),
+                       h, ctx, sp)
     return x + h.to(x.dtype), aux
 
 
@@ -307,24 +342,32 @@ def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
 
 
 def apply_layer(cfg, pos: int, p, x, positions, mask=None,
-                arange_positions: bool = False, ctx=None):
+                arange_positions: bool = False, ctx=None, sp: bool = False):
     """The training forward of one layer (blocks.py:361 of the JAX package,
     written sequentially): ln1 -> (attention | SSM) -> residual -> ln2 ->
     (MoE | FFN) -> residual. mask: optional (B, S) validity; pad keys are
     excluded from attention and pad steps are identities of the SSM scan.
     ``arange_positions``: see attn_apply. ``ctx``: a ranked context (the
-    module docstring), or None at one rank. Returns (x, aux loss fp32)."""
-    h = apply_norm(cfg, p["ln1"], x)
-    if cfg.layer_kind(pos) == "a":
-        a = cfg.attn
-        h = attn_apply(cfg, p["attn"], h, positions, a.causal,
-                       a.rope_theta > 0, kv_mask=mask,
-                       arange_positions=arange_positions, ctx=ctx)
-    else:
-        h, _ = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask,
-                               ctx=ctx)
+    module docstring), or None at one rank. Returns (x, aux loss fp32).
+
+    ``sp``: the sequence-parallel residual (``lm.sp_split``). x, and the x
+    returned, are this rank's slice of the sequence; the norms and
+    residual adds run on the slice, attention, the SSM and the dense FFN
+    on the gathered sequence (``_seq_whole``), and a sequence-sharded MoE
+    routes the slice as it is. positions and mask stay whole."""
+
+    def mixer(h):
+        if cfg.layer_kind(pos) == "a":
+            a = cfg.attn
+            return attn_apply(cfg, p["attn"], h, positions, a.causal,
+                              a.rope_theta > 0, kv_mask=mask,
+                              arange_positions=arange_positions, ctx=ctx)
+        return SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask,
+                               ctx=ctx)[0]
+
+    h = _seq_whole(mixer, sp_norm(cfg, p["ln1"], x, ctx, sp), ctx, sp)
     x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x, ctx)
+    return _mlp_tail(cfg, p, x, ctx, sp)
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos):

@@ -170,16 +170,29 @@ def _forward_inputs(cfg, params, batch, ctx=None):
     return h, positions, mask, arange
 
 
-def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None):
+def sp_split(cfg, ctx, S: int) -> bool:
+    """Whether the residual between blocks is carried as each model rank's
+    slice of the sequence (``cfg.sp_residual``): on a model axis of more
+    than one rank that divides the sequence, as the JAX package constrains
+    it (``repro/models/blocks.py:343-346``); otherwise it stays whole on
+    every model rank."""
+    return bool(cfg.sp_residual and ctx is not None and ctx.active
+                and ctx.model_size > 1 and S > 1
+                and S % ctx.model_size == 0)
+
+
+def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None,
+                 sp: bool = False):
     """The layers of one period: returns (h, the period's aux loss). On a
     mesh the period's leaves cut over the data axes are gathered first
-    (inside the remat region: the recompute gathers them again)."""
+    (inside the remat region: the recompute gathers them again). ``sp``:
+    h is this rank's slice of the sequence (``sp_split``)."""
     if specs is not None:
         lp = SH.fsdp_gather_tree(lp, specs, ctx, drop=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos in range(period_of(cfg)):
         h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
-                             arange_positions=arange, ctx=ctx)
+                             arange_positions=arange, ctx=ctx, sp=sp)
         aux = aux + a
     return h, aux
 
@@ -206,19 +219,22 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
     cut over the data axes are gathered per period (their gradients
     reduce-scattered); everything else follows ``models/blocks.py``. The
     recompute under remat issues the same collectives in the same order
-    on every rank."""
+    on every rank. Under the sequence-parallel residual (``sp_split``)
+    the embeddings are cut to this rank's slice of the sequence, every
+    period carries (and under remat saves) the slice, and the final norm's
+    output is gathered whole."""
     if cfg.block_schedule:
         raise NotImplementedError("block_schedule: the whole-graph schedule "
                                   "is not ported yet")
     specs = None
     if ctx is not None and ctx.active:
-        if cfg.sp_residual:
-            raise NotImplementedError("sp_residual: the sequence-parallel "
-                                      "residual is not ported yet")
         specs = SH.param_specs(model_schema(cfg, ctx), ctx.mesh, fsdp)
     params = {**_top_level(cfg, params, ctx, specs),
               "layers": params["layers"]}
     h, positions, mask, arange = _forward_inputs(cfg, params, batch, ctx)
+    sp = sp_split(cfg, ctx, h.shape[1])
+    if sp:
+        h = CL.scatter_to(h, ctx.model_group, 1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     p = period_of(cfg)
     for n in range(cfg.n_layers // p):
@@ -226,12 +242,15 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
         lspecs = None if specs is None else specs["layers"]
         if cfg.remat == "full" and torch.is_grad_enabled():
             h, a = checkpoint(_period_body, cfg, h, lp, positions, mask,
-                              arange, ctx, lspecs, use_reentrant=False)
+                              arange, ctx, lspecs, sp, use_reentrant=False)
         else:
             h, a = _period_body(cfg, h, lp, positions, mask, arange, ctx,
-                                lspecs)
+                                lspecs, sp)
         aux = aux + a
-    return apply_norm(cfg, params["ln_f"], h), aux, params
+    h = B.sp_norm(cfg, params["ln_f"], h, ctx, sp)
+    if sp:
+        h = CL.gather_from(h, ctx.model_group, 1)
+    return h, aux, params
 
 
 def forward(cfg, params, batch, ctx=None, fsdp: bool = True):

@@ -326,11 +326,14 @@ def ppermute(x: torch.Tensor, ctx, pairs: Sequence[Tuple[int, int]]
     dst = next(d for s, d in pairs if s == me)
     src = next(s for s, d in pairs if d == me)
     x = x.contiguous()
-    buf = torch.empty_like(x)
+    # fp8 travels as its bytes: one byte an element on every backend
+    wire = (x.view(torch.uint8)
+            if x.is_floating_point() and x.element_size() == 1 else x)
+    buf = torch.empty_like(wire)
     works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x, group.ranks[dst], group.pg),
+        dist.P2POp(dist.isend, wire, group.ranks[dst], group.pg),
         dist.P2POp(dist.irecv, buf, group.ranks[src], group.pg)])
-    return Pending(buf, works, x)
+    return Pending(buf.view(x.dtype), works, wire)
 
 
 def wait(p) -> torch.Tensor:

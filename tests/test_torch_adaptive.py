@@ -350,6 +350,32 @@ def test_measured_tuner_on_gloo_ranks(tmp_path, capfd):
     _resolve_every_key(path, jcache.plans)
 
 
+def test_measured_tuner_times_every_comet_hier_candidate(tmp_path, capfd):
+    """``--measured --hw h100_crossnode`` on 8 gloo ranks at ep 8 (nodes
+    of 4 groups; at ep 4 the node is the whole axis and the candidate
+    stream holds no two-level plan): every comet_hier candidate the
+    stream proposes, over the three wire formats, runs the two-level ring
+    and is timed; no candidate fails."""
+    path = tmp_path / "crossnode.json"
+    tune.main(["--measured", "--device", "cpu", "--ranks", "8", "--ep", "8",
+               "--hw", "h100_crossnode", "--iters", "1", "--out",
+               str(path)])
+    timed = [ln for ln in capfd.readouterr().out.splitlines()
+             if ln.startswith("# timed ")]
+    s = A.MoEShape(M=16, N=128, K=64, E=8, topk=8, ep=8, etp=1)
+    cands = list(A.candidate_plans(s, gemm_impls=("xla", "pallas_fused"),
+                                   hw=A.H100_CROSSNODE))
+    hier = [ln for ln in timed if " comet_hier " in ln]
+    assert len(timed) == len(cands)
+    assert len(hier) == sum(p.impl == "comet_hier" for p in cands) > 0
+    assert {ln.split(":")[0].split()[-1] for ln in hier} == {
+        "fp32", "bf16", "fp8_e4m3"}
+    assert all(" ig4 " in ln for ln in hier)
+    assert not [ln for ln in timed if "failed" in ln]
+    (key, plan), = A.PlanCache(str(path)).plans.items()
+    assert key.startswith("h100_crossnode:M16:N128:K64:E8:k8:ep8:etp1")
+
+
 def test_v3_cache_without_phase_still_loads(tmp_path):
     """As ``test_adaptive_plan.test_v3_cache_without_phase_still_loads``:
     train lookups resolve the v3 entry, serving phases fall back to the

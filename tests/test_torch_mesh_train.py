@@ -20,7 +20,11 @@ qwen2-0.5b the dense FFN and qkv bias; n_heads 6 / n_kv_heads 2 at mp 4
 reaches ``seq``, and with ``pad_heads`` the padded heads. The naive and
 comet transports (ring_group 1 and 2, two column blocks), sequence
 sharding on and off, remat, layouts (1, 4), (2, 2) and (4, 1) (pure data
-parallel: attention takes ``none``). MoE capacity is the expert count (no
+parallel: attention takes ``none``). The sequence-parallel residual
+(``sp_residual``) on (1, 4) and (2, 2): qwen2-moe with the comet ring,
+qwen2-0.5b, mamba2 and jamba at one period (once under remat), each
+period carrying this rank's slice of the sequence, and a sequence of 30
+at mp 4, which keeps the residual whole. MoE capacity is the expert count (no
 drop): capacity follows the local token count, so a mesh would drop
 other tokens than one rank does (the JAX self-test makes the same
 choice).
@@ -31,7 +35,8 @@ at 1e-4 (max abs over max |ref|), every leaf's local shape as its spec
 cuts it; a step whose gradient is non-finite on one rank only, which
 every rank skips; ``Trainer.run`` on (2, 2) with a checkpoint and a
 fault-hook replay; ``launch.train.main`` with ``--mesh 2,2
---distributed``; and ``selftest --case all``.
+--distributed`` and with ``--mesh 1,4 --distributed`` with and without
+``--sp-residual``; and ``selftest --case all``.
 
 The ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
 while this process computes the JAX references; weights and batches
@@ -111,11 +116,16 @@ REFS = {
     "mixtral": ("mixtral-8x7b-smoke", _no_drop("mixtral-8x7b-smoke")),
     "phi35": ("phi3.5-moe-smoke", _no_drop("phi3.5-moe-smoke")),
     "mamba2": ("mamba2-780m-smoke", {}),
+    "q05b_s30": ("qwen2-0.5b-smoke", {}),
 }
+# the sequence length of a reference's batch, where it is not S: 30 is not
+# a multiple of a model axis of 4
+SEQ = {"q05b_s30": 30}
 NAIVE = {"impl": "naive"}
 COARSE = {"impl": "coarse"}
 COMET1 = {"impl": "comet", "ring_group": 1, "n_col_blocks": 2}
 COMET2 = {"impl": "comet", "ring_group": 2, "n_col_blocks": 2}
+SPRES = {"sp_residual": True}
 
 
 def _ep(knobs, ep):
@@ -182,10 +192,32 @@ CELLS = {
     "dp2mp2-qmoe-ep2-naive-sp0": ("dp2mp2", "qmoe", _ep(NAIVE, 2), False,
                                   {}, True),
     "dp2mp2-mamba2": ("dp2mp2", "mamba2", None, True, {}, True),
+    # the sequence-parallel residual: the residual between blocks carried
+    # as each model rank's slice of the sequence
+    "dp1mp4-qmoe-comet1-sp1-spres": ("dp1mp4", "qmoe", COMET1, True, SPRES,
+                                     True),
+    "dp1mp4-qmoe-ep4-comet1-sp1-spres": ("dp1mp4", "qmoe", _ep(COMET1, 4),
+                                         True, SPRES, True),
+    "dp1mp4-qmoe-naive-sp0-spres": ("dp1mp4", "qmoe", NAIVE, False, SPRES,
+                                    True),
+    "dp1mp4-q05b-spres": ("dp1mp4", "q05b", None, True, SPRES, True),
+    "dp1mp4-mamba2-spres": ("dp1mp4", "mamba2", None, True, SPRES, True),
+    "dp1mp4-jamba-comet1-sp1-spres": ("dp1mp4", "jamba", COMET1, True,
+                                      SPRES, True),
+    "dp1mp4-q05b_s30-spres": ("dp1mp4", "q05b_s30", None, True, SPRES,
+                              True),
+    "dp2mp2-qmoe-comet1-sp1-spres": ("dp2mp2", "qmoe", COMET1, True, SPRES,
+                                     True),
+    "dp2mp2-q05b-spres": ("dp2mp2", "q05b", None, True, SPRES, True),
+    "dp2mp2-mamba2-spres": ("dp2mp2", "mamba2", None, True, SPRES, True),
+    "dp2mp2-jamba-comet1-sp1-spres-remat": ("dp2mp2", "jamba", COMET1, True,
+                                            {**SPRES, "remat": "full"},
+                                            True),
 }
+SP_CELLS = [c for c in CELLS if CELLS[c][4].get("sp_residual")]
 # plan-cache cells at ep 4 (``selftest._plan_job``): the cache's plan for
-# the cell's train key runs in place of the config's naive knobs; a
-# comet_hier plan across ranks raises by name. name -> (plan, seq_shard)
+# the cell's train key runs in place of the config's naive knobs, the
+# flat ring's or the two-level ring's. name -> (plan, seq_shard)
 PLAN_CELLS = {
     "dp1mp4-qmoe-ep4-plan": (dict(impl="comet", ring_group=2,
                                   n_col_blocks=2, gemm_impl="xla",
@@ -252,7 +284,8 @@ def _inputs(in_dir):
         cfg = _ref_cfg(ref)
         params = JL.init_params(cfg, jax.random.PRNGKey(i))
         rng = np.random.default_rng(100 + i)
-        batches = {"batch": _tokens(rng, (B, S), cfg.vocab_size)}
+        batches = {"batch": _tokens(rng, (B, SEQ.get(ref, S)),
+                                    cfg.vocab_size)}
         if ref == "qmoe":
             for a in (1, 2):
                 for j in range(2):
@@ -309,6 +342,13 @@ def _jobs(layout, in_dir, ckpt_dir):
             "--arch", "qwen2-moe-2.7b-smoke", "--mesh", "2,2",
             "--distributed", "--steps", "2", "--batch", "4", "--seq",
             "32", "--ckpt-dir", str(ckpt_dir)]))
+    if layout == "dp1mp4":
+        for name, extra in (("cli-mp4", []), ("cli-mp4-spres",
+                                              ["--sp-residual"])):
+            jobs.append(dict(name=name, kind="cli", argv=[
+                "--arch", "qwen2-moe-2.7b-smoke", "--mesh", "1,4",
+                "--distributed", "--steps", "2", "--batch", "4", "--seq",
+                "32", "--ckpt-dir", str(ckpt_dir / name)] + extra))
     return jobs
 
 
@@ -525,11 +565,52 @@ def test_plan_cache_cell_runs_the_cached_plan(run):
     assert errs[worst] < GRAD_REL, (worst, errs[worst])
 
 
-def test_ranked_comet_hier_plan_raises_by_name(run):
-    got = _load(run, "dp1mp4", "dp1mp4-qmoe-ep4-plan-hier")
-    assert "transport_comet_hier" in str(got["raised"])
-    assert "not ported" in str(got["raised"])
-    assert got["ran/impl"].tolist() == ["comet_hier"]
+def test_ranked_comet_hier_plan_runs_and_matches_jax(run):
+    """A cached comet_hier plan (two groups a node) runs the two-level
+    ring in every MoE layer at ep 4, and the loss and gradients match
+    JAX's one-rank step."""
+    name = "dp1mp4-qmoe-ep4-plan-hier"
+    got = _load(run, "dp1mp4", name)
+    plan = PLAN_CELLS[name][0]
+    assert got["ran/impl"].tolist() == ["comet_hier"] * 2
+    assert got["ran/intra_group"].tolist() == [plan["intra_group"]] * 2
+    assert got["ran/tokens"].tolist() == [B * S // 4] * 2
+    want = run[1]["grads"]["qmoe"]
+    assert abs(float(got["loss"]) - want["loss"]) <= LOSS_REL * abs(
+        want["loss"])
+    assert abs(float(got["aux"]) - want["aux"]) < AUX_ABS
+    errs = {k: _rel(got["grad/" + k], v) for k, v in want["grads"].items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] < GRAD_REL, (worst, errs[worst])
+
+
+@pytest.mark.parametrize("cell", SP_CELLS)
+def test_sp_residual_carries_the_sequence_slice(run, cell):
+    """Under the sequence-parallel residual every period takes this rank's
+    slice of the sequence, (B / dp, S / mp, d): the residual's bytes per
+    rank fall by the model axis. A sequence the axis does not divide
+    keeps the whole residual, as the JAX package does."""
+    layout, ref = CELLS[cell][:2]
+    dp, mp = LAYOUTS[layout]
+    cfg = _ref_cfg(ref)
+    seq = SEQ.get(ref, S)
+    got = _load(run, layout, cell)
+    split = seq % mp == 0
+    assert bool(got["sp_split"]) == split
+    # each period once, and once more in the remat recompute
+    calls = cfg.n_layers // JL.period_of(cfg) * (
+        2 if CELLS[cell][4].get("remat") == "full" else 1)
+    want = [B // dp, seq // mp if split else seq, cfg.d_model]
+    assert got["carried"].tolist() == [want] * calls
+
+
+def test_train_cli_sp_residual_on_a_1x4_mesh(run):
+    """``--sp-residual --mesh 1,4 --distributed`` trains, and its losses
+    are those of the same run with the residual whole."""
+    sp = _load(run, "dp1mp4", "cli-mp4-spres")
+    whole = _load(run, "dp1mp4", "cli-mp4")
+    assert int(sp["final_step"]) == 2 and np.isfinite(sp["losses"]).all()
+    np.testing.assert_allclose(sp["losses"], whole["losses"], rtol=LOSS_REL)
 
 
 def test_nonfinite_gradient_on_one_rank_is_skipped_on_every_rank(run):

@@ -9,10 +9,16 @@ smoke cut to E 8, f 64, top-2), mixtral-8x7b-smoke and qwen2-moe-2.7b-smoke,
 all at no-drop capacity. Impls: naive, coarse (two token slices), comet at
 ring_group 1 and 2, and comet with two column blocks and the fused
 combine, each with and without sequence sharding, and the decode
-broadcast. Each layout is one spawn of 4 ranks (``selftest.spawn``, with
-its own time limit) that writes every cell's gathered output, aux and
-reduced gradients to a temporary directory; the gradients are of the
-global loss sum(y**2) + aux, shared out by ``selftest.rank_loss``.
+broadcast. The two-level ring (``comet_hier``) on the self-test's problem
+at one, two and four groups a node (ep 4) and one and two (ep 2 / etp 2),
+on the fp32, bf16 and fp8_e4m3 wires at JAX's bounds for each
+(``WIRE_REL``), beside the flat ring at the same knobs, with its census
+of hops, link classes and wire bytes. Each layout is one spawn of 4 ranks
+(``selftest.spawn``, with its own time limit) that writes every cell's
+gathered output, aux and reduced gradients to a temporary directory; the
+spawns run on a thread while the test process computes the JAX
+references. The gradients are of the global loss sum(y**2) + aux, shared
+out by ``selftest.rank_loss``.
 """
 import dataclasses
 import json
@@ -20,6 +26,7 @@ import operator
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -60,6 +67,45 @@ IMPLS = {"naive": dict(impl="naive"),
 CELLS = [(lay, prob, impl, seq) for lay in LAYOUTS for prob in PROBLEMS
          for impl in IMPLS for seq in (False, True)]
 
+# the two-level ring on the self-test's problem: node sizes per layout, and
+# per node size every (ring_group, fused_combine, backend) at the fp32 wire
+# with gradients, beside the flat ring at the same knobs; the bf16 and fp8
+# wires at two of them; the forward-only "pallas" backend at one
+HIER_IGS = {"dp1mp4-ep4": (1, 2, 4), "dp1mp4-ep2etp2": (1, 2)}
+WIRE_REL = {"fp32": 2e-5, "bf16": 2e-2, "fp8_e4m3": 2e-1}   # JAX's bounds
+AUX_REL = 1e-6
+FLAT_REL = 1e-6
+WIRES = ("fp32", "bf16", "fp8_e4m3")
+
+
+def _hier_knobs():
+    """(name, run_cell keywords) of one node size's cells."""
+    out = []
+    for rg in (1, 2):
+        for fc in (False, True):
+            for gi in ("xla", "pallas_fused"):
+                out.append((f"rg{rg}-fc{int(fc)}-{gi}-fp32",
+                            dict(ring_group=rg, fused_combine=fc,
+                                 gemm_impl=gi, wire_dtype="fp32",
+                                 grads=True)))
+    for wire in WIRES[1:]:
+        out.append((f"rg2-fc1-xla-{wire}", dict(
+            ring_group=2, fused_combine=True, gemm_impl="xla",
+            wire_dtype=wire)))
+        out.append((f"rg1-fc0-pallas_fused-{wire}", dict(
+            ring_group=1, fused_combine=False, gemm_impl="pallas_fused",
+            wire_dtype=wire)))
+    out.append(("rg1-fc1-pallas-fp32", dict(
+        ring_group=1, fused_combine=True, gemm_impl="pallas",
+        wire_dtype="fp32")))
+    return out
+
+
+HIER_CELLS = [(lay, ig, name) for lay, igs in HIER_IGS.items()
+              for ig in igs for name, _ in _hier_knobs()]
+FLAT_TWINS = [(lay, ig, name) for lay, ig, name in HIER_CELLS
+              if name.endswith("-fp32") and "pallas-" not in name]
+
 
 def _jobs(layout):
     _, ep, etp = LAYOUTS[layout]
@@ -72,28 +118,60 @@ def _jobs(layout):
                                  grads=True, **ikw))
         jobs.append(dict(name=f"{pname}-bcast", problem=pkw, ep=ep, etp=etp,
                          impl="comet", decode=True, grads=True))
+    for ig in HIER_IGS.get(layout, ()):
+        for name, kw in _hier_knobs():
+            jobs.append(dict(name=f"hier-ig{ig}-{name}", ep=ep, etp=etp,
+                             impl="comet_hier", intra_group=ig, n_col=2,
+                             seq_shard=True, **kw))
+    if layout in HIER_IGS:
+        for name, kw in _hier_knobs():
+            if kw["wire_dtype"] == "fp32" and kw["gemm_impl"] != "pallas":
+                jobs.append(dict(name=f"flat-{name}", ep=ep, etp=etp,
+                                 impl="comet", n_col=2, seq_shard=True,
+                                 **{k: v for k, v in kw.items()
+                                    if k != "wire_dtype"}))
     if layout == "dp1mp4-ep4":
         jobs.append(dict(name="census", kind="census", ep=ep, etp=etp,
                          n_col=2))
-        jobs.append(dict(name="hier", kind="hier", ep=ep, etp=etp))
+        jobs.append(dict(name="hier", kind="hier", ep=ep, etp=etp, n_col=2,
+                         intra_groups=HIER_IGS[layout], wires=WIRES))
     return jobs
 
 
 @pytest.fixture(scope="module")
-def ranked(tmp_path_factory):
-    """layout -> the directory its spawn wrote; each layout spawned once,
-    on first use."""
-    done = {}
+def ranked(tmp_path_factory, jax_ref):
+    """layout -> the directory its spawn wrote. The layouts are spawned one
+    after the other on a thread while this process computes the JAX
+    references."""
+    outs = {lay: tmp_path_factory.mktemp(lay) for lay in LAYOUTS}
+    done = {lay: threading.Event() for lay in LAYOUTS}
+    errors = []
+
+    def spawn_all():
+        try:
+            for lay in LAYOUTS:
+                ST.spawn(4, ST.dump_cells,
+                         (LAYOUTS[lay][0], _jobs(lay), str(outs[lay])),
+                         device="cpu", timeout=SPAWN_TIMEOUT)
+                done[lay].set()
+        except BaseException as e:        # re-raised in the test process
+            errors.append(e)
+        finally:
+            for ev in done.values():
+                ev.set()
+
+    th = threading.Thread(target=spawn_all)
+    th.start()
+    for pname in PROBLEMS:
+        jax_ref(pname)
 
     def get(layout):
-        if layout not in done:
-            out = tmp_path_factory.mktemp(layout)
-            ST.spawn(4, ST.dump_cells,
-                     (LAYOUTS[layout][0], _jobs(layout), str(out)),
-                     device="cpu", timeout=SPAWN_TIMEOUT)
-            done[layout] = out
-        return done[layout]
-    return get
+        done[layout].wait()
+        if errors:
+            raise errors[0]
+        return outs[layout]
+    yield get
+    th.join()
 
 
 @pytest.fixture(scope="module")
@@ -185,10 +263,113 @@ def test_ring_census_counts_hops_and_chunk_bytes(ranked):
         assert sorted(d for _, d in c["pairs"]) == [0, 1, 2, 3]
 
 
-def test_comet_hier_raises_at_world_4(ranked):
+@pytest.mark.parametrize("layout,ig,name", HIER_CELLS,
+                         ids=[f"{a}-ig{b}-{c}" for a, b, c in HIER_CELLS])
+def test_ranked_comet_hier_matches_jax(ranked, jax_ref, layout, ig, name):
+    """The two-level ring on 4 gloo ranks against the JAX package's
+    one-rank naive layer, at JAX's bounds for the wire (max abs over max
+    |ref|), aux within rel 1e-6, and at the fp32 wire every gradient
+    within rel 5e-5."""
+    _, ep, etp = LAYOUTS[layout]
+    res = np.load(ranked(layout) / f"hier-ig{ig}-{name}.npz")
+    ref = jax_ref("selftest")["full"]
+    wire = name.rsplit("-", 1)[1]
+    assert _rel(res["y"], ref["y"]) < WIRE_REL[wire]
+    assert abs(float(res["aux"]) - ref["aux"]) <= AUX_REL * abs(ref["aux"])
+    if wire == "fp32" and "pallas-" not in name:
+        _check(res, ref, ep, etp)
+
+
+@pytest.mark.parametrize("layout,ig,name", FLAT_TWINS,
+                         ids=[f"{a}-ig{b}-{c}" for a, b, c in FLAT_TWINS])
+def test_comet_hier_fp32_wire_matches_the_flat_ring(ranked, layout, ig,
+                                                    name):
+    """At the fp32 wire the two-level ring computes what the flat ring
+    computes at the same knobs: y, aux and every gradient with the same
+    bits, or within rel 1e-6 where a macro-step groups other chunks."""
+    hier = np.load(ranked(layout) / f"hier-ig{ig}-{name}.npz")
+    flat = np.load(ranked(layout) / f"flat-{name}.npz")
+    assert set(hier.files) == set(flat.files)
+    for k in flat.files:
+        if not np.array_equal(hier[k], flat[k]):
+            assert _rel(hier[k], flat[k]) < FLAT_REL, k
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_hier_census_counts_hops_classes_and_wire_bytes(ranked, wire):
+    """One ep-4 forward at two groups a node (two column blocks) permutes
+    as ``comet_hier_segments`` counts: 2 inter-node and then 1 intra-node
+    dispatch of a whole chunk in the wire's width (4, 2 or 1 bytes an
+    element) with its fp32 scale beside it under fp8, and 3 n_col returns
+    of a column block in the wire's width, each a full permutation."""
     rec = json.loads((ranked("dp1mp4-ep4") / "hier.json").read_text())
-    assert "transport_comet_hier" in rec["raised"]
-    assert "not ported" in rec["raised"]
+    run = rec["runs"][f"ig2-{wire}"]
+    seg, census = run["segments"], run["census"]
+    assert seg == JT.comet_hier_segments(4, 1, 2, 2)
+    assert (seg["intra_hops"], seg["inter_hops"]) == (1, 2)
+    disp = [c for c in census if c["op"] == "disp"]
+    comb = [c for c in census if c["op"] == "comb"]
+    assert len(disp) == seg["dispatch_hops"] == 3
+    assert len(comb) == seg["combine_hops"] == 6
+    assert [c["cls"] for c in disp] == ["inter", "inter", "intra"]
+    width = {"fp32": 4, "bf16": 2, "fp8_e4m3": 1}[wire]
+    elems = run["chunk_bytes"] // 4                  # the buffer is fp32
+    assert {c["bytes"] for c in disp} == {elems * width}
+    assert {c["scale_bytes"] for c in disp} == {4 if wire == "fp8_e4m3"
+                                                else 0}
+    assert {c["bytes"] for c in comb} == {elems * width // 2}
+    for c in census:
+        CL.check_permutation([tuple(p) for p in c["pairs"]], 4)
+
+
+@pytest.mark.parametrize("wire", WIRES[1:])
+def test_hier_wire_payload_bits_do_not_depend_on_the_substep(ranked, wire):
+    """Each dispatch chunk is encoded once from the whole buffer: the bits
+    on the wire (payload and scale) are those of that encoding, whichever
+    sub-step and link class carries the chunk at one, two or four groups
+    a node."""
+    rec = json.loads((ranked("dp1mp4-ep4") / "hier.json").read_text())
+    seen = {}
+    for ig in HIER_IGS["dp1mp4-ep4"]:
+        run = rec["runs"][f"ig{ig}-{wire}"]
+        for c in run["census"]:
+            if c["op"] == "disp":
+                assert c["digest"] == run["chunk_digests"][c["chunk"]]
+                seen.setdefault(c["chunk"], set()).add((c["step"], ig))
+        assert len({c["chunk"] for c in run["census"]
+                    if c["op"] == "disp"}) == 3
+    # chunks travelled at other sub-steps under other node sizes
+    assert any(len({st for st, _ in v}) > 1 for v in seen.values())
+
+
+@pytest.mark.parametrize("ep,etp,ig", [(4, 1, 1), (4, 1, 2), (4, 1, 4),
+                                       (2, 2, 2), (8, 1, 4), (8, 1, 2),
+                                       (4, 2, 2), (6, 1, 3)])
+def test_hier_permutes_and_orders_match_jax(ep, etp, ig):
+    """``_hier_perm`` of every (node, local, tp) shift, ``_hier_dst``,
+    ``_hier_dest_order`` and ``comet_hier_segments`` as the JAX package
+    computes them; every remote sub-step's pairs a full permutation."""
+    from repro.core import adaptive as JA
+    port_ctx, jax_ctx = ST.AxisCtx(ep=ep, etp=etp), JAxisCtx(ep=ep, etp=etp)
+    nn = ep // ig
+    for sn, sl in JA.hier_step_order(ep, ig):
+        for o in range(etp):
+            for sgn in (1, -1):
+                got = T._hier_perm(port_ctx, ig, sgn * sn, sgn * sl, o)
+                assert got == JT._hier_perm(jax_ctx, ig, sgn * sn, sgn * sl,
+                                            o)
+                if (sn, sl, o) != (0, 0, 0):
+                    CL.check_permutation(got, ep * etp)
+        for g_r in range(ep):
+            assert T._hier_dst(g_r, sn, sl, ig, nn) == int(
+                JT._hier_dst(g_r, sn, sl, ig, nn))
+    for g_r in range(ep):
+        assert T._hier_dest_order(g_r, ep, ig) == [
+            int(v) for v in JT._hier_dest_order(g_r, ep, ig)]
+    for rg in (1, 2):
+        for n_col in (1, 2):
+            assert T.comet_hier_segments(ep, rg, n_col, ig) == \
+                JT.comet_hier_segments(ep, rg, n_col, ig)
 
 
 def test_spawn_kills_ranks_that_outlive_their_time():
@@ -219,7 +400,9 @@ def test_selftest_cli_passes_on_4_gloo_ranks():
 @pytest.mark.parametrize("gs,ts", [(1, 0), (-1, 0), (-3, 1), (2, -1),
                                    (0, 1)])
 def test_perm_matches_jax(ep, etp, gs, ts):
-    port = T._perm(ST.AxisCtx(ep=ep, etp=etp), gs, ts)
+    """The flat ring's permutations are the two-level ring's on one node
+    of ep groups."""
+    port = T._hier_perm(ST.AxisCtx(ep=ep, etp=etp), ep, 0, gs, ts)
     assert port == JT._perm(JAxisCtx(ep=ep, etp=etp), gs, ts)
     if (gs % ep, ts % etp) != (0, 0):
         CL.check_permutation(port, ep * etp)
@@ -262,19 +445,17 @@ def test_problem_weights_cross_by_from_jax(pname):
     (["--plan-cache", "plans.json"], "plan-cache"),
     (["--sp-residual"], "sequence-parallel residual")])
 def test_train_flags_name_what_is_not_ported(argv, what, tmp_path):
-    """``--sp-residual`` raises by name; ``--plan-cache``, ported since,
-    trains (a missing cache file resolves the cost model's plans)."""
+    """``--plan-cache`` and ``--sp-residual``, both ported since, train
+    (a missing cache file resolves the cost model's plans; without a mesh
+    the residual stays whole)."""
     from repro_torch.launch import train
     base = ["--arch", "qwen2-moe-2.7b-smoke", "--ckpt-dir",
             str(tmp_path / "ckpt")]
     if what == "plan-cache":
-        argv = ["--plan-cache", str(tmp_path / argv[1]), "--steps", "1",
-                "--batch", "2", "--seq", "8"]
-        out = train.main(base + argv, device="cpu")
-        assert out["final_step"] == 1
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        train.main(base + argv, device="cpu")
+        argv = ["--plan-cache", str(tmp_path / argv[1])]
+    out = train.main(base + argv + ["--steps", "1", "--batch", "2", "--seq",
+                                    "8"], device="cpu")
+    assert out["final_step"] == 1
 
 
 class _StubMesh:

@@ -1,7 +1,8 @@
 """Serving parity: the port's ``ServeEngine.generate`` against the JAX
 package's on smoke configs with bridged weights: MoE attention models, the
-SSM family (mamba2) and the hybrid (jamba: attention, SSM and MoE in one
-period). The token streams must be identical: more requests than slots
+dense ones (phi3-medium, nemotron-4, qwen1.5, llava-next's language
+model), the SSM family (mamba2) and the hybrid (jamba: attention, SSM and
+MoE in one period). The token streams must be identical: more requests than slots
 (slot reuse, SSM carries reset on re-admission), mixed prompt lengths,
 prompts longer than the prefill chunk, and an eos that ends a request
 early."""
@@ -53,7 +54,15 @@ def _prompts(vocab, lens, seed=0):
                                            ("granite-moe-3b-a800m-smoke",
                                             False),
                                            ("mamba2-780m-smoke", True),
-                                           ("jamba-v0.1-52b-smoke", False)])
+                                           ("jamba-v0.1-52b-smoke", False),
+                                           ("phi3.5-moe-smoke", False),
+                                           ("qwen3-moe-235b-a22b-smoke",
+                                            False),
+                                           ("phi3-medium-14b-smoke", False),
+                                           ("nemotron-4-340b-smoke", False),
+                                           ("qwen1.5-4b-smoke", False),
+                                           ("llava-next-34b-smoke", False),
+                                           ("mixtral-8x7b-smoke", True)])
 def test_token_streams_match_jax(arch, eos_case):
     jeng, teng = _engines(arch)
     prompts = _prompts(teng.cfg.vocab_size, [5, 23, 40, 9, 17])

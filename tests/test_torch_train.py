@@ -1,7 +1,8 @@
 """The port's one-rank training path against the JAX package on
 qwen2-moe-2.7b-smoke: synthetic batches (bit-identical), ``loss_fn`` and
 every gradient (xla and pallas_fused backends, remat none and full; fp32
-1e-4), one AdamW update (fp32 and bf16 parameters), three train steps from
+1e-4; and, at their smoke configs, phi3.5-moe, qwen3-moe, phi3-medium,
+nemotron-4, qwen1.5-4b, llava-next-34b and mixtral), one AdamW update (fp32 and bf16 parameters), three train steps from
 the same weights, and the port's Trainer (restart replay, non-finite skip,
 device choice). Weights cross through ``bridge.from_jax``; the JAX Pallas
 kernels run in interpret mode."""
@@ -90,10 +91,27 @@ def test_prefetcher_yields_the_batches_in_order():
     assert not pf.thread.is_alive()
 
 
+# the archs held at one rank beside ARCH (ROADMAP Queue 1 item 2), each
+# at its smoke config
+ARCHS = ("phi3.5-moe-smoke", "qwen3-moe-235b-a22b-smoke",
+         "phi3-medium-14b-smoke", "nemotron-4-340b-smoke", "qwen1.5-4b-smoke",
+         "llava-next-34b-smoke", "mixtral-8x7b-smoke")
+
+
 @pytest.mark.parametrize("gemm_impl", ["xla", "pallas_fused"])
 @pytest.mark.parametrize("remat", ["none", "full"])
 def test_loss_and_grads_match_jax(gemm_impl, remat):
-    jcfg, cfg = _cfgs(remat=remat, gemm_impl=gemm_impl)
+    _check_loss_and_grads(*_cfgs(remat=remat, gemm_impl=gemm_impl))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_arch_loss_and_grads_match_jax(arch):
+    """``loss_fn`` and every gradient of each arch's smoke config against
+    the JAX package's, fp32 1e-4."""
+    _check_loss_and_grads(jax_config(arch), get_config(arch))
+
+
+def _check_loss_and_grads(jcfg, cfg):
     jp, tp = _bridged(jcfg, cfg, 3)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
