@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all twelve phases, one card
+  python3 chip_smoke.py              # all thirteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
+  python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -179,6 +180,27 @@ Phases:
              seed once the bf16 ones are freed; the phase fails where
              they do not fit) at 1e-4. Phase 2 holds each kernel at the
              shapes this phase launches it at (HYBRID_CASES).
+ 13 mesh_serve  the earlier phases' state is freed first. Phase 3's
+             configuration (qwen2-moe-2.7b whole, bf16, seed 0,
+             pallas_fused, 8 slots, max_seq 1024, chunk 256, phase 3's
+             trace) served four times on one world-1 NCCL group, in
+             turns by the mesh-less engine and by ServeEngine(mesh=) on
+             a (1, 1) mesh (mesh-less, mesh, mesh, mesh-less), each
+             after a warm-up round. 16/16 ok on every run, token streams
+             identical, launches equal per kernel (every fused_mlp launch
+             on the wgmma path); TTFT p50/p99, prefill tokens/s, decode
+             ms a step, max_memory_allocated and the cache's bytes of
+             each run, and the mesh's decode ms over the mesh-less's.
+             Then the split-KV merge with no ranks: qwen2's decode shape
+             (8 rows, 1024 positions, 16 heads of 128, bf16 cache) cut
+             into 4 position shards, decode_attention_partial per shard,
+             merge_decode_partials: the fp32 merge against
+             decode_attention's fp32 arithmetic within 1e-5, rounded to
+             bf16 against the bf16 decode_attention within 2e-2, and
+             the shards wholly past a row empty. NCCL refuses two
+             ranks on one card: the sharded arms (kv heads, split-KV,
+             dp-cut slots) run on gloo CPU ranks in
+             tests/test_torch_mesh_serve.py.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -218,10 +240,11 @@ ARCH = "qwen2-moe-2.7b"
 # H100 SXM data-sheet peaks (dense tensor-core rates, HBM3 bandwidth)
 PEAK_BW = 3.35e12                       # bytes/s
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
-TOL = {"bf16": 2e-2, "fp32": 1e-4}
+TOL = {"bf16": 2e-2, "fp32": 1e-4,
+       "merge": 1e-5}      # the fp32 split-KV merge against fp32 decode
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
-          "serve_hybrid")
+          "serve_hybrid", "mesh_serve")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid", "rule_seeds",
@@ -293,6 +316,10 @@ PLAN_ROUNDS = 2
 # width; prompts up to 1024 tokens in 8 slots of 2048
 HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_SERVE = dict(max_seq=2048, prompt_max=1024)
+# the mesh serve phase: the engines' turns, and the split-KV check's
+# position shards of the cache
+MESH_SERVE_TURNS = ("meshless", "mesh", "mesh", "meshless")
+MESH_SERVE_SHARDS = 4
 
 
 class PhaseFailed(Exception):
@@ -3054,6 +3081,119 @@ def phase_serve_hybrid(state, out):
           f"fp32 argmax agreement {fp32['argmax_agree']:.2f} < 0.95")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving on a mesh
+# ---------------------------------------------------------------------------
+
+
+def split_kv_merge(rec):
+    """The split-KV arm's arithmetic with no ranks: qwen2-moe-2.7b's decode
+    shape (8 rows, 1024 positions, 16 heads of 128, bf16 cache) cut by
+    hand into MESH_SERVE_SHARDS position shards, each reduced by
+    decode_attention_partial at its offset, merged by
+    merge_decode_partials: the fp32 merge against decode_attention's fp32
+    arithmetic on the same inputs within 1e-5, the merge rounded to bf16
+    against the bf16 decode_attention within 2e-2. The rows' positions
+    leave some shards wholly past a row: those must give l = acc = 0."""
+    import torch
+
+    from repro_torch.models import attention as A
+    B, S, H, hd, n = 8, 1024, 16, 128, MESH_SERVE_SHARDS
+    gen = _gen(23)
+    q, k, v = (_randn(shp, torch.bfloat16, 1.0, gen)
+               for shp in ((B, 1, H, hd), (B, S, H, hd), (B, S, H, hd)))
+    pos = torch.tensor([5, 130, 255, 256, 511, 700, 900, 1023],
+                       device="cuda")
+    Sl = S // n
+    parts = [A.decode_attention_partial(q, k[:, i * Sl:(i + 1) * Sl],
+                                        v[:, i * Sl:(i + 1) * Sl], pos,
+                                        i * Sl) for i in range(n)]
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    got = A.merge_decode_partials(m, l, acc).transpose(1, 2)
+    want = A.decode_attention(q.float(), k.float(), v.float(), pos)
+    err32, ok32 = max_err(got, want, TOL["merge"])
+    err, ok16 = max_err(got.to(q.dtype), A.decode_attention(q, k, v, pos),
+                        TOL["bf16"])
+    past = (torch.arange(n, device="cuda")[:, None] * Sl
+            > pos[None, :])                                # (shard, row)
+    empty_ok = bool((l[past] == 0).all() and (acc[past] == 0).all()
+                    and torch.isfinite(m).all())
+    rec["split_kv_merge"] = {"shape": [B, S, H, hd], "shards": n,
+                             "fp32_max_abs_err": err32,
+                             "fp32_within_tol": ok32,
+                             "max_abs_err": err, "within_tol": ok16,
+                             "empty_shard_rows": int(past.sum()),
+                             "empty_shards_zero": empty_ok}
+    log("  split-KV merge: " + json.dumps(rec["split_kv_merge"]))
+    check(ok32 and ok16 and empty_ok, f"split-KV merge: fp32 max abs err "
+          f"{err32:.3e} (tol {TOL['merge']}), bf16 {err:.3e} (tol "
+          f"{TOL['bf16']}), empty shards zero: {empty_ok}")
+
+
+def phase_mesh_serve(state, out):
+    """Phase 3's engine on a (1, 1) mesh of a world-1 NCCL group
+    (ServeEngine(mesh=)) and the mesh-less engine on the same weights and
+    trace, in turns (mesh-less, mesh, mesh, mesh-less): 16/16 ok, the
+    same token streams and launches per kernel on every run, the serving
+    metrics of each; then the split-KV merge with no ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.parallel.mesh import make_mesh
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    runs, tokens = {}, {}
+    with world1("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for i, tag in enumerate(MESH_SERVE_TURNS):
+            kw = {"mesh": mesh} if tag == "mesh" else None
+            key = f"{tag}{i}"
+            torch.cuda.empty_cache()
+            eng, r = serve(cfg, params, 16, 32, 0, key, runs, engine_kw=kw)
+            tokens[key] = [eng.finished[j].tokens
+                           for j in sorted(eng.finished)]
+            r["cache_gb"] = sum(t.numel() * t.element_size()
+                                for e in eng.cache for t in e.values()) / 1e9
+            del eng
+    del params
+    torch.cuda.empty_cache()
+    first = next(iter(runs))
+    same = {k: sum(a == b for a, b in zip(v, tokens[first]))
+            for k, v in tokens.items()}
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "prefill_tok_s",
+            "decode_ms_per_step", "max_memory_allocated_gb", "cache_gb")
+
+    def mean(tag, k):
+        """The mean of ``k`` over the runs of one tag ("mesh" or
+        "meshless"): a run's key is its tag and its turn's index."""
+        vals = [r[k] for key, r in runs.items()
+                if key.rstrip("0123456789") == tag]
+        return sum(vals) / len(vals)
+
+    rec = {"runs": runs, "compare": {
+        "turns": list(runs), "identical_streams": same,
+        "launches_equal": all(r["launches"] == runs[first]["launches"]
+                              for r in runs.values()),
+        "decode_ms_ratio": mean("mesh", "decode_ms_per_step")
+        / mean("meshless", "decode_ms_per_step"),
+        **{f"{key}_{k}": r[k] for key, r in runs.items() for k in keys}}}
+    out["mesh_serve"] = rec
+    log("  mesh (1, 1) vs mesh-less, in turns: " + json.dumps(rec["compare"]))
+    L = runs[first]["launches"]
+    check(all(n == 16 for n in same.values()),
+          f"token streams identical to the first run's: {same}")
+    check(rec["compare"]["launches_equal"],
+          "launches differ: " + json.dumps({k: r["launches"]
+                                            for k, r in runs.items()}))
+    check(L["fused_mlp"] > 0 and L["fused_mlp"] == L["fused_mlp_hopper"]
+          and L["topk_combine"] > 0 and L["rmsnorm"] > 0,
+          f"launches off the kernels or the wgmma path: {L}")
+    split_kv_merge(rec)
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -3270,6 +3410,10 @@ def kernel_records(out):
         hybrid_l = out.get("serve_hybrid", {}).get("launches", {})
         if hybrid_l:                  # jamba-v0.1-52b served at one period
             extra["serve_hybrid_launches"] = hybrid_l.get(name, 0)
+        mesh_s = out.get("mesh_serve", {}).get("runs", {}).get(
+            "mesh1", {}).get("launches", {})
+        if mesh_s:                    # phase 3's engine on a (1, 1) mesh
+            extra["mesh_serve_launches"] = mesh_s.get(name, 0)
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (
@@ -3355,7 +3499,7 @@ def main(argv=None):
              "profile", "serve_ssm", "profile_serve_ssm", "train",
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
-             "nccl_pair")
+             "mesh_serve", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -3410,6 +3554,8 @@ def main(argv=None):
                 phase_serve_hybrid(state, out)
             elif name == "profile_serve_hybrid":
                 phase_profile_hybrid(state, out)
+            elif name == "mesh_serve":
+                phase_mesh_serve(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

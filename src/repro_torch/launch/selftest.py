@@ -29,7 +29,8 @@ no-drop capacity (``trainer.smoke_train``): a mesh routes its local
 tokens, so a dropping capacity drops other tokens than one rank does.
 
 ``mesh_cells`` runs the model-level cells of ``tests/test_torch_mesh_
-train.py`` on the ranks, reading their weights and batches from files.
+train.py`` and ``tests/test_torch_mesh_serve.py`` on the ranks, reading
+their weights and inputs from files.
 """
 from __future__ import annotations
 
@@ -742,22 +743,156 @@ def _cli_job(job, device):
             "final_step": res["final_step"]}
 
 
+# ---------------------------------------------------------------------------
+# serving cells (tests/test_torch_mesh_serve.py): decode steps, prefill
+# chunks and the engine on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _serve_shape(job):
+    return ShapeConfig("cell", job["max_seq"], job["slots"], "decode")
+
+
+def _global_cache(data, cfg):
+    """The cell's global one-rank cache (tuple over period positions)."""
+    from repro_torch.models import lm
+    return tuple({k: torch.from_numpy(np.array(data[f"cache/{i}/{k}"]))
+                  for k in e} for i, e in enumerate(lm.cache_shapes(
+                      cfg, 1, 1)))
+
+
+def _per_rank(res: Dict) -> Dict:
+    """Every rank's entries of ``res`` as "rank<r>/<key>" on rank 0
+    (``all_gather_object``)."""
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, res)
+    return {f"rank{r}/{k}": v for r, d in enumerate(every)
+            for k, v in d.items()}
+
+
+def _serve_step_job(job, data, mesh, device):
+    """One serving step on the mesh from the cell's global cache:
+    ``kind`` "decode" (``build_decode_step``'s fn on global tokens, pos
+    and live) or "chunk" (``build_prefill_chunk_step``'s on a stacked
+    admission). Every rank's logits (decode: gathered over the dp group),
+    next tokens, cache leaves after the step, their specs and its mesh
+    coordinates."""
+    from repro_torch import bridge
+    from repro_torch.launch.train_step import (build_decode_step,
+                                               build_prefill_chunk_step)
+    cfg = cell_config(job["arch"], job.get("over"))
+    build = (build_decode_step if job["kind"] == "decode"
+             else build_prefill_chunk_step)
+    built = build(cfg, _serve_shape(job), mesh)
+    ctx, cspecs = built["ctx"], built["cache_specs"]
+    params = bridge.from_jax_sharded(_unflat(cfg, data, "params/"), cfg,
+                                     ctx, True, device)
+    cache = tuple({k: SH.shard_leaf(v, sp[k], mesh) for k, v in e.items()}
+                  for e, sp in zip(_global_cache(data, cfg), cspecs))
+
+    def arr(key):
+        return torch.from_numpy(np.array(data[key])).long()
+
+    res = {}
+    if job["kind"] == "decode":
+        nxt, logits, cache = built["fn"](
+            params, cache, arr("tokens"), arr("pos"),
+            torch.from_numpy(np.array(data["live"])))
+        if built["tok_spec"][0] is not None:
+            logits = CL.all_gather(logits, mesh.group(ctx.dp_axes))
+            logits = logits.reshape(-1, logits.shape[-1])
+        res["next_tok"] = nxt.numpy()
+    else:
+        logits, cache = built["fn"](params, cache, arr("tokens"),
+                                    arr("pos_off"), arr("valid_len"),
+                                    arr("slots"))
+    res["logits"] = logits.numpy()
+    res["coords"] = np.array([mesh.coords[a] for a in mesh.axis_names])
+    for i, (e, sp) in enumerate(zip(cache, cspecs)):
+        for k, v in e.items():
+            res[f"cache/{i}/{k}"] = v.numpy().copy()
+            res[f"spec/{i}/{k}"] = json.dumps(list(sp[k]))
+    return _per_rank(res)
+
+
+def _engine_job(job, data, mesh, device):
+    """``ServeEngine(mesh=)`` on the cell's prompts from the full one-rank
+    weights: every rank's token streams, lengths and statuses. With
+    ``job["plans"]`` ({phase: (Plan json, [token counts])}) rank 0 first
+    writes a plan cache holding each phase's plan at each count, and the
+    knobs every moe_ffn body ran under are recorded ("ran/*"). With
+    ``job["swap_on_rank"]`` that rank swaps the first two prompts: every
+    rank's engine must raise, and its message is recorded ("error")."""
+    from repro_torch import bridge
+    from repro_torch.core import adaptive as A
+    from repro_torch.serving import ServeEngine
+    cfg = cell_config(job["arch"], job.get("over"))
+    kw = {}
+    if job.get("plans"):
+        ctx = SH.make_ctx(cfg, mesh, seq_shard=False)
+        if dist.get_rank() == 0:
+            cache = A.PlanCache(job["cache"])
+            for phase, (plan, counts) in job["plans"].items():
+                for n in counts:
+                    cache.put(A.plan_shape(cfg.moe, cfg.d_model, n, ctx.ep,
+                                           ctx.etp), A.H100_NVL,
+                              A.Plan.from_json(plan), phase=phase)
+        dist.barrier()
+        kw = dict(plan_cache=job["cache"], plan_hw="h100_nvlink")
+    ran = []
+    real = M._moe_body
+
+    def spy(cfg_, mcfg, n_col, gemm_impl, x, *a, **k):
+        ran.append([mcfg.impl, gemm_impl, x.shape[0] * x.shape[1],
+                    x.shape[1]])
+        return real(cfg_, mcfg, n_col, gemm_impl, x, *a, **k)
+
+    M._moe_body = spy
+    try:
+        eng = ServeEngine(cfg, params=bridge.from_jax(
+            _unflat(cfg, data, "params/"), cfg, device),
+            max_seq=job["max_seq"], batch_size=job["slots"],
+            chunk=job["chunk"], device=device, mesh=mesh, **kw)
+        prompts = json.loads(str(data["prompts"]))
+        if job.get("swap_on_rank") == dist.get_rank():
+            prompts[0], prompts[1] = prompts[1], prompts[0]
+        try:
+            out = eng.generate(prompts, max_new=job["max_new"])
+        except RuntimeError as e:
+            if "swap_on_rank" not in job:
+                raise
+            return _per_rank({"error": str(e)})
+    finally:
+        M._moe_body = real
+    res = {"tokens": out.tokens, "lengths": out.lengths,
+           "statuses": np.array(out.statuses)}
+    if ran:
+        for i, name in enumerate(("impl", "gemm_impl", "tokens", "seq")):
+            res[f"ran/{name}"] = np.array([r[i] for r in ran])
+    return _per_rank(res)
+
+
 def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
     0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
-    "trainer", "cli"), arch and ``over`` (``cell_config``); "grad",
-    "plan" and "adamw" read the one-rank weights ("params/<leaf>") and
-    batches ("batch*/<key>") from ``in_dir/<data>.npz``. Results are gathered into the one-rank
-    layout. Gloo ranks: every tensor on the CPU."""
+    "trainer", "cli", and the serving kinds "decode", "chunk" and
+    "engine"), arch and ``over`` (``cell_config``); "grad", "plan",
+    "adamw" and the serving kinds read the one-rank weights
+    ("params/<leaf>") and their inputs (batches "batch*/<key>", a cache
+    "cache/<pos>/<entry>", prompts) from ``in_dir/<data>.npz``. Results
+    are gathered into the one-rank layout. Gloo ranks: every tensor on
+    the CPU."""
     device = "cpu"
     mesh = make_mesh(tuple(layout), ("data", "model"))
     for job in jobs:
         kind = job["kind"]
-        if kind in ("grad", "plan", "adamw"):
+        if kind in ("grad", "plan", "adamw", "decode", "chunk", "engine"):
             data = np.load(Path(in_dir) / f"{job['data']}.npz")
             res = {"grad": _grad_job, "plan": _plan_job,
-                   "adamw": _adamw_job}[kind](job, data, mesh, device)
+                   "adamw": _adamw_job, "decode": _serve_step_job,
+                   "chunk": _serve_step_job,
+                   "engine": _engine_job}[kind](job, data, mesh, device)
         elif kind == "roundtrip":
             res = _roundtrip_job(job, mesh, device)
         elif kind == "trainer":

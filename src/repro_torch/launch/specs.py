@@ -1,6 +1,7 @@
 """Train batch shapes for every (arch x shape) cell (the port's copy of
 ``repro.launch.specs``), the batch's partition specs on a mesh, and this
-rank's rows of a global batch.
+rank's rows of a global batch; the decode cache's shapes and specs, which
+the serving steps share (``decode_inputs``).
 """
 from __future__ import annotations
 
@@ -59,3 +60,28 @@ def local_batch(batch: Dict, pspecs: Dict, mesh) -> Dict:
     from repro_torch.parallel.sharding import shard_leaf
     return {k: shard_leaf(torch.as_tensor(v), pspecs[k], mesh)
             for k, v in batch.items()}
+
+
+def decode_inputs(cfg, shape, ctx) -> Tuple:
+    """(cache shapes, cache specs, the decode tokens' spec) of the decode
+    cache that ``shape`` (global_batch slots of seq_len positions)
+    describes (``repro/launch/specs.py:80-101``). The shapes are global:
+    a tuple over period positions of {entry: (shape, dtype)}, as
+    ``lm.cache_shapes`` gives them; the specs are
+    ``parallel.sharding.cache_specs`` (every entry replicated without a
+    mesh). One shape gives the prefill and decode steps the same layout.
+    The paged cache is not ported (ROADMAP Queue 1 item 8)."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.sharding import P
+    B, S = shape.global_batch, shape.seq_len
+    cache = lm.cache_shapes(cfg, B, S)
+    if ctx is not None and ctx.active:
+        cspecs = SH.cache_specs(cfg, ctx, B, S)
+        dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
+        tok_spec = P(dp if SH.slots_cut(ctx, B) else None, None)
+    else:
+        cspecs = tuple({k: P(*(None,) * len(v[0])) for k, v in e.items()}
+                       for e in cache)
+        tok_spec = P(None, None)
+    return cache, cspecs, tok_spec

@@ -1,6 +1,7 @@
 """The train step: grad accumulation, AdamW, and the non-finite guard
 (``repro.launch.train_step.make_train_fn`` and ``build_train_step``), at
-one rank or on a mesh.
+one rank or on a mesh; and the serving engine's two steps on the same
+terms (``build_prefill_chunk_step``, ``build_decode_step``).
 
 PyTorch runs eagerly, so there is nothing to compile: ``build_train_step``
 returns the step function itself. The step updates the state in place
@@ -161,4 +162,114 @@ def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,
     built["state_specs"] = SH.state_specs(cfg, ctx, fsdp)
     built["batch_pspecs"] = SP.train_batch_pspecs(cfg, shape, accum,
                                                   ctx.dp_axes)
+    return built
+
+
+# ---------------------------------------------------------------------------
+# Serve: the prefill-chunk and decode steps
+# ---------------------------------------------------------------------------
+
+
+def build_prefill_step(cfg, shape, mesh=None, fsdp: bool = True,
+                       plan_cache: Optional[str] = None, plan_hw: str = ""):
+    """The monolithic prefill (``lm.prefill``) is not ported: the engine
+    admits prompts through ``build_prefill_chunk_step``."""
+    raise NotImplementedError("build_prefill_step: the monolithic prefill "
+                              "(lm.prefill) is not ported yet (ROADMAP "
+                              "Queue 1 item 10)")
+
+
+def _serve_built(cfg, shape, mesh, fsdp, phase, plan_cache, plan_hw):
+    """The parts both serving steps share: the phase's config, the
+    context (``seq_shard`` off, as the JAX builders make it), the cache
+    layout of ``shape`` (``specs.decode_inputs``) and, on a mesh, the
+    parameter specs and the ``lm.ServeLayout`` every call runs under."""
+    cfg = _with_plan_cache(cfg, plan_cache, plan_hw, phase)
+    ctx = SH.make_ctx(cfg, mesh, seq_shard=False)
+    _, cspecs, tok_spec = SP.decode_inputs(cfg, shape, ctx)
+    built = {"cfg": cfg, "ctx": ctx, "cache_specs": cspecs,
+             "tok_spec": tok_spec, "layout": None}
+    if mesh is not None:
+        built["param_specs"] = SH.param_specs(lm.model_schema(cfg, ctx),
+                                              mesh, fsdp)
+        built["layout"] = lm.serve_layout(cfg, ctx, shape.global_batch,
+                                          shape.seq_len,
+                                          built["param_specs"])
+    return built
+
+
+def build_prefill_chunk_step(cfg, shape, mesh=None, chunk: int = 0,
+                             fsdp: bool = True,
+                             plan_cache: Optional[str] = None,
+                             plan_hw: str = ""):
+    """The continuous-batching engine's chunked-prefill step
+    (``repro/launch/train_step.py:182-233``): ``fn(params, cache, tokens
+    (A, C), pos_off (A,), valid_len (A,), slot (A,)) -> (logits (A, V),
+    cache)`` against the decode cache that ``shape`` describes (the same
+    layout as ``build_decode_step``'s). Prefill-phase plans resolve from
+    ``plan_cache`` when one is given.
+
+    On a mesh (a ``parallel.mesh.Mesh`` with ("data", "model") axes) every
+    rank is handed the whole stack, as the JAX builder replicates it; the
+    rows' rule is ``lm.prefill_chunk``'s: each dp rank runs the rows whose
+    slots it holds, and only it writes them. Returns {"fn", "ctx",
+    "cache_specs", "param_specs" (on a mesh), "chunk", "cfg",
+    "tok_spec"}."""
+    built = _serve_built(cfg, shape, mesh, fsdp, "prefill", plan_cache,
+                         plan_hw)
+    cfg, ctx, layout = built["cfg"], built["ctx"], built["layout"]
+
+    def fn(params, cache, tokens, pos_off, valid_len, slot):
+        if layout is None:
+            return lm.prefill_chunk(cfg, params, cache, tokens, pos_off,
+                                    valid_len, slot)
+        return lm.prefill_chunk(cfg, params, cache, tokens, pos_off,
+                                valid_len, slot, ctx, layout)
+
+    built.update(fn=fn, chunk=chunk or min(32, shape.seq_len))
+    return built
+
+
+def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
+                      plan_cache: Optional[str] = None, plan_hw: str = ""):
+    """The slot-based decode step (``repro/launch/train_step.py:236-285``):
+    ``fn(params, cache, tokens (B, 1), pos (B,), live (B,) or None) ->
+    (next_tok (B, 1), logits, cache)``, per-row positions, the argmax of
+    the fp32 logits (ties to the lower index, as ``jnp.argmax``) and 0
+    where a slot is not live (``live`` None: no mask, for a caller that
+    masks on the host). Decode-phase plans resolve from ``plan_cache``.
+
+    On a mesh every rank is handed the global (B,) inputs and takes its
+    slots (cut over the dp axes where ``shape``'s slots divide them,
+    ``tok_spec``); ``logits`` are this rank's slots', and each rank's
+    next tokens are all-gathered over the dp group, so every rank's
+    host scheduler sees all B of them."""
+    built = _serve_built(cfg, shape, mesh, fsdp, "decode", plan_cache,
+                         plan_hw)
+    cfg, ctx, layout = built["cfg"], built["ctx"], built["layout"]
+    cut = layout is not None and layout.slots_cut
+
+    def fn(params, cache, tokens, pos, live=None):
+        if layout is not None:
+            if cut:
+                tokens, pos = (SH.shard_leaf(t, SH.P(built["tok_spec"][0]),
+                                             mesh)
+                               for t in (tokens.reshape(-1), pos))
+                if live is not None:
+                    live = SH.shard_leaf(live, SH.P(built["tok_spec"][0]),
+                                         mesh)
+            logits, cache = lm.decode_step(cfg, params, cache,
+                                           tokens.reshape(-1, 1), pos, ctx,
+                                           layout)
+        else:
+            logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
+        next_tok = torch.argmax(logits, dim=-1)
+        if live is not None:
+            next_tok = torch.where(live, next_tok, 0)
+        if cut:
+            next_tok = CL.all_gather(next_tok, ctx.mesh.group(
+                ctx.dp_axes)).reshape(-1)
+        return next_tok[:, None], logits, cache
+
+    built["fn"] = fn
     return built

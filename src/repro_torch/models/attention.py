@@ -7,13 +7,18 @@ the training forward's full-sequence attention goes to the flash-attention
 kernel instead (``models/blocks.attn_apply``). Masks are by
 absolute positions (``q_pos``/``kv_pos``, causal or not) and an optional
 (B, Sk) key validity ``kv_mask``; the JAX functions' ``q_offset`` and
-``kv_start`` are not ported.
+``decode_attention``'s ``kv_start`` are not ported (the engine passes
+none). The split-KV decode of a cache cut over positions reduces each
+shard to flash-decode partials (``decode_attention_partial``) and merges
+them across the shards' ranks (``merge_decode_partials``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.parallel import collectives as CL
 
 NEG_INF = -1e30
 DENSE_THRESHOLD = 1024          # the JAX package's attention() default
@@ -127,6 +132,54 @@ def decode_attention(q, k_cache, v_cache, pos):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)
+
+
+def decode_attention_partial(q, k_shard, v_shard, pos, kv_offset: int,
+                             kv_start=None):
+    """Flash-decode partial over a local shard of the cache's positions
+    (``repro/models/attention.py:282-306``). q: (B, 1, H, hd); shards:
+    (B, S_loc, Hkv, hd) holding absolute positions [kv_offset, kv_offset +
+    S_loc); pos: (B,) per-row current index; kv_start: optional (B,)
+    first valid index. Returns fp32 (m, l, acc): the running max (B, H,
+    1), the sum (B, H, 1) and the accumulator (B, H, 1, hd). A shard
+    wholly past ``pos`` gives l = acc = 0 and a finite m (NEG_INF)."""
+    S_loc = k_shard.shape[1]
+    H, hd = q.shape[2], q.shape[3]
+    k = _expand_kv(k_shard, H)
+    v = _expand_kv(v_shard, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
+    ar = (kv_offset + torch.arange(S_loc, device=q.device))[
+        None, None, None, :]
+    valid = ar <= pos.reshape(-1, 1, 1, 1)
+    if kv_start is not None:
+        valid = valid & (ar >= kv_start.reshape(-1, 1, 1, 1))
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)                                       # (B, H, 1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bhqk,bkhd->bhqd", p, v.float())
+
+
+def merge_decode_partials(m, l, acc, group=None):
+    """Merge split-KV partials into the attention output (B, H, 1, hd)
+    fp32 (``repro/models/attention.py:309-316``): the global max, each
+    partial rescaled by exp(m - max), sums divided by max(l, 1e-30).
+    ``group``: the process group whose members hold the shards, each
+    passing its own partials (one all-reduce MAX of m, one SUM of l and
+    acc together: a few kB per layer instead of gathering the cache);
+    None: the shards' partials stacked here on a leading axis."""
+    if group is None:
+        m_g = m.amax(dim=0)
+        corr = torch.exp(m - m_g)
+        l_g = (l * corr).sum(dim=0)
+        acc_g = (acc * corr[..., None]).sum(dim=0)
+    else:
+        m_g = CL.all_reduce_(m.clone(), group, op="max")
+        corr = torch.exp(m - m_g)
+        both = CL.all_reduce_(torch.cat([acc * corr[..., None],
+                                         (l * corr)[..., None]], dim=-1),
+                              group)
+        acc_g, l_g = both[..., :-1], both[..., -1]
+    return acc_g / torch.clamp(l_g[..., None], min=1e-30)
 
 
 def update_cache(k_cache, v_cache, k_new, v_new, pos):

@@ -13,6 +13,12 @@ over the model axis as the JAX package's explicit ``shard_map`` does
 dense FFN is column- then row-parallel where its width divides. Around
 them the collectives are Megatron's conjugate pairs
 (``parallel.collectives``): every model rank computes the same loss.
+
+So do the serving modes (``decode_layer``, ``chunk_layer``): each rank
+holds its slots' slice of the decode cache, cut over the model axis by
+kv heads, by positions (split-KV decode, ``sharded_decode_attention``) or
+not at all (``parallel.sharding.kv_cut``), and the projections follow
+the cache's cut.
 """
 from __future__ import annotations
 
@@ -370,31 +376,121 @@ def apply_layer(cfg, pos: int, p, x, positions, mask=None,
     return _mlp_tail(cfg, p, x, ctx, sp)
 
 
-def decode_layer(cfg, pos: int, p, x, cache, t_pos):
+# ---------------------------------------------------------------------------
+# the cached serving modes, at one rank or on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _serve_attn(cfg, p_attn, ctx, cut: str):
+    """(the weights a serving step projects with, whether its
+    o-projection is a partial sum over the model group). Under
+    ``kv_group`` this rank's slice of the cache holds its kv heads: q, k
+    and v are column-parallel (this rank's heads, as stored) and wo is
+    row-parallel, the ``heads`` case of ``_attn_ranked``. Under
+    ``split_kv`` and ``replicated`` every model rank projects with the
+    whole weights (``_whole``)."""
+    if not _ranked(ctx) or ctx.model_size == 1:
+        return p_attn, False
+    if cut == "kv_group":
+        return p_attn, True
+    a = cfg.attn
+    return {**_whole(p_attn, ctx, ("wq", "bq", "wo"),
+                     a.n_heads * a.head_dim),
+            **_whole(p_attn, ctx, ("wk", "bk", "wv", "bv"),
+                     a.n_kv_heads * a.head_dim)}, False
+
+
+def _write_decode_row(kc, vc, k, v, t_pos, ctx, cut: str):
+    """Write each row's new K/V (B, 1, Hkv, hd) at its position ``t_pos``
+    (clamped to the cache, as ``A.update_cache`` does), in place. Under
+    ``split_kv`` a row lands only on the rank whose slice of the positions
+    holds it; the other ranks write the row's old value back at a clamped
+    index of their own slice (one index per row: no two writes meet, and
+    no host sync)."""
+    if cut != "split_kv":
+        A.update_cache(kc, vc, k, v, t_pos)
+        return
+    B, S_loc = kc.shape[:2]
+    lo = ctx.model_rank * S_loc
+    p = torch.clamp(t_pos.long(), 0, S_loc * ctx.model_size - 1) - lo
+    mine = ((p >= 0) & (p < S_loc)).reshape(B, 1, 1)
+    rows = torch.arange(B, device=kc.device)
+    p = torch.clamp(p, 0, S_loc - 1)
+    for c, n in ((kc, k), (vc, v)):
+        c[rows, p] = torch.where(mine, n[:, 0].to(c.dtype), c[rows, p])
+
+
+def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
+                             block_table=None):
+    """Decode attention against this rank's slice of the cache, with no
+    gather of the cache (``repro/models/blocks.py:417-500``). q: this
+    rank's rows and q heads (B_l, 1, H_l, hd); t_pos: (B_l,). The arms
+    (``parallel.sharding.kv_cut``):
+
+      kv_group   - the cache holds this rank's kv heads, q its q heads
+                   (the projections are column-parallel): local decode,
+                   no collective;
+      split_kv   - the cache holds this rank's S/m positions from
+                   rank * S/m: flash-decode partials over them, merged
+                   over the model group (one all-reduce MAX, one SUM of
+                   (B, H, 1, hd + 1));
+      replicated - the whole cache on every model rank: plain decode.
+
+    The rows are this rank's slots, cut over dp where the cache's slots
+    are (``sharding.slots_cut``). The paged arm raises (ROADMAP Queue 1
+    item 8)."""
+    if block_table is not None:
+        raise NotImplementedError("sharded_decode_attention: the paged "
+                                  "cache is not ported yet (ROADMAP Queue "
+                                  "1 item 8)")
+    if cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
+        off = ctx.model_rank * k_cache.shape[1]
+        m, l, acc = A.decode_attention_partial(q, k_cache, v_cache, t_pos,
+                                               off)
+        out = A.merge_decode_partials(m, l, acc, ctx.model_group)
+        return out.transpose(1, 2).to(q.dtype)
+    return A.decode_attention(q, k_cache, v_cache, t_pos)
+
+
+def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
+                 cut: str = "replicated"):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
     {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
-    write index (= RoPE position). Returns x."""
+    write index (= RoPE position). Returns x.
+
+    ``ctx``: a ranked context of the serving steps (``seq_shard`` off), or
+    None at one rank. x and t_pos are then this rank's slots, the cache
+    this rank's slice of them, cut over the model axis as ``cut``
+    (``parallel.sharding.kv_cut``) says: see ``sharded_decode_attention``
+    and ``_serve_attn``. The SSM block runs whole on every model rank, the
+    MoE through the ranked ``moe_ffn``, the dense FFN column- then
+    row-parallel (``_mlp_tail``)."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
-        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache)
+        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache,
+                                 ctx=ctx)
         cache["conv"].copy_(new["conv"])
         cache["state"].copy_(new["state"])
-        return _mlp_tail(cfg, p, x + h)[0]
+        return _mlp_tail(cfg, p, x + h, ctx)[0]
     a = cfg.attn
     B = x.shape[0]
-    q, k, v = _qkv_proj(a, p["attn"], h)
+    w, partial = _serve_attn(cfg, p["attn"], ctx, cut)
+    q, k, v = _qkv_proj(a, w, h)
     if a.rope_theta > 0:
         pos_arr = t_pos.reshape(B, 1)
         q = apply_rope(q, pos_arr, a.rope_theta)
         k = apply_rope(k, pos_arr, a.rope_theta)
-    kc, vc = A.update_cache(cache["k"], cache["v"], k, v, t_pos)
-    o = A.decode_attention(q, kc, vc, t_pos)
-    x = x + o.reshape(B, 1, a.n_heads * a.head_dim) @ p["attn"]["wo"]
-    return _mlp_tail(cfg, p, x)[0]
+    _write_decode_row(cache["k"], cache["v"], k, v, t_pos, ctx, cut)
+    o = sharded_decode_attention(ctx, q, cache["k"], cache["v"], t_pos, cut)
+    o = o.reshape(B, 1, -1) @ w["wo"]
+    if partial:
+        o = CL.reduce_from(o, ctx.model_group)
+    return _mlp_tail(cfg, p, x + o, ctx)[0]
 
 
 def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
-                valid_len):
+                valid_len, ctx=None, cut: str = "replicated",
+                n_write: int = -1):
     """One prompt chunk per admission row: x (A, C, d) rows enter slot
     ``slots[a]`` of the full cache at indices [pos_off[a], pos_off[a] + C),
     written in place; each row attends over its own slot up to its own
@@ -404,7 +500,18 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
     conv window and state out (zeroed where pos_off == 0: a request's first
     chunk starts from a zero carry), scans on from them with the pads
     (mask (A, C) false) as identity steps, and writes them back in place
-    with the window after each row's valid_len tokens. Returns x."""
+    with the window after each row's valid_len tokens. Returns x.
+
+    ``ctx``: a ranked context (``decode_layer``); ``slots`` are then
+    indices into this rank's slots, and only the first ``n_write`` rows
+    (-1: all) write the cache (``lm.prefill_chunk`` runs one stand-in
+    row, whose output it drops, when this rank holds none of the stack's
+    slots). Under ``split_kv`` a row's earlier chunks lie on every model
+    rank: the rows' slots are gathered whole over the model group, the
+    chunk's K/V written into the gathered rows, the attention taken over
+    them (``A.attention``, as at one rank), and each rank's slice of the
+    positions copied back into its cache."""
+    n = x.shape[0] if n_write < 0 else n_write
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
         carry = {}
@@ -413,24 +520,39 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
             first = (pos_off == 0).reshape((-1,) + (1,) * (c.dim() - 1))
             carry[k] = torch.where(first, torch.zeros_like(c), c)
         h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=carry,
-                                 mask=mask, valid_len=valid_len)
+                                 mask=mask, valid_len=valid_len, ctx=ctx)
         for k in ("conv", "state"):
-            cache[k].index_copy_(0, slots, new[k].to(cache[k].dtype))
-        return _mlp_tail(cfg, p, x + h.to(x.dtype))[0]
+            cache[k].index_copy_(0, slots[:n], new[k][:n].to(cache[k].dtype))
+        return _mlp_tail(cfg, p, x + h.to(x.dtype), ctx)[0]
     a = cfg.attn
     Ac, C, _ = x.shape
-    q, k, v = _qkv_proj(a, p["attn"], h)
+    w, partial = _serve_attn(cfg, p["attn"], ctx, cut)
+    q, k, v = _qkv_proj(a, w, h)
     if a.rope_theta > 0:
         q = apply_rope(q, q_pos, a.rope_theta)
         k = apply_rope(k, q_pos, a.rope_theta)
     ck, cv = cache["k"], cache["v"]
-    ck[slots[:, None], q_pos] = k.to(ck.dtype)
-    cv[slots[:, None], q_pos] = v.to(cv.dtype)
-    kc, vc = ck[slots], cv[slots]                      # (A, S, Hkv, hd)
+    if cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
+        G = ctx.model_group
+        S_loc = ck.shape[1]
+        lo = ctx.model_rank * S_loc
+        kc = CL.gather_from(ck[slots], G, 1)           # (A, S, Hkv, hd)
+        vc = CL.gather_from(cv[slots], G, 1)
+        rows = torch.arange(Ac, device=x.device)[:, None]
+        kc[rows, q_pos] = k.to(kc.dtype)
+        vc[rows, q_pos] = v.to(vc.dtype)
+        ck[slots[:n]] = kc[:n, lo:lo + S_loc]
+        cv[slots[:n]] = vc[:n, lo:lo + S_loc]
+    else:
+        ck[slots[:n, None], q_pos[:n]] = k[:n].to(ck.dtype)
+        cv[slots[:n, None], q_pos[:n]] = v[:n].to(cv.dtype)
+        kc, vc = ck[slots], cv[slots]                  # (A, S, Hkv, hd)
     S_tot = kc.shape[1]
     kv_pos = torch.arange(S_tot, device=x.device)[None, :].expand(Ac, S_tot)
     o = A.attention(q, kc, vc, q_pos, kv_pos, q_block=a.q_block,
                     kv_block=a.kv_block)
-    h = o.reshape(Ac, C, a.n_heads * a.head_dim) @ p["attn"]["wo"]
+    h = o.reshape(Ac, C, -1) @ w["wo"]
+    if partial:
+        h = CL.reduce_from(h, ctx.model_group)
     x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x)[0]
+    return _mlp_tail(cfg, p, x, ctx)[0]

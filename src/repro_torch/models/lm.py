@@ -9,19 +9,21 @@ The cache is updated in place.
 
 The training forward and loss also run on a mesh: with a ranked
 ``AxisCtx`` each rank holds its rows of the batch and its shard of the
-parameters (``parallel.sharding.to_mesh``); see ``forward``.
+parameters (``parallel.sharding.to_mesh``); see ``forward``. So do the
+serving calls, each rank also holding its slice of the decode cache
+(``init_cache``, ``decode_step``, ``prefill_chunk``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (ParamDecl, apply_norm,
                                        chunked_xent, init_from_schema,
                                        model_sharded, norm_schema, tree_map)
@@ -87,34 +89,52 @@ def _period(tree: Tree, n: int) -> Tree:
     return tree_map(lambda a: a[n], tree)
 
 
-def init_cache(cfg, batch_size: int, seq_len: int,
-               device: DeviceLike = None) -> Tuple:
-    """Zero contiguous decode cache, a tuple over period positions: an
-    attention position holds {"k", "v"} (n_periods, batch, seq_len, Hkv,
-    hd) in the param dtype, an SSM position {"conv" (n_periods, batch,
-    W-1, d_in + 2 ds) in the param dtype, "state" (n_periods, batch, nh,
-    ds, hd) fp32} (``repro/models/lm.py:285-294``)."""
+def cache_shapes(cfg, batch_size: int, seq_len: int) -> Tuple:
+    """The decode cache's global layout, a tuple over period positions of
+    {entry: (shape, dtype)}: an attention position holds {"k", "v"}
+    (n_periods, batch, seq_len, Hkv, hd) in the param dtype, an SSM
+    position {"conv" (n_periods, batch, W-1, d_in + 2 ds) in the param
+    dtype, "state" (n_periods, batch, nh, ds, hd) fp32}
+    (``repro/models/lm.py:263-294``)."""
     if cfg.n_enc_layers:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet (init_cache)")
-    dev = resolve_device(device)
     p = period_of(cfg)
     n_periods = cfg.n_layers // p
     dt = dtype_of(cfg.param_dtype)
-    caches = []
+    out = []
     for pos in range(p):
         if cfg.layer_kind(pos) == "a":
             a = cfg.attn
             shape = (n_periods, batch_size, seq_len, a.n_kv_heads,
                      a.head_dim)
-            caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                           "v": torch.zeros(shape, dtype=dt, device=dev)})
+            out.append({"k": (shape, dt), "v": (shape, dt)})
         else:
-            c = SSM.init_ssm_cache(cfg, cfg.ssm, n_periods * batch_size, dt,
-                                   dev)
-            caches.append({k: v.reshape((n_periods, batch_size)
-                                        + v.shape[1:]) for k, v in c.items()})
-    return tuple(caches)
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            nh = d_in // s.head_dim
+            out.append({
+                "conv": ((n_periods, batch_size, s.conv_width - 1,
+                          d_in + 2 * s.d_state), dt),
+                "state": ((n_periods, batch_size, nh, s.d_state,
+                           s.head_dim), torch.float32)})
+    return tuple(out)
+
+
+def init_cache(cfg, batch_size: int, seq_len: int,
+               device: DeviceLike = None, ctx=None) -> Tuple:
+    """Zero contiguous decode cache of ``cache_shapes``' layout. With a
+    ranked ``ctx``, this rank's slice of it, cut as
+    ``parallel.sharding.cache_specs`` says: the bytes a rank holds."""
+    dev = resolve_device(device)
+    shapes = cache_shapes(cfg, batch_size, seq_len)
+    if ctx is not None and ctx.active:
+        specs = SH.cache_specs(cfg, ctx, batch_size, seq_len)
+        shapes = tuple({k: (SH.local_shape(shp, sp[k], ctx.mesh), dt)
+                        for k, (shp, dt) in e.items()}
+                       for e, sp in zip(shapes, specs))
+    return tuple({k: torch.zeros(shp, dtype=dt, device=dev)
+                  for k, (shp, dt) in e.items()} for e in shapes)
 
 
 def _embed(cfg, params, tokens):
@@ -270,28 +290,126 @@ def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 
+# ---------------------------------------------------------------------------
+# Serving: decode steps and prefill chunks, at one rank or on a mesh
+# ---------------------------------------------------------------------------
+
+
+class ServeLayout(NamedTuple):
+    """How a ranked serving call's state is cut, worked out once per step
+    builder (``serve_layout``): the parameter specs whose data-axis cuts
+    each call gathers (None where no data axis holds more than one rank:
+    nothing is then stored cut over one), each period position's K/V cut
+    (``sharding.kv_cut``), and whether the cache's slots are cut over the
+    dp axes (``sharding.slots_cut``)."""
+    gather_specs: Optional[Tree]
+    cuts: Tuple[str, ...]
+    slots_cut: bool
+
+
+def serve_layout(cfg, ctx, batch: int, seq_len: int,
+                 param_specs: Tree) -> ServeLayout:
+    """The ``ServeLayout`` of a decode cache of ``batch`` slots and
+    ``seq_len`` positions on ``ctx``'s mesh, the parameters stored as
+    ``param_specs`` (``sharding.param_specs``) cut them."""
+    cuts = tuple(SH.kv_cut(ctx, cfg.attn.n_kv_heads, seq_len)
+                 if cfg.layer_kind(pos) == "a" else "replicated"
+                 for pos in range(period_of(cfg)))
+    cut_data = any(n > 1 for a, n in ctx.mesh.shape.items()
+                   if a != ctx.model_axis)
+    return ServeLayout(param_specs if cut_data else None, cuts,
+                       SH.slots_cut(ctx, batch))
+
+
+def _ranked_layout(ctx, layout: Optional[ServeLayout]) -> bool:
+    """Whether a serving call is ranked; a ranked one needs its layout."""
+    ranked = ctx is not None and ctx.active
+    if ranked and layout is None:
+        raise ValueError("a ranked serving call needs its cache's layout "
+                         "(lm.serve_layout)")
+    return ranked
+
+
+def _serve_layers(cfg, params, specs, ctx, h, layer):
+    """Runs ``layer(pos, layer params, n, h) -> h`` over every layer; on a
+    mesh each period's leaves cut over the data axes gathered first."""
+    p = period_of(cfg)
+    for n in range(cfg.n_layers // p):
+        lp = [_period(params["layers"][pos], n) for pos in range(p)]
+        if specs is not None:
+            lp = SH.fsdp_gather_tree(lp, specs["layers"], ctx, drop=1)
+        for pos in range(p):
+            h = layer(pos, lp[pos], n, h)
+    return h
+
+
+def _serve_logits(cfg, top, h, ctx):
+    """fp32 logits of h (rows, d) over the whole vocab: on a mesh whose
+    vocab is stored cut, each model rank's slice gathered."""
+    logits = _logits(cfg, top, h)
+    if model_sharded(ctx, cfg.vocab_size):
+        logits = CL.gather_from(logits, ctx.model_group, -1)
+    return logits
+
+
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens, t_pos):
+def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
+                layout: Optional[ServeLayout] = None):
     """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
     (every slot decodes at its own position). Returns (logits (B, V) fp32,
     cache), the cache updated in place: K/V at each row's index, and every
-    row's SSM carry (free slots decode too, as in the JAX engine)."""
+    row's SSM carry (free slots decode too, as in the JAX engine).
+
+    ``ctx``: a ranked context (``seq_shard`` off), or None at one rank.
+    ``params`` is then this rank's shard of the mesh tree
+    (``sharding.to_mesh``), ``cache`` its slice of the cache
+    (``sharding.cache_specs``), both cut as ``layout`` says, and tokens,
+    t_pos and the logits returned are this rank's slots: cut over the dp
+    axes where the cache's slots are, every slot otherwise. The leaves
+    cut over the data axes are gathered per period, the embedding and
+    head are vocab-parallel where the vocab is cut, and every layer
+    follows its cache entry's cut (``blocks.decode_layer``)."""
+    ranked = _ranked_layout(ctx, layout)
+    specs, cuts, top = None, ["replicated"] * period_of(cfg), params
+    if ranked:
+        specs, cuts = layout.gather_specs, layout.cuts
+        top = _top_level(cfg, params, ctx, specs)
+        if not layout.slots_cut:       # every dp rank holds every slot
+            ctx = dataclasses.replace(ctx, dp_axes=())
     Bsz = tokens.shape[0]
     t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
         -1).expand(Bsz)
-    h = _embed(cfg, params, tokens)
-    p = period_of(cfg)
-    for n in range(cfg.n_layers // p):
-        for pos in range(p):
-            h = B.decode_layer(cfg, pos, _period(params["layers"][pos], n),
-                               h, _period(cache[pos], n), t_vec)
-    h = apply_norm(cfg, params["ln_f"], h)
-    return _logits(cfg, params, h[:, 0]), cache
+    h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
+
+    def layer(pos, lp, n, h):
+        return B.decode_layer(cfg, pos, lp, h, _period(cache[pos], n), t_vec,
+                              ctx if ranked else None, cuts[pos])
+
+    h = _serve_layers(cfg, params, specs, ctx, h, layer)
+    h = apply_norm(cfg, top["ln_f"], h)
+    return _serve_logits(cfg, top, h[:, 0], ctx if ranked else None), cache
+
+
+def _owned_rows(ctx, slots, n_local: int):
+    """(the stack's rows this rank runs, their indices into its slots, how
+    many of them write the cache) where the slots are cut over dp: the
+    rows whose slot this rank's dp index holds, or one stand-in row (row
+    0 on slot 0, writing nothing) when it holds none, so that every rank
+    runs every layer's collectives."""
+    base = SH._dp_index(ctx, ctx.dp_axes) * n_local
+    mine = [i for i, s in enumerate(slots.tolist())
+            if base <= s < base + n_local]
+    if not mine:
+        return (torch.zeros(1, dtype=torch.long, device=slots.device),
+                torch.zeros(1, dtype=torch.long, device=slots.device), 0)
+    rows = torch.tensor(mine, device=slots.device)
+    return rows, slots[rows] - base, len(mine)
 
 
 @torch.no_grad()
 def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
-                  slot: Optional[torch.Tensor] = None):
+                  slot: Optional[torch.Tensor] = None, ctx=None,
+                  layout: Optional[ServeLayout] = None):
     """Prompt chunks against per-slot cache regions: one admission row or a
     stack of them. tokens: (A, C) int, tail-padded past valid_len; pos_off:
     (A,) cache index of each row's first token; valid_len: (A,) valid
@@ -304,7 +422,16 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     (``repro/models/lm.py:416-433, 460-473``), the port does the same per
     layer (``blocks.chunk_layer``) and writes back with an in-place
     ``index_copy_``. Tokens past a row's valid_len are identity steps of
-    the SSM scan (mask false)."""
+    the SSM scan (mask false).
+
+    ``ctx``, ``layout``: as ``decode_step``, but every rank is handed the
+    whole stack (the JAX builder replicates it). Where the cache's slots
+    are cut over dp, each dp rank runs the rows whose slots it holds and
+    only it writes them (a rank holding none runs one stand-in row and
+    writes nothing); the MoE then routes each dp rank's rows within its
+    model group. Each row's logits come from the rank that ran it, summed
+    over the dp group into the whole (A, V) on every rank. Every row is
+    run once, exactly as at one rank."""
     Ac, C = tokens.shape
     dev = tokens.device
 
@@ -313,15 +440,37 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
 
     pos_off, valid_len = vec(pos_off), vec(valid_len)
     slots = torch.arange(Ac, device=dev) if slot is None else vec(slot)
+    ranked = _ranked_layout(ctx, layout)
+    specs, cuts, top = None, ["replicated"] * period_of(cfg), params
+    n_write, slots_cut = -1, False
+    if ranked:
+        specs, cuts, slots_cut = layout
+        top = _top_level(cfg, params, ctx, specs)
+        if slots_cut:
+            n_local = next(iter(cache[0].values())).shape[1]
+            rows, slots, n_write = _owned_rows(ctx, slots, n_local)
+            tokens, pos_off, valid_len = (t[rows] for t in (
+                tokens, pos_off, valid_len))
+        # each dp rank's rows are its own: the MoE's tokens are not cut
+        # over the dp axes
+        ctx = dataclasses.replace(ctx, dp_axes=())
+    A_run = tokens.shape[0]
     q_pos = pos_off[:, None] + torch.arange(C, device=dev)[None, :]
     mask = torch.arange(C, device=dev)[None, :] < valid_len[:, None]
-    h = _embed(cfg, params, tokens)
-    p = period_of(cfg)
-    for n in range(cfg.n_layers // p):
-        for pos in range(p):
-            h = B.chunk_layer(cfg, pos, _period(params["layers"][pos], n), h,
-                              _period(cache[pos], n), slots, pos_off, q_pos,
-                              mask, valid_len)
-    h = apply_norm(cfg, params["ln_f"], h)
-    h_last = h[torch.arange(Ac, device=dev), torch.clamp(valid_len - 1, min=0)]
-    return _logits(cfg, params, h_last), cache
+    h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
+
+    def layer(pos, lp, n, h):
+        return B.chunk_layer(cfg, pos, lp, h, _period(cache[pos], n), slots,
+                             pos_off, q_pos, mask, valid_len,
+                             ctx if ranked else None, cuts[pos], n_write)
+
+    h = _serve_layers(cfg, params, specs, ctx, h, layer)
+    h = apply_norm(cfg, top["ln_f"], h)
+    h_last = h[torch.arange(A_run, device=dev),
+               torch.clamp(valid_len - 1, min=0)]
+    logits = _serve_logits(cfg, top, h_last, ctx if ranked else None)
+    if slots_cut:
+        whole = logits.new_zeros((Ac, logits.shape[1]))
+        whole[rows[:n_write]] = logits[:n_write]
+        logits = CL.all_reduce_(whole, ctx.data_group)
+    return logits, cache

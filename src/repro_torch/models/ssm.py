@@ -171,16 +171,3 @@ def ssm_forward(cfg, s, p, x, cache=None, return_cache=False, mask=None,
     y = ops.rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
     return (y @ p["out_proj"]).to(x.dtype), new_cache
 
-
-def init_ssm_cache(cfg, s, batch: int, dtype, device) -> Dict:
-    """A zero SSM cache for ``batch`` rows: the conv window (B, W-1,
-    d_in + 2 ds) in ``dtype`` and the SSD state (B, nh, ds, hd) fp32."""
-    d_in = s.expand * cfg.d_model
-    nh = d_in // s.head_dim
-    conv_ch = d_in + 2 * s.d_state
-    return {
-        "conv": torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=dtype,
-                            device=device),
-        "state": torch.zeros((batch, nh, s.d_state, s.head_dim),
-                             dtype=torch.float32, device=device),
-    }

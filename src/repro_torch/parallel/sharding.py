@@ -225,7 +225,11 @@ def _expert_trees(params: Tree):
 def pack_params(params: Tree, ctx: AxisCtx) -> Tree:
     """The one-rank tree (stacked experts (n_periods, 1, E, ...)) as the
     mesh's global tree (n_periods, W, E_loc, ...), the other leaves as
-    they are (``pack_expert_weights`` on every MoE layer position)."""
+    they are (``pack_expert_weights`` on every MoE layer position). On a
+    model axis of one rank the two layouts are one: the tree is returned
+    as it is, with no copy of the experts."""
+    if ctx.ep * ctx.etp == 1:
+        return params
     out = tree_map(lambda t: t, params)
     for ew in _expert_trees(out):
         packed = pack_expert_weights({k: v[:, 0] for k, v in ew.items()},
@@ -236,6 +240,8 @@ def pack_params(params: Tree, ctx: AxisCtx) -> Tree:
 
 def unpack_params(params: Tree, ctx: AxisCtx) -> Tree:
     """The inverse of ``pack_params``."""
+    if ctx.ep * ctx.etp == 1:
+        return params
     out = tree_map(lambda t: t, params)
     for ew in _expert_trees(out):
         full = unpack_expert_weights(ew, ctx.ep, ctx.etp)
@@ -318,6 +324,67 @@ def make_ctx(cfg, mesh: Optional[Mesh], seq_shard: bool = True) -> AxisCtx:
         ep, etp = msize, 1
     return AxisCtx(mesh=mesh, dp_axes=dp_axes, model_axis="model",
                    ep=ep, etp=etp, seq_shard=seq_shard)
+
+
+# ---------------------------------------------------------------------------
+# the decode cache on a mesh
+# ---------------------------------------------------------------------------
+
+
+def slots_cut(ctx: AxisCtx, batch: int) -> bool:
+    """Whether ``batch`` decode slots split over the data axes: more than
+    one slot, and dp divides them (``repro/parallel/sharding.py:85``)."""
+    return (ctx is not None and ctx.active and ctx.dp_size > 1
+            and batch > 1 and batch % ctx.dp_size == 0)
+
+
+def kv_cut(ctx: AxisCtx, n_kv_heads: int, seq_len: int) -> str:
+    """How a K/V cache entry is cut over the model axis, the one place the
+    choice is made (``kv_spec``, ``repro/parallel/sharding.py:88-93``, and
+    the arms of ``sharded_decode_attention``): "kv_group" when the model
+    axis divides the kv heads, else "split_kv" when it divides the
+    positions, else "replicated" (also on a model axis of one rank)."""
+    m = ctx.model_size if ctx is not None and ctx.active else 1
+    if m == 1:
+        return "replicated"
+    if n_kv_heads % m == 0:
+        return "kv_group"
+    if seq_len % m == 0:
+        return "split_kv"
+    return "replicated"
+
+
+def cache_specs(cfg, ctx: AxisCtx, batch: int, seq_len: int) -> Tuple:
+    """The spec of every entry of ``lm.init_cache``'s tree, a tuple over
+    period positions (``repro/parallel/sharding.py:79-116``): the leading
+    (n_periods,) axis whole, the slots over the dp axes (``slots_cut``),
+    K/V (.., B, S, Hkv, hd) over the model axis as ``kv_cut`` says.
+
+    The SSM entries, conv (.., B, W-1, C) and state (.., B, nh, ds, hd),
+    are cut over the dp slots only. The JAX package also cuts the conv
+    channels and the state heads over the model axis; the port's Mamba
+    block runs whole on every model rank (``ssm.whole_params``), so each
+    model rank keeps its slots' whole carry, and no collective enters the
+    SSM's serving steps."""
+    from repro_torch.models.lm import period_of
+    dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
+    b = dp if slots_cut(ctx, batch) else None
+    specs = []
+    for pos in range(period_of(cfg)):
+        if cfg.layer_kind(pos) == "a":
+            cut = kv_cut(ctx, cfg.attn.n_kv_heads, seq_len)
+            kv = P(None, b, "model" if cut == "split_kv" else None,
+                   "model" if cut == "kv_group" else None, None)
+            specs.append({"k": kv, "v": kv})
+        else:
+            specs.append({"conv": P(None, b, None, None),
+                          "state": P(None, b, None, None, None)})
+    return tuple(specs)
+
+
+def local_shape(shape, spec: PartitionSpec, mesh: Mesh) -> Tuple[int, ...]:
+    """This rank's shape of a global ``shape`` cut as ``spec`` says."""
+    return tuple(n // _cut(mesh, e)[0] for n, e in zip(shape, spec))
 
 
 def _dp_index(ctx: AxisCtx, dp_axes, coords=None) -> int:

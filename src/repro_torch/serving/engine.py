@@ -16,6 +16,17 @@ With a tuned plan cache (``plan_cache``, ``plan_hw``) every MoE layer of a
 prefill chunk resolves the cache's ``prefill`` entry and of a decode step
 its ``decode`` entry, as the JAX engine's step builders thread them.
 
+Both calls go through the step builders of ``launch/train_step.py``,
+built from one shape, so they share one cache layout. On a mesh
+(``mesh=``, a ``parallel.mesh.Mesh`` with ("data", "model") axes over
+the ranks of ``torch.distributed``) every rank runs this engine on the
+same submissions: it holds its shard of the parameters
+(``sharding.to_mesh``), its slice of the decode cache
+(``sharding.cache_specs``) and the ranked MoE in every MoE layer. Every
+rank sees every next token (the decode step all-gathers them), so the
+host schedulers agree; each step checks that they do with one
+all-reduce of a checksum of the scheduler's state, and raises if not.
+
 Not ported yet: the paged cache, deadlines and load shedding, cancel,
 NaN quarantine, snapshot/restore and fault injection, and the
 disaggregated topology.
@@ -25,15 +36,20 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
+import zlib
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.train_step import _with_plan_cache
+from repro_torch.launch.train_step import (build_decode_step,
+                                           build_prefill_chunk_step)
 from repro_torch.models import lm
+from repro_torch.parallel import collectives as CL
+from repro_torch.parallel import sharding as SH
 
 
 class RequestStatus(str, enum.Enum):
@@ -141,18 +157,19 @@ class Request:
 
 
 class ServeEngine:
+    """``params``: the full one-rank tree (``lm.init_params``' layout), or
+    None to draw it from ``seed``. On a mesh every rank draws or is handed
+    the same full tree and keeps its shard of it (``sharding.to_mesh``,
+    cut with FSDP as the JAX builders' default cuts it)."""
+
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
                  device: DeviceLike = None,
-                 plan_cache: Optional[str] = None, plan_hw: str = ""):
+                 plan_cache: Optional[str] = None, plan_hw: str = "",
+                 mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        # the configs the chunk and decode calls run under: each MoE layer
-        # resolves its phase's plan from the cache, if one is given
-        self.prefill_cfg = _with_plan_cache(cfg, plan_cache, plan_hw,
-                                            "prefill")
-        self.decode_cfg = _with_plan_cache(cfg, plan_cache, plan_hw,
-                                           "decode")
+        self.mesh = mesh
         self.max_seq = max_seq
         self.B = batch_size                       # decode slots
         # a chunk that divides max_seq tiles the cache exactly, so the last
@@ -161,11 +178,29 @@ class ServeEngine:
         while max_seq % chunk:
             chunk -= 1
         self.chunk = chunk
+        # one shape gives both steps the cache layout they share
+        shape = ShapeConfig("serve_decode", seq_len=max_seq,
+                            global_batch=batch_size, kind="decode")
+        self.prefill = build_prefill_chunk_step(
+            cfg, shape, mesh, chunk=chunk, plan_cache=plan_cache,
+            plan_hw=plan_hw)
+        self.decode = build_decode_step(cfg, shape, mesh,
+                                        plan_cache=plan_cache,
+                                        plan_hw=plan_hw)
+        # the configs the chunk and decode calls run under: each MoE layer
+        # resolves its phase's plan from the cache, if one is given
+        self.prefill_cfg = self.prefill["cfg"]
+        self.decode_cfg = self.decode["cfg"]
+        self.ctx = self.decode["ctx"]
         if params is None:
             params = lm.init_params(cfg, seed, self.device)
+        if mesh is not None:
+            params = SH.to_mesh(params, cfg, self.ctx)
         self.params = params
-        # the decode cache, one region (batch row) per slot, updated in place
-        self.cache = lm.init_cache(cfg, batch_size, max_seq, self.device)
+        # the decode cache, one region (batch row) per slot, updated in
+        # place; on a mesh this rank's slice of it
+        self.cache = lm.init_cache(cfg, batch_size, max_seq, self.device,
+                                   self.ctx if mesh is not None else None)
         # host scheduler state
         self.slot_req: List[Optional[Request]] = [None] * batch_size
         self.pos = np.zeros((batch_size,), np.int64)      # next write index
@@ -304,8 +339,8 @@ class ServeEngine:
                 part = r.prompt[j * C:(j + 1) * C]
                 toks[a, :len(part)] = part
             offs = np.full((A,), j * C, np.int64)
-            logits, self.cache = lm.prefill_chunk(
-                self.prefill_cfg, self.params, self.cache, self._tensor(toks),
+            logits, self.cache = self.prefill["fn"](
+                self.params, self.cache, self._tensor(toks),
                 self._tensor(offs), self._tensor(valids), slots_t)
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             last = nchunks == j + 1
@@ -333,18 +368,41 @@ class ServeEngine:
         queued requests, then one decoded token per live slot. Returns
         whether any work remains."""
         pairs = self._gather_admissions()
+        if self.mesh is not None:
+            self._check_agreement(pairs)
         if pairs:
             self._admit_batch(pairs)
         if self.live.any():
             self._decode_once()
         return self.pending
 
+    def _check_agreement(self, pairs: List[Tuple[int, Request]]):
+        """Raises unless every rank's scheduler holds the same state and
+        admits the same requests (ids, prompt lengths, budgets) into the
+        same slots this step, before any collective of the step: one
+        all-reduce (MAX) of (checksum, -checksum) over every rank."""
+        world = self.mesh.group(self.mesh.axis_names)
+        if world.size == 1:
+            return
+        plan = np.concatenate([
+            np.array([len(pairs)] + [v for s, r in pairs for v in (
+                s, r.rid, len(r.prompt), r.max_new)], np.int64),
+            self.live.astype(np.int64), self.pos, self.last_tok])
+        c = zlib.crc32(plan.tobytes())
+        t = torch.tensor([c, -c], dtype=torch.int64, device=self.device)
+        CL.all_reduce_(t, world, op="max")
+        lo, hi = -int(t[1]), int(t[0])
+        if lo != c or hi != c:
+            raise RuntimeError(f"the ranks' schedulers diverged: checksum "
+                               f"{c} here, {lo}..{hi} over the ranks")
+
     def _decode_once(self):
         t0 = time.perf_counter()
-        logits, self.cache = lm.decode_step(
-            self.decode_cfg, self.params, self.cache,
-            self._tensor(self.last_tok[:, None]), self._tensor(self.pos))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt, _, self.cache = self.decode["fn"](
+            self.params, self.cache, self._tensor(self.last_tok[:, None]),
+            self._tensor(self.pos))
+        # no live mask: only the live slots' tokens are read below
+        nxt = nxt[:, 0].cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         self.decode_tokens += int(self.live.sum())

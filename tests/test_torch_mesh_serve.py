@@ -1,0 +1,621 @@
+"""Serving on a mesh: the port's decode step, prefill chunk and engine on
+4 gloo CPU ranks against the JAX package's one-rank functions, fp32.
+
+(a) No ranks: the split-KV partials (``decode_attention_partial``) over 4
+hand-cut shards of the positions, merged (``merge_decode_partials``
+without a group), against JAX ``decode_attention`` at rel 1e-5, as
+``tests/test_decode_sharded.py`` holds JAX's own; a shard wholly past a
+row's position gives l = acc = 0 and a finite m; the port's partials
+against JAX's ``decode_attention_partial`` at 1e-5.
+
+(b) ``build_decode_step`` on the mesh, distinct per-row positions and a
+live mask, from a seeded cache: the logits (gathered over the dp group)
+against JAX's one-rank ``lm.decode_step`` at rel 5e-5 (the JAX test's
+bound), the next tokens equal, and every rank's cache leaf after the step
+equal to its slice of JAX's new cache at 1e-5. The cells reach every arm
+of ``sharded_decode_attention``: kv heads over the model axis
+(qwen2-moe-2.7b-smoke, Hkv 4, with ep 4 on (1, 4) and ep 2 on (2, 2)),
+split-KV (granite-moe-3b-a800m-smoke and qwen2-0.5b-smoke, Hkv 1), and
+replicated (granite at a max_seq of 30, which 4 does not divide); slots
+cut over dp (8 on (2, 2)) and whole on every dp rank (3 on (2, 2)); the
+SSM (mamba2-780m-smoke) and the hybrid (jamba-v0.1-52b-smoke at one
+period, 8 layers).
+
+(c) ``build_prefill_chunk_step``: a stacked admission of 2 rows into
+slots (3, 6) at nonzero offsets that straddle the split-KV position
+slices, on (2, 2) and (1, 4): logits on every rank at rel 5e-5 and every
+rank's cache leaf at 1e-5 (a K/V write landing on every rank's local
+index would show there); also both rows on one dp rank's slots, so the
+other runs its stand-in row.
+
+(d) ``ServeEngine(mesh=)``: 8 requests of mixed lengths, max_new 8, 4
+slots: every rank's token streams identical to JAX's one-rank
+``ServeEngine``, for qwen2-moe on (2, 2) naive and on (1, 4) comet,
+jamba at one period on (1, 4), and qwen2-moe at ep 4 with a plan cache
+whose prefill and decode entries every MoE body must run.
+
+(e) Every rank's cache leaf has the shape the port's ``cache_specs``
+cuts, and the K/V entries are cut over the model axis where JAX's
+``kv_spec`` cuts them.
+
+MoE capacity is the expert count (no drop): capacity follows the local
+token count, so a mesh would drop other tokens than one rank does. The
+ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
+while this process computes the JAX references; weights, caches and
+prompts cross through files.
+"""
+import dataclasses
+import json
+import threading
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models import attention as JA
+from repro.models import lm as JL
+from repro.parallel import sharding as JSH
+from repro.parallel.mesh import AxisCtx as JAxisCtx
+from repro.serving import ServeEngine as JaxEngine
+from repro_torch.configs import get_config
+from repro_torch.launch import selftest as ST
+from repro_torch.models import attention as A
+from repro_torch.models import lm
+from repro_torch.models.common import tree_leaves
+from repro_torch.parallel import sharding as SH
+
+torch.set_num_threads(1)
+
+SPAWN_TIMEOUT = 240.0          # seconds for one layout's 4 ranks
+LOGIT_REL, CACHE_REL, PART_REL = 5e-5, 1e-5, 1e-5
+LAYOUTS = {"dp1mp4": (1, 4), "dp2mp2": (2, 2)}
+ENGINE = dict(max_seq=64, slots=4, chunk=16, max_new=8)
+PROMPT_LENS = (5, 23, 40, 9, 17, 3, 30, 12)
+
+
+def _no_drop(arch, over=None):
+    over = dict(over or {})
+    E = jax_config(arch).moe
+    if E is not None:
+        over["moe"] = {"capacity_factor": float(min(E.num_experts, 8)),
+                       **over.get("moe", {})}
+    return over
+
+
+# reference problems: name -> (arch, the config's replacements)
+REFS = {
+    "qmoe": ("qwen2-moe-2.7b-smoke", _no_drop("qwen2-moe-2.7b-smoke")),
+    "granite": ("granite-moe-3b-a800m-smoke",
+                _no_drop("granite-moe-3b-a800m-smoke")),
+    "q05b": ("qwen2-0.5b-smoke", {}),
+    "mamba2": ("mamba2-780m-smoke", {}),
+    "jamba": ("jamba-v0.1-52b-smoke",
+              _no_drop("jamba-v0.1-52b-smoke", {"n_layers": 8})),
+}
+NAIVE = {"impl": "naive"}
+COMET = {"impl": "comet", "ring_group": 1, "n_col_blocks": 2}
+# decode cells: name -> (layout, ref, moe knobs, slots, max_seq, the arm)
+DECODE = {
+    "dec-qmoe-14": ("dp1mp4", "qmoe", COMET, 8, 32, "kv_group"),
+    "dec-qmoe-22": ("dp2mp2", "qmoe", NAIVE, 8, 32, "kv_group"),
+    "dec-qmoe-22-b3": ("dp2mp2", "qmoe", NAIVE, 3, 32, "kv_group"),
+    "dec-granite-14": ("dp1mp4", "granite", COMET, 8, 32, "split_kv"),
+    "dec-granite-22": ("dp2mp2", "granite", NAIVE, 8, 32, "split_kv"),
+    "dec-q05b-14": ("dp1mp4", "q05b", None, 8, 32, "split_kv"),
+    "dec-granite-s30-14": ("dp1mp4", "granite", NAIVE, 8, 30, "replicated"),
+    "dec-mamba2-22": ("dp2mp2", "mamba2", None, 8, 32, None),
+    "dec-jamba-14": ("dp1mp4", "jamba", COMET, 8, 32, "split_kv"),
+}
+# prefill-chunk cells: name -> (layout, ref, moe knobs, slots, pos_off)
+CHUNK_C = 8
+CHUNK_VALID = (8, 5)
+CHUNK = {
+    "chunk-granite-14": ("dp1mp4", "granite", NAIVE, (3, 6), (12, 4)),
+    "chunk-granite-22": ("dp2mp2", "granite", NAIVE, (3, 6), (12, 4)),
+    "chunk-qmoe-22": ("dp2mp2", "qmoe", NAIVE, (3, 6), (12, 4)),
+    "chunk-qmoe-14": ("dp1mp4", "qmoe", COMET, (3, 6), (12, 4)),
+    "chunk-qmoe-22-oneside": ("dp2mp2", "qmoe", NAIVE, (1, 2), (12, 4)),
+    "chunk-mamba2-22": ("dp2mp2", "mamba2", None, (3, 6), (12, 4)),
+    "chunk-jamba-14": ("dp1mp4", "jamba", COMET, (3, 6), (12, 4)),
+}
+CHUNK_SLOTS, CHUNK_SEQ = 8, 32
+# engine cells: name -> (layout, ref, moe knobs, with a plan cache)
+ENGINES = {
+    "eng-qmoe-22-naive": ("dp2mp2", "qmoe", NAIVE, False),
+    "eng-qmoe-14-comet": ("dp1mp4", "qmoe", COMET, False),
+    "eng-jamba-14": ("dp1mp4", "jamba", COMET, False),
+    "eng-qmoe-14-plan": ("dp1mp4", "qmoe", dict(NAIVE, ep=4), True),
+}
+# a rank whose submissions differ: every rank's engine raises
+DIVERGE = ("dp2mp2", "qmoe", NAIVE, 3)
+PLANS = {"prefill": dict(impl="naive", ring_group=1, n_col_blocks=1,
+                         gemm_impl="xla", phase="prefill"),
+         "decode": dict(impl="coarse", ring_group=1, n_col_blocks=1,
+                        gemm_impl="xla", phase="decode")}
+
+
+def _over(ref, moe):
+    over = {k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in REFS[ref][1].items()}
+    if moe:
+        over["moe"] = {**over.get("moe", {}), **moe}
+    return over
+
+
+def _jax_cfg(ref):
+    """The JAX reference's config: the naive transport at one rank."""
+    arch, over = REFS[ref]
+    over = dict(over)
+    cfg = jax_config(arch)
+    if "moe" in over:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **{**over.pop("moe"), "impl": "naive"}))
+    return dataclasses.replace(cfg, **over)
+
+
+def _flat(tree):
+    return {"/".join(map(str, p)): np.asarray(t)
+            for p, t in tree_leaves(jax.tree_util.tree_map(np.asarray,
+                                                           tree))}
+
+
+def _cache(cfg, B, S, rng):
+    """A seeded global one-rank cache (numpy), the layout both packages
+    share (the port's ``lm.cache_shapes`` of the same config)."""
+    pcfg = dataclasses.replace(get_config(cfg.name), n_layers=cfg.n_layers)
+    return tuple({k: (rng.standard_normal(shp) * 0.5).astype(np.float32)
+                  for k, (shp, _) in e.items()}
+                 for e in lm.cache_shapes(pcfg, B, S))
+
+
+def _cache_arrays(cache):
+    return {f"cache/{i}/{k}": v for i, e in enumerate(cache)
+            for k, v in e.items()}
+
+
+def _jcache(cache):
+    return tuple({k: jnp.asarray(v) for k, v in e.items()} for e in cache)
+
+
+def _inputs(in_dir):
+    """Weights of every reference and each cell's inputs as npz files for
+    the ranks; returns what the JAX references need."""
+    params = {}
+    for i, ref in enumerate(REFS):
+        params[ref] = JL.init_params(_jax_cfg(ref), jax.random.PRNGKey(i))
+    pflat = {ref: {f"params/{k}": v for k, v in _flat(p).items()}
+             for ref, p in params.items()}
+    todo = {}
+    for j, (name, (_, ref, _, B, S, _)) in enumerate(DECODE.items()):
+        cfg = _jax_cfg(ref)
+        rng = np.random.default_rng(200 + j)
+        cache = _cache(cfg, B, S, rng)
+        tokens = rng.integers(1, cfg.vocab_size, (B, 1)).astype(np.int32)
+        pos = rng.choice(S, size=B, replace=False).astype(np.int32)
+        live = rng.random(B) < 0.75
+        todo[name] = (ref, cache, tokens, pos, live)
+        np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
+                 **_cache_arrays(cache), tokens=tokens, pos=pos, live=live)
+    for j, (name, (_, ref, _, slots, offs)) in enumerate(CHUNK.items()):
+        cfg = _jax_cfg(ref)
+        rng = np.random.default_rng(300 + j)
+        cache = _cache(cfg, CHUNK_SLOTS, CHUNK_SEQ, rng)
+        tokens = rng.integers(1, cfg.vocab_size, (len(slots), CHUNK_C)
+                              ).astype(np.int32)
+        args = [np.array(v, np.int32) for v in (offs, CHUNK_VALID, slots)]
+        todo[name] = (ref, cache, tokens, *args)
+        np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
+                 **_cache_arrays(cache), tokens=tokens, pos_off=args[0],
+                 valid_len=args[1], slots=args[2])
+    for ref in sorted({r for _, r, _, _ in ENGINES.values()}):
+        rng = np.random.default_rng(400)
+        prompts = [rng.integers(1, _jax_cfg(ref).vocab_size, n).tolist()
+                   for n in PROMPT_LENS]
+        todo[f"engine-{ref}"] = (ref, prompts)
+        np.savez(Path(in_dir) / f"engine-{ref}.npz", **pflat[ref],
+                 prompts=json.dumps(prompts))
+    return params, todo
+
+
+def _references(params, todo):
+    """The JAX package's one-rank results of every cell."""
+    refs = {}
+    for name, (ref, *args) in todo.items():
+        cfg, p = _jax_cfg(ref), params[ref]
+        if name in DECODE:
+            cache, tokens, pos, live = args
+            logits, new = jax.jit(lambda p, c, t, q: JL.decode_step(
+                cfg, p, c, t, q, JAxisCtx()))(p, _jcache(cache),
+                                              jnp.asarray(tokens),
+                                              jnp.asarray(pos))
+            logits = np.asarray(logits)
+            refs[name] = {"logits": logits,
+                          "next_tok": np.where(live, logits.argmax(-1), 0)}
+        elif name in CHUNK:
+            cache, tokens, offs, valid, slots = args
+            logits, new = jax.jit(lambda p, c, t, o, v, s: JL.prefill_chunk(
+                cfg, p, c, t, o, v, JAxisCtx(), slot=s))(
+                p, _jcache(cache), *map(jnp.asarray,
+                                        (tokens, offs, valid, slots)))
+            refs[name] = {"logits": np.asarray(logits)}
+        else:
+            eng = JaxEngine(cfg, params=p, max_seq=ENGINE["max_seq"],
+                            batch_size=ENGINE["slots"],
+                            chunk=ENGINE["chunk"])
+            out = eng.generate(args[0], max_new=ENGINE["max_new"])
+            refs[name] = {"tokens": out.tokens, "lengths": out.lengths,
+                          "statuses": out.statuses}
+            continue
+        refs[name]["cache"] = [{k: np.asarray(v) for k, v in e.items()}
+                               for e in new]
+    return refs
+
+
+def _plan_counts():
+    """The MoE token counts of the plan cell's calls at ep 4 on (1, 4):
+    a decode step routes the slots, a prefill chunk its stack (1 to
+    ``slots`` rows) of ``chunk`` tokens."""
+    B, C = ENGINE["slots"], ENGINE["chunk"]
+    return {"prefill": [a * C for a in range(1, B + 1)], "decode": [B]}
+
+
+def _jobs(layout, in_dir):
+    jobs = []
+    for name, (lay, ref, moe, B, S, _) in DECODE.items():
+        if lay == layout:
+            jobs.append(dict(name=name, kind="decode", arch=REFS[ref][0],
+                             over=_over(ref, moe), data=name, slots=B,
+                             max_seq=S))
+    for name, (lay, ref, moe, _, _) in CHUNK.items():
+        if lay == layout:
+            jobs.append(dict(name=name, kind="chunk", arch=REFS[ref][0],
+                             over=_over(ref, moe), data=name,
+                             slots=CHUNK_SLOTS, max_seq=CHUNK_SEQ))
+    counts = _plan_counts()
+    for name, (lay, ref, moe, plan) in ENGINES.items():
+        if lay == layout:
+            job = dict(name=name, kind="engine", arch=REFS[ref][0],
+                       over=_over(ref, moe), data=f"engine-{ref}", **ENGINE)
+            if plan:
+                job["plans"] = {ph: (p, counts[ph])
+                                for ph, p in PLANS.items()}
+                job["cache"] = str(Path(in_dir) / f"{name}.json")
+            jobs.append(job)
+    lay, ref, moe, rank = DIVERGE
+    if lay == layout:
+        jobs.append(dict(name="eng-diverge", kind="engine",
+                         arch=REFS[ref][0], over=_over(ref, moe),
+                         data=f"engine-{ref}", swap_on_rank=rank, **ENGINE))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Spawns both layouts on a thread, computes the JAX references
+    meanwhile; returns (layout -> out dir, references)."""
+    in_dir = tmp_path_factory.mktemp("in")
+    params, todo = _inputs(in_dir)
+    outs = {lay: tmp_path_factory.mktemp(lay) for lay in LAYOUTS}
+    errors = []
+
+    def spawn_all():
+        try:
+            for lay, shape in LAYOUTS.items():
+                ST.spawn(4, ST.mesh_cells,
+                         (shape, _jobs(lay, in_dir), str(in_dir),
+                          str(outs[lay])), device="cpu",
+                         timeout=SPAWN_TIMEOUT)
+        except BaseException as e:        # re-raised in the test process
+            errors.append(e)
+
+    th = threading.Thread(target=spawn_all)
+    th.start()
+    refs = _references(params, todo)
+    th.join()
+    if errors:
+        raise errors[0]
+    return outs, refs
+
+
+def _load(run, layout, name):
+    return np.load(run[0][layout] / f"{name}.npz")
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
+def _ranks(got):
+    return sorted({int(k.split("/")[0][4:]) for k in got.files})
+
+
+def _slice(full, spec, sizes, coords):
+    """The slice of ``full`` a rank at ``coords`` holds under ``spec``."""
+    idx = []
+    for n, e in zip(full.shape, spec):
+        axes = [] if e is None else [e] if isinstance(e, str) else list(e)
+        pieces, i = 1, 0
+        for a in axes:
+            pieces, i = pieces * sizes[a], i * sizes[a] + coords[a]
+        idx.append(slice(i * n // pieces, (i + 1) * n // pieces))
+    return full[tuple(idx)]
+
+
+def _check_caches(got, want_cache, layout):
+    """Every rank's cache leaf against its slice of the JAX cache."""
+    sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
+    for r in _ranks(got):
+        coords = dict(zip(("data", "model"),
+                          got[f"rank{r}/coords"].tolist()))
+        for i, e in enumerate(want_cache):
+            for k, full in e.items():
+                spec = json.loads(str(got[f"rank{r}/spec/{i}/{k}"]))
+                leaf = got[f"rank{r}/cache/{i}/{k}"]
+                want = _slice(full, spec, sizes, coords)
+                assert leaf.shape == want.shape, (r, i, k, leaf.shape)
+                assert _rel(leaf, want) < CACHE_REL, (r, i, k,
+                                                      _rel(leaf, want))
+
+
+# ---------------------------------------------------------------------------
+# (a) the split-KV partials, no ranks
+# ---------------------------------------------------------------------------
+
+
+def _decode_problem(seed=0, B=3, S=32, H=4, Hkv=2, hd=16):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    pos = np.array([5, 31, 17][:B], np.int32)
+    return q, k, v, pos
+
+
+def _partials(q, k, v, pos, n, kv_start=None):
+    S = k.shape[1]
+    Sl = S // n
+    parts = [A.decode_attention_partial(
+        torch.from_numpy(q), torch.from_numpy(k[:, i * Sl:(i + 1) * Sl]),
+        torch.from_numpy(v[:, i * Sl:(i + 1) * Sl]),
+        torch.from_numpy(pos).long(), i * Sl,
+        None if kv_start is None else torch.from_numpy(kv_start).long())
+        for i in range(n)]
+    return [torch.stack(t) for t in zip(*parts)]
+
+
+@pytest.mark.parametrize("kv_start", [None, (0, 9, 3)])
+def test_split_kv_merge_matches_jax_decode(kv_start):
+    q, k, v, pos = _decode_problem()
+    ks = None if kv_start is None else np.array(kv_start, np.int32)
+    m, l, acc = _partials(q, k, v, pos, 4, ks)
+    got = A.merge_decode_partials(m, l, acc).transpose(1, 2).numpy()
+    want = np.asarray(JA.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        None if ks is None else jnp.asarray(ks)))
+    assert _rel(got, want) < PART_REL, _rel(got, want)
+
+
+def test_shard_past_pos_is_empty():
+    q, k, v, pos = _decode_problem()
+    m, l, acc = _partials(q, k, v, pos, 4)
+    # shard 3 holds positions 24..31: wholly past rows 0 (pos 5) and 2 (17)
+    for row in (0, 2):
+        assert torch.all(l[3, row] == 0) and torch.all(acc[3, row] == 0)
+        assert torch.all(torch.isfinite(m[3, row]))
+    assert torch.all(l[3, 1] > 0)                   # row 1 reaches it
+    assert torch.all(torch.isfinite(m)) and torch.all(torch.isfinite(acc))
+
+
+@pytest.mark.parametrize("shard", range(4))
+def test_partials_match_jax(shard):
+    q, k, v, pos = _decode_problem(seed=1)
+    ks = np.array([0, 9, 3], np.int32)
+    Sl = 8
+    kv = [t[:, shard * Sl:(shard + 1) * Sl] for t in (k, v)]
+    m, l, acc = (t.numpy() for t in A.decode_attention_partial(
+        torch.from_numpy(q), *map(torch.from_numpy, kv),
+        torch.from_numpy(pos).long(), shard * Sl,
+        torch.from_numpy(ks).long()))
+    jm, jl, jacc = (np.asarray(t) for t in JA.decode_attention_partial(
+        jnp.asarray(q), *map(jnp.asarray, kv), jnp.asarray(pos),
+        shard * Sl, jnp.asarray(ks)))
+    reached = jl > 0
+    np.testing.assert_array_equal(l > 0, reached)
+    assert _rel(m[reached], jm[reached]) < PART_REL
+    np.testing.assert_array_equal(m[~reached], jm[~reached])
+    assert _rel(l, jl) < PART_REL and _rel(acc, jacc) < PART_REL
+
+
+# ---------------------------------------------------------------------------
+# (b) decode steps, (c) prefill chunks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", list(DECODE))
+def test_decode_step_matches_jax(run, cell):
+    layout = DECODE[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    for r in _ranks(got):
+        assert _rel(got[f"rank{r}/logits"], want["logits"]) < LOGIT_REL, (
+            r, _rel(got[f"rank{r}/logits"], want["logits"]))
+        np.testing.assert_array_equal(got[f"rank{r}/next_tok"][:, 0],
+                                      want["next_tok"])
+    _check_caches(got, want["cache"], layout)
+
+
+@pytest.mark.parametrize("cell", list(CHUNK))
+def test_prefill_chunk_matches_jax(run, cell):
+    layout = CHUNK[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    for r in _ranks(got):
+        assert _rel(got[f"rank{r}/logits"], want["logits"]) < LOGIT_REL, (
+            r, _rel(got[f"rank{r}/logits"], want["logits"]))
+    _check_caches(got, want["cache"], layout)
+
+
+def test_cells_reach_every_decode_arm():
+    """The decode cells' configs at their layouts take each arm of
+    ``sharded_decode_attention``, with the slots cut over dp and not."""
+    arms, cut = set(), set()
+    for layout, ref, moe, B, S, arm in DECODE.values():
+        cfg = ST.cell_config(REFS[ref][0], _over(ref, moe))
+        ctx = SH.make_ctx(cfg, _StubMesh(dict(zip(("data", "model"),
+                                                  LAYOUTS[layout]))))
+        if cfg.attn is not None:
+            got = SH.kv_cut(ctx, cfg.attn.n_kv_heads, S)
+            assert got == arm
+            arms.add(got)
+        cut.add(SH.slots_cut(ctx, B))
+    assert arms == {"kv_group", "split_kv", "replicated"}
+    assert cut == {True, False}
+
+
+# ---------------------------------------------------------------------------
+# (d) the engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", list(ENGINES))
+def test_engine_token_streams_match_jax(run, cell):
+    layout, ref = ENGINES[cell][:2]
+    got = _load(run, layout, cell)
+    want = run[1][f"engine-{ref}"]
+    assert want["statuses"] == ["ok"] * len(PROMPT_LENS)
+    for r in _ranks(got):
+        np.testing.assert_array_equal(got[f"rank{r}/tokens"],
+                                      want["tokens"])
+        np.testing.assert_array_equal(got[f"rank{r}/lengths"],
+                                      want["lengths"])
+        assert got[f"rank{r}/statuses"].tolist() == want["statuses"]
+
+
+def test_engine_runs_the_cached_plans(run):
+    """Every prefill chunk's MoE body ran the cache's prefill plan and
+    every decode step's its decode plan, on every rank."""
+    got = _load(run, "dp1mp4", "eng-qmoe-14-plan")
+    for r in _ranks(got):
+        impl = got[f"rank{r}/ran/impl"]
+        seq = got[f"rank{r}/ran/seq"]
+        gemm = got[f"rank{r}/ran/gemm_impl"]
+        assert (seq > 1).any() and (seq == 1).any()
+        assert set(impl[seq > 1]) == {"naive"}
+        assert set(impl[seq == 1]) == {"coarse"}
+        assert set(gemm) == {"xla"}
+        counts = _plan_counts()
+        assert set(got[f"rank{r}/ran/tokens"][seq > 1]) <= set(
+            counts["prefill"])
+        assert set(got[f"rank{r}/ran/tokens"][seq == 1]) == set(
+            counts["decode"])
+
+
+def test_engine_raises_when_a_rank_diverges(run):
+    """One rank submits the first two prompts swapped: the step's
+    checksum all-reduce makes every rank raise before the admission's
+    collectives, instead of hanging."""
+    got = _load(run, DIVERGE[0], "eng-diverge")
+    ranks = _ranks(got)
+    assert len(ranks) == 4
+    for r in ranks:
+        assert "schedulers diverged" in str(got[f"rank{r}/error"])
+
+
+# ---------------------------------------------------------------------------
+# (e) the cache's layout
+# ---------------------------------------------------------------------------
+
+
+class _StubMesh:
+    """Just a mesh's axis sizes (and a rank's coordinates, all 0): enough
+    for ``make_ctx``, the specs in both packages and ``local_shape``."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.coords = {a: 0 for a in shape}
+
+    def model_subgroups(self, model_axis, etp):
+        return None, None
+
+
+def _cuts(spec, sizes):
+    """Per dimension, the mesh axes of more than one rank it is cut over
+    (a cut over an axis of one rank, as JAX's specs make at dp 1, is no
+    cut)."""
+    out = []
+    for e in spec:
+        axes = [] if e is None else [e] if isinstance(e, str) else list(e)
+        out.append(tuple(a for a in axes if sizes[a] > 1))
+    return out
+
+
+@pytest.mark.parametrize("cell", list(DECODE) + list(CHUNK))
+def test_cache_leaves_are_cut_as_the_specs_say(run, cell):
+    """Every rank's leaf has the shape the port's ``cache_specs`` cuts
+    from the global cache, and each K/V spec cuts the model axis where
+    JAX's ``kv_spec`` does."""
+    if cell in DECODE:
+        layout, ref, moe, B, S, _ = DECODE[cell]
+    else:
+        layout, ref, moe = CHUNK[cell][:3]
+        B, S = CHUNK_SLOTS, CHUNK_SEQ
+    sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
+    cfg = ST.cell_config(REFS[ref][0], _over(ref, moe))
+    ctx = SH.make_ctx(cfg, _StubMesh(sizes), seq_shard=False)
+    specs = SH.cache_specs(cfg, ctx, B, S)
+    jcfg = _jax_cfg(ref)
+    jspecs = JSH.cache_specs(jcfg, JSH.make_ctx(jcfg, _StubMesh(sizes),
+                                                seq_shard=False), B, S)
+    shapes = lm.cache_shapes(cfg, B, S)
+    got = _load(run, layout, cell)
+    for i, e in enumerate(shapes):
+        for k, (shp, _) in e.items():
+            if k in ("k", "v"):
+                assert _cuts(jspecs[i][k], sizes) == _cuts(specs[i][k],
+                                                           sizes)
+            local = SH.local_shape(shp, specs[i][k], _StubMesh(sizes))
+            for r in _ranks(got):
+                assert json.loads(str(got[f"rank{r}/spec/{i}/{k}"])) == \
+                    [list(x) if isinstance(x, tuple) else x
+                     for x in specs[i][k]]
+                assert tuple(got[f"rank{r}/cache/{i}/{k}"].shape) == local
+
+
+def test_kv_cache_per_rank_is_a_quarter_on_1x4():
+    """qwen2-moe-2.7b's whole decode cache (8 slots of 1024) on a (1, 4)
+    mesh: each rank's K/V bytes are a quarter of the one-rank cache's,
+    from the shapes (16 kv heads over 4 ranks)."""
+    cfg = get_config("qwen2-moe-2.7b")
+    sizes = {"data": 1, "model": 4}
+    ctx = SH.make_ctx(cfg, _StubMesh(sizes), seq_shard=False)
+    specs = SH.cache_specs(cfg, ctx, 8, 1024)
+    whole = local = 0
+    for e, sp in zip(lm.cache_shapes(cfg, 8, 1024), specs):
+        for k, (shp, dt) in e.items():
+            size = torch.empty((), dtype=dt).element_size()
+            whole += int(np.prod(shp)) * size
+            local += int(np.prod(SH.local_shape(shp, sp[k],
+                                                _StubMesh(sizes)))) * size
+    assert local * 4 == whole
+
+
+def test_unported_serving_paths_raise_by_name():
+    """The monolithic prefill and the paged arm of the sharded decode
+    attention raise, naming their ROADMAP items (10 and 8)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import train_step as TS
+    from repro_torch.models import blocks
+    cfg = get_config("qwen2-moe-2.7b-smoke")
+    shape = ShapeConfig("serve", 32, 4, "decode")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TS.build_prefill_step(cfg, shape)
+    q = torch.zeros((1, 1, 4, 32))
+    kv = torch.zeros((1, 32, 4, 32))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        blocks.sharded_decode_attention(None, q, kv, kv, torch.zeros(1),
+                                        "replicated",
+                                        block_table=torch.zeros((1, 4)))
