@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all thirteen phases, one card
+  python3 chip_smoke.py              # all fourteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
+  python3 chip_smoke.py --only build,serve_paged
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -201,11 +202,38 @@ Phases:
              ranks on one card: the sharded arms (kv heads, split-KV,
              dp-cut slots) run on gloo CPU ranks in
              tests/test_torch_mesh_serve.py.
+ 14 serve_paged  the earlier phases' state is freed first. Phase 3's
+             engine and trace (qwen2-moe-2.7b whole, bf16, seed 0,
+             pallas_fused, max_seq 1024, chunk 256) with the paged KV cache
+             (ServeEngine(page_size=64), the page of the JAX package's
+             capacity table), every run draining to n_pages - 1 free
+             pages. (a) At no-drop capacity (capacity_factor = num_experts
+             / top_k: C is the token count, so the dead and pad rows that
+             read the null page cannot change a live token): the
+             contiguous engine against the paged one on the 8-slot parity
+             pool (129 pages), at 8 slots and at 16 slots on that same
+             pool, the 16 streams identical. (b) At phase 3's capacity
+             (1.25), 8 slots, in turns (contiguous, paged, paged,
+             contiguous): 16/16 ok and equal launches per kernel (every
+             fused_mlp launch on the wgmma path) on every run; TTFT
+             p50/p99, prefill tokens/s, decode ms a step, the cache's
+             bytes and max_memory_allocated of each, the paged runs'
+             decode ms over the contiguous runs', and the count of
+             identical streams (recorded, not held: a dropping capacity
+             routes the null-page rows differently). (c) At equal cache
+             memory: 16 slots on the 8-slot pool, once at 1.25: the peak
+             of live requests (16 against the contiguous engine's 8),
+             decode tokens/s and the rest. (d) ServeEngine(mesh=,
+             page_size=64) on a (1, 1) mesh of a world-1 NCCL group at
+             no-drop capacity, beside (a)'s 8-slot paged run: the same
+             streams and launches.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
 (``--only build,serve_ssm,profile_serve_ssm`` of the serve_ssm one,
-``--only build,profile_serve_hybrid`` of the serve_hybrid one),
+``--only build,profile_serve_hybrid`` of the serve_hybrid one,
+``--only build,profile_serve_paged`` of the serve configuration with the
+contiguous and the paged cache in turns),
 ``--only build,train,profile_train`` one train step of the train phase and
 ``--only build,train_ssm,profile_train_ssm`` one of train_ssm, under
 torch.profiler (device time by kernel); ``--only build,rule_seeds`` how
@@ -244,11 +272,11 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
        "merge": 1e-5}      # the fp32 split-KV merge against fp32 decode
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
-          "serve_hybrid", "mesh_serve")
+          "serve_hybrid", "mesh_serve", "serve_paged")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
-                "profile_train_ssm", "profile_serve_hybrid", "rule_seeds",
-                "nccl_pair")
+                "profile_train_ssm", "profile_serve_hybrid",
+                "profile_serve_paged", "rule_seeds", "nccl_pair")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -320,6 +348,9 @@ HYBRID_SERVE = dict(max_seq=2048, prompt_max=1024)
 # position shards of the cache
 MESH_SERVE_TURNS = ("meshless", "mesh", "mesh", "meshless")
 MESH_SERVE_SHARDS = 4
+# the paged serve phase: the page, and the turns at phase 3's capacity
+PAGED_PAGE = 64
+PAGED_TURNS = ("contiguous", "paged", "paged", "contiguous")
 
 
 class PhaseFailed(Exception):
@@ -1404,23 +1435,34 @@ def with_gemm(cfg, gemm_impl):
 
 def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
           max_seq=1024, chunk=256, prompt_max=512, engine_kw=None,
-          moe_sink=None):
+          moe_sink=None, warm_up=True):
     import numpy as np
     import torch
 
     from repro_torch.launch.serve import make_trace
     from repro_torch.serving import ServeEngine
-    # warm-up on an engine of its own (first-call set-up of the CUDA
-    # libraries and the kernels' module), so the timed run is a warm server
     engine_kw = engine_kw or {}
-    warm = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
-                       chunk=chunk, device="cuda", **engine_kw)
-    for p in make_trace(cfg.vocab_size, batch, 64, prompt_max, seed + 100):
-        warm.submit(p, max_new=2)
-    warm.run()
-    del warm
+    if warm_up:
+        # on an engine of its own (first-call set-up of the CUDA libraries
+        # and the kernels' module), so the timed run is a warm server
+        warm = ServeEngine(cfg, params=params, max_seq=max_seq,
+                           batch_size=batch, chunk=chunk, device="cuda",
+                           **engine_kw)
+        for p in make_trace(cfg.vocab_size, batch, 64, prompt_max,
+                            seed + 100):
+            warm.submit(p, max_new=2)
+        warm.run()
+        del warm
     eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=batch,
                       chunk=chunk, device="cuda", **engine_kw)
+    peak = [0]                 # the most live requests of a decode step
+    real_decode = eng._decode_once
+
+    def decode_once():
+        peak[0] = max(peak[0], int(eng.live.sum()))
+        real_decode()
+
+    eng._decode_once = decode_once
     prompts = make_trace(cfg.vocab_size, n_req, 64, prompt_max, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1432,6 +1474,7 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    del eng._decode_once       # the wrapper holds the engine: a cycle
     counts = read_counts()
     reqs = [eng.finished[r] for r in rids]
     ttft = [r.ttft_s * 1e3 for r in reqs]
@@ -1449,9 +1492,15 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
         "ttft_p50_ms": float(np.percentile(ttft, 50)),
         "ttft_p99_ms": float(np.percentile(ttft, 99)),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cache_gb": sum(t.numel() * t.element_size()
+                        for e in eng.cache for t in e.values()) / 1e9,
+        "peak_live": peak[0],
         "launches": counts, "model_calls": calls,
         "plain_calls_on_cuda": guard.cuda_calls,
     }
+    if eng.paged:
+        rec.update(page_size=eng.page_size, n_pages=eng.n_pages,
+                   free_pages=eng.free_pages, admissions=eng.admissions)
     out[out_key] = rec
     log("  " + json.dumps(rec))
     bad = [r.rid for r in reqs if r.status.value != "ok"
@@ -1460,6 +1509,9 @@ def serve(cfg, params, n_req, max_new, seed, out_key, out, batch=8,
     check(not bad, f"requests not ok with {max_new} valid tokens: {bad}")
     check(guard.cuda_calls == 0,
           f"plain versions saw CUDA tensors {guard.cuda_calls} times")
+    check(not eng.paged or eng.free_pages == eng.n_pages - 1,
+          f"{eng.free_pages} pages free after the drain, not "
+          f"{eng.n_pages - 1}")
     # every norm region is one rmsnorm launch: ln1 (and ln2 where the
     # layer has an FFN or MoE, or the SSM block's gated norm) per layer,
     # and the final norm, in every prefill_chunk and decode_step call
@@ -3155,8 +3207,6 @@ def phase_mesh_serve(state, out):
             eng, r = serve(cfg, params, 16, 32, 0, key, runs, engine_kw=kw)
             tokens[key] = [eng.finished[j].tokens
                            for j in sorted(eng.finished)]
-            r["cache_gb"] = sum(t.numel() * t.element_size()
-                                for e in eng.cache for t in e.values()) / 1e9
             del eng
     del params
     torch.cuda.empty_cache()
@@ -3194,6 +3244,106 @@ def phase_mesh_serve(state, out):
     split_kv_merge(rec)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the paged KV cache on the serving path
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_paged(state, out):
+    """Phase 3's engine and trace with the paged cache (page 64): (a)
+    exactness against the contiguous engine at no-drop capacity, 8 and 16
+    slots on the 8-slot parity pool; (d) the paged engine on a (1, 1) NCCL
+    mesh beside (a)'s; (b) contiguous and paged in turns at phase 3's
+    capacity, 8 slots; (c) 16 slots on the 8-slot pool (equal cache
+    memory). Every paged run drains to n_pages - 1 free pages."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.parallel.mesh import make_mesh
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    moe = cfg.moe
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    pool = 8 * 1024 // PAGED_PAGE + 1            # the 8-slot parity pool
+    runs, streams = {}, {}
+
+    def run(key, c, batch=8, paged=True, **kw):
+        if paged:
+            kw.update(page_size=PAGED_PAGE, n_pages=pool)
+        torch.cuda.empty_cache()
+        eng, _ = serve(c, params, 16, 32, 0, key, runs, batch=batch,
+                       engine_kw=kw, warm_up=not runs)
+        streams[key] = [eng.finished[j].tokens for j in sorted(eng.finished)]
+        del eng
+
+    def same(a, b):
+        return sum(x == y for x, y in zip(streams[a], streams[b]))
+
+    with world1("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        run("nodrop_contiguous8", nodrop, paged=False)
+        run("nodrop_paged8", nodrop)
+        run("nodrop_contiguous16", nodrop, batch=16, paged=False)
+        run("nodrop_paged16", nodrop, batch=16)
+        run("nodrop_paged8_mesh", nodrop, mesh=mesh)
+    for i, tag in enumerate(PAGED_TURNS):
+        run(f"{tag}{i}", cfg, paged=tag == "paged")
+    run("paged16_pool8", cfg, batch=16)
+    del params
+    torch.cuda.empty_cache()
+
+    def mean(tag, k):
+        vals = [runs[f"{t}{i}"][k] for i, t in enumerate(PAGED_TURNS)
+                if t == tag]
+        return sum(vals) / len(vals)
+
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "prefill_tok_s",
+            "decode_ms_per_step", "decode_tok_s", "max_memory_allocated_gb",
+            "cache_gb", "peak_live")
+    turns = [f"{t}{i}" for i, t in enumerate(PAGED_TURNS)]
+    rec = {"page_size": PAGED_PAGE, "n_pages": pool, "runs": runs,
+           "compare": {
+               "identical_nodrop_8": same("nodrop_contiguous8",
+                                          "nodrop_paged8"),
+               "identical_nodrop_16": same("nodrop_contiguous16",
+                                           "nodrop_paged16"),
+               "identical_mesh": same("nodrop_paged8", "nodrop_paged8_mesh"),
+               "identical_turns": {k: same(turns[0], k) for k in turns},
+               "identical_paged_turns": same(turns[1], turns[2]),
+               "decode_ms_ratio": mean("paged", "decode_ms_per_step")
+               / mean("contiguous", "decode_ms_per_step"),
+               **{f"{key}_{k}": r[k] for key, r in runs.items()
+                  for k in keys}}}
+    out["serve_paged"] = rec
+    log("  paged vs contiguous: " + json.dumps(rec["compare"]))
+    c = rec["compare"]
+    check(c["identical_nodrop_8"] == 16 and c["identical_nodrop_16"] == 16,
+          f"no-drop streams identical to the contiguous engine's: 8 slots "
+          f"{c['identical_nodrop_8']}, 16 slots {c['identical_nodrop_16']}")
+    check(c["identical_mesh"] == 16 and runs["nodrop_paged8_mesh"][
+        "launches"] == runs["nodrop_paged8"]["launches"],
+          f"the (1, 1) mesh's streams ({c['identical_mesh']} of 16) or "
+          f"launches differ from the paged engine's without a mesh")
+    L = runs[turns[0]]["launches"]
+    check(all(runs[k]["launches"] == L for k in turns),
+          "launches differ between the turns: " + json.dumps(
+              {k: runs[k]["launches"] for k in turns}))
+    check(all(r["launches"]["fused_mlp"] > 0 and r["launches"]["fused_mlp"]
+              == r["launches"]["fused_mlp_hopper"]
+              and r["launches"]["topk_combine"] > 0 for r in runs.values()),
+          "launches off the kernels or the wgmma path: " + json.dumps(
+              {k: r["launches"] for k, r in runs.items()}))
+    check(runs["paged16_pool8"]["peak_live"] == 16
+          and runs[turns[0]]["peak_live"] == 8,
+          f"peak live requests {runs['paged16_pool8']['peak_live']} on the "
+          f"8-slot pool at 16 slots (want 16), "
+          f"{runs[turns[0]]['peak_live']} contiguous (want 8)")
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -3205,6 +3355,26 @@ def phase_profile_hybrid(state, out):
     cfg = hybrid_cfg()
     params = lm.init_params(cfg, seed=0, device="cuda")
     phase_profile(cfg, params, out, "profile_serve_hybrid", **HYBRID_SERVE)
+
+
+def phase_profile_paged(state, out):
+    """phase_profile of phase 3's configuration with the contiguous cache
+    and with the paged one (page 64, the parity pool), in turns
+    (contiguous, paged, paged, contiguous), the weights drawn anew from
+    the seed: the paged decode's gathers show in the indexing group."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    state.clear()
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    res = {}
+    for i, tag in enumerate(PAGED_TURNS):
+        kw = {"page_size": PAGED_PAGE} if tag == "paged" else None
+        phase_profile(cfg, params, res, f"{tag}{i}", engine_kw=kw)
+    out["profile_serve_paged"] = res
 
 
 def _pair_probe(path):
@@ -3319,7 +3489,8 @@ def device_time_by_name(prof, wall):
                        sorted(groups.items(), key=lambda kv: -kv[1][0])}}
 
 
-def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512):
+def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512,
+                  engine_kw=None):
     """Device time by kernel name over one admission round (prefill) and 8
     decode steps of a serve configuration."""
     import torch
@@ -3328,7 +3499,7 @@ def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512):
     from repro_torch.launch.serve import make_trace
     from repro_torch.serving import ServeEngine
     eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=8,
-                      chunk=256, device="cuda")
+                      chunk=256, device="cuda", **(engine_kw or {}))
     for p in make_trace(cfg.vocab_size, 8, 64, prompt_max, 5):
         eng.submit(p, max_new=32)
     res = {}
@@ -3414,6 +3585,10 @@ def kernel_records(out):
             "mesh1", {}).get("launches", {})
         if mesh_s:                    # phase 3's engine on a (1, 1) mesh
             extra["mesh_serve_launches"] = mesh_s.get(name, 0)
+        paged_l = out.get("serve_paged", {}).get("runs", {}).get(
+            "paged1", {}).get("launches", {})
+        if paged_l:                   # phase 3's engine, the paged cache
+            extra["serve_paged_launches"] = paged_l.get(name, 0)
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (
@@ -3499,7 +3674,8 @@ def main(argv=None):
              "profile", "serve_ssm", "profile_serve_ssm", "train",
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
-             "mesh_serve", "nccl_pair")
+             "mesh_serve", "serve_paged", "profile_serve_paged",
+             "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -3556,6 +3732,10 @@ def main(argv=None):
                 phase_profile_hybrid(state, out)
             elif name == "mesh_serve":
                 phase_mesh_serve(state, out)
+            elif name == "serve_paged":
+                phase_serve_paged(state, out)
+            elif name == "profile_serve_paged":
+                phase_profile_paged(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

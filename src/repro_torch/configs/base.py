@@ -219,6 +219,28 @@ class ShapeConfig:
     global_batch: int
     kind: str                          # train | prefill | decode
     microbatch: int = 0                # 0 = no grad accumulation (train only)
+    # paged KV cache (decode/serving shapes): page_size > 0 pools K/V as
+    # n_pages shared fixed-size pages (page 0 = the null page) instead of
+    # one seq_len region per slot, so seq_len becomes a per-request budget.
+    # n_pages includes the null page; 0 = parity capacity
+    # (slots * seq_len / page_size + 1)
+    page_size: int = 0
+    n_pages: int = 0
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size > 0
+
+    @property
+    def max_blocks(self) -> int:
+        """Block-table entries of one request: seq_len / page_size."""
+        if self.page_size <= 0 or self.seq_len % self.page_size:
+            raise ValueError(f"page_size {self.page_size} does not tile "
+                             f"seq_len {self.seq_len}")
+        return self.seq_len // self.page_size
+
+    def pages_total(self) -> int:
+        return self.n_pages or self.global_batch * self.max_blocks + 1
 
 
 # ---------------------------------------------------------------------------

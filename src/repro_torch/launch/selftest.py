@@ -750,7 +750,10 @@ def _cli_job(job, device):
 
 
 def _serve_shape(job):
-    return ShapeConfig("cell", job["max_seq"], job["slots"], "decode")
+    """The cell's decode shape; paged where the job gives a page size."""
+    return ShapeConfig("cell", job["max_seq"], job["slots"], "decode",
+                       page_size=job.get("page_size", 0),
+                       n_pages=job.get("n_pages", 0))
 
 
 def _global_cache(data, cfg):
@@ -776,7 +779,8 @@ def _serve_step_job(job, data, mesh, device):
     and live) or "chunk" (``build_prefill_chunk_step``'s on a stacked
     admission). Every rank's logits (decode: gathered over the dp group),
     next tokens, cache leaves after the step, their specs and its mesh
-    coordinates."""
+    coordinates. A paged cell (``page_size``) reads its page pools from
+    the cache entries and its block tables from "tables"."""
     from repro_torch import bridge
     from repro_torch.launch.train_step import (build_decode_step,
                                                build_prefill_chunk_step)
@@ -793,11 +797,12 @@ def _serve_step_job(job, data, mesh, device):
     def arr(key):
         return torch.from_numpy(np.array(data[key])).long()
 
+    tables = (arr("tables"),) if job.get("page_size") else ()
     res = {}
     if job["kind"] == "decode":
         nxt, logits, cache = built["fn"](
             params, cache, arr("tokens"), arr("pos"),
-            torch.from_numpy(np.array(data["live"])))
+            torch.from_numpy(np.array(data["live"])), *tables)
         if built["tok_spec"][0] is not None:
             logits = CL.all_gather(logits, mesh.group(ctx.dp_axes))
             logits = logits.reshape(-1, logits.shape[-1])
@@ -805,7 +810,7 @@ def _serve_step_job(job, data, mesh, device):
     else:
         logits, cache = built["fn"](params, cache, arr("tokens"),
                                     arr("pos_off"), arr("valid_len"),
-                                    arr("slots"))
+                                    arr("slots"), *tables)
     res["logits"] = logits.numpy()
     res["coords"] = np.array([mesh.coords[a] for a in mesh.axis_names])
     for i, (e, sp) in enumerate(zip(cache, cspecs)):
@@ -821,8 +826,12 @@ def _engine_job(job, data, mesh, device):
     ``job["plans"]`` ({phase: (Plan json, [token counts])}) rank 0 first
     writes a plan cache holding each phase's plan at each count, and the
     knobs every moe_ffn body ran under are recorded ("ran/*"). With
-    ``job["swap_on_rank"]`` that rank swaps the first two prompts: every
-    rank's engine must raise, and its message is recorded ("error")."""
+    ``job["swap_on_rank"]`` that rank swaps the first two prompts, with
+    ``job["reverse_free_on_rank"]`` that rank's page allocator hands its
+    pages out in reverse order: every rank's engine must raise, and its
+    message is recorded ("error"). ``page_size``, ``n_pages`` and
+    ``admit_k`` go to the engine; its admission rounds and, where paged,
+    its free pages after the drain are recorded."""
     from repro_torch import bridge
     from repro_torch.core import adaptive as A
     from repro_torch.serving import ServeEngine
@@ -848,6 +857,9 @@ def _engine_job(job, data, mesh, device):
         return real(cfg_, mcfg, n_col, gemm_impl, x, *a, **k)
 
     M._moe_body = spy
+    diverge = "swap_on_rank" in job or "reverse_free_on_rank" in job
+    kw.update({k: job[k] for k in ("page_size", "n_pages", "admit_k")
+               if k in job})
     try:
         eng = ServeEngine(cfg, params=bridge.from_jax(
             _unflat(cfg, data, "params/"), cfg, device),
@@ -856,16 +868,20 @@ def _engine_job(job, data, mesh, device):
         prompts = json.loads(str(data["prompts"]))
         if job.get("swap_on_rank") == dist.get_rank():
             prompts[0], prompts[1] = prompts[1], prompts[0]
+        if job.get("reverse_free_on_rank") == dist.get_rank():
+            state = eng.alloc.snapshot_state()
+            eng.alloc.restore_state({**state, "free": state["free"][::-1]})
         try:
             out = eng.generate(prompts, max_new=job["max_new"])
         except RuntimeError as e:
-            if "swap_on_rank" not in job:
+            if not diverge:
                 raise
             return _per_rank({"error": str(e)})
     finally:
         M._moe_body = real
     res = {"tokens": out.tokens, "lengths": out.lengths,
-           "statuses": np.array(out.statuses)}
+           "statuses": np.array(out.statuses),
+           "admit_rounds": eng.admit_rounds, "free_pages": eng.free_pages}
     if ran:
         for i, name in enumerate(("impl", "gemm_impl", "tokens", "seq")):
             res[f"ran/{name}"] = np.array([r[i] for r in ran])
@@ -881,7 +897,9 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     "adamw" and the serving kinds read the one-rank weights
     ("params/<leaf>") and their inputs (batches "batch*/<key>", a cache
     "cache/<pos>/<entry>", prompts) from ``in_dir/<data>.npz``. Results
-    are gathered into the one-rank layout. Gloo ranks: every tensor on
+    are gathered into the one-rank layout. A serving job with a
+    ``page_size`` runs the paged cache (block tables "tables"; the engine
+    also takes ``n_pages`` and ``admit_k``). Gloo ranks: every tensor on
     the CPU."""
     device = "cpu"
     mesh = make_mesh(tuple(layout), ("data", "model"))

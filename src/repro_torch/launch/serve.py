@@ -6,12 +6,17 @@ GPU, random weights from a seed.
       --gemm-impl pallas_fused
   python -m repro_torch.launch.serve --arch mamba2-780m --max-seq 2048 \
       --prompt-max 1024
+  python -m repro_torch.launch.serve --arch qwen2-moe-2.7b --page-size 64 \
+      --batch 16 --pages 129
 
 ``--gemm-impl`` applies to configs with MoE layers only. ``--plan-cache``
 resolves every MoE layer's schedule from a tuned plan cache instead
 (``launch/tune.py`` writes one): prefill chunks take its ``prefill``
 entries, decode steps its ``decode`` ones, keyed by ``--plan-hw``
-(default h100_nvlink).
+(default h100_nvlink). ``--page-size`` > 0 serves from the paged KV cache
+(``serving/paged_cache.py``) of ``--pages`` pages counting the null page
+(0: parity capacity, every slot able to hold ``--max-seq``); ``--admit-k``
+caps the admissions per stacked prefill call (0: every free slot).
 
 Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
 numpy RNG. ``--device cpu`` runs on the CPU (small configs only).
@@ -41,6 +46,11 @@ def print_engine_summary(eng, prompts, dt):
           f"({eng.prefill_tokens / max(eng.prefill_s, 1e-9):.0f} tok/s), "
           f"decode {eng.decode_s:.2f}s "
           f"({eng.decode_s / max(eng.decode_steps, 1) * 1e3:.1f} ms/step)")
+    if eng.paged:
+        print(f"paged cache: page {eng.page_size} toks, "
+              f"{eng.n_pages - 1} usable pages "
+              f"({eng.free_pages} free after drain), "
+              f"{eng.admissions} admissions")
 
 
 def main(argv=None):
@@ -61,6 +71,12 @@ def main(argv=None):
     ap.add_argument("--plan-hw", default="",
                     help="hardware key for plan lookup (default "
                          "h100_nvlink)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged KV page length (0 = contiguous cache)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="pool size incl. null page (0 = parity)")
+    ap.add_argument("--admit-k", type=int, default=0,
+                    help="max stacked admissions per step (0 = slots)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
@@ -75,7 +91,9 @@ def main(argv=None):
             cfg.moe, gemm_impl=args.gemm_impl))
     eng = ServeEngine(cfg, max_seq=args.max_seq, batch_size=args.batch,
                       seed=args.seed, chunk=args.chunk, device=args.device,
-                      plan_cache=args.plan_cache, plan_hw=args.plan_hw)
+                      plan_cache=args.plan_cache, plan_hw=args.plan_hw,
+                      page_size=args.page_size, n_pages=args.pages,
+                      admit_k=args.admit_k)
     prompts = make_trace(cfg.vocab_size, args.requests, args.prompt_min,
                          args.prompt_max, args.seed)
     t0 = time.perf_counter()

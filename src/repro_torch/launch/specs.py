@@ -70,14 +70,21 @@ def decode_inputs(cfg, shape, ctx) -> Tuple:
     ``lm.cache_shapes`` gives them; the specs are
     ``parallel.sharding.cache_specs`` (every entry replicated without a
     mesh). One shape gives the prefill and decode steps the same layout.
-    The paged cache is not ported (ROADMAP Queue 1 item 8)."""
+    ``shape.page_size`` > 0 switches to the paged layout
+    (``lm.paged_cache_shapes`` of ``shape.pages_total()`` pages,
+    ``sharding.paged_cache_specs``)."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.sharding import P
     B, S = shape.global_batch, shape.seq_len
-    cache = lm.cache_shapes(cfg, B, S)
+    if shape.paged:
+        cache = lm.paged_cache_shapes(cfg, B, shape.pages_total(),
+                                      shape.page_size)
+    else:
+        cache = lm.cache_shapes(cfg, B, S)
     if ctx is not None and ctx.active:
-        cspecs = SH.cache_specs(cfg, ctx, B, S)
+        cspecs = (SH.paged_cache_specs(cfg, ctx, B) if shape.paged
+                  else SH.cache_specs(cfg, ctx, B, S))
         dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
         tok_spec = P(dp if SH.slots_cut(ctx, B) else None, None)
     else:

@@ -194,8 +194,17 @@ def _serve_built(cfg, shape, mesh, fsdp, phase, plan_cache, plan_hw):
                                               mesh, fsdp)
         built["layout"] = lm.serve_layout(cfg, ctx, shape.global_batch,
                                           shape.seq_len,
-                                          built["param_specs"])
+                                          built["param_specs"], shape.paged)
     return built
+
+
+def _check_tables(shape, block_tables):
+    """A paged shape's steps need the block tables, a contiguous one's
+    none: a pool read as a contiguous cache would be wrong silently."""
+    if shape.paged != (block_tables is not None):
+        raise ValueError(f"shape {shape.name!r}: block tables "
+                         f"{'missing' if shape.paged else 'given'} for a "
+                         f"{'paged' if shape.paged else 'contiguous'} cache")
 
 
 def build_prefill_chunk_step(cfg, shape, mesh=None, chunk: int = 0,
@@ -206,8 +215,10 @@ def build_prefill_chunk_step(cfg, shape, mesh=None, chunk: int = 0,
     (``repro/launch/train_step.py:182-233``): ``fn(params, cache, tokens
     (A, C), pos_off (A,), valid_len (A,), slot (A,)) -> (logits (A, V),
     cache)`` against the decode cache that ``shape`` describes (the same
-    layout as ``build_decode_step``'s). Prefill-phase plans resolve from
-    ``plan_cache`` when one is given.
+    layout as ``build_decode_step``'s); a paged ``shape`` takes the
+    admission rows' block tables (A, max_blocks) as a last operand
+    (``repro/launch/train_step.py:199-233``). Prefill-phase plans resolve
+    from ``plan_cache`` when one is given.
 
     On a mesh (a ``parallel.mesh.Mesh`` with ("data", "model") axes) every
     rank is handed the whole stack, as the JAX builder replicates it; the
@@ -219,12 +230,15 @@ def build_prefill_chunk_step(cfg, shape, mesh=None, chunk: int = 0,
                          plan_hw)
     cfg, ctx, layout = built["cfg"], built["ctx"], built["layout"]
 
-    def fn(params, cache, tokens, pos_off, valid_len, slot):
+    def fn(params, cache, tokens, pos_off, valid_len, slot,
+           block_tables=None):
+        _check_tables(shape, block_tables)
         if layout is None:
             return lm.prefill_chunk(cfg, params, cache, tokens, pos_off,
-                                    valid_len, slot)
+                                    valid_len, slot,
+                                    block_tables=block_tables)
         return lm.prefill_chunk(cfg, params, cache, tokens, pos_off,
-                                valid_len, slot, ctx, layout)
+                                valid_len, slot, ctx, layout, block_tables)
 
     built.update(fn=fn, chunk=chunk or min(32, shape.seq_len))
     return built
@@ -237,7 +251,9 @@ def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
     (next_tok (B, 1), logits, cache)``, per-row positions, the argmax of
     the fp32 logits (ties to the lower index, as ``jnp.argmax``) and 0
     where a slot is not live (``live`` None: no mask, for a caller that
-    masks on the host). Decode-phase plans resolve from ``plan_cache``.
+    masks on the host). A paged ``shape`` takes every slot's block table
+    (B, max_blocks) as a last operand (``repro/launch/train_step.py:
+    236-290``). Decode-phase plans resolve from ``plan_cache``.
 
     On a mesh every rank is handed the global (B,) inputs and takes its
     slots (cut over the dp axes where ``shape``'s slots divide them,
@@ -249,7 +265,8 @@ def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
     cfg, ctx, layout = built["cfg"], built["ctx"], built["layout"]
     cut = layout is not None and layout.slots_cut
 
-    def fn(params, cache, tokens, pos, live=None):
+    def fn(params, cache, tokens, pos, live=None, block_tables=None):
+        _check_tables(shape, block_tables)
         if layout is not None:
             if cut:
                 tokens, pos = (SH.shard_leaf(t, SH.P(built["tok_spec"][0]),
@@ -260,9 +277,10 @@ def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
                                          mesh)
             logits, cache = lm.decode_step(cfg, params, cache,
                                            tokens.reshape(-1, 1), pos, ctx,
-                                           layout)
+                                           layout, block_tables)
         else:
-            logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
+            logits, cache = lm.decode_step(cfg, params, cache, tokens, pos,
+                                           block_tables=block_tables)
         next_tok = torch.argmax(logits, dim=-1)
         if live is not None:
             next_tok = torch.where(live, next_tok, 0)

@@ -10,7 +10,10 @@ absolute positions (``q_pos``/``kv_pos``, causal or not) and an optional
 ``decode_attention``'s ``kv_start`` are not ported (the engine passes
 none). The split-KV decode of a cache cut over positions reduces each
 shard to flash-decode partials (``decode_attention_partial``) and merges
-them across the shards' ranks (``merge_decode_partials``).
+them across the shards' ranks (``merge_decode_partials``). The paged
+cache's pools are read through block tables (``paged_gather``) and
+written through them in place (``paged_update_cache``,
+``paged_chunk_update``).
 """
 from __future__ import annotations
 
@@ -119,9 +122,95 @@ def attention(q, k, v, q_pos, kv_pos, q_block: int = 512,
                              causal, kv_mask)
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+# -- the paged (block-table) cache layout ------------------------------------
+# A pool holds fixed-size pages shared by every slot: (n_pages, page, Hkv,
+# hd). A block table (B, max_blocks) maps row b's logical block i
+# (positions [i * page, (i + 1) * page)) to a physical page; entry 0 is the
+# NULL page, never allocated: unmapped blocks gather it (masked by position
+# validity) and writes of dead rows and masked tokens are steered into it
+# (``repro/models/attention.py:186-247``). Writes scatter into the pool's
+# flat (n_pages * page, Hkv, hd) view, in place.
+
+NULL_PAGE = 0
+
+
+def paged_gather(pool, block_table):
+    """The logical per-row view of a pool. pool: (P, page, Hkv, hd);
+    block_table: (B, nb) page ids. Returns (B, nb * page, Hkv, hd), row
+    b's logical positions in order."""
+    P, page, Hkv, hd = pool.shape
+    B, nb = block_table.shape
+    flat = pool.index_select(0, block_table.reshape(-1).long())
+    return flat.view(B, nb * page, Hkv, hd)
+
+
+def decode_rows(pos, block_table, page: int):
+    """The flat pool row (page id * page + offset) each decode row writes
+    at its logical position ``pos`` (B,): the block is clipped to the
+    table, so a position past it lands in the last block's page, and a
+    dead row's all-zero table row steers it into the null page."""
+    B, nb = block_table.shape
+    pos = pos.long().reshape(-1).expand(B)
+    blk = torch.clamp(pos // page, 0, nb - 1)
+    pid = block_table.long().gather(1, blk[:, None])[:, 0]
+    return pid * page + pos % page
+
+
+def chunk_rows(pos_off, block_table, tok_mask, page: int):
+    """The flat pool row of each token of a prompt chunk, (A * C,): row a's
+    token c at logical position pos_off[a] + c; tokens masked out
+    (``tok_mask`` (A, C) false: tail pads, identity rows) or past the
+    table go to the null page."""
+    A, C = tok_mask.shape
+    nb = block_table.shape[1]
+    pos_off = pos_off.long().reshape(-1).expand(A)
+    positions = pos_off[:, None] + torch.arange(C, device=pos_off.device)
+    blk = positions // page
+    pid = block_table.long().gather(1, torch.clamp(blk, 0, nb - 1))
+    pid = torch.where(tok_mask & (blk < nb), pid, NULL_PAGE)
+    return (pid * page + positions % page).reshape(A * C)
+
+
+def paged_write(k_pool, v_pool, k, v, rows):
+    """Write new K/V (R, C, Hkv, hd) at the flat pool rows ``rows`` (R *
+    C,), in place. Rows that meet (the null page) keep one of their
+    writes, which one undefined, as in the JAX scatter."""
+    P, page, Hkv, hd = k_pool.shape
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        pool.view(P * page, Hkv, hd).index_copy_(
+            0, rows, new.reshape(-1, Hkv, hd).to(pool.dtype))
+    return k_pool, v_pool
+
+
+def paged_update_cache(k_pool, v_pool, k_new, v_new, pos, block_table):
+    """Decode write through block tables: (B, 1, Hkv, hd) at each row's
+    logical position ``pos`` (B,), in place; rows whose mapped page is the
+    null page (free slots: all-zero table rows) write into it. Returns
+    the pools."""
+    return paged_write(k_pool, v_pool, k_new, v_new,
+                       decode_rows(pos, block_table, k_pool.shape[1]))
+
+
+def paged_chunk_update(k_pool, v_pool, k, v, pos_off, block_table,
+                       tok_mask):
+    """Prefill-chunk write through block tables: k/v (A, C, Hkv, hd) at
+    logical positions pos_off[a] + [0, C), in place; tokens with
+    ``tok_mask`` (A, C) false go to the null page. Returns the pools."""
+    return paged_write(k_pool, v_pool, k, v,
+                       chunk_rows(pos_off, block_table, tok_mask,
+                                  k_pool.shape[1]))
+
+
+def decode_attention(q, k_cache, v_cache, pos, block_table=None):
     """q: (B, 1, H, hd); caches: (B, S, Hkv, hd); pos: (B,) per-row current
-    index. Attends over cache[: pos + 1] by masking."""
+    index. Attends over cache[: pos + 1] by masking (a ``where`` on the
+    scores). block_table: optional (B, nb); the caches are then shared
+    (n_pages, page, Hkv, hd) pools and each row's logical view is
+    gathered through its table (``paged_gather``; unmapped blocks read the
+    null page, masked like stale contiguous rows)."""
+    if block_table is not None:
+        k_cache = paged_gather(k_cache, block_table)
+        v_cache = paged_gather(v_cache, block_table)
     S = k_cache.shape[1]
     H, hd = q.shape[2], q.shape[3]
     k = _expand_kv(k_cache, H)

@@ -18,12 +18,14 @@ So do the serving modes (``decode_layer``, ``chunk_layer``): each rank
 holds its slots' slice of the decode cache, cut over the model axis by
 kv heads, by positions (split-KV decode, ``sharded_decode_attention``) or
 not at all (``parallel.sharding.kv_cut``), and the projections follow
-the cache's cut.
+the cache's cut. With the paged cache the K/V entries are page pools
+shared by every slot, read and written through block tables
+(``PagedKV``); a pool is cut by kv heads or not at all.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -400,6 +402,45 @@ def _serve_attn(cfg, p_attn, ctx, cut: str):
                      a.n_kv_heads * a.head_dim)}, False
 
 
+class PagedKV(NamedTuple):
+    """How a serving call's attention layers read and write the paged K/V
+    pools, worked out once per call (``lm.decode_step``,
+    ``lm.prefill_chunk``):
+
+      table - (rows run here, nb) the block-table rows this rank's rows
+              read through;
+      rows  - the flat pool row (``A.decode_rows``, ``A.chunk_rows``) of
+              every token of every row of the call, which every rank
+              writes;
+      mine  - where the slots are cut over dp: the indices, among the
+              call's ``n_all`` rows, of the rows this rank runs and
+              writes (each dp rank computes K/V for its rows only; they
+              are summed over ``group``, the dp group, into every row's,
+              so every dp rank's pool takes every write, as the JAX
+              package's one pool over dp does); None otherwise.
+    """
+    table: torch.Tensor
+    rows: torch.Tensor
+    mine: Optional[torch.Tensor] = None
+    n_all: int = 0
+    group: Any = None
+
+
+def _write_paged(kc, vc, k, v, paged: PagedKV):
+    """Write this call's new K/V (R, C, Hkv, hd) into the pools through
+    ``paged.rows``, in place; where the slots are cut over dp, first the
+    whole call's K/V from every dp rank's rows (one all-reduce of (2,
+    n_all, C, Hkv, hd), zeros but for each rank's rows: exact)."""
+    if paged.mine is not None:
+        n = paged.mine.numel()
+        whole = k.new_zeros((2, paged.n_all) + tuple(k.shape[1:]))
+        whole[0, paged.mine] = k[:n]
+        whole[1, paged.mine] = v[:n].to(k.dtype)
+        CL.all_reduce_(whole, paged.group)
+        k, v = whole[0], whole[1]
+    A.paged_write(kc, vc, k, v, paged.rows)
+
+
 def _write_decode_row(kc, vc, k, v, t_pos, ctx, cut: str):
     """Write each row's new K/V (B, 1, Hkv, hd) at its position ``t_pos``
     (clamped to the cache, as ``A.update_cache`` does), in place. Under
@@ -437,12 +478,16 @@ def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
       replicated - the whole cache on every model rank: plain decode.
 
     The rows are this rank's slots, cut over dp where the cache's slots
-    are (``sharding.slots_cut``). The paged arm raises (ROADMAP Queue 1
-    item 8)."""
+    are (``sharding.slots_cut``). With ``block_table`` (B_l, nb) the caches
+    are page pools, read through the table (``repro/models/blocks.py:
+    447-487``): cut on their kv heads (``kv_group``, the table whole on
+    every model rank: local decode) or whole (``replicated``); never
+    split-KV, since pages interleave positions."""
     if block_table is not None:
-        raise NotImplementedError("sharded_decode_attention: the paged "
-                                  "cache is not ported yet (ROADMAP Queue "
-                                  "1 item 8)")
+        if cut == "split_kv":
+            raise ValueError("a paged pool is never cut over positions "
+                             "(sharding.kv_cut(..., paged=True))")
+        return A.decode_attention(q, k_cache, v_cache, t_pos, block_table)
     if cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
         off = ctx.model_rank * k_cache.shape[1]
         m, l, acc = A.decode_attention_partial(q, k_cache, v_cache, t_pos,
@@ -453,10 +498,11 @@ def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
-                 cut: str = "replicated"):
+                 cut: str = "replicated", paged: Optional[PagedKV] = None):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
     {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
-    write index (= RoPE position). Returns x.
+    write index (= RoPE position). Returns x. ``paged``: the K/V entries
+    are page pools (n_pages, page, Hkv, hd), written and read through it.
 
     ``ctx``: a ranked context of the serving steps (``seq_shard`` off), or
     None at one rank. x and t_pos are then this rank's slots, the cache
@@ -480,8 +526,12 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
         pos_arr = t_pos.reshape(B, 1)
         q = apply_rope(q, pos_arr, a.rope_theta)
         k = apply_rope(k, pos_arr, a.rope_theta)
-    _write_decode_row(cache["k"], cache["v"], k, v, t_pos, ctx, cut)
-    o = sharded_decode_attention(ctx, q, cache["k"], cache["v"], t_pos, cut)
+    if paged is None:
+        _write_decode_row(cache["k"], cache["v"], k, v, t_pos, ctx, cut)
+    else:
+        _write_paged(cache["k"], cache["v"], k, v, paged)
+    o = sharded_decode_attention(ctx, q, cache["k"], cache["v"], t_pos, cut,
+                                 None if paged is None else paged.table)
     o = o.reshape(B, 1, -1) @ w["wo"]
     if partial:
         o = CL.reduce_from(o, ctx.model_group)
@@ -490,7 +540,7 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
 
 def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
                 valid_len, ctx=None, cut: str = "replicated",
-                n_write: int = -1):
+                n_write: int = -1, paged: Optional[PagedKV] = None):
     """One prompt chunk per admission row: x (A, C, d) rows enter slot
     ``slots[a]`` of the full cache at indices [pos_off[a], pos_off[a] + C),
     written in place; each row attends over its own slot up to its own
@@ -510,7 +560,13 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
     rank: the rows' slots are gathered whole over the model group, the
     chunk's K/V written into the gathered rows, the attention taken over
     them (``A.attention``, as at one rank), and each rank's slice of the
-    positions copied back into its cache."""
+    positions copied back into its cache.
+
+    ``paged``: the K/V entries are page pools; the chunk's K/V go in
+    through ``paged.rows`` (tail pads and identity rows to the null page,
+    as ``A.paged_chunk_update`` steers them) and each row attends over
+    its logical view gathered through ``paged.table``. ``slots`` then
+    index the SSM entries only."""
     n = x.shape[0] if n_write < 0 else n_write
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
@@ -532,7 +588,11 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
         q = apply_rope(q, q_pos, a.rope_theta)
         k = apply_rope(k, q_pos, a.rope_theta)
     ck, cv = cache["k"], cache["v"]
-    if cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
+    if paged is not None:
+        _write_paged(ck, cv, k, v, paged)
+        kc, vc = A.paged_gather(ck, paged.table), A.paged_gather(
+            cv, paged.table)                   # (A, nb * page, Hkv, hd)
+    elif cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
         G = ctx.model_group
         S_loc = ck.shape[1]
         lo = ctx.model_rank * S_loc

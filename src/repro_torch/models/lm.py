@@ -11,7 +11,9 @@ The training forward and loss also run on a mesh: with a ranked
 ``AxisCtx`` each rank holds its rows of the batch and its shard of the
 parameters (``parallel.sharding.to_mesh``); see ``forward``. So do the
 serving calls, each rank also holding its slice of the decode cache
-(``init_cache``, ``decode_step``, ``prefill_chunk``).
+(``init_cache``, ``decode_step``, ``prefill_chunk``). The decode cache is
+contiguous (one ``seq_len`` region per slot) or paged (``init_paged_cache``:
+K/V page pools shared by every slot, reached through block tables).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamDecl, apply_norm,
                                        chunked_xent, init_from_schema,
@@ -121,20 +124,57 @@ def cache_shapes(cfg, batch_size: int, seq_len: int) -> Tuple:
     return tuple(out)
 
 
-def init_cache(cfg, batch_size: int, seq_len: int,
-               device: DeviceLike = None, ctx=None) -> Tuple:
-    """Zero contiguous decode cache of ``cache_shapes``' layout. With a
-    ranked ``ctx``, this rank's slice of it, cut as
-    ``parallel.sharding.cache_specs`` says: the bytes a rank holds."""
+def paged_cache_shapes(cfg, n_slots: int, n_pages: int,
+                       page_size: int) -> Tuple:
+    """The paged decode cache's global layout (``repro/models/lm.py:
+    299-330``): an attention position holds {"k", "v"} page pools
+    (n_periods, n_pages, page_size, Hkv, hd) shared by every slot, page 0
+    the null page; an SSM position keeps ``cache_shapes``' dense per-slot
+    {"conv", "state"} (O(1) per request, no per-token history)."""
+    n_periods = cfg.n_layers // period_of(cfg)
+    out = []
+    for pos, e in enumerate(cache_shapes(cfg, n_slots, 1)):
+        if cfg.layer_kind(pos) == "a":
+            shape = (n_periods, n_pages, page_size, cfg.attn.n_kv_heads,
+                     cfg.attn.head_dim)
+            e = {k: (shape, dt) for k, (_, dt) in e.items()}
+        out.append(e)
+    return tuple(out)
+
+
+def _zeros(shapes, specs, device, ctx) -> Tuple:
+    """Zero tensors of ``shapes``; with a ranked ``ctx``, this rank's
+    slice of each, cut as ``specs`` says: the bytes a rank holds."""
     dev = resolve_device(device)
-    shapes = cache_shapes(cfg, batch_size, seq_len)
     if ctx is not None and ctx.active:
-        specs = SH.cache_specs(cfg, ctx, batch_size, seq_len)
         shapes = tuple({k: (SH.local_shape(shp, sp[k], ctx.mesh), dt)
                         for k, (shp, dt) in e.items()}
                        for e, sp in zip(shapes, specs))
     return tuple({k: torch.zeros(shp, dtype=dt, device=dev)
                   for k, (shp, dt) in e.items()} for e in shapes)
+
+
+def init_cache(cfg, batch_size: int, seq_len: int,
+               device: DeviceLike = None, ctx=None) -> Tuple:
+    """Zero contiguous decode cache of ``cache_shapes``' layout. With a
+    ranked ``ctx``, this rank's slice of it, cut as
+    ``parallel.sharding.cache_specs`` says."""
+    ranked = ctx is not None and ctx.active
+    return _zeros(cache_shapes(cfg, batch_size, seq_len),
+                  SH.cache_specs(cfg, ctx, batch_size, seq_len)
+                  if ranked else None, device, ctx)
+
+
+def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
+                     device: DeviceLike = None, ctx=None) -> Tuple:
+    """Zero paged decode cache of ``paged_cache_shapes``' layout. With a
+    ranked ``ctx``, this rank's slice of it, cut as
+    ``parallel.sharding.paged_cache_specs`` says: a pool cut on its kv
+    heads or whole, one pool over the dp axes."""
+    ranked = ctx is not None and ctx.active
+    return _zeros(paged_cache_shapes(cfg, n_slots, n_pages, page_size),
+                  SH.paged_cache_specs(cfg, ctx, n_slots)
+                  if ranked else None, device, ctx)
 
 
 def _embed(cfg, params, tokens):
@@ -300,25 +340,28 @@ class ServeLayout(NamedTuple):
     builder (``serve_layout``): the parameter specs whose data-axis cuts
     each call gathers (None where no data axis holds more than one rank:
     nothing is then stored cut over one), each period position's K/V cut
-    (``sharding.kv_cut``), and whether the cache's slots are cut over the
-    dp axes (``sharding.slots_cut``)."""
+    (``sharding.kv_cut``), whether the cache's slots are cut over the dp
+    axes (``sharding.slots_cut``) and how many slots this rank holds."""
     gather_specs: Optional[Tree]
     cuts: Tuple[str, ...]
     slots_cut: bool
+    local_slots: int
 
 
 def serve_layout(cfg, ctx, batch: int, seq_len: int,
-                 param_specs: Tree) -> ServeLayout:
+                 param_specs: Tree, paged: bool = False) -> ServeLayout:
     """The ``ServeLayout`` of a decode cache of ``batch`` slots and
     ``seq_len`` positions on ``ctx``'s mesh, the parameters stored as
-    ``param_specs`` (``sharding.param_specs``) cut them."""
-    cuts = tuple(SH.kv_cut(ctx, cfg.attn.n_kv_heads, seq_len)
+    ``param_specs`` (``sharding.param_specs``) cut them; ``paged``: its
+    K/V are page pools, never cut over positions."""
+    cuts = tuple(SH.kv_cut(ctx, cfg.attn.n_kv_heads, seq_len, paged)
                  if cfg.layer_kind(pos) == "a" else "replicated"
                  for pos in range(period_of(cfg)))
     cut_data = any(n > 1 for a, n in ctx.mesh.shape.items()
                    if a != ctx.model_axis)
-    return ServeLayout(param_specs if cut_data else None, cuts,
-                       SH.slots_cut(ctx, batch))
+    cut = SH.slots_cut(ctx, batch)
+    return ServeLayout(param_specs if cut_data else None, cuts, cut,
+                       batch // ctx.dp_size if cut else batch)
 
 
 def _ranked_layout(ctx, layout: Optional[ServeLayout]) -> bool:
@@ -352,9 +395,18 @@ def _serve_logits(cfg, top, h, ctx):
     return logits
 
 
+def _page_size(cfg, cache) -> int:
+    """The page size of a paged cache's pools (0 where no layer has
+    attention: an SSM model's cache has no pool)."""
+    for pos in range(period_of(cfg)):
+        if cfg.layer_kind(pos) == "a":
+            return cache[pos]["k"].shape[2]
+    return 0
+
+
 @torch.no_grad()
 def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
-                layout: Optional[ServeLayout] = None):
+                layout: Optional[ServeLayout] = None, block_tables=None):
     """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
     (every slot decodes at its own position). Returns (logits (B, V) fp32,
     cache), the cache updated in place: K/V at each row's index, and every
@@ -368,7 +420,16 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     axes where the cache's slots are, every slot otherwise. The leaves
     cut over the data axes are gathered per period, the embedding and
     head are vocab-parallel where the vocab is cut, and every layer
-    follows its cache entry's cut (``blocks.decode_layer``)."""
+    follows its cache entry's cut (``blocks.decode_layer``).
+
+    ``block_tables``: (B, max_blocks), every slot's table: the cache is
+    then paged (``init_paged_cache``); each row writes its K/V at its
+    position through its table (a free slot's all-zero row into the null
+    page) and reads its logical view through it (``repro/models/lm.py:
+    335-382``). On a mesh every rank is handed the whole table, as every
+    rank holds a whole pool (cut on kv heads at most); where the slots
+    are cut over dp, each dp rank writes every slot's K/V (its own rows'
+    summed with the other dp ranks' over the dp group, ``PagedKV``)."""
     ranked = _ranked_layout(ctx, layout)
     specs, cuts, top = None, ["replicated"] * period_of(cfg), params
     if ranked:
@@ -380,10 +441,23 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
         -1).expand(Bsz)
     h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
+    paged = None
+    page = _page_size(cfg, cache) if block_tables is not None else 0
+    if page:
+        table = block_tables.long()
+        if ranked and layout.slots_cut:    # this dp rank's rows of the table
+            base = SH._dp_index(ctx, ctx.dp_axes) * Bsz
+            mine = torch.arange(base, base + Bsz, device=tokens.device)
+            rows = table.new_zeros(table.shape[0])
+            rows[mine] = A.decode_rows(t_vec, table[mine], page)
+            paged = B.PagedKV(table[mine], CL.all_reduce_(
+                rows, ctx.data_group), mine, table.shape[0], ctx.data_group)
+        else:
+            paged = B.PagedKV(table, A.decode_rows(t_vec, table, page))
 
     def layer(pos, lp, n, h):
         return B.decode_layer(cfg, pos, lp, h, _period(cache[pos], n), t_vec,
-                              ctx if ranked else None, cuts[pos])
+                              ctx if ranked else None, cuts[pos], paged)
 
     h = _serve_layers(cfg, params, specs, ctx, h, layer)
     h = apply_norm(cfg, top["ln_f"], h)
@@ -409,7 +483,7 @@ def _owned_rows(ctx, slots, n_local: int):
 @torch.no_grad()
 def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
                   slot: Optional[torch.Tensor] = None, ctx=None,
-                  layout: Optional[ServeLayout] = None):
+                  layout: Optional[ServeLayout] = None, block_tables=None):
     """Prompt chunks against per-slot cache regions: one admission row or a
     stack of them. tokens: (A, C) int, tail-padded past valid_len; pos_off:
     (A,) cache index of each row's first token; valid_len: (A,) valid
@@ -431,7 +505,14 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     writes nothing); the MoE then routes each dp rank's rows within its
     model group. Each row's logits come from the rank that ran it, summed
     over the dp group into the whole (A, V) on every rank. Every row is
-    run once, exactly as at one rank."""
+    run once, exactly as at one rank.
+
+    ``block_tables``: (A, max_blocks), each admission row's table: the
+    cache is then paged (``init_paged_cache``); the chunk's K/V go into
+    the pools through the tables (tail pads and identity rows into the
+    null page) and ``slot`` indexes the SSM entries only (``repro/models/
+    lm.py:385-473``). Where the slots are cut over dp, each dp rank writes
+    every row's K/V, as ``decode_step`` does."""
     Ac, C = tokens.shape
     dev = tokens.device
 
@@ -443,14 +524,24 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     ranked = _ranked_layout(ctx, layout)
     specs, cuts, top = None, ["replicated"] * period_of(cfg), params
     n_write, slots_cut = -1, False
+    page = _page_size(cfg, cache) if block_tables is not None else 0
+    paged = None
+    if page:                        # every row's tokens, on every rank
+        table = block_tables.long()
+        valid = torch.arange(C, device=dev)[None, :] < valid_len[:, None]
+        paged = B.PagedKV(table, A.chunk_rows(pos_off, table, valid, page))
     if ranked:
-        specs, cuts, slots_cut = layout
+        specs, cuts, slots_cut = layout[:3]
         top = _top_level(cfg, params, ctx, specs)
         if slots_cut:
-            n_local = next(iter(cache[0].values())).shape[1]
-            rows, slots, n_write = _owned_rows(ctx, slots, n_local)
+            rows, slots, n_write = _owned_rows(ctx, slots,
+                                               layout.local_slots)
             tokens, pos_off, valid_len = (t[rows] for t in (
                 tokens, pos_off, valid_len))
+            if paged is not None:
+                paged = paged._replace(table=paged.table[rows],
+                                       mine=rows[:n_write], n_all=Ac,
+                                       group=ctx.data_group)
         # each dp rank's rows are its own: the MoE's tokens are not cut
         # over the dp axes
         ctx = dataclasses.replace(ctx, dp_axes=())
@@ -462,7 +553,8 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     def layer(pos, lp, n, h):
         return B.chunk_layer(cfg, pos, lp, h, _period(cache[pos], n), slots,
                              pos_off, q_pos, mask, valid_len,
-                             ctx if ranked else None, cuts[pos], n_write)
+                             ctx if ranked else None, cuts[pos], n_write,
+                             paged)
 
     h = _serve_layers(cfg, params, specs, ctx, h, layer)
     h = apply_norm(cfg, top["ln_f"], h)

@@ -338,18 +338,21 @@ def slots_cut(ctx: AxisCtx, batch: int) -> bool:
             and batch > 1 and batch % ctx.dp_size == 0)
 
 
-def kv_cut(ctx: AxisCtx, n_kv_heads: int, seq_len: int) -> str:
+def kv_cut(ctx: AxisCtx, n_kv_heads: int, seq_len: int,
+           paged: bool = False) -> str:
     """How a K/V cache entry is cut over the model axis, the one place the
     choice is made (``kv_spec``, ``repro/parallel/sharding.py:88-93``, and
     the arms of ``sharded_decode_attention``): "kv_group" when the model
     axis divides the kv heads, else "split_kv" when it divides the
-    positions, else "replicated" (also on a model axis of one rank)."""
+    positions, else "replicated" (also on a model axis of one rank). A
+    ``paged`` pool is never "split_kv": its pages interleave positions
+    (``paged_cache_specs``, ``repro/parallel/sharding.py:119-146``)."""
     m = ctx.model_size if ctx is not None and ctx.active else 1
     if m == 1:
         return "replicated"
     if n_kv_heads % m == 0:
         return "kv_group"
-    if seq_len % m == 0:
+    if seq_len % m == 0 and not paged:
         return "split_kv"
     return "replicated"
 
@@ -379,6 +382,26 @@ def cache_specs(cfg, ctx: AxisCtx, batch: int, seq_len: int) -> Tuple:
         else:
             specs.append({"conv": P(None, b, None, None),
                           "state": P(None, b, None, None, None)})
+    return tuple(specs)
+
+
+def paged_cache_specs(cfg, ctx: AxisCtx, n_slots: int) -> Tuple:
+    """The spec of every entry of ``lm.init_paged_cache``'s tree
+    (``repro/parallel/sharding.py:119-146``): a K/V page pool (..,
+    n_pages, page, Hkv, hd) cut on its kv heads where ``kv_cut`` says so,
+    its pages whole (one pool over the dp axes, as in the JAX package);
+    the SSM entries as ``cache_specs`` cuts them (the dp slots only)."""
+    from repro_torch.models.lm import period_of
+    dense = cache_specs(cfg, ctx, n_slots, 1)
+    specs = []
+    for pos in range(period_of(cfg)):
+        if cfg.layer_kind(pos) == "a":
+            cut = kv_cut(ctx, cfg.attn.n_kv_heads, 0, paged=True)
+            kv = P(None, None, None, "model" if cut == "kv_group" else None,
+                   None)
+            specs.append({"k": kv, "v": kv})
+        else:
+            specs.append(dense[pos])
     return tuple(specs)
 
 

@@ -1,20 +1,28 @@
 """Continuous-batching serving engine: slot scheduler + masked chunked
-prefill + per-row-position decode over a contiguous KV cache.
+prefill + per-row-position decode over a contiguous or a paged KV cache.
 
 The core of ``repro.serving.engine.ServeEngine``, behaviour for behaviour:
 requests are ``submit()``-ed into a queue and admitted mid-flight into a
 fixed pool of decode slots. Admission runs the prompts' chunks through
-``lm.prefill_chunk``, batched: queued requests for every free slot run their
-chunks in one stacked call per chunk step, the stack padded to a power
-of two with free slots as identity rows. Decoding advances every slot at its
-own position; free slots decode too and their tokens are ignored, as in
-the JAX engine, so both engines route the same tokens through the MoE.
+``lm.prefill_chunk``, batched: up to ``admit_k`` queued requests (0: one
+for every free slot) run their chunks in one stacked call per chunk step,
+the stack padded to a power of two with free slots as identity rows.
+Decoding advances every slot at its own position; free slots decode too
+and their tokens are ignored, as in the JAX engine, so both engines route
+the same tokens through the MoE.
 Attention, SSM and hybrid configs go through the same code: the cache
 holds K/V or SSM carries per layer kind (``lm.init_cache``), and a slot's
 SSM carry is reset inside the prefill step where a request starts.
 With a tuned plan cache (``plan_cache``, ``plan_hw``) every MoE layer of a
 prefill chunk resolves the cache's ``prefill`` entry and of a decode step
 its ``decode`` entry, as the JAX engine's step builders thread them.
+
+With ``page_size`` > 0 the K/V cache is paged (``serving/paged_cache.py``):
+K/V live in page pools shared by every slot, a request owns just enough
+pages for its ``prompt + max_new`` budget through a block table, claimed
+at admission and freed when it retires, and admission waits, in arrival
+order, for the free pages a request's budget needs. A budget no pool
+could ever hold is rejected at ``submit`` (``OVER_CAPACITY``).
 
 Both calls go through the step builders of ``launch/train_step.py``,
 built from one shape, so they share one cache layout. On a mesh
@@ -25,9 +33,10 @@ same submissions: it holds its shard of the parameters
 (``sharding.cache_specs``) and the ranked MoE in every MoE layer. Every
 rank sees every next token (the decode step all-gathers them), so the
 host schedulers agree; each step checks that they do with one
-all-reduce of a checksum of the scheduler's state, and raises if not.
+all-reduce of a checksum of the scheduler's state (with the paged cache,
+the block tables and the allocator's free list too), and raises if not.
 
-Not ported yet: the paged cache, deadlines and load shedding, cancel,
+Not ported yet: deadlines and load shedding, cancel,
 NaN quarantine, snapshot/restore and fault injection, and the
 disaggregated topology.
 """
@@ -50,6 +59,7 @@ from repro_torch.launch.train_step import (build_decode_step,
 from repro_torch.models import lm
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import sharding as SH
+from repro_torch.serving.paged_cache import BlockAllocator, pages_for
 
 
 class RequestStatus(str, enum.Enum):
@@ -66,6 +76,7 @@ TERMINAL_STATUSES = frozenset({RequestStatus.OK, RequestStatus.REJECTED})
 class RejectReason(str, enum.Enum):
     EMPTY_PROMPT = "empty_prompt"
     TOO_LONG = "too_long"               # prompt + max_new > max_seq
+    OVER_CAPACITY = "over_capacity"     # page budget beyond the whole pool
     INVALID = "invalid"                 # spec field failed validation
 
 
@@ -160,13 +171,21 @@ class ServeEngine:
     """``params``: the full one-rank tree (``lm.init_params``' layout), or
     None to draw it from ``seed``. On a mesh every rank draws or is handed
     the same full tree and keeps its shard of it (``sharding.to_mesh``,
-    cut with FSDP as the JAX builders' default cuts it)."""
+    cut with FSDP as the JAX builders' default cuts it).
+
+    ``page_size`` > 0: the paged cache, its page legalized to a divisor of
+    ``max_seq`` (a block table tiles [0, max_seq) exactly), with
+    ``n_pages`` pages counting the null page (0: parity capacity, every
+    slot able to hold ``max_seq``: ``batch_size * max_seq / page_size +
+    1``). ``admit_k``: at most that many admissions per stacked prefill
+    call (0: every free slot)."""
 
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
                  device: DeviceLike = None,
                  plan_cache: Optional[str] = None, plan_hw: str = "",
-                 mesh=None):
+                 mesh=None, page_size: int = 0, n_pages: int = 0,
+                 admit_k: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
@@ -178,9 +197,21 @@ class ServeEngine:
         while max_seq % chunk:
             chunk -= 1
         self.chunk = chunk
+        if page_size:
+            page_size = max(1, min(page_size, max_seq))
+            while max_seq % page_size:
+                page_size -= 1
+        self.page_size = page_size
+        self.paged = page_size > 0
+        self.max_blocks = max_seq // page_size if self.paged else 0
+        if self.paged and not n_pages:
+            n_pages = batch_size * self.max_blocks + 1
+        self.n_pages = n_pages if self.paged else 0
+        self.admit_k = admit_k
         # one shape gives both steps the cache layout they share
         shape = ShapeConfig("serve_decode", seq_len=max_seq,
-                            global_batch=batch_size, kind="decode")
+                            global_batch=batch_size, kind="decode",
+                            page_size=self.page_size, n_pages=self.n_pages)
         self.prefill = build_prefill_chunk_step(
             cfg, shape, mesh, chunk=chunk, plan_cache=plan_cache,
             plan_hw=plan_hw)
@@ -197,10 +228,21 @@ class ServeEngine:
         if mesh is not None:
             params = SH.to_mesh(params, cfg, self.ctx)
         self.params = params
-        # the decode cache, one region (batch row) per slot, updated in
-        # place; on a mesh this rank's slice of it
-        self.cache = lm.init_cache(cfg, batch_size, max_seq, self.device,
-                                   self.ctx if mesh is not None else None)
+        # the decode cache, updated in place, on a mesh this rank's slice
+        # of it: one region (batch row) per slot, or page pools shared by
+        # the slots and the page allocator's host state
+        ctx = self.ctx if mesh is not None else None
+        self.alloc = self.block_tables = None
+        if self.paged:
+            self.cache = lm.init_paged_cache(cfg, batch_size, self.n_pages,
+                                             page_size, self.device, ctx)
+            self.alloc = BlockAllocator(self.n_pages, page_size,
+                                        self.max_blocks)
+            self.block_tables = np.zeros((batch_size, self.max_blocks),
+                                         np.int64)
+        else:
+            self.cache = lm.init_cache(cfg, batch_size, max_seq,
+                                       self.device, ctx)
         # host scheduler state
         self.slot_req: List[Optional[Request]] = [None] * batch_size
         self.pos = np.zeros((batch_size,), np.int64)      # next write index
@@ -215,6 +257,7 @@ class ServeEngine:
         self.prefill_tokens = 0
         self.decode_steps = 0
         self.decode_tokens = 0
+        self.admissions = 0
         self.admit_rounds = 0       # stacked chunk-admission calls
 
     # -- streaming API ------------------------------------------------------
@@ -265,12 +308,25 @@ class ServeEngine:
                          f"prompt {len(req.prompt)} + max_new "
                          f"{spec.max_new} exceeds engine max_seq "
                          f"{self.max_seq}")
+        if self.paged:
+            # a budget beyond the whole pool would stall the FIFO page
+            # gate, and everything queued behind it, forever
+            need = pages_for(spec.budget_tokens, self.page_size)
+            cap = min(self.n_pages - 1, self.max_blocks)
+            if need > cap:
+                self._reject(req, RejectReason.OVER_CAPACITY,
+                             f"request needs {need} pages, pool holds {cap}")
         self.queue.append(req)
         return req.rid
 
     @property
     def pending(self) -> bool:
         return bool(self.queue) or bool(self.live.any())
+
+    @property
+    def free_pages(self) -> int:
+        """Free pages in the pool (0 with the contiguous cache)."""
+        return self.alloc.free_pages if self.paged else 0
 
     def _record_token(self, req: Request, tok: int, t_idx: int) -> bool:
         """Append a generated token; True when the request is done (eos,
@@ -296,15 +352,32 @@ class ServeEngine:
         self.finished[req.rid] = req
         self.slot_req[slot] = None
         self.live[slot] = False
+        if self.paged:
+            # pages back to the free list; the zeroed table row steers this
+            # (now dead) decode row's writes into the null page
+            self.alloc.free_slot(slot)
+            self.block_tables[slot] = 0
 
     # -- admission ----------------------------------------------------------
 
     def _gather_admissions(self) -> List[Tuple[int, Request]]:
-        """Pop queued requests (FIFO) into free slots."""
+        """Pop up to ``admit_k`` queued requests (FIFO) into free slots.
+        With the paged cache each one's pages are claimed here, before the
+        stacked call, so the stack never oversubscribes the pool; when the
+        head of the queue does not fit, admission waits for pages rather
+        than admitting around it."""
+        k = self.admit_k or self.B
         free = [s for s in range(self.B) if not self.live[s]
                 and self.slot_req[s] is None]
         pairs: List[Tuple[int, Request]] = []
-        while self.queue and free:
+        while self.queue and free and len(pairs) < k:
+            req = self.queue[0]
+            if self.paged:
+                budget = len(req.prompt) + req.max_new
+                if not self.alloc.can_admit(budget):
+                    break
+                pages = self.alloc.allocate(free[0], budget)
+                self.block_tables[free[0], :len(pages)] = pages
             pairs.append((free.pop(0), self.queue.popleft()))
         return pairs
 
@@ -332,6 +405,8 @@ class ServeEngine:
         nchunks = np.maximum(1, -(-plens // C))
         first_tok = np.zeros((A,), np.int64)
         slots_t = self._tensor(slots)
+        tables = ((self._tensor(self.block_tables[slots]),) if self.paged
+                  else ())
         for j in range(int(nchunks.max())):
             toks = np.zeros((A, C), np.int64)
             valids = np.clip(plens - j * C, 0, C)
@@ -341,12 +416,13 @@ class ServeEngine:
             offs = np.full((A,), j * C, np.int64)
             logits, self.cache = self.prefill["fn"](
                 self.params, self.cache, self._tensor(toks),
-                self._tensor(offs), self._tensor(valids), slots_t)
+                self._tensor(offs), self._tensor(valids), slots_t, *tables)
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             last = nchunks == j + 1
             first_tok[last] = nxt[last]
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += int(plens.sum())
+        self.admissions += len(pairs)            # parking rows don't count
         self.admit_rounds += 1
         now = time.perf_counter()
         for a, (slot, req) in enumerate(pairs):
@@ -379,15 +455,21 @@ class ServeEngine:
     def _check_agreement(self, pairs: List[Tuple[int, Request]]):
         """Raises unless every rank's scheduler holds the same state and
         admits the same requests (ids, prompt lengths, budgets) into the
-        same slots this step, before any collective of the step: one
+        same slots this step, with the same block tables and free pages
+        where the cache is paged (a diverged allocator would write other
+        pages on each rank), before any collective of the step: one
         all-reduce (MAX) of (checksum, -checksum) over every rank."""
         world = self.mesh.group(self.mesh.axis_names)
         if world.size == 1:
             return
-        plan = np.concatenate([
-            np.array([len(pairs)] + [v for s, r in pairs for v in (
-                s, r.rid, len(r.prompt), r.max_new)], np.int64),
-            self.live.astype(np.int64), self.pos, self.last_tok])
+        parts = [np.array([len(pairs)] + [v for s, r in pairs for v in (
+            s, r.rid, len(r.prompt), r.max_new)], np.int64),
+            self.live.astype(np.int64), self.pos, self.last_tok]
+        if self.paged:
+            parts += [self.block_tables.reshape(-1),
+                      np.array(self.alloc.snapshot_state()["free"],
+                               np.int64)]
+        plan = np.concatenate(parts)
         c = zlib.crc32(plan.tobytes())
         t = torch.tensor([c, -c], dtype=torch.int64, device=self.device)
         CL.all_reduce_(t, world, op="max")
@@ -398,9 +480,11 @@ class ServeEngine:
 
     def _decode_once(self):
         t0 = time.perf_counter()
+        tables = ((None, self._tensor(self.block_tables)) if self.paged
+                  else ())
         nxt, _, self.cache = self.decode["fn"](
             self.params, self.cache, self._tensor(self.last_tok[:, None]),
-            self._tensor(self.pos))
+            self._tensor(self.pos), *tables)
         # no live mask: only the live slots' tokens are read below
         nxt = nxt[:, 0].cpu().numpy()
         self.decode_s += time.perf_counter() - t0

@@ -38,6 +38,22 @@ whose prefill and decode entries every MoE body must run.
 cuts, and the K/V entries are cut over the model axis where JAX's
 ``kv_spec`` cuts them.
 
+(f) The paged cache (page 8): ``build_decode_step`` and
+``build_prefill_chunk_step`` of a paged shape on seeded page pools and
+shuffled block tables (dead rows with all-zero tables, partly mapped
+rows), against JAX's one-rank ``decode_step``/``prefill_chunk`` with
+``block_tables``: logits rel 5e-5, every rank's pool on pages 1.. (the
+null page takes duplicate writes, whose winner is undefined in both
+packages) and SSM leaves against its slice of JAX's at 1e-5. The pool's
+two arms: kv heads over the model axis (qwen2-moe-2.7b-smoke, Hkv 4, on
+(1, 4), and on (2, 2) with the slots cut over dp, where each dp rank
+writes every slot's K/V) and replicated (granite, Hkv 1, on (1, 4));
+mamba2 on (2, 2) and jamba at one period on (1, 4). The paged engine's
+streams against JAX's paged engine, on those layouts and on a tight pool
+with ``admit_k`` 2 on (2, 2) whose page gate stalls alike on every rank
+(the same admission rounds as JAX's); a rank whose allocator hands out
+its pages in another order makes every rank raise.
+
 MoE capacity is the expert count (no drop): capacity follows the local
 token count, so a mesh would drop other tokens than one rank does. The
 ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
@@ -132,6 +148,40 @@ ENGINES = {
 }
 # a rank whose submissions differ: every rank's engine raises
 DIVERGE = ("dp2mp2", "qmoe", NAIVE, 3)
+# paged cells: the page, the decode and chunk cells' pool (parity: 8 slots
+# of 32 positions, 4 blocks each, and the null page)
+PAGE, PAGED_SEQ, PAGED_SLOTS = 8, 32, 8
+PAGED_POOL = PAGED_SLOTS * PAGED_SEQ // PAGE + 1
+# name -> (layout, ref, moe knobs, the pool's arm)
+PDECODE = {
+    "pdec-qmoe-14": ("dp1mp4", "qmoe", COMET, "kv_group"),
+    "pdec-qmoe-22": ("dp2mp2", "qmoe", NAIVE, "kv_group"),
+    "pdec-granite-14": ("dp1mp4", "granite", NAIVE, "replicated"),
+    "pdec-mamba2-22": ("dp2mp2", "mamba2", None, None),
+    "pdec-jamba-14": ("dp1mp4", "jamba", COMET, "replicated"),
+}
+# name -> (layout, ref, moe knobs, slots, pos_off), the chunk as CHUNK's
+PCHUNK = {
+    "pchunk-qmoe-14": ("dp1mp4", "qmoe", COMET, (3, 6), (12, 4)),
+    "pchunk-qmoe-22": ("dp2mp2", "qmoe", NAIVE, (3, 6), (12, 4)),
+    "pchunk-qmoe-22-oneside": ("dp2mp2", "qmoe", NAIVE, (1, 2), (12, 4)),
+    "pchunk-granite-14": ("dp1mp4", "granite", NAIVE, (3, 6), (12, 4)),
+    "pchunk-mamba2-22": ("dp2mp2", "mamba2", None, (3, 6), (12, 4)),
+    "pchunk-jamba-14": ("dp1mp4", "jamba", COMET, (3, 6), (12, 4)),
+}
+# paged engines: name -> (layout, ref, moe knobs, n_pages (0: parity),
+# admit_k); the tight pool's 10 usable pages hold 2-3 of the 8 requests'
+# budgets (29 pages in all)
+PENGINES = {
+    "peng-qmoe-22": ("dp2mp2", "qmoe", NAIVE, 0, 0),
+    "peng-qmoe-14": ("dp1mp4", "qmoe", COMET, 0, 0),
+    "peng-granite-14": ("dp1mp4", "granite", NAIVE, 0, 0),
+    "peng-mamba2-22": ("dp2mp2", "mamba2", None, 0, 0),
+    "peng-jamba-14": ("dp1mp4", "jamba", COMET, 0, 0),
+    "peng-tight-22": ("dp2mp2", "qmoe", NAIVE, 11, 2),
+}
+# a rank whose allocator hands out its pages in reverse order
+PDIVERGE = ("dp2mp2", "qmoe", NAIVE, 1)
 PLANS = {"prefill": dict(impl="naive", ring_group=1, n_col_blocks=1,
                          gemm_impl="xla", phase="prefill"),
          "decode": dict(impl="coarse", ring_group=1, n_col_blocks=1,
@@ -170,6 +220,27 @@ def _cache(cfg, B, S, rng):
     return tuple({k: (rng.standard_normal(shp) * 0.5).astype(np.float32)
                   for k, (shp, _) in e.items()}
                  for e in lm.cache_shapes(pcfg, B, S))
+
+
+def _paged_cache(cfg, B, rng):
+    """A seeded global paged cache (numpy) of ``PAGED_POOL`` pages."""
+    pcfg = dataclasses.replace(get_config(cfg.name), n_layers=cfg.n_layers)
+    return tuple({k: (rng.standard_normal(shp) * 0.5).astype(np.float32)
+                  for k, (shp, _) in e.items()}
+                 for e in lm.paged_cache_shapes(pcfg, B, PAGED_POOL, PAGE))
+
+
+def _tables(rng, rows, blocks):
+    """Block tables of ``rows`` (B,) rows over ``PAGED_POOL`` pages, the
+    pages shuffled, row b mapping its first blocks[b] blocks (0: a dead
+    row, all null)."""
+    nb = PAGED_SEQ // PAGE
+    pages = iter(rng.permutation(np.arange(1, PAGED_POOL)).tolist())
+    t = np.zeros((rows, nb), np.int32)
+    for b in range(rows):
+        for i in range(blocks[b]):
+            t[b, i] = next(pages)
+    return t
 
 
 def _cache_arrays(cache):
@@ -211,44 +282,101 @@ def _inputs(in_dir):
         np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
                  **_cache_arrays(cache), tokens=tokens, pos_off=args[0],
                  valid_len=args[1], slots=args[2])
-    for ref in sorted({r for _, r, _, _ in ENGINES.values()}):
+    for j, (name, (_, ref, _, _)) in enumerate(PDECODE.items()):
+        cfg = _jax_cfg(ref)
+        rng = np.random.default_rng(500 + j)
+        B, nb = PAGED_SLOTS, PAGED_SEQ // PAGE
+        cache = _paged_cache(cfg, B, rng)
+        blocks = rng.integers(1, nb + 1, B)
+        blocks[[2, 5]] = 0                              # dead rows
+        tables = _tables(rng, B, blocks)
+        pos = np.array([rng.integers(0, max(1, n) * PAGE) for n in blocks],
+                       np.int32)
+        tokens = rng.integers(1, cfg.vocab_size, (B, 1)).astype(np.int32)
+        live = blocks > 0
+        todo[name] = (ref, cache, tokens, pos, live, tables)
+        np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
+                 **_cache_arrays(cache), tokens=tokens, pos=pos, live=live,
+                 tables=tables)
+    for j, (name, (_, ref, _, slots, offs)) in enumerate(PCHUNK.items()):
+        cfg = _jax_cfg(ref)
+        rng = np.random.default_rng(600 + j)
+        cache = _paged_cache(cfg, PAGED_SLOTS, rng)
+        tables = _tables(rng, len(slots), (3, 2))
+        tokens = rng.integers(1, cfg.vocab_size, (len(slots), CHUNK_C)
+                              ).astype(np.int32)
+        args = [np.array(v, np.int32) for v in (offs, CHUNK_VALID, slots)]
+        todo[name] = (ref, cache, tokens, *args, tables)
+        np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
+                 **_cache_arrays(cache), tokens=tokens, pos_off=args[0],
+                 valid_len=args[1], slots=args[2], tables=tables)
+    for ref in sorted({r for _, r, _, _ in ENGINES.values()}
+                      | {r for _, r, _, _, _ in PENGINES.values()}):
         rng = np.random.default_rng(400)
         prompts = [rng.integers(1, _jax_cfg(ref).vocab_size, n).tolist()
                    for n in PROMPT_LENS]
         todo[f"engine-{ref}"] = (ref, prompts)
         np.savez(Path(in_dir) / f"engine-{ref}.npz", **pflat[ref],
                  prompts=json.dumps(prompts))
+    for name, (_, ref, _, n_pages, admit_k) in PENGINES.items():
+        todo[name] = (ref, todo[f"engine-{ref}"][1], n_pages, admit_k)
     return params, todo
 
 
 def _references(params, todo):
-    """The JAX package's one-rank results of every cell."""
-    refs = {}
+    """The JAX package's one-rank results of every cell. The jitted steps
+    are shared by the cells of one reference (each shape compiles once),
+    and the engine runs by the cells of one reference and paging."""
+    refs, fns, engines = {}, {}, {}
+
+    def step(ref, kind):
+        if (ref, kind) not in fns:
+            cfg = _jax_cfg(ref)
+            if kind == "decode":
+                fns[ref, kind] = jax.jit(lambda p, c, t, q, bt: JL.decode_step(
+                    cfg, p, c, t, q, JAxisCtx(), block_tables=bt))
+            else:
+                fns[ref, kind] = jax.jit(
+                    lambda p, c, t, o, v, s, bt: JL.prefill_chunk(
+                        cfg, p, c, t, o, v, JAxisCtx(), slot=s,
+                        block_tables=bt))
+        return fns[ref, kind]
+
     for name, (ref, *args) in todo.items():
         cfg, p = _jax_cfg(ref), params[ref]
-        if name in DECODE:
-            cache, tokens, pos, live = args
-            logits, new = jax.jit(lambda p, c, t, q: JL.decode_step(
-                cfg, p, c, t, q, JAxisCtx()))(p, _jcache(cache),
-                                              jnp.asarray(tokens),
-                                              jnp.asarray(pos))
+        if name in DECODE or name in PDECODE:
+            cache, tokens, pos, live, *bt = args
+            logits, new = step(ref, "decode")(
+                p, _jcache(cache), jnp.asarray(tokens), jnp.asarray(pos),
+                jnp.asarray(bt[0]) if bt else None)
             logits = np.asarray(logits)
             refs[name] = {"logits": logits,
                           "next_tok": np.where(live, logits.argmax(-1), 0)}
-        elif name in CHUNK:
-            cache, tokens, offs, valid, slots = args
-            logits, new = jax.jit(lambda p, c, t, o, v, s: JL.prefill_chunk(
-                cfg, p, c, t, o, v, JAxisCtx(), slot=s))(
+        elif name in CHUNK or name in PCHUNK:
+            cache, tokens, offs, valid, slots, *bt = args
+            logits, new = step(ref, "chunk")(
                 p, _jcache(cache), *map(jnp.asarray,
-                                        (tokens, offs, valid, slots)))
+                                        (tokens, offs, valid, slots)),
+                jnp.asarray(bt[0]) if bt else None)
             refs[name] = {"logits": np.asarray(logits)}
         else:
-            eng = JaxEngine(cfg, params=p, max_seq=ENGINE["max_seq"],
-                            batch_size=ENGINE["slots"],
-                            chunk=ENGINE["chunk"])
-            out = eng.generate(args[0], max_new=ENGINE["max_new"])
-            refs[name] = {"tokens": out.tokens, "lengths": out.lengths,
-                          "statuses": out.statuses}
+            prompts, *paging = args
+            key = (ref,) + tuple(paging)
+            if key not in engines:
+                kw = ({} if not paging else
+                      dict(page_size=PAGE, n_pages=paging[0],
+                           admit_k=paging[1]))
+                eng = JaxEngine(cfg, params=p, max_seq=ENGINE["max_seq"],
+                                batch_size=ENGINE["slots"],
+                                chunk=ENGINE["chunk"], **kw)
+                out = eng.generate(prompts, max_new=ENGINE["max_new"])
+                engines[key] = {"tokens": out.tokens,
+                                "lengths": out.lengths,
+                                "statuses": out.statuses,
+                                "admit_rounds": eng.admit_rounds,
+                                "free_pages": eng.free_pages,
+                                "n_pages": eng.n_pages}
+            refs[name] = engines[key]
             continue
         refs[name]["cache"] = [{k: np.asarray(v) for k, v in e.items()}
                                for e in new]
@@ -290,6 +418,25 @@ def _jobs(layout, in_dir):
         jobs.append(dict(name="eng-diverge", kind="engine",
                          arch=REFS[ref][0], over=_over(ref, moe),
                          data=f"engine-{ref}", swap_on_rank=rank, **ENGINE))
+    paged = dict(page_size=PAGE, n_pages=PAGED_POOL, slots=PAGED_SLOTS,
+                 max_seq=PAGED_SEQ)
+    for cells, kind in ((PDECODE, "decode"), (PCHUNK, "chunk")):
+        for name, (lay, ref, moe, *_) in cells.items():
+            if lay == layout:
+                jobs.append(dict(name=name, kind=kind, arch=REFS[ref][0],
+                                 over=_over(ref, moe), data=name, **paged))
+    for name, (lay, ref, moe, n_pages, admit_k) in PENGINES.items():
+        if lay == layout:
+            jobs.append(dict(name=name, kind="engine", arch=REFS[ref][0],
+                             over=_over(ref, moe), data=f"engine-{ref}",
+                             page_size=PAGE, n_pages=n_pages,
+                             admit_k=admit_k, **ENGINE))
+    lay, ref, moe, rank = PDIVERGE
+    if lay == layout:
+        jobs.append(dict(name="peng-diverge", kind="engine",
+                         arch=REFS[ref][0], over=_over(ref, moe),
+                         data=f"engine-{ref}", page_size=PAGE,
+                         reverse_free_on_rank=rank, **ENGINE))
     return jobs
 
 
@@ -345,8 +492,10 @@ def _slice(full, spec, sizes, coords):
     return full[tuple(idx)]
 
 
-def _check_caches(got, want_cache, layout):
-    """Every rank's cache leaf against its slice of the JAX cache."""
+def _check_caches(got, want_cache, layout, paged=False):
+    """Every rank's cache leaf against its slice of the JAX cache; a
+    ``paged`` cache's pools on pages 1.. (the null page takes duplicate
+    writes)."""
     sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
     for r in _ranks(got):
         coords = dict(zip(("data", "model"),
@@ -357,6 +506,8 @@ def _check_caches(got, want_cache, layout):
                 leaf = got[f"rank{r}/cache/{i}/{k}"]
                 want = _slice(full, spec, sizes, coords)
                 assert leaf.shape == want.shape, (r, i, k, leaf.shape)
+                if paged and k in ("k", "v"):
+                    leaf, want = leaf[:, 1:], want[:, 1:]
                 assert _rel(leaf, want) < CACHE_REL, (r, i, k,
                                                       _rel(leaf, want))
 
@@ -604,8 +755,10 @@ def test_kv_cache_per_rank_is_a_quarter_on_1x4():
 
 
 def test_unported_serving_paths_raise_by_name():
-    """The monolithic prefill and the paged arm of the sharded decode
-    attention raise, naming their ROADMAP items (10 and 8)."""
+    """The monolithic prefill raises, naming its ROADMAP item (10); the
+    paged arm of the sharded decode attention runs: through a block table
+    it gives the decode over the gathered logical view, and a pool is
+    never taken over positions."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import train_step as TS
     from repro_torch.models import blocks
@@ -613,9 +766,133 @@ def test_unported_serving_paths_raise_by_name():
     shape = ShapeConfig("serve", 32, 4, "decode")
     with pytest.raises(NotImplementedError, match="item 10"):
         TS.build_prefill_step(cfg, shape)
-    q = torch.zeros((1, 1, 4, 32))
-    kv = torch.zeros((1, 32, 4, 32))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        blocks.sharded_decode_attention(None, q, kv, kv, torch.zeros(1),
-                                        "replicated",
-                                        block_table=torch.zeros((1, 4)))
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 1, 4, 32), generator=gen)
+    pool = torch.randn((5, 8, 4, 32), generator=gen)
+    table = torch.tensor([[3, 1, 0, 0], [2, 4, 0, 0]])
+    pos = torch.tensor([9, 12])
+    got = blocks.sharded_decode_attention(None, q, pool, pool, pos,
+                                          "replicated", block_table=table)
+    view = A.paged_gather(pool, table)
+    torch.testing.assert_close(got, A.decode_attention(q, view, view, pos),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="never cut over positions"):
+        blocks.sharded_decode_attention(None, q, pool, pool, pos,
+                                        "split_kv", block_table=table)
+
+
+# ---------------------------------------------------------------------------
+# (f) the paged cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", list(PDECODE))
+def test_paged_decode_step_matches_jax(run, cell):
+    layout = PDECODE[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    for r in _ranks(got):
+        assert _rel(got[f"rank{r}/logits"], want["logits"]) < LOGIT_REL, (
+            r, _rel(got[f"rank{r}/logits"], want["logits"]))
+        np.testing.assert_array_equal(got[f"rank{r}/next_tok"][:, 0],
+                                      want["next_tok"])
+    _check_caches(got, want["cache"], layout, paged=True)
+
+
+@pytest.mark.parametrize("cell", list(PCHUNK))
+def test_paged_prefill_chunk_matches_jax(run, cell):
+    layout = PCHUNK[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    for r in _ranks(got):
+        assert _rel(got[f"rank{r}/logits"], want["logits"]) < LOGIT_REL, (
+            r, _rel(got[f"rank{r}/logits"], want["logits"]))
+    _check_caches(got, want["cache"], layout, paged=True)
+
+
+@pytest.mark.parametrize("cell", list(PDECODE) + list(PCHUNK))
+def test_paged_pools_are_cut_as_the_specs_say(run, cell):
+    """Every rank's leaf has the shape the port's ``paged_cache_specs``
+    cuts, each pool is cut over the model axis where JAX's
+    ``paged_cache_specs`` cuts it (never over its pages), and the decode
+    cells take the pool arm they name."""
+    layout, ref, moe = (PDECODE.get(cell) or PCHUNK[cell])[:3]
+    sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
+    cfg = ST.cell_config(REFS[ref][0], _over(ref, moe))
+    ctx = SH.make_ctx(cfg, _StubMesh(sizes), seq_shard=False)
+    specs = SH.paged_cache_specs(cfg, ctx, PAGED_SLOTS)
+    jcfg = _jax_cfg(ref)
+    jspecs = JSH.paged_cache_specs(jcfg, JSH.make_ctx(
+        jcfg, _StubMesh(sizes), seq_shard=False), PAGED_SLOTS)
+    got = _load(run, layout, cell)
+    for i, e in enumerate(lm.paged_cache_shapes(cfg, PAGED_SLOTS,
+                                                PAGED_POOL, PAGE)):
+        for k, (shp, _) in e.items():
+            if k in ("k", "v"):
+                assert _cuts(jspecs[i][k], sizes) == _cuts(specs[i][k],
+                                                           sizes)
+                assert specs[i][k][1] is None and specs[i][k][2] is None
+            local = SH.local_shape(shp, specs[i][k], _StubMesh(sizes))
+            for r in _ranks(got):
+                assert tuple(got[f"rank{r}/cache/{i}/{k}"].shape) == local
+    if cell in PDECODE and cfg.attn is not None:
+        assert SH.kv_cut(ctx, cfg.attn.n_kv_heads, PAGED_SEQ,
+                         paged=True) == PDECODE[cell][3]
+
+
+def test_paged_cells_reach_both_pool_arms():
+    """The paged decode cells take both arms of a pool (kv heads and
+    replicated), with the slots cut over dp and not; the unpaged kv_cut
+    of the replicated cells' configs would have cut them over positions."""
+    arms, cut = set(), set()
+    for layout, ref, moe, arm in PDECODE.values():
+        cfg = ST.cell_config(REFS[ref][0], _over(ref, moe))
+        ctx = SH.make_ctx(cfg, _StubMesh(dict(zip(("data", "model"),
+                                                  LAYOUTS[layout]))))
+        cut.add(SH.slots_cut(ctx, PAGED_SLOTS))
+        if arm is not None:
+            arms.add(arm)
+            if arm == "replicated":
+                assert SH.kv_cut(ctx, cfg.attn.n_kv_heads,
+                                 PAGED_SEQ) == "split_kv"
+    assert arms == {"kv_group", "replicated"}
+    assert cut == {True, False}
+
+
+@pytest.mark.parametrize("cell", list(PENGINES))
+def test_paged_engine_token_streams_match_jax(run, cell):
+    """Every rank's streams, admission rounds and free pages after the
+    drain equal JAX's one-rank paged engine's."""
+    layout = PENGINES[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    assert want["statuses"] == ["ok"] * len(PROMPT_LENS)
+    assert want["free_pages"] == want["n_pages"] - 1
+    for r in _ranks(got):
+        np.testing.assert_array_equal(got[f"rank{r}/tokens"],
+                                      want["tokens"])
+        np.testing.assert_array_equal(got[f"rank{r}/lengths"],
+                                      want["lengths"])
+        assert got[f"rank{r}/statuses"].tolist() == want["statuses"]
+        assert int(got[f"rank{r}/admit_rounds"]) == want["admit_rounds"]
+        assert int(got[f"rank{r}/free_pages"]) == want["free_pages"]
+
+
+def test_paged_tight_pool_stalls_the_gate():
+    """The tight cell's usable pages hold the largest budget but not the
+    first requests of every slot: under FIFO its page gate, not the
+    slots, bounds admission (every rank's rounds equal JAX's, above)."""
+    n_pages = PENGINES["peng-tight-22"][3]
+    need = [-(-(n + ENGINE["max_new"]) // PAGE) for n in PROMPT_LENS]
+    assert max(need) <= n_pages - 1 < sum(need[:ENGINE["slots"]])
+
+
+def test_paged_engine_raises_when_an_allocator_diverges(run):
+    """One rank's allocator hands out its pages in reverse order: the
+    step's checksum (block tables and free list) makes every rank raise
+    before the admission's collectives, instead of writing other pages."""
+    got = _load(run, PDIVERGE[0], "peng-diverge")
+    ranks = _ranks(got)
+    assert len(ranks) == 4
+    for r in ranks:
+        assert "schedulers diverged" in str(got[f"rank{r}/error"])
