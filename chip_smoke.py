@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all fourteen phases, one card
+  python3 chip_smoke.py              # all fifteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
+  python3 chip_smoke.py --only build,serve_lifecycle
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -227,6 +228,33 @@ Phases:
              page_size=64) on a (1, 1) mesh of a world-1 NCCL group at
              no-drop capacity, beside (a)'s 8-slot paged run: the same
              streams and launches.
+ 15 serve_lifecycle  the earlier phases' state is freed first. Phase 3's
+             engine and trace with the paged cache (page 64, the 8-slot
+             pool of 129 pages) at no-drop capacity, after a warm-up
+             round, launch counters zeroed before and read after each
+             run (every fused_mlp launch on the wgmma path, the plain
+             versions seeing no CUDA tensor, every request terminal,
+             128 pages free). (a) Fault-free: the reference streams. (b)
+             A fault plan with a snapshot every 8 steps under a
+             temporary directory: crashes at steps 5 (before the first
+             snapshot: replay from the start) and 19 (restore of step
+             16), a poisoned row at step 48 (after the queue empties),
+             an 8-page squeeze at step 10, a 50 ms spike at step 26:
+             15 ok streams identical to (a)'s, the quarantined one a
+             prefix of its (a) stream, every (rid, idx) emitted once,
+             failures == recoveries == 2, the spike's step flagged
+             (straggler factor 1.3); launches, ms and bytes per
+             snapshot, ms per restore, steps replayed and the wall
+             time against (a) recorded. (c) No faults: a live cancel
+             after the 4th token and a queued cancel; max_queue 4
+             under "deadline" shedding on a burst of 16; a 1 ms TTFT
+             deadline on 4 requests queued behind 8 live ones (all
+             expire in the queue); the ok streams unlike (a)'s are
+             recorded (a request admitted alone takes other bits). (d)
+             ``launch.serve`` with --page-size 64 --pages 129 --chaos
+             0.02 --snapshot-dir: every request terminal, every
+             injected crash recovered, the plan's and the robustness
+             summaries printed.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -272,7 +300,7 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
        "merge": 1e-5}      # the fp32 split-KV merge against fp32 decode
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
-          "serve_hybrid", "mesh_serve", "serve_paged")
+          "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
@@ -351,6 +379,19 @@ MESH_SERVE_SHARDS = 4
 # the paged serve phase: the page, and the turns at phase 3's capacity
 PAGED_PAGE = 64
 PAGED_TURNS = ("contiguous", "paged", "paged", "contiguous")
+# the lifecycle phase: the 8-slot parity pool of 64-token pages; the fault
+# plan's steps (snapshots every 8 steps: one crash before the first, one
+# after; the poisoned row in the second wave of admissions, after the
+# queue has emptied, so no admission moves: a request admitted alone
+# takes other bits than in a stack of 8), the squeeze (step, pages, steps
+# held), and the straggler factor under which a 50 ms spike on a decode
+# step of 56-95 ms is an outlier
+LIFECYCLE_POOL = 8 * 1024 // PAGED_PAGE + 1
+LIFECYCLE_CRASHES = (5, 19)
+LIFECYCLE_NAN_STEP = 48
+LIFECYCLE_SQUEEZE = (10, 8, 4)
+LIFECYCLE_SPIKE_STEP = 26
+LIFECYCLE_STRAGGLER = 1.3
 
 
 class PhaseFailed(Exception):
@@ -3344,6 +3385,335 @@ def phase_serve_paged(state, out):
           f"{runs[turns[0]]['peak_live']} contiguous (want 8)")
 
 
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def lifecycle_run(cfg, params, key, runs, prompts, max_new=32,
+                  engine_kw=None, script=None):
+    """One run of phase 15's engine (qwen2-moe-2.7b whole, 8 slots,
+    max_seq 1024, chunk 256, the paged cache on the 8-slot parity pool):
+    ``script(eng)`` submits and drives it (default: every prompt, then
+    ``run``). Launch counters zeroed before and read after, the plain
+    versions watched, the ``on_token`` emissions, the snapshots' and
+    restores' times and bytes and the replayed steps recorded into
+    ``runs[key]``; returns the engine."""
+    import torch
+
+    from repro_torch.serving import ServeEngine
+    emissions, snaps, restores, replayed = [], [], [], [0]
+    eng = ServeEngine(cfg, params=params, max_seq=1024, batch_size=8,
+                      chunk=256, device="cuda", page_size=PAGED_PAGE,
+                      n_pages=LIFECYCLE_POOL,
+                      on_token=lambda *e: emissions.append(e),
+                      **(engine_kw or {}))
+    real_snap, real_restore, real_recover = (eng.snapshot, eng.restore,
+                                             eng._recover)
+
+    def snapshot():
+        t0 = time.perf_counter()
+        real_snap()
+        snaps.append((time.perf_counter() - t0,
+                      _dir_bytes(Path(eng.ckpt.dir)
+                                 / f"step_{eng.step_idx:08d}")))
+
+    def restore(step=None):
+        t0 = time.perf_counter()
+        real_restore(step)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+
+    def recover(error):
+        have = eng.ckpt.latest_step() if eng.ckpt is not None else None
+        replayed[0] += eng.step_idx - 1 - (have or 0)
+        real_recover(error)
+
+    eng.snapshot, eng.restore, eng._recover = snapshot, restore, recover
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainGuard() as guard, count_model_calls({}) as calls:
+        t0 = time.perf_counter()
+        if script is None:
+            rids = [eng.submit(p, max_new=max_new) for p in prompts]
+            eng.run()
+        else:
+            rids = script(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the wrappers hold the engine: a cycle
+    del eng.snapshot, eng.restore, eng._recover
+    counts = read_counts()
+    reqs = {rid: eng.finished[rid] for rid in rids
+            if rid in eng.finished}
+    rec = {"wall_s": wall, "steps": eng.step_idx,
+           "decode_steps": eng.decode_steps,
+           "decode_ms_per_step": eng.decode_s / max(eng.decode_steps, 1)
+           * 1e3, "prefill_s": eng.prefill_s, "admit_rounds":
+           eng.admit_rounds, "launches": counts, "model_calls": calls,
+           "plain_calls_on_cuda": guard.cuda_calls,
+           "failures": eng.failures, "recoveries": eng.recoveries,
+           "quarantined": eng.quarantined, "expired": eng.expired,
+           "shed": eng.shed, "statuses": {
+               st: sum(r.status.value == st for r in reqs.values())
+               for st in sorted({r.status.value for r in reqs.values()})},
+           "emissions": len(emissions), "replayed_steps": replayed[0],
+           "snapshots": len(snaps),
+           "snapshot_ms": [t * 1e3 for t, _ in snaps],
+           "snapshot_bytes": [b for _, b in snaps],
+           "restore_ms": [t * 1e3 for t in restores],
+           "straggler_steps": list(eng.monitor.flagged)}
+    if eng.faults is not None:
+        rec["injected"] = dict(eng.faults.counts)
+        rec["injected_events"] = [[int(t), e] for t, e in eng.faults.events]
+        eng.faults.release_all(eng)
+    rec["free_pages"] = eng.free_pages
+    runs[key] = rec
+    log(f"  {key}: " + json.dumps({k: v for k, v in rec.items()
+                                   if k != "injected_events"}))
+    check(guard.cuda_calls == 0,
+          f"{key}: plain versions saw CUDA tensors {guard.cuda_calls} times")
+    check(counts["fused_mlp"] > 0 and counts["topk_combine"] > 0
+          and counts["fused_mlp"] == counts["fused_mlp_hopper"],
+          f"{key}: launches off the kernels or the wgmma path: {counts}")
+    check(all(r.done for r in reqs.values()) and not eng.pending,
+          f"{key}: requests not terminal: "
+          f"{[r.rid for r in reqs.values() if not r.done]}")
+    check(eng.free_pages == eng.n_pages - 1,
+          f"{key}: {eng.free_pages} pages free, not {eng.n_pages - 1}")
+    return eng, reqs, emissions
+
+
+def phase_serve_lifecycle(state, out):
+    """The serving lifecycle on phase 3's engine and trace (qwen2-moe-2.7b
+    whole, bf16, seed 0, pallas_fused, max_seq 1024, chunk 256, 8 slots,
+    16 requests of 64-512 prompt tokens, max_new 32) with the paged cache
+    (page 64, 129 pages) at no-drop capacity. (a) fault-free; (b) a fault
+    plan with snapshots every 8 steps: two crashes, one before and one
+    after the first snapshot, a poisoned row, a page squeeze and a 50 ms
+    latency spike; (c) cancels, a bounded queue under "deadline"
+    shedding, 1 ms TTFT deadlines behind 8 live requests; (d) the serve
+    CLI with --chaos 0.02 and snapshots."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import lm
+    from repro_torch.serving import FaultInjector, FaultPlan, ServeEngine
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = make_trace(cfg.vocab_size, 16, 64, 512, 0)
+    # warm-up on an engine of its own: (a)'s wall time is a warm server's
+    warm = ServeEngine(cfg, params=params, max_seq=1024, batch_size=8,
+                       chunk=256, device="cuda", page_size=PAGED_PAGE,
+                       n_pages=LIFECYCLE_POOL)
+    for p in make_trace(cfg.vocab_size, 8, 64, 512, 100):
+        warm.submit(p, max_new=2)
+    warm.run()
+    del warm
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="serve_lifecycle_")
+    try:
+        # (a) fault-free
+        _, ref, _ = lifecycle_run(cfg, params, "fault_free", runs, prompts)
+        want = {rid: r.tokens for rid, r in ref.items()}
+        check(all(r.status.value == "ok" and len(r.tokens) == 32
+                  for r in ref.values()),
+              "fault-free: requests not ok with 32 tokens")
+        # (b) injected faults
+        plan = FaultPlan(crash_steps=LIFECYCLE_CRASHES,
+                         nan_rows={LIFECYCLE_NAN_STEP: 1},
+                         page_squeeze={LIFECYCLE_SQUEEZE[0]:
+                                       LIFECYCLE_SQUEEZE[1:]},
+                         latency_s={LIFECYCLE_SPIKE_STEP: 0.05})
+        inj = FaultInjector(plan)
+        eng, got, emissions = lifecycle_run(
+            cfg, params, "faults", runs, prompts, engine_kw=dict(
+                snapshot_dir=f"{tmp}/b", snapshot_every=8, faults=inj,
+                straggler_factor=LIFECYCLE_STRAGGLER))
+        rb = runs["faults"]
+        seen = {}
+        for rid, idx, tok in emissions:
+            check((rid, idx) not in seen, f"duplicate emission {rid, idx}")
+            seen[rid, idx] = tok
+        bad = ([] if len(seen) == sum(len(r.tokens) for r in got.values())
+               else [("emitted", len(seen))])
+        for rid, r in got.items():
+            if [seen.get((rid, i)) for i in range(len(r.tokens))] != \
+                    r.tokens:
+                bad.append(("emitted", rid))
+            if r.status.value == "ok" and r.tokens != want[rid]:
+                bad.append(("ok stream", rid))
+            if r.status.value == "quarantined" and \
+                    r.tokens != want[rid][:len(r.tokens)]:
+                bad.append(("quarantined prefix", rid))
+        quarantined = [rid for rid, r in got.items()
+                       if r.status.value == "quarantined"]
+        rb.update(quarantined=len(quarantined),
+                  identical_ok=sum(r.tokens == want[rid]
+                                   for rid, r in got.items()
+                                   if r.status.value == "ok"),
+                  wall_over_fault_free=rb["wall_s"]
+                  / runs["fault_free"]["wall_s"])
+        check(not bad, f"faults: streams or emissions wrong: {bad}")
+        check(set(got) == set(ref) and len(quarantined) == 1
+              and rb["statuses"].get("ok") == len(ref) - 1,
+              f"faults: statuses {rb['statuses']} (want 15 ok and 1 "
+              f"quarantined)")
+        check(rb["failures"] == rb["recoveries"] == inj.counts["crash"]
+              == len(LIFECYCLE_CRASHES),
+              f"faults: failures {rb['failures']}, recoveries "
+              f"{rb['recoveries']}, injected crashes {inj.counts['crash']}")
+        check(inj.counts["page_squeeze"] == 1 and inj.counts["latency"] == 1,
+              f"faults: injected {inj.counts}")
+        check(LIFECYCLE_SPIKE_STEP in rb["straggler_steps"],
+              f"faults: the spike's step {LIFECYCLE_SPIKE_STEP} not flagged "
+              f"(flagged {rb['straggler_steps']})")
+        check(rb["snapshots"] > 0 and len(rb["restore_ms"]) == 1,
+              f"faults: {rb['snapshots']} snapshots, "
+              f"{len(rb['restore_ms'])} restores (want 1: the first "
+              f"crash precedes every snapshot)")
+        del eng, got
+        shutil.rmtree(f"{tmp}/b", ignore_errors=True)
+
+        # (c) the lifecycle without faults
+        def cancels(eng):
+            rids = [eng.submit(p, max_new=32) for p in prompts]
+            check(eng.cancel(rids[12]), "queued cancel refused")
+            eng.step()                    # rids[0] takes slot 0
+            first = eng.slot_req[0]
+            check(first is not None and first.rid == rids[0],
+                  "rids[0] not live in slot 0")
+            while len(first.tokens) < 4:  # one token a step
+                eng.step()
+            check(len(first.tokens) == 4 and eng.cancel(rids[0]),
+                  "live cancel after the 4th token refused")
+            eng.run()
+            return rids
+
+        def same_as_a(key, got):
+            """Records which ok streams equal (a)'s: a request admitted
+            in another stack than in (a) may take other bits."""
+            runs[key]["ok_streams_unlike_a"] = sorted(
+                rid for rid, r in got.items()
+                if r.status.value == "ok" and r.tokens != want[rid])
+
+        _, got, _ = lifecycle_run(cfg, params, "cancel", runs, prompts,
+                                  script=cancels)
+        same_as_a("cancel", got)
+        rids = sorted(got)
+        check(got[rids[0]].status.value == "cancelled"
+              and got[rids[0]].tokens == want[rids[0]][:4]
+              and got[rids[12]].status.value == "cancelled"
+              and got[rids[12]].tokens == []
+              and all(got[r].status.value == "ok"
+                      and len(got[r].tokens) == 32 for r in rids
+                      if r not in (rids[0], rids[12]))
+              and all(got[r].tokens == want[r] for r in rids[1:8]),
+              f"cancel: statuses {runs['cancel']['statuses']}, streams "
+              f"unlike (a)'s {runs['cancel']['ok_streams_unlike_a']}")
+
+        def burst(eng):
+            rids, rejected = [], 0
+            for i, p in enumerate(prompts):
+                try:
+                    rids.append(eng.submit(p, max_new=32, deadline_s=(
+                        None if i % 4 == 0 else 100.0 + 10 * i)))
+                except Exception as e:        # counted, then checked
+                    if type(e).__name__ != "RejectedRequest":
+                        raise
+                    rejected += 1
+                check(len(eng.queue) <= 4, "queue above max_queue")
+            eng.run()
+            runs_burst["rejected"] = rejected
+            return rids
+
+        runs_burst = {}
+        eng, got, _ = lifecycle_run(
+            cfg, params, "shed", runs, prompts, script=burst,
+            engine_kw=dict(max_queue=4, shed_policy="deadline"))
+        rs = runs["shed"]
+        rs["rejected"] = runs_burst["rejected"]
+        same_as_a("shed", got)
+        ok = [rid for rid, r in got.items() if r.status.value == "ok"]
+        check(rs["shed"] > 0 and rs["shed"] + rs["rejected"] + len(ok)
+              == len(prompts) and all(len(got[r].tokens) == 32 for r in ok)
+              and rs["statuses"].get("expired", 0) == rs["shed"],
+              f"shed: {rs['shed']} shed, {rs['rejected']} rejected, "
+              f"statuses {rs['statuses']}")
+        del eng
+
+        def ttft(eng):
+            rids = [eng.submit(p, max_new=32) for p in prompts[:8]]
+            eng.step()
+            check(int(eng.live.sum()) == 8, "8 live requests")
+            rids += [eng.submit(p, max_new=32, ttft_deadline_s=0.001)
+                     for p in prompts[8:12]]
+            eng.run()
+            return rids
+
+        _, got, _ = lifecycle_run(cfg, params, "ttft", runs, prompts,
+                                  script=ttft)
+        same_as_a("ttft", got)
+        rids = sorted(got)
+        check(all(got[r].status.value == "expired" and "ttft" in
+                  got[r].error and not got[r].tokens for r in rids[8:])
+              and all(got[r].tokens == want[r] for r in rids[:8])
+              and runs["ttft"]["expired"] == 4,
+              f"ttft: statuses {runs['ttft']['statuses']}")
+        del params
+        torch.cuda.empty_cache()
+
+        # (d) the CLI with chaos and snapshots, its own weights
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli = serve_cli.main(["--arch", ARCH, "--page-size", "64",
+                                  "--pages", str(LIFECYCLE_POOL),
+                                  "--chaos", "0.02",
+                                  "--snapshot-dir", f"{tmp}/d"],
+                                 device="cuda")
+        text = buf.getvalue()
+        summary = [line for line in text.splitlines()
+                   if not line.startswith("req")]
+        runs["cli"] = {
+            "summary": summary, "failures": cli.failures,
+            "recoveries": cli.recoveries,
+            "injected": dict(cli.faults.counts),
+            "statuses": {st: sum(r.status.value == st
+                                 for r in cli.finished.values())
+                         for st in sorted({r.status.value for r in
+                                           cli.finished.values()})}}
+        log("  cli: " + json.dumps(runs["cli"]))
+        check(len(cli.finished) == 16
+              and all(r.done for r in cli.finished.values())
+              and not cli.pending,
+              f"cli: requests not terminal: {runs['cli']['statuses']}")
+        check(any(line.startswith("robustness: statuses")
+                  for line in summary)
+              and any(line.startswith("chaos: ") for line in summary),
+              "cli: the chaos plan's or the robustness summary missing")
+        check(cli.failures == cli.recoveries == cli.faults.counts["crash"],
+              f"cli: failures {cli.failures}, recoveries "
+              f"{cli.recoveries}, injected {cli.faults.counts}")
+        del cli
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["serve_lifecycle"] = {"page_size": PAGED_PAGE,
+                              "n_pages": LIFECYCLE_POOL, "runs": runs}
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -3589,6 +3959,10 @@ def kernel_records(out):
             "paged1", {}).get("launches", {})
         if paged_l:                   # phase 3's engine, the paged cache
             extra["serve_paged_launches"] = paged_l.get(name, 0)
+        life_l = out.get("serve_lifecycle", {}).get("runs", {}).get(
+            "faults", {}).get("launches", {})
+        if life_l:                    # phase 15's run under the fault plan
+            extra["serve_lifecycle_launches"] = life_l.get(name, 0)
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (
@@ -3675,7 +4049,7 @@ def main(argv=None):
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
-             "nccl_pair")
+             "serve_lifecycle", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -3736,6 +4110,8 @@ def main(argv=None):
                 phase_serve_paged(state, out)
             elif name == "profile_serve_paged":
                 phase_profile_paged(state, out)
+            elif name == "serve_lifecycle":
+                phase_serve_lifecycle(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

@@ -9,7 +9,11 @@ device-to-host copy happens on the caller's thread; the file writes run on
 a background thread and overlap the next steps. numpy has no bfloat16, so
 a bf16 leaf is stored as its 16-bit pattern and its dtype is recorded.
 Leaves that are Python numbers (the optimizer's count, the step) are
-stored as 0-d arrays and restored as numbers.
+stored as 0-d arrays and restored as numbers; numpy leaves are restored as
+numpy arrays. The host copy is a copy for a CPU tensor too: the next step
+updates the state in place while the background thread writes it. An
+optional JSON blob (``save(..., extra=)``, read back by ``load_extra``)
+is committed inside the same rename as the leaves.
 
 A state sharded over a mesh is saved whole, in the one-rank layout
 (``save_sharded``: gathered by every rank, written by one), and cut again
@@ -51,18 +55,27 @@ def _fname(key: str) -> str:
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
+    """A host copy of ``leaf`` that nothing later writes into (``.cpu()``
+    of a CPU tensor, or ``np.asarray`` of an array, would share its
+    storage), and the dtype to record."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), "bfloat16"
         return t.numpy(), str(t.dtype).removeprefix("torch.")
-    arr = np.asarray(leaf)
-    return arr, "py_" + type(leaf).__name__
+    if isinstance(leaf, np.ndarray):
+        return np.array(leaf, copy=True), "numpy"
+    return np.asarray(leaf), "py_" + type(leaf).__name__
 
 
 def _from_host(arr: np.ndarray, dtype: str, target, device):
     if dtype.startswith("py_"):
         return type(target)(arr.item())
+    if dtype == "numpy":
+        if tuple(arr.shape) != tuple(np.shape(target)):
+            raise ValueError(f"checkpoint shape {arr.shape} != target "
+                             f"{np.shape(target)}")
+        return arr
     t = torch.from_numpy(arr)
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
@@ -84,9 +97,12 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state: Tree, wait: bool = False):
+    def save(self, step: int, state: Tree, wait: bool = False,
+             extra: Optional[Dict] = None):
         """Snapshot to host, then write and commit (on a background thread
-        unless wait=True)."""
+        unless wait=True). ``extra``: a JSON-serializable blob committed in
+        the same atomic rename as the leaves (the serving engine keeps its
+        scheduler state there, so scheduler and cache are never torn)."""
         self.wait()                       # one save in flight at a time
         if self._error is not None:
             err, self._error = self._error, None
@@ -96,7 +112,7 @@ class CheckpointManager:
 
         def work():
             try:
-                self._write(step, host)
+                self._write(step, host, extra)
             except BaseException as e:    # surfaced on next save()/wait()
                 self._error = e
 
@@ -109,13 +125,16 @@ class CheckpointManager:
                 err, self._error = self._error, None
                 raise err
 
-    def _write(self, step: int, host: List[Tuple[str, np.ndarray, str]]):
+    def _write(self, step: int, host: List[Tuple[str, np.ndarray, str]],
+               extra: Optional[Dict] = None):
         final = os.path.join(self.dir, f"step_{step:08d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {"step": step, "leaves": []}
+        if extra is not None:
+            manifest["extra"] = extra
         for key, arr, dtype in host:
             np.save(os.path.join(tmp, _fname(key)), arr)
             manifest["leaves"].append({"key": key, "file": _fname(key),
@@ -140,13 +159,13 @@ class CheckpointManager:
             self._thread = None
 
     def save_sharded(self, step: int, state: Tree, gather, writer: bool,
-                     wait: bool = False):
+                     wait: bool = False, extra: Optional[Dict] = None):
         """Collective: ``gather(state)`` (every rank calls it) gives the
         whole state in the one-rank layout, which the ``writer`` rank
-        saves."""
+        saves, with ``extra`` as ``save`` takes it."""
         whole = gather(state)
         if writer:
-            self.save(step, whole, wait=wait)
+            self.save(step, whole, wait=wait, extra=extra)
 
     def sync(self):
         """Every rank of the default process group waits until the
@@ -176,6 +195,17 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+    def load_extra(self, step: Optional[int] = None) -> Optional[Dict]:
+        """The ``extra`` blob committed with ``save(..., extra=)``, or
+        None."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            return json.load(f).get("extra")
 
     def restore(self, target: Tree, step: Optional[int] = None,
                 device=None) -> Tuple[Tree, int]:

@@ -888,12 +888,138 @@ def _engine_job(job, data, mesh, device):
     return _per_rank(res)
 
 
+class ScriptClock:
+    """The fake clock a lifecycle script sets (``["clock", t]``). Rank r
+    reads it skewed, at another rate and offset (``t * (1 + r / 2) + 100
+    r``), as hosts' clocks differ: only a clock the ranks share keeps
+    their deadline decisions alike. Rank 0 reads ``t``."""
+
+    def __init__(self, rank: int = 0):
+        self.t, self.rank = 0.0, rank
+
+    def __call__(self) -> float:
+        return self.t * (1 + 0.5 * self.rank) + 100.0 * self.rank
+
+
+def plan_from_json(fault_plan, d: Dict):
+    """A ``FaultPlan`` (either package's class) from a JSON-able dict with
+    integer step keys as strings."""
+    return fault_plan(
+        seed=d.get("seed", 0), crash_steps=tuple(d.get("crash_steps", ())),
+        latency_s={int(k): v for k, v in d.get("latency_s", {}).items()},
+        nan_rows={int(k): v for k, v in d.get("nan_rows", {}).items()},
+        page_squeeze={int(k): tuple(v) for k, v in
+                      d.get("page_squeeze", {}).items()})
+
+
+def run_lifecycle(eng, script, prompts, clock, emissions) -> Dict:
+    """Runs a lifecycle script on ``eng`` (either package's engine, its
+    ``on_token`` appending to ``emissions``): ops ["submit", prompt index,
+    kwargs] (the rid, or the reject reason), ["step"], ["run"], ["clock",
+    t] and ["cancel", rid] (its verdict). Releases the injector's page
+    squeezes at the end. Returns what a run is compared by: the ops'
+    results, every request's tokens, length, status, error and time
+    stamps, the counters, the emissions in order, the free pages and the
+    injector's counts and events."""
+    ops = []
+    for op, *a in script:
+        if op == "submit":
+            try:
+                ops.append(eng.submit(prompts[a[0]], **a[1]))
+            except Exception as e:    # either package's RejectedRequest
+                if type(e).__name__ != "RejectedRequest":
+                    raise
+                ops.append(e.reason.value)
+        elif op == "step":
+            eng.step()
+        elif op == "run":
+            eng.run()
+        elif op == "clock":
+            clock.t = float(a[0])
+        elif op == "cancel":
+            ops.append(eng.cancel(a[0]))
+        else:
+            raise ValueError(f"unknown lifecycle op {op!r}")
+    if eng.faults is not None:
+        eng.faults.release_all(eng)
+    return {
+        "ops": ops,
+        "requests": {str(rid): [list(map(int, r.tokens)), int(r.length),
+                                r.status.value, r.error, r.submit_t,
+                                r.first_token_t, r.done_t]
+                     for rid, r in sorted(eng.finished.items())},
+        "counters": [eng.failures, eng.recoveries, eng.shed, eng.expired,
+                     eng.quarantined, eng.admit_rounds, eng.step_idx],
+        "emissions": [list(map(int, e)) for e in emissions],
+        "free_pages": eng.free_pages, "pending": bool(eng.pending),
+        "injected": (None if eng.faults is None else
+                     [eng.faults.counts,
+                      [[int(t), str(e)] for t, e in eng.faults.events]])}
+
+
+def _lifecycle_job(job, data, mesh, device, out_dir):
+    """A lifecycle script (``run_lifecycle``) on ``ServeEngine(mesh=)``,
+    every rank reading its own skewed ``ScriptClock``: the record, as JSON
+    ("record"). ``engine_kw`` goes to the engine (``snapshot`` puts its
+    snapshots under ``out_dir/<name>``, and the record then holds the
+    newest snapshot's scheduler blob, "extra"); ``plan`` is the fault
+    plan, ``plan_on_rank`` {rank: plan} another for those ranks (every
+    rank must then raise: "error"); ``nan_logits`` [step, slot] makes
+    that slot's decode logits NaN on the rank that holds the slot, at
+    that step."""
+    from repro_torch import bridge
+    from repro_torch.models import lm
+    from repro_torch.serving import FaultInjector, FaultPlan, ServeEngine
+    cfg = cell_config(job["arch"], job.get("over"))
+    rank = dist.get_rank()
+    clock, emissions = ScriptClock(rank), []
+    plan = job.get("plan_on_rank", {}).get(str(rank), job.get("plan"))
+    kw = dict(job.get("engine_kw", {}))
+    if job.get("snapshot"):
+        kw["snapshot_dir"] = str(Path(out_dir) / job["name"])
+    eng = ServeEngine(
+        cfg, params=bridge.from_jax(_unflat(cfg, data, "params/"), cfg,
+                                    device),
+        max_seq=job["max_seq"], batch_size=job["slots"], chunk=job["chunk"],
+        device=device, mesh=mesh, clock=clock,
+        on_token=lambda *e: emissions.append(e),
+        faults=(FaultInjector(plan_from_json(FaultPlan, plan))
+                if plan else None), **kw)
+    real = lm.decode_step
+    if job.get("nan_logits"):
+        at, slot = job["nan_logits"]
+
+        def decode_step(*a, **k):
+            logits, cache = real(*a, **k)
+            n = logits.shape[0]
+            start = (mesh.coords["data"] * n if n < job["slots"] else 0)
+            if eng.step_idx == at and start <= slot < start + n:
+                logits = logits.index_fill(
+                    0, torch.tensor([slot - start]), float("nan"))
+            return logits, cache
+
+        lm.decode_step = decode_step
+    try:
+        rec = run_lifecycle(eng, job["script"],
+                            json.loads(str(data["prompts"])), clock,
+                            emissions)
+    except RuntimeError as e:
+        if "plan_on_rank" not in job:
+            raise
+        return _per_rank({"error": str(e)})
+    finally:
+        lm.decode_step = real
+    if eng.ckpt is not None:
+        rec["extra"] = eng.ckpt.load_extra()
+    return _per_rank({"record": json.dumps(rec)})
+
+
 def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
     0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
-    "trainer", "cli", and the serving kinds "decode", "chunk" and
-    "engine"), arch and ``over`` (``cell_config``); "grad", "plan",
+    "trainer", "cli", and the serving kinds "decode", "chunk", "engine"
+    and "lifecycle"), arch and ``over`` (``cell_config``); "grad", "plan",
     "adamw" and the serving kinds read the one-rank weights
     ("params/<leaf>") and their inputs (batches "batch*/<key>", a cache
     "cache/<pos>/<entry>", prompts) from ``in_dir/<data>.npz``. Results
@@ -911,6 +1037,9 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
                    "adamw": _adamw_job, "decode": _serve_step_job,
                    "chunk": _serve_step_job,
                    "engine": _engine_job}[kind](job, data, mesh, device)
+        elif kind == "lifecycle":
+            data = np.load(Path(in_dir) / f"{job['data']}.npz")
+            res = _lifecycle_job(job, data, mesh, device, out_dir)
         elif kind == "roundtrip":
             res = _roundtrip_job(job, mesh, device)
         elif kind == "trainer":

@@ -8,7 +8,12 @@ GPU, random weights from a seed.
       --prompt-max 1024
   python -m repro_torch.launch.serve --arch qwen2-moe-2.7b --page-size 64 \
       --batch 16 --pages 129
+  python -m repro_torch.launch.serve --arch qwen2-moe-2.7b --page-size 64 \
+      --pages 129 --chaos 0.02 --snapshot-dir /path/to/snapshots
 
+The engine's flags are ``serving.EngineConfig``'s groups (engine, paging,
+robustness, chaos, disagg), the JAX launcher's flag names, with the
+port's card defaults (``--max-seq 1024 --batch 8 --chunk 256``).
 ``--gemm-impl`` applies to configs with MoE layers only. ``--plan-cache``
 resolves every MoE layer's schedule from a tuned plan cache instead
 (``launch/tune.py`` writes one): prefill chunks take its ``prefill``
@@ -17,6 +22,11 @@ entries, decode steps its ``decode`` ones, keyed by ``--plan-hw``
 (``serving/paged_cache.py``) of ``--pages`` pages counting the null page
 (0: parity capacity, every slot able to hold ``--max-seq``); ``--admit-k``
 caps the admissions per stacked prefill call (0: every free slot).
+``--chaos`` > 0 injects a seeded fault plan (crashes, NaN rows, latency
+spikes) over ``4 * (--max-new + --prompt-max)`` steps with recovery on;
+``--snapshot-dir`` makes recovery restore a snapshot instead of
+replaying from the start. ``--disagg`` raises: the router topology is not
+ported yet.
 
 Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
 numpy RNG. ``--device cpu`` runs on the CPU (small configs only).
@@ -26,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -51,49 +62,50 @@ def print_engine_summary(eng, prompts, dt):
               f"{eng.n_pages - 1} usable pages "
               f"({eng.free_pages} free after drain), "
               f"{eng.admissions} admissions")
+    if eng.faults is not None or eng.failures or eng.expired or \
+            eng.quarantined or eng.shed:
+        statuses = Counter(r.status.value for r in eng.finished.values())
+        print(f"robustness: statuses {dict(statuses)}, "
+              f"{eng.failures} step failures / {eng.recoveries} recoveries, "
+              f"{eng.quarantined} quarantined, {eng.expired} expired, "
+              f"{eng.shed} shed, "
+              f"{len(eng.monitor.flagged)} straggler steps")
+        if eng.faults is not None:
+            print(f"injected: {eng.faults.counts}")
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """``device``: where the engine runs (default ``--device``, else
+    cuda)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--max-new", type=int, default=32)
-    ap.add_argument("--prompt-min", type=int, default=64)
-    ap.add_argument("--prompt-max", type=int, default=512)
-    ap.add_argument("--batch", type=int, default=8, help="decode slots")
-    ap.add_argument("--max-seq", type=int, default=1024)
-    ap.add_argument("--chunk", type=int, default=256)
-    ap.add_argument("--gemm-impl", default="pallas_fused",
+    wl = ap.add_argument_group("workload")
+    wl.add_argument("--requests", type=int, default=16)
+    wl.add_argument("--max-new", type=int, default=32)
+    wl.add_argument("--prompt-min", type=int, default=64)
+    wl.add_argument("--prompt-max", type=int, default=512)
+    wl.add_argument("--gemm-impl", default="pallas_fused",
                     choices=("xla", "pallas", "pallas_fused"))
-    ap.add_argument("--plan-cache", default=None,
-                    help="tuned plan cache (JSON) the MoE layers resolve "
-                         "their schedule from")
-    ap.add_argument("--plan-hw", default="",
-                    help="hardware key for plan lookup (default "
-                         "h100_nvlink)")
-    ap.add_argument("--page-size", type=int, default=0,
-                    help="paged KV page length (0 = contiguous cache)")
-    ap.add_argument("--pages", type=int, default=0,
-                    help="pool size incl. null page (0 = parity)")
-    ap.add_argument("--admit-k", type=int, default=0,
-                    help="max stacked admissions per step (0 = slots)")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
+    wl.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
+    from repro_torch.serving import EngineConfig
+    EngineConfig.add_cli_args(ap)
+    # the card's defaults (the JAX launcher's are 128, 4 and 16)
+    ap.set_defaults(max_seq=1024, batch=8, chunk=256)
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
-    from repro_torch.serving import ServeEngine
 
     cfg = get_config(args.arch)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, gemm_impl=args.gemm_impl))
-    eng = ServeEngine(cfg, max_seq=args.max_seq, batch_size=args.batch,
-                      seed=args.seed, chunk=args.chunk, device=args.device,
-                      plan_cache=args.plan_cache, plan_hw=args.plan_hw,
-                      page_size=args.page_size, n_pages=args.pages,
-                      admit_k=args.admit_k)
+    ec = EngineConfig.from_cli_args(
+        args, chaos_horizon=4 * (args.max_new + args.prompt_max))
+    if args.chaos > 0:
+        print(f"chaos: {ec.make_faults().plan.summary()} over "
+              f"{ec.chaos_horizon} steps (seed {args.chaos_seed})")
+    eng = ec.build(cfg, device=device or args.device)
     prompts = make_trace(cfg.vocab_size, args.requests, args.prompt_min,
                          args.prompt_max, args.seed)
     t0 = time.perf_counter()

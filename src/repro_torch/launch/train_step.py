@@ -255,17 +255,23 @@ def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
     (B, max_blocks) as a last operand (``repro/launch/train_step.py:
     236-290``). Decode-phase plans resolve from ``plan_cache``.
 
+    ``health=True``: ``next_tok`` is (B, 2), its second column 1 where
+    the row's logits are all finite, so the engine reads both in one
+    device-to-host copy.
+
     On a mesh every rank is handed the global (B,) inputs and takes its
     slots (cut over the dp axes where ``shape``'s slots divide them,
     ``tok_spec``); ``logits`` are this rank's slots', and each rank's
-    next tokens are all-gathered over the dp group, so every rank's
-    host scheduler sees all B of them."""
+    next tokens (with ``health``, and the rows' health) are all-gathered
+    over the dp group in one collective, so every rank's host scheduler
+    sees all B of them."""
     built = _serve_built(cfg, shape, mesh, fsdp, "decode", plan_cache,
                          plan_hw)
     cfg, ctx, layout = built["cfg"], built["ctx"], built["layout"]
     cut = layout is not None and layout.slots_cut
 
-    def fn(params, cache, tokens, pos, live=None, block_tables=None):
+    def fn(params, cache, tokens, pos, live=None, block_tables=None,
+           health=False):
         _check_tables(shape, block_tables)
         if layout is not None:
             if cut:
@@ -284,10 +290,13 @@ def build_decode_step(cfg, shape, mesh=None, fsdp: bool = True,
         next_tok = torch.argmax(logits, dim=-1)
         if live is not None:
             next_tok = torch.where(live, next_tok, 0)
+        next_tok = (torch.stack([next_tok, torch.isfinite(logits).all(-1)
+                                 .long()], -1) if health
+                    else next_tok[:, None])
         if cut:
             next_tok = CL.all_gather(next_tok, ctx.mesh.group(
-                ctx.dp_axes)).reshape(-1)
-        return next_tok[:, None], logits, cache
+                ctx.dp_axes)).reshape(-1, next_tok.shape[1])
+        return next_tok, logits, cache
 
     built["fn"] = fn
     return built

@@ -1,7 +1,10 @@
-from repro_torch.serving.engine import (GenerateResult,  # noqa: F401
+from repro_torch.serving.engine import (TERMINAL_STATUSES,  # noqa: F401
+                                        EngineConfig, GenerateResult,
                                         RejectedRequest, RejectReason,
                                         Request, RequestSpec, RequestStatus,
                                         ServeEngine)
+from repro_torch.serving.faults import (FaultInjector,  # noqa: F401
+                                        FaultPlan, InjectedFault)
 from repro_torch.serving.paged_cache import (AllocatorError,  # noqa: F401
                                              BlockAllocator,
                                              PagedCacheConfig, pages_for)

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine: slot scheduler + masked chunked
-prefill + per-row-position decode over a contiguous or a paged KV cache.
+prefill + per-row-position decode over a contiguous or a paged KV cache,
+with the JAX engine's fault model.
 
-The core of ``repro.serving.engine.ServeEngine``, behaviour for behaviour:
+``repro.serving.engine.ServeEngine``, behaviour for behaviour:
 requests are ``submit()``-ed into a queue and admitted mid-flight into a
 fixed pool of decode slots. Admission runs the prompts' chunks through
 ``lm.prefill_chunk``, batched: up to ``admit_k`` queued requests (0: one
@@ -24,6 +25,25 @@ at admission and freed when it retires, and admission waits, in arrival
 order, for the free pages a request's budget needs. A budget no pool
 could ever hold is rejected at ``submit`` (``OVER_CAPACITY``).
 
+The lifecycle (the JAX engine's robustness model):
+
+* Every request ends in a terminal ``status`` (ok, rejected, cancelled,
+  expired, quarantined, failed); a malformed submission raises a typed
+  :class:`RejectedRequest`.
+* Per-request deadlines (TTFT and total) are checked at step boundaries;
+  a bounded queue (``max_queue``) sheds load by a policy (reject the
+  newcomer, or drop the queued request of least deadline slack).
+* ``cancel(rid)`` retires a queued or a live request; a live one frees its
+  slot and pages at once.
+* A row whose logits are not all finite (or that the fault injector
+  poisons) retires alone as ``quarantined``.
+* ``snapshot()``/``restore()`` commit the scheduler's state with the cache
+  through ``checkpoint/manager.py``'s atomic writer; a failed step
+  restores the last snapshot and replays the event log written since, and
+  a per-request emission watermark keeps ``on_token`` exactly-once.
+* :class:`~repro_torch.serving.faults.FaultInjector` drives all of it
+  through ``step()``'s hook.
+
 Both calls go through the step builders of ``launch/train_step.py``,
 built from one shape, so they share one cache layout. On a mesh
 (``mesh=``, a ``parallel.mesh.Mesh`` with ("data", "model") axes over
@@ -31,27 +51,34 @@ the ranks of ``torch.distributed``) every rank runs this engine on the
 same submissions: it holds its shard of the parameters
 (``sharding.to_mesh``), its slice of the decode cache
 (``sharding.cache_specs``) and the ranked MoE in every MoE layer. Every
-rank sees every next token (the decode step all-gathers them), so the
-host schedulers agree; each step checks that they do with one
-all-reduce of a checksum of the scheduler's state (with the paged cache,
-the block tables and the allocator's free list too), and raises if not.
+rank sees every next token and every row's health (the decode step
+all-gathers them together), and the request clock is rank 0's reading,
+shared, so every rank takes the same lifecycle decisions. Each step
+checks that the host schedulers agree with one all-reduce of a checksum
+of the scheduler's state (the queue, the slots, the block tables and the
+free list, the requests retired since the last check and the event log's
+length), and raises if not. Each rank snapshots its own slice of the
+cache under ``snapshot_dir/rank_<r>``; a restore takes the newest step
+every rank committed.
 
-Not ported yet: deadlines and load shedding, cancel,
-NaN quarantine, snapshot/restore and fault injection, and the
-disaggregated topology.
+Not ported yet: the disaggregated topology (the router and its workers,
+``export_handoff``/``migrate``; ROADMAP Queue 1 item 9):
+``EngineConfig(disagg=True).build`` raises by name.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time
 import zlib
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.train_step import (build_decode_step,
@@ -60,6 +87,7 @@ from repro_torch.models import lm
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import sharding as SH
 from repro_torch.serving.paged_cache import BlockAllocator, pages_for
+from repro_torch.training.trainer import StragglerMonitor
 
 
 class RequestStatus(str, enum.Enum):
@@ -68,15 +96,24 @@ class RequestStatus(str, enum.Enum):
     RUNNING = "running"
     OK = "ok"
     REJECTED = "rejected"
+    CANCELLED = "cancelled"
+    EXPIRED = "expired"
+    QUARANTINED = "quarantined"
+    FAILED = "failed"
 
 
-TERMINAL_STATUSES = frozenset({RequestStatus.OK, RequestStatus.REJECTED})
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.OK, RequestStatus.REJECTED, RequestStatus.CANCELLED,
+    RequestStatus.EXPIRED, RequestStatus.QUARANTINED, RequestStatus.FAILED})
+# a status's index, for the schedulers' checksum on a mesh
+_STATUS_CODE = {st: i for i, st in enumerate(RequestStatus)}
 
 
 class RejectReason(str, enum.Enum):
     EMPTY_PROMPT = "empty_prompt"
     TOO_LONG = "too_long"               # prompt + max_new > max_seq
     OVER_CAPACITY = "over_capacity"     # page budget beyond the whole pool
+    QUEUE_FULL = "queue_full"           # bounded queue, shed policy said no
     INVALID = "invalid"                 # spec field failed validation
 
 
@@ -94,11 +131,17 @@ class RejectedRequest(Exception):
 @dataclasses.dataclass(frozen=True)
 class RequestSpec:
     """Typed submission. Validation runs in ``__post_init__`` and raises
-    :class:`RejectedRequest`; engine-relative checks (``TOO_LONG``) stay in
-    ``submit()``."""
+    :class:`RejectedRequest` (``EMPTY_PROMPT``/``INVALID``); engine-relative
+    checks (``TOO_LONG``, ``OVER_CAPACITY``, ``QUEUE_FULL``) stay in
+    ``submit()``. Deadlines of None take the engine's defaults at submit.
+    ``route_hint`` is the disaggregated topology's preferred prefill
+    worker; a single engine ignores it."""
     prompt: Tuple[int, ...]
     max_new: int = 32
     eos_id: Optional[int] = None
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
+    route_hint: Optional[int] = None
 
     def __post_init__(self):
         if isinstance(self.prompt, (str, bytes)):
@@ -124,6 +167,20 @@ class RequestSpec:
             raise RejectedRequest(
                 RejectReason.INVALID,
                 f"eos_id must be an int or None, got {self.eos_id!r}")
+        for name in ("ttft_deadline_s", "deadline_s"):
+            v = getattr(self, name)
+            if v is not None and (not isinstance(v, (int, float))
+                                  or isinstance(v, bool) or v <= 0):
+                raise RejectedRequest(
+                    RejectReason.INVALID,
+                    f"{name} must be a positive number or None, got {v!r}")
+        if self.route_hint is not None and \
+                (not isinstance(self.route_hint, (int, np.integer))
+                 or self.route_hint < 0):
+            raise RejectedRequest(
+                RejectReason.INVALID,
+                f"route_hint must be a worker index >= 0 or None, "
+                f"got {self.route_hint!r}")
 
     @property
     def budget_tokens(self) -> int:
@@ -157,6 +214,9 @@ class Request:
     done_t: float = 0.0
     status: RequestStatus = RequestStatus.QUEUED
     error: str = ""
+    ttft_deadline_s: Optional[float] = None   # first token within this
+    deadline_s: Optional[float] = None        # whole request within this
+    route_hint: Optional[int] = None          # preferred prefill worker
 
     @property
     def done(self) -> bool:
@@ -165,6 +225,25 @@ class Request:
     @property
     def ttft_s(self) -> float:
         return self.first_token_t - self.submit_t
+
+
+_REQ_FIELDS = ("rid", "prompt", "max_new", "eos_id", "tokens", "length",
+               "slot", "submit_t", "first_token_t", "done_t", "error",
+               "ttft_deadline_s", "deadline_s", "route_hint")
+
+
+def _req_to_json(r: Request) -> Dict:
+    d = {k: getattr(r, k) for k in _REQ_FIELDS}
+    d["status"] = r.status.value
+    return d
+
+
+def _req_from_json(d: Dict) -> Request:
+    # .get: route_hint is absent from the JAX engine's older records
+    kw = {k: d.get(k) if k == "route_hint" else d[k] for k in _REQ_FIELDS}
+    kw["prompt"] = list(kw["prompt"])
+    kw["tokens"] = list(kw["tokens"])
+    return Request(status=RequestStatus(d["status"]), **kw)
 
 
 class ServeEngine:
@@ -178,17 +257,43 @@ class ServeEngine:
     ``n_pages`` pages counting the null page (0: parity capacity, every
     slot able to hold ``max_seq``: ``batch_size * max_seq / page_size +
     1``). ``admit_k``: at most that many admissions per stacked prefill
-    call (0: every free slot)."""
+    call (0: every free slot).
+
+    The lifecycle knobs are the JAX engine's: ``max_queue`` (0:
+    unbounded) and ``shed_policy`` ("reject", "deadline" or a callable
+    ``(engine, new_request) -> victim or None``), the default
+    ``ttft_deadline_s``/``deadline_s``, ``snapshot_dir`` with a snapshot
+    every ``snapshot_every`` steps (0: only by ``snapshot()``),
+    ``max_restarts`` consecutive failed steps before the engine fails
+    every request and re-raises, ``recover`` (default: on iff
+    ``snapshot_dir`` is given), ``faults`` (a ``FaultInjector``),
+    ``straggler_factor`` for ``monitor``, ``clock`` (every request stamp
+    and deadline reads it; default ``time.perf_counter``), ``on_token(rid,
+    idx, tok)`` (called exactly once per token) and ``role`` ("both",
+    "prefill" or "decode": a role-restricted engine builds only its
+    step)."""
 
     def __init__(self, cfg, params=None, max_seq: int = 256,
                  batch_size: int = 4, seed: int = 0, chunk: int = 0,
                  device: DeviceLike = None,
                  plan_cache: Optional[str] = None, plan_hw: str = "",
                  mesh=None, page_size: int = 0, n_pages: int = 0,
-                 admit_k: int = 0):
+                 admit_k: int = 0, max_queue: int = 0,
+                 shed_policy: Union[str, Callable] = "reject",
+                 ttft_deadline_s: Optional[float] = None,
+                 deadline_s: Optional[float] = None,
+                 snapshot_dir: Optional[str] = None, snapshot_every: int = 8,
+                 max_restarts: int = 3, recover: Optional[bool] = None,
+                 faults=None, straggler_factor: float = 2.5,
+                 clock: Optional[Callable[[], float]] = None,
+                 on_token: Optional[Callable[[int, int, int], None]] = None,
+                 role: str = "both"):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be both|prefill|decode, got {role!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
+        self.role = role
         self.max_seq = max_seq
         self.B = batch_size                       # decode slots
         # a chunk that divides max_seq tiles the cache exactly, so the last
@@ -208,21 +313,45 @@ class ServeEngine:
             n_pages = batch_size * self.max_blocks + 1
         self.n_pages = n_pages if self.paged else 0
         self.admit_k = admit_k
-        # one shape gives both steps the cache layout they share
+        # -- lifecycle knobs ------------------------------------------------
+        self.max_queue = max_queue               # 0 = unbounded
+        self.shed_policy = shed_policy           # "reject"|"deadline"|callable
+        self.ttft_deadline_s = ttft_deadline_s   # per-request defaults
+        self.deadline_s = deadline_s
+        self.max_restarts = max_restarts         # consecutive step failures
+        self.faults = faults                     # FaultInjector or None
+        self.monitor = StragglerMonitor(straggler_factor)
+        self._clock = clock or time.perf_counter
+        self.on_token = on_token                 # exactly-once emission cb
+        self.snapshot_every = snapshot_every
+        self._world = (mesh.group(mesh.axis_names) if mesh is not None
+                       else None)
+        if snapshot_dir and self._world is not None:
+            # each rank commits its own slice of the cache
+            snapshot_dir = os.path.join(snapshot_dir,
+                                        f"rank_{self._world_rank()}")
+        self.ckpt = (CheckpointManager(snapshot_dir, keep=3,
+                                       async_save=False)
+                     if snapshot_dir else None)
+        self.auto_recover = (recover if recover is not None
+                             else snapshot_dir is not None)
+        # one shape gives both steps the cache layout they share; a
+        # role-restricted engine builds only the step it runs
         shape = ShapeConfig("serve_decode", seq_len=max_seq,
                             global_batch=batch_size, kind="decode",
                             page_size=self.page_size, n_pages=self.n_pages)
-        self.prefill = build_prefill_chunk_step(
+        self.prefill = (build_prefill_chunk_step(
             cfg, shape, mesh, chunk=chunk, plan_cache=plan_cache,
-            plan_hw=plan_hw)
-        self.decode = build_decode_step(cfg, shape, mesh,
-                                        plan_cache=plan_cache,
-                                        plan_hw=plan_hw)
+            plan_hw=plan_hw) if role != "decode" else None)
+        self.decode = (build_decode_step(cfg, shape, mesh,
+                                         plan_cache=plan_cache,
+                                         plan_hw=plan_hw)
+                       if role != "prefill" else None)
         # the configs the chunk and decode calls run under: each MoE layer
         # resolves its phase's plan from the cache, if one is given
-        self.prefill_cfg = self.prefill["cfg"]
-        self.decode_cfg = self.decode["cfg"]
-        self.ctx = self.decode["ctx"]
+        self.prefill_cfg = self.prefill["cfg"] if self.prefill else None
+        self.decode_cfg = self.decode["cfg"] if self.decode else None
+        self.ctx = (self.decode or self.prefill)["ctx"]
         if params is None:
             params = lm.init_params(cfg, seed, self.device)
         if mesh is not None:
@@ -251,6 +380,15 @@ class ServeEngine:
         self.queue: deque = deque()
         self.finished: Dict[int, Request] = {}
         self._next_rid = 0
+        # exactly-once delivery ledger: rid -> tokens emitted so far. Never
+        # rolled back by restore: replayed tokens below the watermark are
+        # regenerated (bit-identically) but not re-emitted
+        self.emitted: Dict[int, int] = {}
+        # write-ahead event log since the last committed snapshot, replayed
+        # after a restore so post-snapshot submits and drops are not lost
+        self._log: List[Tuple] = []
+        # (rid, status) retired since the last scheduler check (a mesh's)
+        self._retired: List[Tuple[int, int]] = []
         # per-phase accounting (the CLI summary prints these)
         self.prefill_s = 0.0
         self.decode_s = 0.0
@@ -259,6 +397,37 @@ class ServeEngine:
         self.decode_tokens = 0
         self.admissions = 0
         self.admit_rounds = 0       # stacked chunk-admission calls
+        # fault/recovery accounting
+        self.step_idx = 0           # monotonic; NEVER rolled back by restore
+        self.failures = 0           # total step failures
+        self.recoveries = 0         # successful restore+replay cycles
+        self.shed = 0               # queued requests dropped by load shedding
+        self.expired = 0
+        self.quarantined = 0
+        self._consec_failures = 0
+
+    # -- the mesh's shared readings ----------------------------------------
+
+    def _world_rank(self) -> int:
+        return self._world.ranks.index(self.mesh.rank)
+
+    def _ranked(self) -> bool:
+        return self._world is not None and self._world.size > 1
+
+    def _shared_now(self) -> float:
+        """The clock every decision reads (a request's submit time, the
+        deadline checks, the "deadline" shed policy): ``clock()``, on a
+        mesh rank 0's reading, so every rank decides against the same
+        time. A collective on a mesh: every rank reads it at the same
+        points, once per ``submit`` and once per expiry check, whatever
+        its state. Record-only stamps (first token, done) read the rank's
+        own clock."""
+        now = self._clock()
+        if not self._ranked():
+            return now
+        t = torch.tensor([now if self._world_rank() == 0 else -np.inf],
+                         dtype=torch.float64, device=self.device)
+        return float(CL.all_reduce_(t, self._world, op="max")[0])
 
     # -- streaming API ------------------------------------------------------
 
@@ -269,17 +438,21 @@ class ServeEngine:
     def _reject(self, req: Request, reason: RejectReason, msg: str):
         req.status = RequestStatus.REJECTED
         req.error = f"{reason.value}: {msg}"
-        req.done_t = time.perf_counter()
+        req.done_t = self._clock()
         raise RejectedRequest(reason, msg, request=req)
 
-    def _coerce_spec(self, request, max_new, eos_id) -> RequestSpec:
+    def _coerce_spec(self, request, max_new, eos_id, ttft_deadline_s,
+                     deadline_s, now: float) -> RequestSpec:
         """Kwargs -> :class:`RequestSpec` (a spec passes through); a spec
-        failure is re-raised with a terminal request record attached."""
+        failure is re-raised with a terminal request record attached,
+        submitted at ``now``."""
         if isinstance(request, RequestSpec):
             return request
         try:
             return RequestSpec(prompt=request, max_new=max_new,
-                               eos_id=eos_id)
+                               eos_id=eos_id,
+                               ttft_deadline_s=ttft_deadline_s,
+                               deadline_s=deadline_s)
         except RejectedRequest as e:
             try:
                 prompt = ([] if isinstance(request, (str, bytes))
@@ -288,21 +461,38 @@ class ServeEngine:
                 prompt = []
             rec = Request(self._next_rid, prompt,
                           max_new if isinstance(max_new, int) else 0,
-                          None, submit_t=time.perf_counter())
+                          None, submit_t=now)
             self._next_rid += 1            # rids stay unique on reject
             rec.status = RequestStatus.REJECTED
             rec.error = f"{e.reason.value}: {e.msg}"
-            rec.done_t = time.perf_counter()
+            rec.done_t = self._clock()
             raise RejectedRequest(e.reason, e.msg, request=rec) from e
 
     def submit(self, request: Union[RequestSpec, Sequence[int]],
-               max_new: int = 32, eos_id: Optional[int] = None) -> int:
-        """Queue a request; returns its id. Admission happens on the next
-        ``step()``. Malformed requests raise :class:`RejectedRequest`."""
-        spec = self._coerce_spec(request, max_new, eos_id)
+               max_new: int = 32, eos_id: Optional[int] = None,
+               ttft_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue a request; returns its id. ``request`` is a
+        :class:`RequestSpec` or a raw prompt plus the kwargs, which build
+        a spec. Admission happens on the next ``step()``. Malformed
+        requests raise :class:`RejectedRequest`; a full bounded queue
+        applies the shedding policy first."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "decode-role worker takes migrated requests only "
+                "(migrate()); submit through the router")
+        now = self._shared_now()
+        spec = self._coerce_spec(request, max_new, eos_id,
+                                 ttft_deadline_s, deadline_s, now)
         req = Request(self._next_rid, list(spec.prompt), spec.max_new,
-                      spec.eos_id, submit_t=time.perf_counter())
-        self._next_rid += 1
+                      spec.eos_id, submit_t=now,
+                      ttft_deadline_s=(self.ttft_deadline_s
+                                       if spec.ttft_deadline_s is None
+                                       else spec.ttft_deadline_s),
+                      deadline_s=(self.deadline_s if spec.deadline_s is None
+                                  else spec.deadline_s),
+                      route_hint=spec.route_hint)
+        self._next_rid += 1                    # rids stay unique on reject
         if spec.budget_tokens > self.max_seq:
             self._reject(req, RejectReason.TOO_LONG,
                          f"prompt {len(req.prompt)} + max_new "
@@ -316,8 +506,78 @@ class ServeEngine:
             if need > cap:
                 self._reject(req, RejectReason.OVER_CAPACITY,
                              f"request needs {need} pages, pool holds {cap}")
-        self.queue.append(req)
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            victim = self._shed_victim(req)
+            if victim is None:
+                self._reject(req, RejectReason.QUEUE_FULL,
+                             f"queue at max_queue={self.max_queue}")
+            self._drop_queued(victim, RequestStatus.EXPIRED,
+                              "shed: queue full")
+            self.shed += 1
+        self.enqueue(req)
         return req.rid
+
+    def enqueue(self, req: Request) -> None:
+        """Append an already validated Request to the queue and the
+        write-ahead log (``submit()`` lands here): a restore after a later
+        snapshot replays it from token 0, watermark-deduped."""
+        req.status = RequestStatus.QUEUED
+        self.queue.append(req)
+        self._log.append(("submit", _req_to_json(req)))
+
+    def _shed_victim(self, new_req: Request) -> Optional[Request]:
+        """The queued request to drop when the bounded queue is full (None:
+        reject the newcomer). "deadline" drops the request of least
+        deadline slack, if it has less than the newcomer; requests without
+        deadlines have infinite slack and are never shed."""
+        if callable(self.shed_policy):
+            return self.shed_policy(self, new_req)
+        if self.shed_policy == "reject":
+            return None
+        if self.shed_policy == "deadline":
+            now = self._shared_now()
+
+            def slack(r: Request) -> float:
+                dls = [d for d in (r.ttft_deadline_s, r.deadline_s)
+                       if d is not None]
+                if not dls:
+                    return float("inf")
+                return min(dls) - (now - r.submit_t)
+
+            if not self.queue:
+                return None
+            victim = min(self.queue, key=slack)
+            return victim if slack(victim) < slack(new_req) else None
+        raise ValueError(f"unknown shed_policy {self.shed_policy!r}")
+
+    def _drop_queued(self, req: Request, status: RequestStatus, error: str):
+        """Remove a queued request and retire it terminally (shed, cancel,
+        deadline, failure); logged so a replay re-applies the drop."""
+        self.queue.remove(req)
+        req.status = status
+        req.error = error
+        req.done_t = self._clock()
+        if req.length < 0:
+            req.length = len(req.tokens)
+        self.finished[req.rid] = req
+        self._retired.append((req.rid, _STATUS_CODE[status]))
+        self._log.append(("drop", req.rid, status.value, error))
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by id: a queued one leaves the queue, a live one
+        retires at once (slot and pages freed, partial tokens kept).
+        False if the rid is unknown or already terminal."""
+        for r in self.queue:
+            if r.rid == rid:
+                self._drop_queued(r, RequestStatus.CANCELLED, "cancelled")
+                return True
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and r.rid == rid:
+                self._retire(slot, RequestStatus.CANCELLED, "cancelled")
+                self._log.append(("drop", rid,
+                                  RequestStatus.CANCELLED.value, "cancelled"))
+                return True
+        return False
 
     @property
     def pending(self) -> bool:
@@ -330,8 +590,15 @@ class ServeEngine:
 
     def _record_token(self, req: Request, tok: int, t_idx: int) -> bool:
         """Append a generated token; True when the request is done (eos,
-        possibly on its very first token, or max_new)."""
+        possibly on its very first token, or max_new). Emission is
+        exactly-once: a token below the request's watermark (regenerated
+        by a replay) is recorded but not passed to ``on_token`` again."""
         req.tokens.append(tok)
+        idx = len(req.tokens) - 1
+        if idx >= self.emitted.get(req.rid, 0):
+            self.emitted[req.rid] = idx + 1
+            if self.on_token is not None:
+                self.on_token(req.rid, idx, tok)
         if req.eos_id is not None and tok == req.eos_id:
             req.length = t_idx
             return True
@@ -343,13 +610,14 @@ class ServeEngine:
     def _retire(self, slot: int, status: RequestStatus = RequestStatus.OK,
                 error: str = ""):
         req = self.slot_req[slot]
-        req.done_t = time.perf_counter()
+        req.done_t = self._clock()
         req.slot = -1
         req.status = status
         req.error = error
         if req.length < 0:
             req.length = len(req.tokens)
         self.finished[req.rid] = req
+        self._retired.append((req.rid, _STATUS_CODE[status]))
         self.slot_req[slot] = None
         self.live[slot] = False
         if self.paged:
@@ -357,6 +625,35 @@ class ServeEngine:
             # (now dead) decode row's writes into the null page
             self.alloc.free_slot(slot)
             self.block_tables[slot] = 0
+
+    # -- deadlines ----------------------------------------------------------
+
+    def _expire_queued(self):
+        now = self._shared_now()
+        for r in list(self.queue):
+            age = now - r.submit_t
+            if r.ttft_deadline_s is not None and age > r.ttft_deadline_s:
+                self._drop_queued(r, RequestStatus.EXPIRED,
+                                  f"ttft deadline {r.ttft_deadline_s:.3f}s "
+                                  f"exceeded in queue")
+                self.expired += 1
+            elif r.deadline_s is not None and age > r.deadline_s:
+                self._drop_queued(r, RequestStatus.EXPIRED,
+                                  f"deadline {r.deadline_s:.3f}s exceeded "
+                                  f"in queue")
+                self.expired += 1
+
+    def _expire_live(self):
+        now = self._shared_now()
+        for slot in range(self.B):
+            r = self.slot_req[slot]
+            if r is None or not self.live[slot]:
+                continue
+            if r.deadline_s is not None and now - r.submit_t > r.deadline_s:
+                self._retire(slot, RequestStatus.EXPIRED,
+                             f"deadline {r.deadline_s:.3f}s exceeded "
+                             f"after {len(r.tokens)} tokens")
+                self.expired += 1
 
     # -- admission ----------------------------------------------------------
 
@@ -385,11 +682,13 @@ class ServeEngine:
         """Chunked prefill of every (slot, request) pair in ONE stacked call
         per chunk step; rows whose prompt already ended ride along as
         identity rows. Each request's first token comes from its LAST
-        chunk's logits row. The stack is padded up to a power of two with
-        free slots as parking rows (valid_len 0: a parking row only
-        scribbles on a free slot's region), as the JAX engine pads it to
-        bound its compiles; the port keeps the padding so both engines run
-        the same tokens through the MoE."""
+        chunk's logits row, and so does its health: a row whose last
+        chunk's logits are not all finite is quarantined. The stack is
+        padded up to a power of two with free slots as parking rows
+        (valid_len 0: a parking row only scribbles on a free slot's
+        region), as the JAX engine pads it to bound its compiles; the port
+        keeps the padding so both engines run the same tokens through the
+        MoE."""
         t0 = time.perf_counter()
         C = self.chunk
         A = len(pairs)
@@ -404,6 +703,7 @@ class ServeEngine:
         A = A + n_pad
         nchunks = np.maximum(1, -(-plens // C))
         first_tok = np.zeros((A,), np.int64)
+        row_ok = np.ones((A,), bool)
         slots_t = self._tensor(slots)
         tables = ((self._tensor(self.block_tables[slots]),) if self.paged
                   else ())
@@ -417,76 +717,151 @@ class ServeEngine:
             logits, self.cache = self.prefill["fn"](
                 self.params, self.cache, self._tensor(toks),
                 self._tensor(offs), self._tensor(valids), slots_t, *tables)
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            # the next tokens and the rows' health in one copy to the host
+            got = torch.stack([torch.argmax(logits, dim=-1),
+                               torch.isfinite(logits).all(-1).long()],
+                              -1).cpu().numpy()
             last = nchunks == j + 1
-            first_tok[last] = nxt[last]
+            first_tok[last] = got[last, 0]
+            row_ok[last] = got[last, 1].astype(bool)
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += int(plens.sum())
         self.admissions += len(pairs)            # parking rows don't count
         self.admit_rounds += 1
-        now = time.perf_counter()
+        now = self._clock()
         for a, (slot, req) in enumerate(pairs):
             req.slot = slot
             req.status = RequestStatus.RUNNING
-            req.first_token_t = now
+            if req.first_token_t <= 0:           # preserve TTFT on replay
+                req.first_token_t = now
             self.slot_req[slot] = req
             self.pos[slot] = int(plens[a])
             self.last_tok[slot] = int(first_tok[a])
             self.live[slot] = True
-            if self._record_token(req, int(first_tok[a]), 0):
+            if not row_ok[a]:
+                # non-finite prefill logits: quarantine THIS request only;
+                # its garbage first token is never recorded
+                self._retire(slot, RequestStatus.QUARANTINED,
+                             "non-finite prefill logits")
+                self.quarantined += 1
+            elif self._record_token(req, int(first_tok[a]), 0):
                 self._retire(slot)                # finished on token 0
         return pairs
 
     # -- the scheduler step -------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduler iteration: one stacked chunk-admission call for
-        queued requests, then one decoded token per live slot. Returns
-        whether any work remains."""
-        pairs = self._gather_admissions()
-        if self.mesh is not None:
-            self._check_agreement(pairs)
-        if pairs:
-            self._admit_batch(pairs)
-        if self.live.any():
-            self._decode_once()
+        """One scheduler iteration: fault hooks first, then queued deadline
+        expiry, one stacked chunk-admission call, one decoded token per
+        live slot (non-finite rows quarantined), live deadline expiry and
+        a periodic snapshot. A failed step recovers (restore + replay)
+        when ``auto_recover`` is on, re-raising only after
+        ``max_restarts`` consecutive failures. Returns whether any work
+        remains."""
+        self.step_idx += 1
+        t0 = self._clock()
+        try:
+            self._step_inner()
+        except RejectedRequest:
+            raise
+        except Exception as e:
+            self.failures += 1
+            self._consec_failures += 1
+            if not self.auto_recover or \
+                    self._consec_failures > self.max_restarts:
+                self._fail_all(e)
+                raise
+            self._recover(e)
+            return self.pending
+        self._consec_failures = 0
+        self.monitor.observe(self.step_idx, self._clock() - t0)
         return self.pending
 
-    def _check_agreement(self, pairs: List[Tuple[int, Request]]):
-        """Raises unless every rank's scheduler holds the same state and
-        admits the same requests (ids, prompt lengths, budgets) into the
-        same slots this step, with the same block tables and free pages
-        where the cache is paged (a diverged allocator would write other
-        pages on each rank), before any collective of the step: one
-        all-reduce (MAX) of (checksum, -checksum) over every rank."""
-        world = self.mesh.group(self.mesh.axis_names)
-        if world.size == 1:
+    def _step_inner(self):
+        if self.faults is not None:
+            self.faults.begin_step(self)   # latency / pressure / crash hook
+        self._check_agreement()
+        if self.role != "decode":
+            self.prefill_step()
+        if self.role != "prefill":
+            self.decode_step()
+        self._after_phases()
+        if self.ckpt is not None and self.snapshot_every and \
+                self.step_idx % self.snapshot_every == 0:
+            self.snapshot()
+
+    def _check_agreement(self):
+        """Raises unless every rank's scheduler holds the same state before
+        any collective of the step: the queue (ids, prompt lengths,
+        budgets), the slots' requests, positions and last tokens, the
+        block tables and free pages where the cache is paged (a diverged
+        allocator would write other pages on each rank), the requests
+        retired since the last check with their statuses, and the event
+        log's length. One all-reduce (MAX) of (checksum, -checksum) over
+        every rank. Without ranks it only clears the retired list."""
+        retired, self._retired = self._retired, []
+        if not self._ranked():
             return
-        parts = [np.array([len(pairs)] + [v for s, r in pairs for v in (
-            s, r.rid, len(r.prompt), r.max_new)], np.int64),
-            self.live.astype(np.int64), self.pos, self.last_tok]
+        parts = [np.array([v for r in self.queue for v in (
+            r.rid, len(r.prompt), r.max_new)], np.int64),
+            np.array([-1 if r is None else r.rid for r in self.slot_req],
+                     np.int64),
+            self.live.astype(np.int64), self.pos, self.last_tok,
+            np.array(retired, np.int64).reshape(-1),
+            np.array([len(self._log)], np.int64)]
         if self.paged:
             parts += [self.block_tables.reshape(-1),
                       np.array(self.alloc.snapshot_state()["free"],
                                np.int64)]
-        plan = np.concatenate(parts)
-        c = zlib.crc32(plan.tobytes())
+        c = zlib.crc32(np.concatenate(parts).tobytes())
         t = torch.tensor([c, -c], dtype=torch.int64, device=self.device)
-        CL.all_reduce_(t, world, op="max")
+        CL.all_reduce_(t, self._world, op="max")
         lo, hi = -int(t[1]), int(t[0])
         if lo != c or hi != c:
             raise RuntimeError(f"the ranks' schedulers diverged: checksum "
                                f"{c} here, {lo}..{hi} over the ranks")
 
+    # -- the two phases of step(), callable separately ----------------------
+
+    def prefill_step(self) -> List[Tuple[int, Request]]:
+        """The admission phase of one scheduler iteration: queued-deadline
+        expiry, then one stacked chunk-admission call (free-page gated
+        when paged). Returns the admitted (slot, request) pairs."""
+        self._expire_queued()
+        pairs = self._gather_admissions()
+        if pairs:
+            self._admit_batch(pairs)
+        return pairs
+
+    def decode_step(self) -> int:
+        """The decode phase of one scheduler iteration: one decoded token
+        per live slot (non-finite or poisoned rows quarantined), then
+        live-deadline expiry. Returns how many rows decoded."""
+        n = int(self.live.sum())
+        if n:
+            self._decode_once()
+        self._expire_live()
+        return n
+
+    def _after_phases(self):
+        """Hook between the scheduler phases and the periodic snapshot (the
+        JAX package's prefill worker exports its handoffs here)."""
+
     def _decode_once(self):
         t0 = time.perf_counter()
         tables = ((None, self._tensor(self.block_tables)) if self.paged
                   else ())
-        nxt, _, self.cache = self.decode["fn"](
+        # no live mask: only the live slots' tokens are read below; the
+        # rows' health comes back with the tokens, in one copy
+        got, _, self.cache = self.decode["fn"](
             self.params, self.cache, self._tensor(self.last_tok[:, None]),
-            self._tensor(self.pos), *tables)
-        # no live mask: only the live slots' tokens are read below
-        nxt = nxt[:, 0].cpu().numpy()
+            self._tensor(self.pos), *tables, health=True)
+        got = got.cpu().numpy()
+        nxt, row_ok = got[:, 0], got[:, 1].astype(bool)
+        # a poisoned request retires alone instead of taking the engine
+        # (or its batch neighbours) down
+        poisoned = (set(self.faults.poison_rows(self))
+                    if self.faults is not None else set())
         self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         self.decode_tokens += int(self.live.sum())
@@ -494,10 +869,173 @@ class ServeEngine:
             if not self.live[slot]:
                 continue
             req = self.slot_req[slot]
+            if slot in poisoned or not row_ok[slot]:
+                self._retire(slot, RequestStatus.QUARANTINED,
+                             f"non-finite logits after {len(req.tokens)} "
+                             f"tokens")
+                self.quarantined += 1
+                continue
             self.pos[slot] += 1
             self.last_tok[slot] = int(nxt[slot])
             if self._record_token(req, int(nxt[slot]), len(req.tokens)):
                 self._retire(slot)
+
+    # -- snapshot / restore / recovery --------------------------------------
+
+    def _device_state(self) -> Dict:
+        state = {"cache": self.cache, "pos": self.pos, "live": self.live,
+                 "last_tok": self.last_tok}
+        if self.paged:
+            state["block_tables"] = self.block_tables
+        return state
+
+    def snapshot(self):
+        """Commit the scheduler's state and the cache (this rank's slice of
+        it) in one atomic rename, and clear the write-ahead event log:
+        what came before is in the snapshot, what comes after replays. The
+        cache is copied to the host before ``snapshot`` returns, so the
+        next step's in-place updates never reach it."""
+        if self.ckpt is None:
+            raise RuntimeError("snapshot() needs snapshot_dir")
+        by_rid: Dict[int, Request] = {r.rid: r for r in self.queue}
+        by_rid.update({r.rid: r for r in self.slot_req if r is not None})
+        by_rid.update(self.finished)
+        extra = {
+            "requests": {str(rid): _req_to_json(r)
+                         for rid, r in by_rid.items()},
+            "queue": [r.rid for r in self.queue],
+            "slots": [r.rid if r is not None else None
+                      for r in self.slot_req],
+            "finished": sorted(self.finished),
+            "next_rid": self._next_rid,
+            "alloc": self.alloc.snapshot_state() if self.paged else None,
+        }
+        self.ckpt.save(self.step_idx, self._device_state(), wait=True,
+                       extra=extra)
+        self._log = []
+
+    def _latest_common_step(self) -> Optional[int]:
+        """The newest snapshot step, on a mesh the newest that every rank
+        committed (an all-reduce MIN)."""
+        have = self.ckpt.latest_step()
+        if not self._ranked():
+            return have
+        t = torch.tensor([-(have if have is not None else -1)],
+                         dtype=torch.int64, device=self.device)
+        common = -int(CL.all_reduce_(t, self._world, op="max")[0])
+        return None if common < 0 else common
+
+    def restore(self, step: Optional[int] = None):
+        """Restore the scheduler and the cache from the latest (or a given)
+        committed snapshot, the cache copied into the live tensors (their
+        device, dtypes and layout). The monotonic step counter and the
+        emission ledger are not rolled back."""
+        if self.ckpt is None:
+            raise RuntimeError("restore() needs snapshot_dir")
+        self.ckpt.wait()
+        if step is None:
+            step = self._latest_common_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no snapshot every rank committed in {self.ckpt.dir}")
+        state, step = self.ckpt.restore(self._device_state(), step=step,
+                                        device="cpu")
+        extra = self.ckpt.load_extra(step)
+        for live, saved in zip(self.cache, state["cache"]):
+            for k, t in live.items():
+                t.copy_(saved[k])
+        self.pos = state["pos"].astype(np.int64)
+        self.live = state["live"].astype(bool)
+        self.last_tok = state["last_tok"].astype(np.int64)
+        if self.paged:
+            self.block_tables = state["block_tables"].astype(np.int64)
+            self.alloc.restore_state(extra["alloc"])
+            # injected page squeezes (negative pseudo-slots) are transient
+            # memory pressure, not scheduler state: not resurrected (the
+            # injector's own release is owns()-guarded, no double free)
+            for s in [int(s) for s in extra["alloc"]["owned"]
+                      if int(s) < 0]:
+                self.alloc.free_slot(s)
+        reqs = {int(rid): _req_from_json(d)
+                for rid, d in extra["requests"].items()}
+        self.queue = deque(reqs[rid] for rid in extra["queue"])
+        self.slot_req = [reqs[rid] if rid is not None else None
+                         for rid in extra["slots"]]
+        self.finished = {rid: reqs[rid] for rid in extra["finished"]}
+        self._next_rid = max(self._next_rid, int(extra["next_rid"]))
+
+    def _reset_empty(self):
+        """No committed snapshot: back to the engine's initial (empty)
+        state, the cache zeroed in place; the whole event log then replays
+        every submission."""
+        for e in self.cache:
+            for t in e.values():
+                t.zero_()
+        self.pos[:] = 0
+        self.live[:] = False
+        self.last_tok[:] = 0
+        self.queue = deque()
+        self.slot_req = [None] * self.B
+        if self.paged:
+            self.alloc = BlockAllocator(self.n_pages, self.page_size,
+                                        self.max_blocks)
+            self.block_tables = np.zeros((self.B, self.max_blocks), np.int64)
+
+    def _replay_log(self):
+        """Re-apply the post-snapshot external events (submits, drops) in
+        order. Replayed submissions start from token 0: regeneration is
+        bit-identical and the emission watermark suppresses duplicates."""
+        log, self._log = self._log, []
+        for ev in log:
+            if ev[0] == "submit":
+                d = dict(ev[1])
+                d["tokens"], d["length"] = [], -1
+                d["slot"], d["first_token_t"], d["done_t"] = -1, 0.0, 0.0
+                d["status"] = RequestStatus.QUEUED.value
+                self.queue.append(_req_from_json(d))
+                self._log.append(("submit", ev[1]))
+            elif ev[0] == "drop":
+                _, rid, status, error = ev
+                self._apply_drop(int(rid), RequestStatus(status), error)
+
+    def _apply_drop(self, rid: int, status: RequestStatus, error: str):
+        for r in list(self.queue):
+            if r.rid == rid:
+                self._drop_queued(r, status, error)
+                return
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and r.rid == rid:
+                self._retire(slot, status, error)
+                self._log.append(("drop", rid, status.value, error))
+                return
+
+    def _recover(self, error: Exception):
+        """Restore the last committed snapshot (or reset empty) and replay
+        the event log: in-flight work resumes where the snapshot left it;
+        post-snapshot submissions re-enter the queue."""
+        have = (self._latest_common_step() if self.ckpt is not None
+                else None)
+        if have is not None:
+            self.restore(have)
+        else:
+            self._reset_empty()
+        self._replay_log()
+        self.recoveries += 1
+        print(f"[serve] step {self.step_idx} failed "
+              f"({type(error).__name__}: {error}); restored snapshot "
+              f"{'@step %d' % have if have is not None else '(initial)'} "
+              f"+ replayed log ({self._consec_failures}/"
+              f"{self.max_restarts} consecutive)")
+
+    def _fail_all(self, error: Exception):
+        """Unrecoverable engine failure: every non-terminal request reaches
+        the terminal ``failed`` status, so no caller is left waiting."""
+        msg = f"engine failure: {type(error).__name__}: {error}"
+        for r in list(self.queue):
+            self._drop_queued(r, RequestStatus.FAILED, msg)
+        for slot, r in enumerate(self.slot_req):
+            if r is not None:
+                self._retire(slot, RequestStatus.FAILED, msg)
 
     # -- drain / collect ----------------------------------------------------
 
@@ -508,7 +1046,10 @@ class ServeEngine:
         return self.finished
 
     def collect(self, rid: int) -> Request:
-        """Pop a finished request's record."""
+        """Pop a finished request's record (a long-running server must
+        collect, or clear ``finished``: the engine keeps every uncollected
+        request)."""
+        self.emitted.pop(rid, None)
         return self.finished.pop(rid)
 
     def generate(self, prompts: Sequence[Union[Sequence[int], RequestSpec]],
@@ -551,3 +1092,196 @@ class ServeEngine:
         return GenerateResult(out, lengths, prefill_tokens=pre_toks,
                               decode_steps=self.decode_steps - base_steps,
                               statuses=statuses, rejected=rejected)
+
+
+# ---------------------------------------------------------------------------
+# Engine construction config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Engine construction as one validated dataclass, in the groups the
+    CLI shows (engine / paging / robustness / chaos / disagg), with the
+    JAX package's fields, defaults and flag names. ``build(model_cfg)``
+    returns a :class:`ServeEngine`; with ``disagg`` set it raises
+    ``NotImplementedError`` (the router topology is ROADMAP Queue 1 item
+    9). ``add_cli_args``/``from_cli_args`` map the flags."""
+    # engine
+    max_seq: int = 256
+    batch_size: int = 4
+    chunk: int = 0
+    seed: int = 0
+    plan_cache: Optional[str] = None
+    plan_hw: str = ""
+    # paging
+    page_size: int = 0
+    n_pages: int = 0
+    admit_k: int = 0
+    # robustness
+    max_queue: int = 0
+    shed_policy: Union[str, Callable] = "reject"
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
+    snapshot_dir: Optional[str] = None
+    snapshot_every: int = 8
+    max_restarts: int = 3
+    recover: Optional[bool] = None
+    # chaos (seeded fault injection; rate 0 = off)
+    chaos_rate: float = 0.0
+    chaos_seed: int = 0
+    chaos_horizon: int = 256
+    # disagg (router/worker topology; requires paging: the handoff is page
+    # migration)
+    disagg: bool = False
+    prefill_workers: int = 1
+    decode_workers: int = 1
+    prefill_slots: int = 0      # 0 = batch_size
+    decode_slots: int = 0       # 0 = batch_size
+
+    def __post_init__(self):
+        for name in ("max_seq", "batch_size", "prefill_workers",
+                     "decode_workers"):
+            if int(getattr(self, name)) < 1:
+                raise ValueError(f"{name} must be >= 1, "
+                                 f"got {getattr(self, name)}")
+        for name in ("chunk", "page_size", "n_pages", "admit_k",
+                     "max_queue", "snapshot_every", "max_restarts",
+                     "prefill_slots", "decode_slots"):
+            if int(getattr(self, name)) < 0:
+                raise ValueError(f"{name} must be >= 0, "
+                                 f"got {getattr(self, name)}")
+        if not callable(self.shed_policy) and \
+                self.shed_policy not in ("reject", "deadline"):
+            raise ValueError(f"shed_policy must be reject|deadline|callable,"
+                             f" got {self.shed_policy!r}")
+        if self.chaos_rate < 0:
+            raise ValueError(f"chaos_rate must be >= 0, "
+                             f"got {self.chaos_rate}")
+        if self.disagg and self.page_size <= 0:
+            raise ValueError(
+                "disagg mode needs a paged KV cache (page_size > 0): the "
+                "prefill→decode handoff is page migration")
+
+    # -- chaos --------------------------------------------------------------
+
+    def worker_targets(self) -> Tuple[Tuple[str, int], ...]:
+        """Every (role, index) in the disagg topology, crash-target
+        order."""
+        return (tuple(("prefill", i) for i in range(self.prefill_workers))
+                + tuple(("decode", i) for i in range(self.decode_workers)))
+
+    def make_faults(self, role: Optional[Tuple[str, int]] = None):
+        """Seeded chaos injector from the chaos group (None when the rate
+        is 0). In disagg mode crash draws target single workers, and each
+        worker gets a role-scoped injector over the same plan."""
+        if self.chaos_rate <= 0:
+            return None
+        from repro_torch.serving.faults import FaultInjector, FaultPlan
+        plan = FaultPlan.poisson(
+            self.chaos_seed, self.chaos_horizon,
+            crash_rate=self.chaos_rate, nan_rate=self.chaos_rate,
+            spike_rate=self.chaos_rate,
+            workers=self.worker_targets() if self.disagg else ())
+        return FaultInjector(plan, role=role)
+
+    # -- construction -------------------------------------------------------
+
+    def build(self, model_cfg, params=None, mesh=None,
+              clock: Optional[Callable[[], float]] = None,
+              on_token: Optional[Callable[[int, int, int], None]] = None,
+              faults="auto", device: DeviceLike = None) -> ServeEngine:
+        """The engine this config describes. ``faults="auto"`` derives the
+        injector from the chaos group; pass an injector or None to
+        override. Chaos with ``recover`` unset turns recovery on."""
+        recover = self.recover
+        if recover is None and self.chaos_rate > 0:
+            recover = True
+        if self.disagg:
+            raise NotImplementedError(
+                "the disaggregated topology (router, prefill and decode "
+                "workers, page-migration handoff) is not ported yet: "
+                "ROADMAP Queue 1 item 9")
+        inj = self.make_faults() if faults == "auto" else faults
+        return ServeEngine(
+            model_cfg, params=params, mesh=mesh, max_seq=self.max_seq,
+            batch_size=self.batch_size, seed=self.seed,
+            plan_cache=self.plan_cache, plan_hw=self.plan_hw,
+            chunk=self.chunk, page_size=self.page_size,
+            n_pages=self.n_pages, admit_k=self.admit_k,
+            max_queue=self.max_queue, shed_policy=self.shed_policy,
+            ttft_deadline_s=self.ttft_deadline_s, deadline_s=self.deadline_s,
+            snapshot_dir=self.snapshot_dir,
+            snapshot_every=self.snapshot_every,
+            max_restarts=self.max_restarts, recover=recover, faults=inj,
+            clock=clock, on_token=on_token, device=device)
+
+    # -- CLI mapping --------------------------------------------------------
+
+    @staticmethod
+    def add_cli_args(ap) -> None:
+        """Register the flag groups on an argparse parser (the JAX
+        package's flag names and defaults)."""
+        g = ap.add_argument_group("engine")
+        g.add_argument("--max-seq", type=int, default=128)
+        g.add_argument("--batch", type=int, default=4,
+                       help="decode slots (disagg: default per-role slots)")
+        g.add_argument("--chunk", type=int, default=16,
+                       help="prefill chunk length")
+        g.add_argument("--seed", type=int, default=0)
+        g.add_argument("--plan-cache", default=None)
+        g.add_argument("--plan-hw", default="")
+        g = ap.add_argument_group("paging")
+        g.add_argument("--page-size", type=int, default=0,
+                       help="paged KV page length (0 = contiguous cache)")
+        g.add_argument("--pages", type=int, default=0,
+                       help="pool size incl. null page (0 = parity)")
+        g.add_argument("--admit-k", type=int, default=0,
+                       help="max stacked admissions per step (0 = slots)")
+        g = ap.add_argument_group("robustness")
+        g.add_argument("--max-queue", type=int, default=0,
+                       help="bounded queue (0 = unbounded)")
+        g.add_argument("--shed", default="reject",
+                       choices=["reject", "deadline"])
+        g.add_argument("--ttft-deadline", type=float, default=None)
+        g.add_argument("--deadline", type=float, default=None)
+        g.add_argument("--snapshot-dir", default=None)
+        g.add_argument("--snapshot-every", type=int, default=8)
+        g.add_argument("--max-restarts", type=int, default=3)
+        g = ap.add_argument_group("chaos")
+        g.add_argument("--chaos", type=float, default=0.0,
+                       help="per-step fault rate (0 = off)")
+        g.add_argument("--chaos-seed", type=int, default=0)
+        g = ap.add_argument_group("disagg")
+        g.add_argument("--disagg", action="store_true",
+                       help="router/worker topology (needs --page-size; "
+                            "not ported yet)")
+        g.add_argument("--prefill-workers", type=int, default=1)
+        g.add_argument("--decode-workers", type=int, default=1)
+        g.add_argument("--prefill-slots", type=int, default=0,
+                       help="slots per prefill worker (0 = --batch)")
+        g.add_argument("--decode-slots", type=int, default=0,
+                       help="slots per decode worker (0 = --batch)")
+
+    @classmethod
+    def from_cli_args(cls, args, chaos_horizon: int = 0) -> "EngineConfig":
+        """Parsed argparse namespace -> EngineConfig (flag names as
+        registered by :meth:`add_cli_args`)."""
+        return cls(max_seq=args.max_seq, batch_size=args.batch,
+                   chunk=args.chunk, seed=args.seed,
+                   plan_cache=args.plan_cache, plan_hw=args.plan_hw,
+                   page_size=args.page_size, n_pages=args.pages,
+                   admit_k=args.admit_k, max_queue=args.max_queue,
+                   shed_policy=args.shed,
+                   ttft_deadline_s=args.ttft_deadline,
+                   deadline_s=args.deadline,
+                   snapshot_dir=args.snapshot_dir,
+                   snapshot_every=args.snapshot_every,
+                   max_restarts=args.max_restarts,
+                   chaos_rate=args.chaos, chaos_seed=args.chaos_seed,
+                   chaos_horizon=chaos_horizon or 256,
+                   disagg=args.disagg,
+                   prefill_workers=args.prefill_workers,
+                   decode_workers=args.decode_workers,
+                   prefill_slots=args.prefill_slots,
+                   decode_slots=args.decode_slots)

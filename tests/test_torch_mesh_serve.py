@@ -54,6 +54,20 @@ with ``admit_k`` 2 on (2, 2) whose page gate stalls alike on every rank
 (the same admission rounds as JAX's); a rank whose allocator hands out
 its pages in another order makes every rank raise.
 
+(g) The serving lifecycle on the mesh (``selftest.run_lifecycle``
+scripts on ``ServeEngine(mesh=)``, every rank reading its own fake clock
+skewed by rank, at another rate and offset): a live and a queued cancel,
+the "reject" and "deadline" shed policies, poisoned rows (the injector's,
+and real NaN logits on the one dp rank that holds the slot), a TTFT and
+a total deadline, and crashes with snapshot recovery (paged, with a page
+squeeze, and contiguous). Each on (1, 4) (kv heads) and (2, 2) (dp-cut
+slots), paged on one and contiguous on the other (the crashes on both):
+every rank's record (the ops' results; every request's tokens, status,
+error and time stamps; the counters; the ``on_token`` emissions; the
+free pages; the injector's events; the newest snapshot's scheduler blob)
+equal to JAX's one-rank engine's under the same plan and an unskewed
+clock. A rank given another fault plan makes every rank raise.
+
 MoE capacity is the expert count (no drop): capacity follows the local
 token count, so a mesh would drop other tokens than one rank does. The
 ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
@@ -152,6 +166,8 @@ DIVERGE = ("dp2mp2", "qmoe", NAIVE, 3)
 # of 32 positions, 4 blocks each, and the null page)
 PAGE, PAGED_SEQ, PAGED_SLOTS = 8, 32, 8
 PAGED_POOL = PAGED_SLOTS * PAGED_SEQ // PAGE + 1
+# the paged engine cells' parity pool (4 slots of 64 positions)
+PAGED_POOL_ENGINE = ENGINE["slots"] * ENGINE["max_seq"] // PAGE + 1
 # name -> (layout, ref, moe knobs, the pool's arm)
 PDECODE = {
     "pdec-qmoe-14": ("dp1mp4", "qmoe", COMET, "kv_group"),
@@ -182,6 +198,47 @@ PENGINES = {
 }
 # a rank whose allocator hands out its pages in reverse order
 PDIVERGE = ("dp2mp2", "qmoe", NAIVE, 1)
+# lifecycle scripts (selftest.run_lifecycle) on the qmoe engine: name ->
+# (engine knobs, fault plan, the script, its extra job keys)
+def _sub(i, **kw):
+    return ["submit", i, {"max_new": ENGINE["max_new"], **kw}]
+
+
+SUBMIT_ALL = [_sub(i) for i in range(len(PROMPT_LENS))]
+LIFECYCLE = {
+    "cancel": ({}, None, SUBMIT_ALL + [
+        ["step"], ["step"], ["cancel", 1], ["cancel", 6], ["cancel", 1],
+        ["cancel", 99], ["run"]], {}),
+    "shed-reject": ({"max_queue": 3}, None, [
+        _sub(i) for i in range(5)] + [["step"]] + [
+        _sub(i) for i in (5, 6, 7, 3)] + [["run"]], {}),
+    "shed-deadline": ({"max_queue": 2, "shed_policy": "deadline"}, None, [
+        _sub(i) for i in range(4)] + [
+        ["step"], _sub(4, deadline_s=10.0), _sub(5, deadline_s=30.0),
+        ["clock", 25.0], _sub(6, deadline_s=8.0), _sub(7), ["run"]], {}),
+    "deadlines": ({}, None, [_sub(0, deadline_s=3.5)] + [
+        _sub(i) for i in (1, 2, 3)] + [
+        _sub(4, ttft_deadline_s=1.0), _sub(5, ttft_deadline_s=1.0),
+        _sub(6, deadline_s=5.0), _sub(7),
+        ["step"], ["clock", 0.8], ["step"], ["clock", 2.0], ["step"],
+        ["clock", 4.0], ["step"], ["run"]], {}),
+    "poison": ({}, {"seed": 3, "nan_rows": {"3": 1, "6": 2}},
+               SUBMIT_ALL + [["run"]], {"nan_logits": [4, 2]}),
+    "crash": ({"snapshot_every": 2, "max_restarts": 4},
+              {"crash_steps": [1, 5], "page_squeeze": {"2": [3, 2]}},
+              SUBMIT_ALL + [["run"]], {"snapshot": True}),
+}
+# name -> (layout, script, paged)
+LIFE_CELLS = {}
+for _i, _s in enumerate(LIFECYCLE):
+    for _j, _lay in enumerate(LAYOUTS):
+        for _paged in ((True, False) if _s == "crash"
+                       else ((_i + _j) % 2 == 0,)):
+            LIFE_CELLS[f"life-{_s}-{_lay}-{'p' if _paged else 'c'}"] = (
+                _lay, _s, _paged)
+# every rank but rank 1 runs without faults: the poisoned row retires on
+# rank 1 only, and the next step's checksum makes every rank raise
+LIFE_DIVERGE = ("dp2mp2", {"1": {"nan_rows": {"3": 1}}})
 PLANS = {"prefill": dict(impl="naive", ring_group=1, n_col_blocks=1,
                          gemm_impl="xla", phase="prefill"),
          "decode": dict(impl="coarse", ring_group=1, n_col_blocks=1,
@@ -383,6 +440,45 @@ def _references(params, todo):
     return refs
 
 
+def _lifecycle_refs(params, prompts):
+    """JAX's one-rank engine through each lifecycle script, paged and
+    contiguous, on an unskewed clock: {(script, paged): record}."""
+    import tempfile
+
+    from repro.serving import FaultInjector, FaultPlan
+    out = {}
+    for script, paged in sorted({(s, p) for _, s, p in
+                                 LIFE_CELLS.values()}):
+        kw, plan, ops, extra = LIFECYCLE[script]
+        clock, emissions = ST.ScriptClock(), []
+        with tempfile.TemporaryDirectory() as tmp:
+            eng = JaxEngine(
+                _jax_cfg("qmoe"), params=params["qmoe"],
+                max_seq=ENGINE["max_seq"], batch_size=ENGINE["slots"],
+                chunk=ENGINE["chunk"], clock=clock,
+                on_token=lambda *e: emissions.append(e),
+                faults=(FaultInjector(ST.plan_from_json(FaultPlan, plan))
+                        if plan else None),
+                snapshot_dir=tmp if extra.get("snapshot") else None,
+                **({"page_size": PAGE} if paged else {}), **kw)
+            if "nan_logits" in extra:
+                at, slot = extra["nan_logits"]
+                real = eng.decode["jit"]
+
+                def poisoned(*a, _real=real, _eng=eng):
+                    nxt, logits, cache = _real(*a)
+                    if _eng.step_idx == at:
+                        logits = logits.at[slot].set(jnp.nan)
+                    return nxt, logits, cache
+
+                eng.decode["jit"] = poisoned
+            rec = ST.run_lifecycle(eng, ops, prompts, clock, emissions)
+            if eng.ckpt is not None:
+                rec["extra"] = eng.ckpt.load_extra()
+        out[script, paged] = json.loads(json.dumps(rec))
+    return out
+
+
 def _plan_counts():
     """The MoE token counts of the plan cell's calls at ep 4 on (1, 4):
     a decode step routes the slots, a prefill chunk its stack (1 to
@@ -437,6 +533,22 @@ def _jobs(layout, in_dir):
                          arch=REFS[ref][0], over=_over(ref, moe),
                          data=f"engine-{ref}", page_size=PAGE,
                          reverse_free_on_rank=rank, **ENGINE))
+    moe = {"dp1mp4": COMET, "dp2mp2": NAIVE}[layout]
+    for name, (lay, script, paged) in LIFE_CELLS.items():
+        if lay == layout:
+            kw, plan, ops, extra = LIFECYCLE[script]
+            jobs.append(dict(
+                name=name, kind="lifecycle", arch=REFS["qmoe"][0],
+                over=_over("qmoe", moe), data="engine-qmoe", script=ops,
+                plan=plan, engine_kw=dict(
+                    kw, **({"page_size": PAGE} if paged else {})),
+                **extra, **ENGINE))
+    lay, plans = LIFE_DIVERGE
+    if lay == layout:
+        jobs.append(dict(name="life-diverge", kind="lifecycle",
+                         arch=REFS["qmoe"][0], over=_over("qmoe", moe),
+                         data="engine-qmoe", script=SUBMIT_ALL + [["run"]],
+                         plan=None, plan_on_rank=plans, **ENGINE))
     return jobs
 
 
@@ -465,6 +577,9 @@ def run(tmp_path_factory):
     th.join()
     if errors:
         raise errors[0]
+    # after the ranks end: a long run of small XLA calls beside them
+    # starves the ranks of cores
+    refs.update(_lifecycle_refs(params, todo["engine-qmoe"][1]))
     return outs, refs
 
 
@@ -755,10 +870,11 @@ def test_kv_cache_per_rank_is_a_quarter_on_1x4():
 
 
 def test_unported_serving_paths_raise_by_name():
-    """The monolithic prefill raises, naming its ROADMAP item (10); the
-    paged arm of the sharded decode attention runs: through a block table
-    it gives the decode over the gathered logical view, and a pool is
-    never taken over positions."""
+    """The monolithic prefill raises, naming its ROADMAP item (10), and so
+    does the disaggregated topology (item 9) once its config validates;
+    the paged arm of the sharded decode attention runs: through a block
+    table it gives the decode over the gathered logical view, and a pool
+    is never taken over positions."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import train_step as TS
     from repro_torch.models import blocks
@@ -766,6 +882,11 @@ def test_unported_serving_paths_raise_by_name():
     shape = ShapeConfig("serve", 32, 4, "decode")
     with pytest.raises(NotImplementedError, match="item 10"):
         TS.build_prefill_step(cfg, shape)
+    from repro_torch.serving import EngineConfig
+    with pytest.raises(NotImplementedError, match="item 9"):
+        EngineConfig(disagg=True, page_size=8).build(cfg, device="cpu")
+    with pytest.raises(ValueError, match="paged KV cache"):
+        EngineConfig(disagg=True)
     gen = torch.Generator().manual_seed(0)
     q = torch.randn((2, 1, 4, 32), generator=gen)
     pool = torch.randn((5, 8, 4, 32), generator=gen)
@@ -892,6 +1013,95 @@ def test_paged_engine_raises_when_an_allocator_diverges(run):
     step's checksum (block tables and free list) makes every rank raise
     before the admission's collectives, instead of writing other pages."""
     got = _load(run, PDIVERGE[0], "peng-diverge")
+    ranks = _ranks(got)
+    assert len(ranks) == 4
+    for r in ranks:
+        assert "schedulers diverged" in str(got[f"rank{r}/error"])
+
+
+# ---------------------------------------------------------------------------
+# (g) the serving lifecycle
+# ---------------------------------------------------------------------------
+
+
+def _decisions(rec):
+    """A record without its record-only stamps (first token, done), which
+    each rank takes from its own clock; submit times stay (the shared
+    clock's)."""
+    rec = json.loads(json.dumps(rec))
+    for v in rec["requests"].values():
+        del v[5:]
+    for d in (rec.get("extra") or {}).get("requests", {}).values():
+        del d["first_token_t"], d["done_t"]
+    return rec
+
+
+@pytest.mark.parametrize("cell", list(LIFE_CELLS))
+def test_lifecycle_matches_jax(run, cell):
+    """Every rank's record of the script equals JAX's one-rank engine's:
+    the same decisions on every rank under clocks skewed by rank. Rank 0
+    reads the unskewed clock, so its record-only stamps equal JAX's too;
+    the other ranks' are their own."""
+    layout, script, paged = LIFE_CELLS[cell]
+    got = _load(run, layout, cell)
+    want = run[1][script, paged]
+    assert len(_ranks(got)) == 4
+    for r in _ranks(got):
+        rec = json.loads(str(got[f"rank{r}/record"]))
+        if r == 0:
+            assert rec == want, cell
+        assert _decisions(rec) == _decisions(want), (r, cell)
+
+
+def test_lifecycle_scripts_reach_each_path(run):
+    """The JAX references take each path the cells name: a live and a
+    queued cancel, both shed policies, TTFT and total expiry, quarantine
+    by the injector and by real NaN logits, crashes recovered from a
+    snapshot and from none, the squeezed pages all home."""
+    refs = run[1]
+
+    def statuses(rec):
+        return [v[2] for v in rec["requests"].values()]
+
+    for paged in (True, False):
+        if ("cancel", paged) in refs:
+            rec = refs["cancel", paged]
+            assert rec["ops"][-4:] == [True, True, False, False]
+            assert statuses(rec).count("cancelled") == 2
+            assert len(rec["requests"]["1"][0]) >= 1      # live: partial
+            assert rec["requests"]["6"][0] == []          # queued
+    rec = next(refs["shed-reject", p] for p in (True, False)
+               if ("shed-reject", p) in refs)
+    assert rec["ops"].count("queue_full") == 3 and rec["counters"][2] == 0
+    rec = next(refs["shed-deadline", p] for p in (True, False)
+               if ("shed-deadline", p) in refs)
+    assert rec["counters"][2] == 2                        # two shed
+    assert [rec["requests"][r][2] for r in ("4", "5")] == ["expired"] * 2
+    rec = next(refs["deadlines", p] for p in (True, False)
+               if ("deadlines", p) in refs)
+    errs = {rid: v[3] for rid, v in rec["requests"].items()}
+    assert "ttft" in errs["4"] and "ttft" in errs["5"]
+    assert "after" in errs["0"]                           # expired live
+    assert rec["requests"]["6"][2] == "ok" and rec["counters"][3] == 3
+    rec = next(refs["poison", p] for p in (True, False)
+               if ("poison", p) in refs)
+    assert rec["counters"][4] == 4                        # 3 + 1 real NaN
+    for paged in (True, False):
+        rec = refs["crash", paged]
+        assert rec["counters"][:2] == [2, 2]
+        assert rec["injected"][0]["crash"] == 2
+        assert set(statuses(rec)) == {"ok"}
+        assert rec["extra"] is not None
+        if paged:
+            assert rec["injected"][0]["page_squeeze"] == 1
+            assert rec["free_pages"] == PAGED_POOL_ENGINE - 1
+
+
+def test_lifecycle_raises_when_a_fault_plan_diverges(run):
+    """Rank 1 alone quarantines a row: the next step's checksum (the live
+    slots, the retired requests' statuses) makes every rank raise instead
+    of hanging."""
+    got = _load(run, LIFE_DIVERGE[0], "life-diverge")
     ranks = _ranks(got)
     assert len(ranks) == 4
     for r in ranks:
