@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all fifteen phases, one card
+  python3 chip_smoke.py              # all sixteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
   python3 chip_smoke.py --only build,serve_lifecycle
+  python3 chip_smoke.py --only build,serve_disagg
+  python3 chip_smoke.py --only build,stack_bits
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -245,16 +247,42 @@ Phases:
              failures == recoveries == 2, the spike's step flagged
              (straggler factor 1.3); launches, ms and bytes per
              snapshot, ms per restore, steps replayed and the wall
-             time against (a) recorded. (c) No faults: a live cancel
-             after the 4th token and a queued cancel; max_queue 4
-             under "deadline" shedding on a burst of 16; a 1 ms TTFT
+             time against (a) recorded. (b') A row poisoned at step 12,
+             in the first wave: the freed slot admits request 8 alone,
+             and the 15 ok streams must be (a)'s. (c) No faults: a live
+             cancel after the 4th token and a queued cancel; max_queue
+             4 under "deadline" shedding on a burst of 16; a 1 ms TTFT
              deadline on 4 requests queued behind 8 live ones (all
-             expire in the queue); the ok streams unlike (a)'s are
-             recorded (a request admitted alone takes other bits). (d)
+             expire in the queue); every ok stream must be (a)'s,
+             whatever stack its request was admitted in. (d)
              ``launch.serve`` with --page-size 64 --pages 129 --chaos
              0.02 --snapshot-dir: every request terminal, every
              injected crash recovered, the plan's and the robustness
              summaries printed.
+ 16 serve_disagg  the earlier phases' state is freed first. Phase 15's
+             model and trace at no-drop capacity: (a) the shared paged
+             engine (8 slots, 129 pages) and (b) the router of
+             serving/disagg.py, 1 prefill worker of 4 slots (65 pages)
+             and 1 decode worker of 8 slots (129 pages) sharing one
+             parameter set, in turns (shared, router, router, shared):
+             16/16 ok, the router's streams (a)'s, 16 migrations, the
+             pages moved the prompts' pages, no prefill on the decode
+             worker, every fused_mlp launch on the wgmma path, every
+             (rid, idx) emitted once; TTFT p50/p99, decode ms a step,
+             the ms of every export and migrate, the bytes moved, the
+             held handoffs' peak bytes, peak memory and launches
+             recorded. (c) Snapshots every 4 steps in a temporary
+             directory: a decode-worker crash at the tick of the second
+             wave's first migration (re-migrated from the held handoff)
+             and a prefill-worker crash at step 3, in two runs: (a)'s
+             streams, failures == recoveries == injected, every (rid,
+             idx) emitted once. (d) mamba2-780m whole, 8 requests of
+             64-1024 tokens, the router 1x1 against its shared paged
+             engine: identical streams, every ssd_forward launch on the
+             tensor-core path. (e) ``launch.serve --disagg --page-size
+             64 --prefill-workers 1 --decode-workers 1`` (the mixed
+             trace, capacity 1.25): every request terminal, the
+             router's summary printed.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -269,7 +297,11 @@ steady the phase-2 rules taken over seeded draws are (the bf16 backward
 kernels' floor, the wgmma flash kernel beside the general one), on 16
 independent sets of draws, one draw against all 8; ``--only nccl_pair``
 what NCCL does with two ranks on the one card (an all-reduce of a CUDA
-tensor, each rank's outcome recorded).
+tensor, each rank's outcome recorded); ``--only build,stack_bits`` whether
+a qwen2-moe-2.7b request's prefill bits depend on its stack (alone in
+two slots, in stacks of 2, 4 and 8 at the first and last row: the first
+op whose bits change), each product of the path alone at those row
+counts, and the decode's live rows at 4, 8 and 16 slots.
 
 Prints the card line, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -300,11 +332,13 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
        "merge": 1e-5}      # the fp32 split-KV merge against fp32 decode
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
-          "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle")
+          "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle",
+          "serve_disagg")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
-                "profile_serve_paged", "rule_seeds", "nccl_pair")
+                "profile_serve_paged", "rule_seeds", "nccl_pair",
+                "stack_bits")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -382,13 +416,17 @@ PAGED_TURNS = ("contiguous", "paged", "paged", "contiguous")
 # the lifecycle phase: the 8-slot parity pool of 64-token pages; the fault
 # plan's steps (snapshots every 8 steps: one crash before the first, one
 # after; the poisoned row in the second wave of admissions, after the
-# queue has emptied, so no admission moves: a request admitted alone
-# takes other bits than in a stack of 8), the squeeze (step, pages, steps
-# held), and the straggler factor under which a 50 ms spike on a decode
-# step of 56-95 ms is an outlier
+# queue has emptied), the squeeze (step, pages, steps held), and the
+# straggler factor under which a 50 ms spike on a decode step of 56-95 ms
+# is an outlier. A second cell poisons a row in the first wave
+# (LIFECYCLE_EARLY_NAN_STEP): the freed slot moves request 8 into an
+# admission of its own, whose bits must be the stack's (the router's and
+# the LM head's fp32 products are taken per request, so a lone admission
+# takes the stack's bits)
 LIFECYCLE_POOL = 8 * 1024 // PAGED_PAGE + 1
 LIFECYCLE_CRASHES = (5, 19)
 LIFECYCLE_NAN_STEP = 48
+LIFECYCLE_EARLY_NAN_STEP = 12
 LIFECYCLE_SQUEEZE = (10, 8, 4)
 LIFECYCLE_SPIKE_STEP = 26
 LIFECYCLE_STRAGGLER = 1.3
@@ -3397,8 +3435,9 @@ def lifecycle_run(cfg, params, key, runs, prompts, max_new=32,
     ``script(eng)`` submits and drives it (default: every prompt, then
     ``run``). Launch counters zeroed before and read after, the plain
     versions watched, the ``on_token`` emissions, the snapshots' and
-    restores' times and bytes and the replayed steps recorded into
-    ``runs[key]``; returns the engine."""
+    restores' times and bytes, the replayed steps, TTFT and peak memory
+    recorded into ``runs[key]``; returns the engine."""
+    import numpy as np
     import torch
 
     from repro_torch.serving import ServeEngine
@@ -3431,6 +3470,7 @@ def lifecycle_run(cfg, params, key, runs, prompts, max_new=32,
 
     eng.snapshot, eng.restore, eng._recover = snapshot, restore, recover
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with PlainGuard() as guard, count_model_calls({}) as calls:
         t0 = time.perf_counter()
@@ -3446,8 +3486,12 @@ def lifecycle_run(cfg, params, key, runs, prompts, max_new=32,
     counts = read_counts()
     reqs = {rid: eng.finished[rid] for rid in rids
             if rid in eng.finished}
+    ttft = [r.ttft_s * 1e3 for r in reqs.values() if r.first_token_t > 0]
     rec = {"wall_s": wall, "steps": eng.step_idx,
-           "decode_steps": eng.decode_steps,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)) if ttft else None,
+           "ttft_p99_ms": float(np.percentile(ttft, 99)) if ttft else None,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9, "decode_steps": eng.decode_steps,
            "decode_ms_per_step": eng.decode_s / max(eng.decode_steps, 1)
            * 1e3, "prefill_s": eng.prefill_s, "admit_rounds":
            eng.admit_rounds, "launches": counts, "model_calls": calls,
@@ -3587,6 +3631,49 @@ def phase_serve_lifecycle(state, out):
         del eng, got
         shutil.rmtree(f"{tmp}/b", ignore_errors=True)
 
+        def same_as_a(key, got):
+            """Records which ok streams differ from (a)'s: a request's
+            bits must not depend on the stack it was admitted in."""
+            runs[key]["ok_streams_unlike_a"] = sorted(
+                rid for rid, r in got.items()
+                if r.status.value == "ok" and r.tokens != want[rid])
+
+        # (b') a row poisoned in the first wave: a later request is
+        # admitted in a stack of its own, its stream still (a)'s
+        stacks = []
+
+        def first_wave(eng):
+            real = eng._admit_batch
+
+            def admit(pairs):
+                stacks.append(len(pairs))
+                return real(pairs)
+
+            eng._admit_batch = admit
+            rids = [eng.submit(p, max_new=32) for p in prompts]
+            eng.run()
+            del eng._admit_batch
+            return rids
+
+        inj = FaultInjector(FaultPlan(
+            nan_rows={LIFECYCLE_EARLY_NAN_STEP: 1}))
+        _, got, _ = lifecycle_run(cfg, params, "faults_first_wave", runs,
+                                  prompts, engine_kw=dict(faults=inj),
+                                  script=first_wave)
+        same_as_a("faults_first_wave", got)
+        rw = runs["faults_first_wave"]
+        rw["admission_stacks"] = stacks
+        check(rw["statuses"] == {"ok": 15, "quarantined": 1}
+              and 1 in stacks and inj.counts["nan"] == 1,
+              f"first wave: statuses {rw['statuses']}, admission stacks "
+              f"{stacks} (want a lone admission), injected {inj.counts}")
+        check(not rw["ok_streams_unlike_a"]
+              and all(r.tokens == want[rid][:len(r.tokens)]
+                      for rid, r in got.items()),
+              f"first wave: ok streams unlike (a)'s "
+              f"{rw['ok_streams_unlike_a']}")
+        del got
+
         # (c) the lifecycle without faults
         def cancels(eng):
             rids = [eng.submit(p, max_new=32) for p in prompts]
@@ -3602,13 +3689,6 @@ def phase_serve_lifecycle(state, out):
             eng.run()
             return rids
 
-        def same_as_a(key, got):
-            """Records which ok streams equal (a)'s: a request admitted
-            in another stack than in (a) may take other bits."""
-            runs[key]["ok_streams_unlike_a"] = sorted(
-                rid for rid, r in got.items()
-                if r.status.value == "ok" and r.tokens != want[rid])
-
         _, got, _ = lifecycle_run(cfg, params, "cancel", runs, prompts,
                                   script=cancels)
         same_as_a("cancel", got)
@@ -3620,7 +3700,7 @@ def phase_serve_lifecycle(state, out):
               and all(got[r].status.value == "ok"
                       and len(got[r].tokens) == 32 for r in rids
                       if r not in (rids[0], rids[12]))
-              and all(got[r].tokens == want[r] for r in rids[1:8]),
+              and not runs["cancel"]["ok_streams_unlike_a"],
               f"cancel: statuses {runs['cancel']['statuses']}, streams "
               f"unlike (a)'s {runs['cancel']['ok_streams_unlike_a']}")
 
@@ -3649,9 +3729,11 @@ def phase_serve_lifecycle(state, out):
         ok = [rid for rid, r in got.items() if r.status.value == "ok"]
         check(rs["shed"] > 0 and rs["shed"] + rs["rejected"] + len(ok)
               == len(prompts) and all(len(got[r].tokens) == 32 for r in ok)
-              and rs["statuses"].get("expired", 0) == rs["shed"],
+              and rs["statuses"].get("expired", 0) == rs["shed"]
+              and not rs["ok_streams_unlike_a"],
               f"shed: {rs['shed']} shed, {rs['rejected']} rejected, "
-              f"statuses {rs['statuses']}")
+              f"statuses {rs['statuses']}, streams unlike (a)'s "
+              f"{rs['ok_streams_unlike_a']}")
         del eng
 
         def ttft(eng):
@@ -3669,7 +3751,7 @@ def phase_serve_lifecycle(state, out):
         rids = sorted(got)
         check(all(got[r].status.value == "expired" and "ttft" in
                   got[r].error and not got[r].tokens for r in rids[8:])
-              and all(got[r].tokens == want[r] for r in rids[:8])
+              and not runs["ttft"]["ok_streams_unlike_a"]
               and runs["ttft"]["expired"] == 4,
               f"ttft: statuses {runs['ttft']['statuses']}")
         del params
@@ -3712,6 +3794,606 @@ def phase_serve_lifecycle(state, out):
         torch.cuda.empty_cache()
     out["serve_lifecycle"] = {"page_size": PAGED_PAGE,
                               "n_pages": LIFECYCLE_POOL, "runs": runs}
+
+
+def _kv_bytes(hand):
+    return sum(t.numel() * t.element_size() for e in hand.kv
+               for t in e.values())
+
+
+def disagg_run(cfg, params, key, runs, prompts, ec_kw, max_new=32,
+               faults=None):
+    """One run of phase 16's router (``EngineConfig(disagg=True,
+    **ec_kw).build``) on ``prompts``: launch counters zeroed before and
+    read after, the plain versions watched, the ``on_token`` emissions,
+    the ms of every export and migrate (synchronized on both sides), the
+    bytes moved, the peak bytes of the handoffs the router holds, the
+    tick of every migration and the router's summary recorded into
+    ``runs[key]``; returns (router, requests, emissions)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import EngineConfig
+    emissions, exports, migrates, moved, ticks = [], [], [], [0], []
+    held = [0]
+    ec = EngineConfig(disagg=True, **ec_kw)
+    router = ec.build(cfg, params=params, device="cuda", faults=faults,
+                      on_token=lambda *e: emissions.append(e))
+
+    def timed(w, name, sink):
+        real = getattr(w, name)
+
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = real(*a)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            if name == "migrate" and got:
+                moved[0] += _kv_bytes(a[0])
+                ticks.append(router.step_idx)
+            return got
+
+        setattr(w, name, call)
+
+    for w in router.prefills:
+        timed(w, "export_handoff", exports)
+    for w in router.decodes:
+        timed(w, "migrate", migrates)
+    real_step = router.step
+
+    def step():
+        more = real_step()
+        held[0] = max(held[0], sum(_kv_bytes(h)
+                                   for h in router.handoffs.values()))
+        return more
+
+    router.step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with PlainGuard() as guard, count_model_calls({}) as calls:
+        t0 = time.perf_counter()
+        rids = [router.submit(p, max_new=max_new) for p in prompts]
+        router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del router.step                  # the wrappers hold the router: a cycle
+    for w in router.workers:
+        w.__dict__.pop("export_handoff", None)
+        w.__dict__.pop("migrate", None)
+    counts = read_counts()
+    reqs = {rid: router.finished[rid] for rid in rids}
+    ttft = [r.ttft_s * 1e3 for r in reqs.values() if r.first_token_t > 0]
+    dec = router.decodes[0]
+    summary = router.summary()
+    rec = {"wall_s": wall, "ticks": router.step_idx,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)),
+           "decode_ms_per_step": dec.decode_s / max(dec.decode_steps, 1)
+           * 1e3, "decode_steps": dec.decode_steps,
+           "export_ms": exports, "migrate_ms": migrates,
+           "export_ms_median": float(np.median(exports)),
+           "migrate_ms_median": float(np.median(migrates)),
+           "bytes_moved": moved[0], "held_handoff_peak_bytes": held[0],
+           "migration_ticks": ticks,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9, "pools_gb": {f"{n}{i}": sum(
+               t.numel() * t.element_size() for e in w.cache
+               for t in e.values()) / 1e9 for n, ws in (
+               ("prefill", router.prefills), ("decode", router.decodes))
+               for i, w in enumerate(ws)},
+           "launches": counts, "model_calls": calls,
+           "plain_calls_on_cuda": guard.cuda_calls,
+           "emissions": len(emissions),
+           "statuses": {st: sum(r.status.value == st for r in reqs.values())
+                        for st in sorted({r.status.value
+                                          for r in reqs.values()})},
+           "decode_worker_prefill_tokens": sum(w.prefill_tokens
+                                               for w in router.decodes),
+           "summary": {k: v for k, v in summary.items()}}
+    if faults is not None:
+        rec["injected"] = {f"{t[0]}{t[1]}": dict(i.counts)
+                           for t, i in faults.items()}
+    runs[key] = rec
+    log(f"  {key}: " + json.dumps({k: v for k, v in rec.items()
+                                   if k not in ("export_ms", "migrate_ms")}))
+    check(guard.cuda_calls == 0,
+          f"{key}: plain versions saw CUDA tensors {guard.cuda_calls} times")
+    check(all(r.done for r in reqs.values()) and not router.pending,
+          f"{key}: requests not terminal")
+    check(all(w.free_pages == w.n_pages - 1 for w in router.workers),
+          f"{key}: pages not all free after the drain")
+    return router, reqs, emissions
+
+
+def _once(emissions, reqs):
+    """Every (rid, idx) emitted exactly once, with the request's token."""
+    seen = {}
+    for rid, idx, tok in emissions:
+        check((rid, idx) not in seen, f"duplicate emission {rid, idx}")
+        seen[rid, idx] = tok
+    for rid, r in reqs.items():
+        check([seen.get((rid, i)) for i in range(len(r.tokens))]
+              == r.tokens, f"emissions of {rid} differ from its stream")
+    check(len(seen) == sum(len(r.tokens) for r in reqs.values()),
+          "emissions beyond the streams")
+
+
+DISAGG_EC = dict(max_seq=1024, chunk=256, page_size=PAGED_PAGE,
+                 prefill_slots=4, decode_slots=8, n_pages=LIFECYCLE_POOL)
+DISAGG_TURNS = ("shared", "router", "router", "shared")
+DISAGG_PREFILL_CRASH = 3
+DISAGG_SSM_REQUESTS = 8
+
+
+def phase_serve_disagg(state, out):
+    """Disaggregated serving on phase 3's model and trace (qwen2-moe-2.7b
+    whole, bf16, seed 0, pallas_fused, no-drop capacity, max_seq 1024,
+    chunk 256, page 64; 16 requests of 64-512 prompt tokens, max_new 32):
+    (a) the shared paged engine at 8 slots (129 pages) and (b) the router,
+    1 prefill worker of 4 slots and 1 decode worker of 8 slots (129 pages)
+    sharing one parameter set, in turns (shared, router, router, shared):
+    16/16 ok, the router's streams (a)'s, 16 migrations, the pages moved
+    the prompts' pages, no prefill on the decode worker, every fused_mlp
+    launch on the wgmma path; TTFT, decode ms a step, export and migrate
+    ms, bytes moved, the held handoffs' peak bytes, peak memory and
+    launches recorded. (c) Snapshots every 4 steps: a decode-worker crash
+    at the tick of the second wave's first migration (its rid then
+    re-migrates from the held handoff) and a prefill-worker crash before
+    the first snapshot, in two runs: (a)'s streams, failures ==
+    recoveries == injected, every (rid, idx) emitted once. (d) mamba2-780m
+    whole, 8 requests, the router against its shared paged engine: the
+    same streams, every ssd_forward launch on the tensor-core path. (e)
+    ``launch.serve --disagg --page-size 64 --prefill-workers 1
+    --decode-workers 1`` (the mixed trace): every request terminal, the
+    router's summary printed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import lm
+    from repro_torch.serving import (FaultInjector, FaultPlan, ServeEngine,
+                                     pages_for)
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = make_trace(cfg.vocab_size, 16, 64, 512, 0)
+    warm = ServeEngine(cfg, params=params, max_seq=1024, batch_size=8,
+                       chunk=256, device="cuda", page_size=PAGED_PAGE,
+                       n_pages=LIFECYCLE_POOL)
+    for p in make_trace(cfg.vocab_size, 8, 64, 512, 100):
+        warm.submit(p, max_new=2)
+    warm.run()
+    del warm
+    runs, streams = {}, {}
+    rec = {"runs": runs}
+    for i, tag in enumerate(DISAGG_TURNS):
+        key = f"{tag}{i}"
+        torch.cuda.empty_cache()
+        if tag == "shared":
+            _, got, _ = lifecycle_run(cfg, params, key, runs, prompts)
+        else:
+            _, got, em = disagg_run(cfg, params, key, runs, prompts,
+                                    DISAGG_EC)
+            _once(em, got)
+        streams[key] = {rid: r.tokens for rid, r in got.items()}
+        check(all(r.status.value == "ok" and len(r.tokens) == 32
+                  for r in got.values()), f"{key}: requests not ok")
+    want = streams["shared0"]
+    pages = sum(pages_for(len(p), PAGED_PAGE) for p in prompts)
+    for key in ("router1", "router2"):
+        r = runs[key]
+        s = r["summary"]
+        check(streams[key] == want,
+              f"{key}: streams unlike the shared engine's: "
+              f"{sorted(k for k in want if streams[key][k] != want[k])}")
+        check(s["migrations"] == 16 and s["pages_moved"] == pages
+              and r["decode_worker_prefill_tokens"] == 0,
+              f"{key}: migrations {s['migrations']}, pages moved "
+              f"{s['pages_moved']} (want 16, {pages}), decode-worker "
+              f"prefill tokens {r['decode_worker_prefill_tokens']}")
+        L = r["launches"]
+        check(L["fused_mlp"] > 0 and L["fused_mlp"] == L["fused_mlp_hopper"]
+              and L["topk_combine"] > 0 and L["rmsnorm"] > 0,
+              f"{key}: launches off the kernels or the wgmma path: {L}")
+    check(streams["shared3"] == want, "the shared engine's turns differ")
+
+    def mean(tag, k):
+        vals = [runs[f"{t}{i}"][k] for i, t in enumerate(DISAGG_TURNS)
+                if t == tag]
+        return sum(vals) / len(vals)
+
+    for k in ("ttft_p50_ms", "ttft_p99_ms", "decode_ms_per_step",
+              "wall_s"):
+        rec[k] = {tag: mean(tag, k) for tag in ("shared", "router")}
+        rec[f"router_over_shared_{k}"] = mean("router", k) / mean("shared",
+                                                                  k)
+    rec["max_memory_allocated_gb"] = {
+        tag: mean(tag, "max_memory_allocated_gb")
+        for tag in ("shared", "router")}
+
+    # (c) worker crashes with snapshots every 4 steps
+    tmp = tempfile.mkdtemp(prefix="serve_disagg_")
+    try:
+        wave2 = runs["router1"]["migration_ticks"][8]
+        for role, at in (("decode", wave2),
+                         ("prefill", DISAGG_PREFILL_CRASH)):
+            key = f"crash_{role}"
+            ec_kw = dict(DISAGG_EC, snapshot_dir=f"{tmp}/{role}",
+                         snapshot_every=4, recover=True)
+            plan = FaultPlan(crash_workers={at: (role, 0)})
+            inj = {t: FaultInjector(plan, role=t)
+                   for t in (("prefill", 0), ("decode", 0))}
+            torch.cuda.empty_cache()
+            _, got, em = disagg_run(cfg, params, key, runs, prompts, ec_kw,
+                                    faults=inj)
+            _once(em, got)
+            r = runs[key]
+            s = r["summary"]
+            r["crash_step"] = at
+            injected = sum(i.counts["crash"] for i in inj.values())
+            check({rid: q.tokens for rid, q in got.items()} == want,
+                  f"{key}: streams unlike the shared engine's")
+            check(s["failures"] == s["recoveries"] == injected == 1,
+                  f"{key}: failures {s['failures']}, recoveries "
+                  f"{s['recoveries']}, injected {injected}")
+            shutil.rmtree(f"{tmp}/{role}", ignore_errors=True)
+        check(runs["crash_decode"]["summary"]["remigrations"] > 0,
+              "the decode-worker crash re-migrated nothing")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) the SSM carry: mamba2-780m whole, router 1x1 against its shared
+    # paged engine
+    scfg = get_config(SSM_ARCH)
+    sparams = lm.init_params(scfg, seed=0, device="cuda")
+    sprompts = make_trace(scfg.vocab_size, DISAGG_SSM_REQUESTS, 64, 1024, 0)
+    skw = dict(max_seq=2048, chunk=256, page_size=PAGED_PAGE)
+    shared = ServeEngine(scfg, params=sparams, batch_size=8, device="cuda",
+                         **skw)
+    rids = [shared.submit(p, max_new=32) for p in sprompts]
+    shared.run()
+    want_ssm = {rid: shared.finished[rid].tokens for rid in rids}
+    del shared
+    _, got, em = disagg_run(scfg, sparams, "ssm_router", runs, sprompts,
+                            dict(skw, prefill_slots=4, decode_slots=8))
+    _once(em, got)
+    L = runs["ssm_router"]["launches"]
+    check({rid: q.tokens for rid, q in got.items()} == want_ssm,
+          "ssm: the router's streams unlike the shared engine's")
+    check(runs["ssm_router"]["summary"]["migrations"] == DISAGG_SSM_REQUESTS
+          and L["ssd_forward"] > 0
+          and L["ssd_forward"] == L["ssd_forward_hopper"],
+          f"ssm: migrations {runs['ssm_router']['summary']['migrations']}, "
+          f"launches {L}")
+    del sparams, got
+    torch.cuda.empty_cache()
+
+    # (e) the CLI, its own weights (phase 3's capacity)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli = serve_cli.main(["--arch", ARCH, "--disagg", "--page-size",
+                              str(PAGED_PAGE), "--prefill-workers", "1",
+                              "--decode-workers", "1"], device="cuda")
+    text = buf.getvalue()
+    summary = [line for line in text.splitlines()
+               if not line.startswith("req")]
+    runs["cli"] = {"summary_lines": summary, "summary": cli.summary(),
+                   "statuses": {st: sum(r.status.value == st
+                                        for r in cli.finished.values())
+                                for st in sorted({r.status.value for r in
+                                                  cli.finished.values()})}}
+    log("  cli: " + json.dumps(runs["cli"]))
+    check(len(cli.finished) == 16
+          and all(r.done for r in cli.finished.values())
+          and not cli.pending, f"cli: requests not terminal: "
+          f"{runs['cli']['statuses']}")
+    check(any(line.startswith("migration: ") for line in summary)
+          and any(line.startswith("disagg: ") for line in summary),
+          "cli: the router's summary missing")
+    del cli
+    torch.cuda.empty_cache()
+    out["serve_disagg"] = rec
+
+
+STACK_SIZES = (1, 2, 4, 8)
+STACK_DECODE_SLOTS = (4, 8, 16)
+
+
+class _OpTap:
+    """While active, records the outputs of the prefill chunk's ops for
+    one admission row (``row`` of a stack of ``rows``, chunk ``C``): the
+    norms, the q/k/v projections, the attention, the residual after the
+    output projection, the router's fp32 product, the MoE and shared-expert
+    outputs, each layer's output and the logits, in call order as (op,
+    layer, tensor) on the card."""
+
+    def __init__(self, row, rows, C):
+        self.row, self.rows, self.C = row, rows, C
+        self.records, self.layer, self.saved = [], -1, []
+
+    def _take(self, t):
+        if isinstance(t, (tuple, list)):
+            return [self._take(u) for u in t]
+        if t.dim() == 0:
+            return t.detach().clone()
+        if t.shape[0] == self.rows:
+            return t[self.row].detach().clone()
+        if t.shape[0] == self.rows * self.C:
+            return t[self.row * self.C:(self.row + 1) * self.C] \
+                .detach().clone()
+        return t.detach().clone()
+
+    def _wrap(self, mod, name, op, first_arg=None, outs=None):
+        """``outs``: how many leading outputs to record (the router's and
+        the MoE's aux loss is over the whole stack)."""
+        real = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            if op == "layer":
+                self.layer += 1
+            if first_arg is not None:
+                self.records.append((first_arg[0], self.layer,
+                                     self._take(a[first_arg[1]])))
+            got = real(*a, **kw)
+            if op is not None:
+                self.records.append((op, self.layer, self._take(
+                    got if outs is None else got[:outs])))
+            return got
+
+        setattr(mod, name, wrapped)
+        self.saved.append((mod, name, real))
+
+    def __enter__(self):
+        from repro_torch.core import routing
+        from repro_torch.models import attention, blocks, lm
+        self._wrap(blocks, "chunk_layer", "layer")
+        self._wrap(blocks, "apply_norm", "norm")
+        self._wrap(blocks, "_qkv_proj", "qkv")
+        self._wrap(attention, "attention", "attention")
+        # the residual after the output projection (o @ wo) enters the tail
+        self._wrap(blocks, "_mlp_tail", None, first_arg=("x+o@wo", 2))
+        self._wrap(routing, "router", "router", outs=2)
+        self._wrap(blocks, "moe_ffn", "moe", outs=1)
+        self._wrap(blocks, "ffn_apply", "shared_ffn")
+        self._wrap(lm, "_serve_logits", "logits")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self.saved):
+            setattr(mod, name, real)
+
+
+def _same(a, b):
+    import torch
+    if isinstance(a, (list, tuple)):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _first_diff(base, got):
+    """The first record of ``got`` whose bits differ from ``base``'s, as
+    [op, layer, index], and how many records differ."""
+    first, n = None, 0
+    for i, ((op, layer, t), (_, _, u)) in enumerate(zip(base, got)):
+        if not _same(t, u):
+            n += 1
+            if first is None:
+                first = [op, layer, i]
+    return first, n
+
+
+def _row_invariant(fn, mk_rest, x0, counts):
+    """Whether fn's output rows for the fixed leading rows x0 have the
+    same bits whatever the rows that follow: fn(cat(x0, mk_rest(n))) for
+    each n in counts, its first x0.shape[0] rows against n = counts[0]'s."""
+    import torch
+    base, same = None, {}
+    for n in counts:
+        x = torch.cat([x0, mk_rest(n)]) if n else x0
+        y = fn(x)[:x0.shape[0]]
+        if base is None:
+            base = y
+        same[str(x0.shape[0] + n)] = bool(torch.equal(y, base))
+    return same
+
+
+def stack_ops(cfg, params, C, gen):
+    """Each product of the prefill path (layer 0's weights, bf16) and the
+    fp32 router and LM head, at the row counts a stack of 1-8 admission
+    rows gives them: does the first request's result keep its bits?"""
+    import torch
+
+    from repro_torch.core.moe_layer import moe_ffn
+    from repro_torch.core.routing import router_logits
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    d = cfg.d_model
+    lp = lm._period(params["layers"][0], 0)
+    dt = lp["attn"]["wq"].dtype
+
+    def rnd(*s, dtype=dt):
+        return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+
+    x0 = rnd(C, d)
+    rest = [n * C for n in STACK_SIZES]
+    rest = [r - C for r in rest]
+    res = {}
+    for name in ("wq", "wk", "wv", "wo"):
+        w = lp["attn"][name]
+        res[name] = _row_invariant(lambda x, w=w: x @ w,
+                                   lambda n: rnd(n, d), x0, rest)
+        res[name + " bmm over the stack"] = _row_invariant(
+            lambda x, w=w: torch.bmm(x.reshape(-1, C, d),
+                                     w.expand(x.shape[0] // C, *w.shape))
+            .reshape(x.shape[0], -1),
+            lambda n: rnd(n, d), x0, rest)
+        res[name + " grouped_gemm kernel"] = _row_invariant(
+            lambda x, w=w: ops.grouped_gemm(x[None], w[None].contiguous())[0],
+            lambda n: rnd(n, d), x0, rest)
+    sh = lp["moe"].get("shared")
+    if sh is not None:
+        for name in ("w_gate", "w_up", "w_down"):
+            w = sh[name]
+            x0s = rnd(C, w.shape[0])
+            res["shared " + name] = _row_invariant(
+                lambda x, w=w: x @ w, lambda n, k=w.shape[0]: rnd(n, k),
+                x0s, rest)
+    wr = lp["moe"]["router"]
+    res["router fp32"] = _row_invariant(
+        lambda x: x.float() @ wr.float(), lambda n: rnd(n, d), x0, rest)
+    head = lm.output_head(cfg, params).float()
+    res["lm head fp32"] = _row_invariant(
+        lambda x: x.float() @ head, lambda n: rnd(n, d), rnd(1, d),
+        [n - 1 for n in STACK_SIZES])
+    res["lm head fp32, one product per row"] = _row_invariant(
+        lambda x: lm._logits(cfg, params, x, per_row=True),
+        lambda n: rnd(n, d), rnd(1, d), [n - 1 for n in STACK_SIZES])
+    res["router fp32, one product per 256-row sequence"] = _row_invariant(
+        lambda x: router_logits(x, wr, seq_len=C), lambda n: rnd(n, d), x0,
+        rest)
+    mcfg = cfg.moe
+    res["moe_ffn, 256-row sequences"] = _row_invariant(
+        lambda x: moe_ffn(cfg, mcfg, lp["moe"], x.reshape(-1, C, d),
+                          n_col=mcfg.n_col_blocks)[0].reshape(-1, d),
+        lambda n: rnd(n, d), x0, rest)
+    res["rmsnorm kernel"] = _row_invariant(
+        lambda x: ops.rms_norm(x, lp["ln1"]["scale"], cfg.norm_eps),
+        lambda n: rnd(n, d), x0, rest)
+    a = cfg.attn
+    S = 1024
+    q0 = rnd(1, C, a.n_heads, a.head_dim)
+    k0 = rnd(1, S, a.n_kv_heads, a.head_dim)
+    v0 = rnd(1, S, a.n_kv_heads, a.head_dim)
+
+    def attn(q):
+        n = q.shape[0]
+        k = torch.cat([k0, rnd(n - 1, S, a.n_kv_heads, a.head_dim)]) \
+            if n > 1 else k0
+        v = torch.cat([v0, rnd(n - 1, S, a.n_kv_heads, a.head_dim)]) \
+            if n > 1 else v0
+        q_pos = torch.arange(C, device="cuda")[None].expand(n, C) + 256
+        kv_pos = torch.arange(S, device="cuda")[None].expand(n, S)
+        return A.attention(q, k, v, q_pos, kv_pos, q_block=a.q_block,
+                           kv_block=a.kv_block)
+
+    res["attention"] = _row_invariant(
+        attn, lambda n: rnd(n, C, a.n_heads, a.head_dim), q0,
+        [n - 1 for n in STACK_SIZES])
+    return res
+
+
+def phase_stack_bits(state, out):
+    """Whether a request's prefill bits depend on its stack, on the card:
+    one qwen2-moe-2.7b request of 256 tokens (bf16, seed 0, pallas_fused,
+    no-drop capacity) prefilled as one chunk alone in slot 0 and in slot
+    5, and in stacks of 2, 4 and 8 at the first and at the last row, each
+    op's output for its row recorded
+    (``_OpTap``) and held against the lone slot-0 run's: the first op
+    whose bits change, and the logits and next token. Then each product
+    of the path in isolation at the stacks' row counts (``stack_ops``),
+    and the decode step at 4, 8 and 16 slots with the same 4 live rows:
+    the live rows' logits bits against 4 slots'."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    state.clear()
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    C, S = 256, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    prompts = torch.randint(1, cfg.vocab_size, (8, C), generator=gen,
+                            device="cuda")
+    cache = lm.init_cache(cfg, 8, S, "cuda")
+
+    def prefill(rows, slots, pos):
+        toks = prompts[rows]
+        A_ = len(rows)
+        with _OpTap(pos, A_, C) as tap:
+            logits, _ = lm.prefill_chunk(
+                cfg, params, cache, toks,
+                torch.zeros(A_, dtype=torch.long, device="cuda"),
+                torch.full((A_,), C, dtype=torch.long, device="cuda"),
+                torch.tensor(slots, device="cuda"))
+        torch.cuda.synchronize()
+        return tap.records, logits[pos]
+
+    runs = {}
+    base, base_logits = prefill([0], [0], 0)
+    cases = [("alone slot 5", [0], [5], 0)]
+    for A_ in STACK_SIZES[1:]:
+        others = list(range(1, A_))
+        cases.append((f"stack {A_} first", [0] + others,
+                      list(range(A_)), 0))
+        cases.append((f"stack {A_} last", others + [0],
+                      list(range(A_)), A_ - 1))
+    for key, rows, slots, pos in cases:
+        recs, logits = prefill(rows, slots, pos)
+        first, n = _first_diff(base, recs)
+        runs[key] = {"first_diff": first, "records_differing": n,
+                     "records": len(recs),
+                     "logits_identical": bool(torch.equal(logits,
+                                                          base_logits)),
+                     "logits_max_abs": float((logits - base_logits)
+                                             .abs().max()),
+                     "next_token_same": int(logits.argmax()) ==
+                     int(base_logits.argmax())}
+        log(f"  {key}: " + json.dumps(runs[key]))
+    del base, recs
+    ops_res = stack_ops(cfg, params, C, gen)
+    log("  products alone: " + json.dumps(ops_res))
+
+    # decode at 4, 8 and 16 slots: the same 4 live rows
+    dec = {}
+    ref = None
+    for B in STACK_DECODE_SLOTS:
+        c = lm.init_cache(cfg, B, S, "cuda")
+        rows = [0, 1, 2, 3]
+        lm.prefill_chunk(cfg, params, c, prompts[rows],
+                         torch.zeros(4, dtype=torch.long, device="cuda"),
+                         torch.full((4,), C, dtype=torch.long,
+                                    device="cuda"),
+                         torch.arange(4, device="cuda"))
+        toks = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+        toks[:4, 0] = prompts[:4, -1]
+        pos = torch.zeros((B,), dtype=torch.long, device="cuda")
+        pos[:4] = C
+        steps = []
+        for _ in range(4):
+            logits, _ = lm.decode_step(cfg, params, c, toks, pos)
+            steps.append(logits[:4].clone())
+            toks[:4, 0] = logits[:4].argmax(-1)
+            pos[:4] += 1
+        del c
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = steps
+        dec[str(B)] = [bool(torch.equal(a, b)) for a, b in zip(steps, ref)]
+    log("  decode, same live rows at 4/8/16 slots: " + json.dumps(dec))
+    out["stack_bits"] = {"prefill": runs, "products": ops_res,
+                         "decode_vs_4_slots": dec}
+    del params, cache
+    torch.cuda.empty_cache()
 
 
 def phase_profile_hybrid(state, out):
@@ -4049,7 +4731,7 @@ def main(argv=None):
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
-             "serve_lifecycle", "nccl_pair")
+             "serve_lifecycle", "serve_disagg", "stack_bits", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -4112,6 +4794,10 @@ def main(argv=None):
                 phase_profile_paged(state, out)
             elif name == "serve_lifecycle":
                 phase_serve_lifecycle(state, out)
+            elif name == "serve_disagg":
+                phase_serve_disagg(state, out)
+            elif name == "stack_bits":
+                phase_stack_bits(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

@@ -105,7 +105,10 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
             token_axes = token_axes + (ctx.model_axis,)
         if token_axes:
             token_group = ctx.mesh.group(token_axes)
-    idx, wts, aux = R.router(xt, router_w, mcfg, token_group)
+    # one router product per sequence (S > 1): a sequence's routing does
+    # not depend on the batch it shares the call with
+    idx, wts, aux = R.router(xt, router_w, mcfg, token_group,
+                             seq_len=S if S > 1 else 0)
     C = R.capacity(B * S, mcfg.top_k, E, mcfg.capacity_factor)
     ep = ctx.ep if ranked else 1
     E_loc = E // ep

@@ -31,15 +31,36 @@ def capacity(T: int, k: int, E: int, factor: float, multiple: int = 4) -> int:
     return c
 
 
-def router(x, w_router, mcfg, token_group=None):
+def router_logits(x, w_router, seq_len: int = 0):
+    """The router's fp32 logits of x (T, d): one product per sequence of
+    ``seq_len`` rows (0: one product for all of x).
+
+    On the card the fp32 product (TF32 off) takes other bits at 256 rows
+    than at 512 and more: cuBLAS picks its algorithm by the row count
+    (``chip_smoke.py --only build,stack_bits``: the first op of a 256-token
+    prefill whose bits change when the request shares the chunk call with
+    others). A product per sequence keeps each sequence's routing, and so
+    its stream, independent of how many sequences share the call; a
+    serving engine's prefill stacks admissions as the sequences of one
+    call."""
+    w = w_router.float()
+    xf = x.float()
+    if seq_len <= 0 or seq_len >= xf.shape[0]:
+        return xf @ w
+    return torch.cat([xf[i:i + seq_len] @ w
+                      for i in range(0, xf.shape[0], seq_len)])
+
+
+def router(x, w_router, mcfg, token_group=None, seq_len: int = 0):
     """x: (T, d). Returns (idx (T, k), weights (T, k) fp32, aux loss fp32).
-    The logits are an fp32 product whatever the compute dtype.
+    The logits are an fp32 product whatever the compute dtype, one per
+    sequence of ``seq_len`` rows (``router_logits``).
 
     token_group: the process group (``parallel.mesh.Group``) over which the
     tokens are sharded; the load-balance statistics (me, ce) are pmean'd
     over it before their product, so the aux loss is the same under any
     sharding."""
-    logits = x.float() @ w_router.float()
+    logits = router_logits(x, w_router, seq_len)
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, mcfg.top_k, dim=-1)
     if mcfg.router_norm_topk:

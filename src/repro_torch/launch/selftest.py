@@ -909,7 +909,9 @@ def plan_from_json(fault_plan, d: Dict):
         latency_s={int(k): v for k, v in d.get("latency_s", {}).items()},
         nan_rows={int(k): v for k, v in d.get("nan_rows", {}).items()},
         page_squeeze={int(k): tuple(v) for k, v in
-                      d.get("page_squeeze", {}).items()})
+                      d.get("page_squeeze", {}).items()},
+        crash_workers={int(k): tuple(v) for k, v in
+                       d.get("crash_workers", {}).items()})
 
 
 def run_lifecycle(eng, script, prompts, clock, emissions) -> Dict:
@@ -1014,13 +1016,63 @@ def _lifecycle_job(job, data, mesh, device, out_dir):
     return _per_rank({"record": json.dumps(rec)})
 
 
+def run_disagg(router, prompts, max_new: int, emissions,
+               injectors=None) -> Dict:
+    """Submits every prompt to ``router`` (either package's ``Router``,
+    its ``on_token`` appending to ``emissions``) and runs it. Returns
+    what a run is compared by: every request's tokens, length, status and
+    error, the router's ``summary()`` without its seconds, the emissions
+    in order and the injectors' counts."""
+    rids = [router.submit(p, max_new=max_new) for p in prompts]
+    router.run()
+    return {
+        "requests": {str(rid): [list(map(int, router.finished[rid].tokens)),
+                                int(router.finished[rid].length),
+                                router.finished[rid].status.value,
+                                router.finished[rid].error]
+                     for rid in rids},
+        "summary": {k: v for k, v in router.summary().items()
+                    if k not in ("prefill_s", "decode_s")},
+        "emissions": [list(map(int, e)) for e in emissions],
+        "injected": {f"{t[0]}{t[1]}": inj.counts
+                     for t, inj in sorted((injectors or {}).items())}}
+
+
+def _disagg_job(job, data, mesh, device, out_dir):
+    """The disaggregated topology (``EngineConfig(disagg=True).build`` on
+    the mesh: every worker on it) through ``run_disagg``, every rank on its
+    own skewed ``ScriptClock``: the record, as JSON ("record"). ``ec``
+    holds the ``EngineConfig`` fields; ``crash_workers`` ({step: [role,
+    index]}) gives each worker its role-scoped injector over that plan;
+    ``snapshot`` puts the workers' snapshots under ``out_dir/<name>``."""
+    from repro_torch import bridge
+    from repro_torch.serving import EngineConfig, FaultInjector, FaultPlan
+    cfg = cell_config(job["arch"], job.get("over"))
+    clock, emissions = ScriptClock(dist.get_rank()), []
+    kw = dict(job["ec"])
+    if job.get("snapshot"):
+        kw["snapshot_dir"] = str(Path(out_dir) / job["name"])
+    ec = EngineConfig(disagg=True, **kw)
+    inj = None
+    if job.get("crash_workers"):
+        plan = plan_from_json(FaultPlan,
+                              {"crash_workers": job["crash_workers"]})
+        inj = {t: FaultInjector(plan, role=t) for t in ec.worker_targets()}
+    router = ec.build(cfg, params=bridge.from_jax(
+        _unflat(cfg, data, "params/"), cfg, device), mesh=mesh, clock=clock,
+        on_token=lambda *e: emissions.append(e), faults=inj, device=device)
+    rec = run_disagg(router, json.loads(str(data["prompts"])),
+                     job["max_new"], emissions, inj)
+    return _per_rank({"record": json.dumps(rec)})
+
+
 def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
     0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
-    "trainer", "cli", and the serving kinds "decode", "chunk", "engine"
-    and "lifecycle"), arch and ``over`` (``cell_config``); "grad", "plan",
-    "adamw" and the serving kinds read the one-rank weights
+    "trainer", "cli", and the serving kinds "decode", "chunk", "engine",
+    "lifecycle" and "disagg"), arch and ``over`` (``cell_config``);
+    "grad", "plan", "adamw" and the serving kinds read the one-rank weights
     ("params/<leaf>") and their inputs (batches "batch*/<key>", a cache
     "cache/<pos>/<entry>", prompts) from ``in_dir/<data>.npz``. Results
     are gathered into the one-rank layout. A serving job with a
@@ -1037,9 +1089,10 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
                    "adamw": _adamw_job, "decode": _serve_step_job,
                    "chunk": _serve_step_job,
                    "engine": _engine_job}[kind](job, data, mesh, device)
-        elif kind == "lifecycle":
+        elif kind in ("lifecycle", "disagg"):
             data = np.load(Path(in_dir) / f"{job['data']}.npz")
-            res = _lifecycle_job(job, data, mesh, device, out_dir)
+            res = {"lifecycle": _lifecycle_job, "disagg": _disagg_job}[
+                kind](job, data, mesh, device, out_dir)
         elif kind == "roundtrip":
             res = _roundtrip_job(job, mesh, device)
         elif kind == "trainer":

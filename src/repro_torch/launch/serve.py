@@ -25,11 +25,23 @@ caps the admissions per stacked prefill call (0: every free slot).
 ``--chaos`` > 0 injects a seeded fault plan (crashes, NaN rows, latency
 spikes) over ``4 * (--max-new + --prompt-max)`` steps with recovery on;
 ``--snapshot-dir`` makes recovery restore a snapshot instead of
-replaying from the start. ``--disagg`` raises: the router topology is not
-ported yet.
+replaying from the start.
+
+``--disagg`` (with ``--page-size``) serves through the router topology
+(``serving/disagg.py``): ``--prefill-workers`` prefill workers of
+``--prefill-slots`` slots hand each finished prefill over by page
+migration to ``--decode-workers`` decode workers of ``--decode-slots``
+slots (0: ``--batch``), and the router's summary is printed (handoffs,
+pages moved, re-migrations, duplicates dropped, TTFT, per-worker
+counters); ``--chaos`` then draws each crash against one worker:
+
+  python -m repro_torch.launch.serve --arch qwen2-moe-2.7b --disagg \
+      --page-size 64 --prefill-workers 1 --decode-workers 1 --prefill-slots 4
 
 Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
-numpy RNG. ``--device cpu`` runs on the CPU (small configs only).
+numpy RNG; under ``--disagg`` from the JAX launcher's mixed trace, 0.5x-2x
+of a mean of ``--prompt-max`` / 2. ``--device cpu`` runs on the CPU (small
+configs only).
 """
 from __future__ import annotations
 
@@ -74,6 +86,35 @@ def print_engine_summary(eng, prompts, dt):
             print(f"injected: {eng.faults.counts}")
 
 
+def print_router_summary(router, prompts, dt):
+    s = router.summary()
+    ec = router.econfig
+    total = s["prefill_tokens"] + s["decode_tokens"]
+    print(f"disagg: {ec.prefill_workers} prefill x "
+          f"{ec.prefill_slots or ec.batch_size} slots -> "
+          f"{ec.decode_workers} decode x "
+          f"{ec.decode_slots or ec.batch_size} slots, "
+          f"page {router.page_size} toks")
+    print(f"{s['prefill_tokens']} prefill toks + {s['decode_tokens']} "
+          f"decode toks / {len(prompts)} requests in {dt:.2f}s "
+          f"({total / dt:.0f} tok/s)")
+    print(f"migration: {s['migrations']} handoffs, {s['pages_moved']} "
+          f"pages moved, {s['remigrations']} re-migrations, "
+          f"{s['duplicate_handoffs']} duplicates dropped")
+    ttfts = [r.ttft_s for r in router.finished.values()
+             if r.first_token_t > 0]
+    if ttfts:
+        print(f"ttft: mean {np.mean(ttfts) * 1e3:.1f} ms, "
+              f"p99 {np.percentile(ttfts, 99) * 1e3:.1f} ms")
+    statuses = Counter(r.status.value for r in router.finished.values())
+    print(f"robustness: statuses {dict(statuses)}, "
+          f"{s['failures']} worker failures / {s['recoveries']} "
+          f"recoveries, {s['quarantined']} quarantined, "
+          f"{s['expired']} expired, {s['shed']} shed")
+    for name, w in s["per_worker"].items():
+        print(f"  {name}: {w}")
+
+
 def main(argv=None, device=None):
     """``device``: where the engine runs (default ``--device``, else
     cuda)."""
@@ -100,14 +141,17 @@ def main(argv=None, device=None):
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, gemm_impl=args.gemm_impl))
+    lo, hi = args.prompt_min, args.prompt_max
+    if args.disagg:             # the prefill-heavy mix the topology is for
+        mean = args.prompt_max // 2
+        lo, hi = max(1, mean // 2), 2 * mean
     ec = EngineConfig.from_cli_args(
         args, chaos_horizon=4 * (args.max_new + args.prompt_max))
     if args.chaos > 0:
         print(f"chaos: {ec.make_faults().plan.summary()} over "
               f"{ec.chaos_horizon} steps (seed {args.chaos_seed})")
     eng = ec.build(cfg, device=device or args.device)
-    prompts = make_trace(cfg.vocab_size, args.requests, args.prompt_min,
-                         args.prompt_max, args.seed)
+    prompts = make_trace(cfg.vocab_size, args.requests, lo, hi, args.seed)
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=args.max_new) for p in prompts]
     eng.run()
@@ -119,7 +163,10 @@ def main(argv=None, device=None):
         r = eng.finished[rid]
         tag = "" if r.status.value == "ok" else f"  [{r.status.value}]"
         print(f"req{i} (len {len(prompts[i])}): {r.tokens}{tag}")
-    print_engine_summary(eng, prompts, dt)
+    if ec.disagg:
+        print_router_summary(eng, prompts, dt)
+    else:
+        print_engine_summary(eng, prompts, dt)
     return eng
 
 

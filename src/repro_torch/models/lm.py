@@ -83,9 +83,18 @@ def output_head(cfg, params):
     return params["lm_head"]
 
 
-def _logits(cfg, params, h):
-    """fp32 logits: h.float() @ W.float(), as the JAX package computes them."""
-    return h.float() @ output_head(cfg, params).float()
+def _logits(cfg, params, h, per_row: bool = False):
+    """fp32 logits: h.float() @ W.float(), as the JAX package computes them.
+    ``per_row``: one product per row of h (rows, d). On the card the fp32
+    product's bits depend on its row count (cuBLAS takes another algorithm
+    for one row than for two or more: ``chip_smoke.py --only
+    build,stack_bits``), so a prefill's rows, one per admitted request,
+    take one product each and a request's first token does not depend on
+    how many requests were admitted with it."""
+    w = output_head(cfg, params).float()
+    if not per_row or h.shape[0] == 1:
+        return h.float() @ w
+    return torch.cat([h[i:i + 1].float() @ w for i in range(h.shape[0])])
 
 
 def _period(tree: Tree, n: int) -> Tree:
@@ -386,10 +395,11 @@ def _serve_layers(cfg, params, specs, ctx, h, layer):
     return h
 
 
-def _serve_logits(cfg, top, h, ctx):
-    """fp32 logits of h (rows, d) over the whole vocab: on a mesh whose
-    vocab is stored cut, each model rank's slice gathered."""
-    logits = _logits(cfg, top, h)
+def _serve_logits(cfg, top, h, ctx, per_row: bool = False):
+    """fp32 logits of h (rows, d) over the whole vocab (``per_row``: as
+    ``_logits``): on a mesh whose vocab is stored cut, each model rank's
+    slice gathered."""
+    logits = _logits(cfg, top, h, per_row)
     if model_sharded(ctx, cfg.vocab_size):
         logits = CL.gather_from(logits, ctx.model_group, -1)
     return logits
@@ -560,7 +570,8 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     h = apply_norm(cfg, top["ln_f"], h)
     h_last = h[torch.arange(A_run, device=dev),
                torch.clamp(valid_len - 1, min=0)]
-    logits = _serve_logits(cfg, top, h_last, ctx if ranked else None)
+    logits = _serve_logits(cfg, top, h_last, ctx if ranked else None,
+                           per_row=True)
     if slots_cut:
         whole = logits.new_zeros((Ac, logits.shape[1]))
         whole[rows[:n_write]] = logits[:n_write]

@@ -61,9 +61,17 @@ length), and raises if not. Each rank snapshots its own slice of the
 cache under ``snapshot_dir/rank_<r>``; a restore takes the newest step
 every rank committed.
 
-Not ported yet: the disaggregated topology (the router and its workers,
-``export_handoff``/``migrate``; ROADMAP Queue 1 item 9):
-``EngineConfig(disagg=True).build`` raises by name.
+The worker API of the disaggregated topology (``serving/disagg.py``):
+``prefill_step()``/``decode_step()``, the two phases of ``step()``; a
+``role`` ("prefill", "decode") that builds only the step it runs; and the
+page-migration handoff, ``export_handoff(slot)`` -> :class:`Handoff` ->
+``migrate(handoff)``: a finished prefill's written pages and per-slot SSM
+carry move into another engine's pool as copies, and the request resumes
+there at its prefill position without a second prefill. On a mesh each
+rank's handoff holds its own slice of the pages (its kv heads, or the
+whole pool where the pool is not cut), and a slot's SSM row, which lives
+on one dp rank where the slots are cut, is gathered over dp at export.
+``EngineConfig(disagg=True).build`` returns the ``Router``.
 """
 from __future__ import annotations
 
@@ -246,6 +254,32 @@ def _req_from_json(d: Dict) -> Request:
     return Request(status=RequestStatus(d["status"]), **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class Handoff:
+    """One finished prefill crossing the worker boundary: what a decode
+    pool needs to resume the request at its prefill position without a
+    second prefill (``repro.serving.engine.Handoff``). ``kv`` holds copies
+    of the written pages and of the slot's SSM carry, never views of the
+    exporting pool: that pool reclaims the pages as the export returns and
+    updates its cache in place, and the router re-migrates from the same
+    record after a decode worker is lost.
+
+    ``pages``: the source pool's page ids for the request's whole
+    ``prompt + max_new`` budget; only the ``n_content_pages`` prefix holds
+    written K/V and travels in ``kv`` (the tail's contents are masked by
+    position, as in a reused slot). On a mesh ``kv`` is this rank's
+    slice."""
+    rid: int
+    req_json: Dict              # request state at handoff (tokens=[first])
+    pos: int                    # cache position = prompt length
+    last_tok: int               # feeds the first decode step
+    budget_tokens: int          # prompt + max_new (import page budget)
+    pages: Tuple[int, ...]      # source page ids, block-table order
+    block_table: Tuple[int, ...]  # source row (import cross-check)
+    n_content_pages: int        # written prefix actually copied
+    kv: Tuple                   # per cache entry: K/V page copies | SSM row
+
+
 class ServeEngine:
     """``params``: the full one-rank tree (``lm.init_params``' layout), or
     None to draw it from ``seed``. On a mesh every rank draws or is handed
@@ -405,6 +439,11 @@ class ServeEngine:
         self.expired = 0
         self.quarantined = 0
         self._consec_failures = 0
+        # page-migration accounting (the disaggregated handoff)
+        self.handoffs_out = 0       # finished prefills exported
+        self.migrations_in = 0      # handoffs imported into this pool
+        self.pages_exported = 0     # content pages copied out
+        self.pages_imported = 0     # content pages copied in
 
     # -- the mesh's shared readings ----------------------------------------
 
@@ -844,8 +883,8 @@ class ServeEngine:
         return n
 
     def _after_phases(self):
-        """Hook between the scheduler phases and the periodic snapshot (the
-        JAX package's prefill worker exports its handoffs here)."""
+        """Hook between the scheduler phases and the periodic snapshot
+        (``disagg.PrefillWorker`` exports its handoffs here)."""
 
     def _decode_once(self):
         t0 = time.perf_counter()
@@ -879,6 +918,127 @@ class ServeEngine:
             self.last_tok[slot] = int(nxt[slot])
             if self._record_token(req, int(nxt[slot]), len(req.tokens)):
                 self._retire(slot)
+
+    # -- page-migration handoff (disaggregated prefill/decode) --------------
+
+    def _slot_home(self, slot: int) -> Tuple[bool, int]:
+        """Whether this rank holds ``slot``'s SSM row, and its index here:
+        on a mesh whose slots are cut over dp only one dp rank holds it."""
+        layout = (self.decode or self.prefill)["layout"]
+        if layout is None or not layout.slots_cut:
+            return True, slot
+        base = SH._dp_index(self.ctx, self.ctx.dp_axes) * layout.local_slots
+        return base <= slot < base + layout.local_slots, slot - base
+
+    def _slot_row(self, t: torch.Tensor, slot: int) -> torch.Tensor:
+        """A copy of ``slot``'s row of a per-slot cache entry (n_periods,
+        slots, ...); where the slots are cut over dp, gathered over dp from
+        the rank that holds it (a collective every rank reaches)."""
+        layout = (self.decode or self.prefill)["layout"]
+        if layout is None or not layout.slots_cut:
+            return t[:, slot].clone()
+        mine, local = self._slot_home(slot)
+        row = (t[:, local] if mine else torch.zeros_like(t[:, 0]))
+        got = CL.all_gather(row.contiguous(),
+                            self.mesh.group(self.ctx.dp_axes))
+        return got[slot // layout.local_slots].clone()
+
+    def export_handoff(self, slot: int) -> Handoff:
+        """Detach a live request from this engine as a :class:`Handoff`:
+        copy its written K/V pages (and its slot's SSM carry) out of the
+        pools, free the slot and its pages, and return the record. The
+        request is not retired: it goes on in whichever engine imports
+        the handoff, and this one forgets it (its capacity is back at
+        once)."""
+        if not self.paged:
+            raise RuntimeError("page-migration handoff needs a paged cache")
+        req = self.slot_req[slot]
+        if req is None or not self.live[slot]:
+            raise RuntimeError(f"export_handoff({slot}): slot is not live")
+        pos = int(self.pos[slot])
+        n_content = pages_for(pos, self.page_size)
+        owned = self.alloc.owned(slot)
+        content = self._tensor(np.asarray(owned[:n_content]))
+        kv = []
+        for e in self.cache:
+            if "k" in e:     # shared page pool: copy the written prefix
+                kv.append({k: e[k].index_select(1, content)
+                           for k in ("k", "v")})
+            else:            # dense per-slot SSM carry: copy the slot row
+                kv.append({k: self._slot_row(e[k], slot) for k in e})
+        hand = Handoff(rid=req.rid, req_json=_req_to_json(req), pos=pos,
+                       last_tok=int(self.last_tok[slot]),
+                       budget_tokens=len(req.prompt) + req.max_new,
+                       pages=tuple(owned),
+                       block_table=tuple(int(p) for p in
+                                         self.block_tables[slot]),
+                       n_content_pages=n_content, kv=tuple(kv))
+        self.alloc.export_pages(slot)
+        self.block_tables[slot] = 0
+        self.slot_req[slot] = None
+        self.live[slot] = False
+        self.pos[slot] = 0
+        req.slot = -1
+        self.handoffs_out += 1
+        self.pages_exported += n_content
+        return hand
+
+    def can_import(self, hand: Handoff) -> bool:
+        """Whether :meth:`migrate` would succeed now (a free slot and the
+        handoff's whole page budget): the router's backpressure gate; a
+        False keeps the handoff queued at the router."""
+        free = any(not self.live[s] and self.slot_req[s] is None
+                   for s in range(self.B))
+        return (self.paged and free
+                and self.alloc.can_admit(hand.budget_tokens))
+
+    def migrate(self, hand: Handoff) -> bool:
+        """Import a migrated prefill: bind a free slot, allocate the
+        destination page budget (``import_pages``: fresh ids, the
+        handoff's metadata cross-checked), copy the content pages and the
+        SSM carry into the pools, and resume the request at its handoff
+        position. Returns False with no side effect when no slot or pages
+        are free (backpressure); raises AllocatorError on a torn handoff,
+        and ValueError on a handoff whose copies have another dtype or
+        device than this pool (no conversion)."""
+        if not self.paged:
+            raise RuntimeError("page-migration handoff needs a paged cache")
+        if self.role == "prefill":
+            raise RuntimeError("prefill-role worker cannot import decodes")
+        if not self.can_import(hand):
+            return False
+        for e, h in zip(self.cache, hand.kv):
+            for k, t in h.items():
+                if t.dtype != e[k].dtype or t.device != e[k].device:
+                    raise ValueError(
+                        f"migrate: handoff {hand.rid}'s {k} is {t.dtype} on "
+                        f"{t.device}, this pool's {e[k].dtype} on "
+                        f"{e[k].device}")
+        slot = next(s for s in range(self.B)
+                    if not self.live[s] and self.slot_req[s] is None)
+        dst = self.alloc.import_pages(slot, hand.pages, hand.block_table)
+        row = np.zeros((self.max_blocks,), np.int64)
+        row[:len(dst)] = dst
+        self.block_tables[slot] = row
+        dst_content = self._tensor(np.asarray(dst[:hand.n_content_pages]))
+        mine, local = self._slot_home(slot)
+        for e, h in zip(self.cache, hand.kv):
+            if "k" in e:
+                for k in ("k", "v"):
+                    e[k].index_copy_(1, dst_content, h[k])
+            elif mine:
+                for k in e:
+                    e[k][:, local] = h[k]
+        req = _req_from_json(hand.req_json)
+        req.slot = slot
+        req.status = RequestStatus.RUNNING
+        self.slot_req[slot] = req
+        self.pos[slot] = hand.pos
+        self.last_tok[slot] = hand.last_tok
+        self.live[slot] = True
+        self.migrations_in += 1
+        self.pages_imported += hand.n_content_pages
+        return True
 
     # -- snapshot / restore / recovery --------------------------------------
 
@@ -1104,9 +1264,9 @@ class EngineConfig:
     """Engine construction as one validated dataclass, in the groups the
     CLI shows (engine / paging / robustness / chaos / disagg), with the
     JAX package's fields, defaults and flag names. ``build(model_cfg)``
-    returns a :class:`ServeEngine`; with ``disagg`` set it raises
-    ``NotImplementedError`` (the router topology is ROADMAP Queue 1 item
-    9). ``add_cli_args``/``from_cli_args`` map the flags."""
+    returns a :class:`ServeEngine`, or with ``disagg`` set the
+    ``serving.disagg.Router`` topology. ``add_cli_args``/``from_cli_args``
+    map the flags."""
     # engine
     max_seq: int = 256
     batch_size: int = 4
@@ -1190,18 +1350,20 @@ class EngineConfig:
     def build(self, model_cfg, params=None, mesh=None,
               clock: Optional[Callable[[], float]] = None,
               on_token: Optional[Callable[[int, int, int], None]] = None,
-              faults="auto", device: DeviceLike = None) -> ServeEngine:
-        """The engine this config describes. ``faults="auto"`` derives the
-        injector from the chaos group; pass an injector or None to
-        override. Chaos with ``recover`` unset turns recovery on."""
+              faults="auto", device: DeviceLike = None):
+        """The engine this config describes (with ``disagg``, the
+        ``Router``). ``faults="auto"`` derives the injector from the chaos
+        group; pass an injector or None to override (disagg: a mapping
+        ``{(role, index): FaultInjector}``). Chaos with ``recover`` unset
+        turns recovery on."""
+        if self.disagg:
+            from repro_torch.serving.disagg import Router
+            return Router(model_cfg, self, params=params, mesh=mesh,
+                          clock=clock, on_token=on_token, faults=faults,
+                          device=device)
         recover = self.recover
         if recover is None and self.chaos_rate > 0:
             recover = True
-        if self.disagg:
-            raise NotImplementedError(
-                "the disaggregated topology (router, prefill and decode "
-                "workers, page-migration handoff) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
         inj = self.make_faults() if faults == "auto" else faults
         return ServeEngine(
             model_cfg, params=params, mesh=mesh, max_seq=self.max_seq,
@@ -1254,8 +1416,7 @@ class EngineConfig:
         g.add_argument("--chaos-seed", type=int, default=0)
         g = ap.add_argument_group("disagg")
         g.add_argument("--disagg", action="store_true",
-                       help="router/worker topology (needs --page-size; "
-                            "not ported yet)")
+                       help="router/worker topology (needs --page-size)")
         g.add_argument("--prefill-workers", type=int, default=1)
         g.add_argument("--decode-workers", type=int, default=1)
         g.add_argument("--prefill-slots", type=int, default=0,

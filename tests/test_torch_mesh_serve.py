@@ -68,6 +68,14 @@ free pages; the injector's events; the newest snapshot's scheduler blob)
 equal to JAX's one-rank engine's under the same plan and an unskewed
 clock. A rank given another fault plan makes every rank raise.
 
+(h) The disaggregated topology on the mesh (``selftest.run_disagg``:
+``EngineConfig(disagg=True).build(mesh=)``, every worker on the mesh, 2
+prefill and 4 decode slots, the clocks skewed by rank): qwen2-moe on
+(1, 4) and (2, 2), a decode-worker crash with snapshots on (2, 2), and
+mamba2's SSM carry on (2, 2), whose dp-cut slot rows are gathered over dp
+at export: every rank's streams, statuses, errors, ``summary()``,
+emissions and injected crashes equal to JAX's one-rank Router's.
+
 MoE capacity is the expert count (no drop): capacity follows the local
 token count, so a mesh would drop other tokens than one rank does. The
 ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
@@ -239,6 +247,19 @@ for _i, _s in enumerate(LIFECYCLE):
 # every rank but rank 1 runs without faults: the poisoned row retires on
 # rank 1 only, and the next step's checksum makes every rank raise
 LIFE_DIVERGE = ("dp2mp2", {"1": {"nan_rows": {"3": 1}}})
+# the disaggregated topology (router 1x1, 2 prefill and 4 decode slots,
+# both cut over dp on (2, 2)): name -> (layout, ref, the cell's extras)
+DISAGG_EC = dict(max_seq=ENGINE["max_seq"], chunk=ENGINE["chunk"],
+                 page_size=PAGE, prefill_slots=2, decode_slots=4)
+DISAGG = {
+    "disagg-qmoe-14": ("dp1mp4", "qmoe", {}),
+    "disagg-qmoe-22": ("dp2mp2", "qmoe", {}),
+    "disagg-qmoe-22-crash": ("dp2mp2", "qmoe", {
+        "crash_workers": {"8": ["decode", 0]}, "snapshot": True,
+        "ec": dict(DISAGG_EC, snapshot_every=2, max_restarts=4,
+                   recover=True)}),
+    "disagg-mamba2-22": ("dp2mp2", "mamba2", {}),
+}
 PLANS = {"prefill": dict(impl="naive", ring_group=1, n_col_blocks=1,
                          gemm_impl="xla", phase="prefill"),
          "decode": dict(impl="coarse", ring_group=1, n_col_blocks=1,
@@ -479,6 +500,35 @@ def _lifecycle_refs(params, prompts):
     return out
 
 
+def _disagg_refs(params, todo):
+    """JAX's one-rank Router through each disagg cell, on an unskewed
+    clock: {name: record}."""
+    import tempfile
+
+    from repro.serving import EngineConfig, FaultInjector, FaultPlan
+    out = {}
+    for name, (_, ref, extra) in DISAGG.items():
+        clock, emissions = ST.ScriptClock(), []
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = dict(extra.get("ec", DISAGG_EC))
+            if extra.get("snapshot"):
+                kw["snapshot_dir"] = tmp
+            ec = EngineConfig(disagg=True, **kw)
+            inj = None
+            if extra.get("crash_workers"):
+                plan = ST.plan_from_json(
+                    FaultPlan, {"crash_workers": extra["crash_workers"]})
+                inj = {t: FaultInjector(plan, role=t)
+                       for t in ec.worker_targets()}
+            router = ec.build(_jax_cfg(ref), params=params[ref], clock=clock,
+                              on_token=lambda *e: emissions.append(e),
+                              faults=inj)
+            rec = ST.run_disagg(router, todo[f"engine-{ref}"][1],
+                                ENGINE["max_new"], emissions, inj)
+        out[name] = json.loads(json.dumps(rec))
+    return out
+
+
 def _plan_counts():
     """The MoE token counts of the plan cell's calls at ep 4 on (1, 4):
     a decode step routes the slots, a prefill chunk its stack (1 to
@@ -543,6 +593,13 @@ def _jobs(layout, in_dir):
                 plan=plan, engine_kw=dict(
                     kw, **({"page_size": PAGE} if paged else {})),
                 **extra, **ENGINE))
+    for name, (lay, ref, extra) in DISAGG.items():
+        if lay == layout:
+            jobs.append(dict({"ec": DISAGG_EC, **extra}, name=name,
+                             kind="disagg", arch=REFS[ref][0],
+                             over=_over(ref, moe if ref == "qmoe" else None),
+                             data=f"engine-{ref}",
+                             max_new=ENGINE["max_new"]))
     lay, plans = LIFE_DIVERGE
     if lay == layout:
         jobs.append(dict(name="life-diverge", kind="lifecycle",
@@ -580,6 +637,7 @@ def run(tmp_path_factory):
     # after the ranks end: a long run of small XLA calls beside them
     # starves the ranks of cores
     refs.update(_lifecycle_refs(params, todo["engine-qmoe"][1]))
+    refs.update(_disagg_refs(params, todo))
     return outs, refs
 
 
@@ -870,8 +928,8 @@ def test_kv_cache_per_rank_is_a_quarter_on_1x4():
 
 
 def test_unported_serving_paths_raise_by_name():
-    """The monolithic prefill raises, naming its ROADMAP item (10), and so
-    does the disaggregated topology (item 9) once its config validates;
+    """The monolithic prefill raises, naming its ROADMAP item (10); the
+    disaggregated topology builds its Router once its config validates;
     the paged arm of the sharded decode attention runs: through a block
     table it gives the decode over the gathered logical view, and a pool
     is never taken over positions."""
@@ -882,9 +940,9 @@ def test_unported_serving_paths_raise_by_name():
     shape = ShapeConfig("serve", 32, 4, "decode")
     with pytest.raises(NotImplementedError, match="item 10"):
         TS.build_prefill_step(cfg, shape)
-    from repro_torch.serving import EngineConfig
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EngineConfig(disagg=True, page_size=8).build(cfg, device="cpu")
+    from repro_torch.serving import EngineConfig, Router
+    assert isinstance(EngineConfig(disagg=True, page_size=8).build(
+        cfg, device="cpu"), Router)
     with pytest.raises(ValueError, match="paged KV cache"):
         EngineConfig(disagg=True)
     gen = torch.Generator().manual_seed(0)
@@ -1095,6 +1153,35 @@ def test_lifecycle_scripts_reach_each_path(run):
         if paged:
             assert rec["injected"][0]["page_squeeze"] == 1
             assert rec["free_pages"] == PAGED_POOL_ENGINE - 1
+
+
+# ---------------------------------------------------------------------------
+# (h) the disaggregated topology
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", list(DISAGG))
+def test_disagg_matches_jax(run, cell):
+    """Every rank's router (every worker on the mesh, each rank's handoffs
+    its slice of the pages, a dp-cut slot's SSM row gathered over dp)
+    gives JAX's one-rank Router's record: the streams, statuses, errors,
+    ``summary()`` (migrations, pages moved, re-migrations, duplicates, per
+    worker), the emissions in order and the injected crashes."""
+    layout = DISAGG[cell][0]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    assert len(_ranks(got)) == 4
+    for r in _ranks(got):
+        assert json.loads(str(got[f"rank{r}/record"])) == want, (r, cell)
+    assert {v[2] for v in want["requests"].values()} == {"ok"}
+    s = want["summary"]
+    assert s["migrations"] >= len(PROMPT_LENS)
+    if "crash" in cell:         # two rids migrated after the snapshot
+        assert s["failures"] == s["recoveries"] == 1
+        assert want["injected"]["decode0"]["crash"] == 1
+        assert s["remigrations"] == 2
+    keys = {(e[0], e[1]) for e in want["emissions"]}
+    assert len(keys) == len(want["emissions"])            # each once
 
 
 def test_lifecycle_raises_when_a_fault_plan_diverges(run):
