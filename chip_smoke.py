@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all sixteen phases, one card
+  python3 chip_smoke.py              # all eighteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
   python3 chip_smoke.py --only build,serve_lifecycle
   python3 chip_smoke.py --only build,serve_disagg
   python3 chip_smoke.py --only build,stack_bits
+  python3 chip_smoke.py --only build,train_scheduled,prefill
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -40,7 +41,10 @@ Phases:
              shape and a ragged one; rmsnorm in both epilogues at the
              paths' widths and the JAX test's shapes, non-unit scales.
              Later cases: ssd_forward at jamba-v0.1-52b's SSM shape (128
-             heads, d_state 16) and at a small shape. At the small shape,
+             heads, d_state 16) and at a small shape; phase 18's shapes
+             (fused_mlp at qwen2's no-drop capacity for 8 x 512 tokens,
+             R 4096; flash_attention on 8 x 512; ssd_forward from a
+             zero state returning h_final at 4 x 1024). At the small shape,
              the train shape and the serving chunk, over 8 seeded draws,
              the tensor-core kernel is held to its rule against the fp64
              sequential oracle (ssd.ORACLE_*: y's max error within 2x
@@ -283,6 +287,31 @@ Phases:
              64 --prefill-workers 1 --decode-workers 1`` (the mixed
              trace, capacity 1.25): every request terminal, the
              router's summary printed.
+ 17 train_scheduled  the earlier phases' state is freed first. Phase 6's
+             step (qwen2-moe-2.7b, 4 layers at full width, bf16, comet,
+             pallas_fused, 4 x 1024 tokens) under schedule "" (remat),
+             "sequential" and "overlap" (the block-schedule IR: layers
+             unrolled, no remat). Loss and every gradient of one
+             fwd+bwd from the same weights: the two scheduled orders
+             the same bits, each within bf16 2e-2 of the remat one
+             (identical leaves counted); launches per mode as predicted
+             (forward once without remat, twice with it), every
+             fused_mlp, dgrad, wgrad and flash launch on the wgmma path.
+             Then the three train steps in turns (a warm-up each, 2
+             rounds): ms, tokens/s, peak memory, launches a step.
+ 18 prefill  the monolithic prefill (lm.prefill, the cache stitched into
+             a decode cache, decode_step with rope_pos and kv_start)
+             beside the chunked admission (stacked prefill_chunk calls of
+             256) of the same prompts, counters zeroed before and read
+             after 3 timed prefill calls. qwen2-moe-2.7b whole (bf16,
+             seed 0, pallas_fused, no-drop capacity): 8 prompts of 512
+             tokens (every flash_attention and fused_mlp launch on the
+             wgmma path) and 8 of 64-512 left-padded (masked attention),
+             32 decode steps each: the first decode logits within 2e-2
+             (rel L2) of the chunked path's, identical streams counted;
+             mamba2-780m whole, 4 x 1024 tokens: every ssd_forward (a
+             zero state, h_final returned) on the tensor-core path.
+             ms, tokens/s, peak memory and launches of each.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -333,7 +362,7 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
           "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle",
-          "serve_disagg")
+          "serve_disagg", "train_scheduled", "prefill")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
@@ -379,6 +408,10 @@ HYBRID_CASES = {
     "ssd_forward": (HYBRID_SSD_CASE,),
     "rmsnorm": tuple(f"T={T} d={d} model" for T in (2048, 8)
                      for d in (4096, 8192))}
+# phase 2's cases at phase 18's shapes
+PREFILL_MLP_CASE = "prefill no-drop R=4096 expert_major"
+PREFILL_FLASH_CASE = "prefill B8 H16 S512 hd128"
+PREFILL_SSD_CASE = "prefill final A4 S1024 nh48 hd64 ds128"
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
 TRAIN_LAYERS = 4
@@ -673,6 +706,17 @@ def kernel_cases():
                           dict(T=T, d=d, epi="model")))
         cases.append(("topk_combine", "T=8 k=2 d=4096", dt,
                       dict(T=8, k=2, d=4096)))
+    # phase 18's shapes (the monolithic prefill): fused_mlp at qwen2's
+    # no-drop capacity for 8 x 512 tokens (C = T = 4096 rows per expert),
+    # the flash kernel on 8 unmasked prompts of 512, and the SSD from a
+    # zero state returning h_final at mamba2-780m's 4 x 1024
+    cases.append(("fused_mlp", PREFILL_MLP_CASE, "bf16",
+                  dict(R=4096, order="expert_major", col=None)))
+    for dt in ("bf16", "fp32"):
+        cases.append(("flash_attention", PREFILL_FLASH_CASE, dt,
+                      dict(B=8, Hq=16, Hkv=16, S=512, hd=128, c=True)))
+        cases.append(("ssd_forward", PREFILL_SSD_CASE, dt,
+                      dict(B=4, S=1024, nh=48, hd=64, ds=128, final=True)))
     return cases
 
 
@@ -736,14 +780,16 @@ def ssd_case(dt, spec, gen):
     ins = (x, dtv, A, Bm, Cm, D)
     h0 = (torch.randn((B, nh, ds, hd), device="cuda", generator=gen)
           if spec.get("state") else None)
+    # the stateful form: from h0 (or a zero state with "final") to h_final
+    final = bool(spec.get("state") or spec.get("final"))
 
     def kf():
-        if h0 is None:
+        if not final:
             return ssd.ssd_forward(*ins)
         return ssd.ssd_forward_state(*ins, h0)
 
     def pf():
-        if h0 is None:
+        if not final:
             return ref.ssd_chunked_ref(*ins, chunk=ssd.CHUNK)
         return ref.ssd_state_ref(*ins, h0, chunk=ssd.CHUNK)
 
@@ -752,18 +798,20 @@ def ssd_case(dt, spec, gen):
 
     def orc():   # the fp64 sequential oracle, as kf returns
         out = ref.ssd_ref(*ins, acc=torch.float64, h0=h0, return_state=True)
-        return out[0] if h0 is None else out
+        return out if final else out[0]
 
     def one_term():   # the tensor-core arithmetic with one bf16 term
         out = ref.ssd_split_ref(*ins, h0, terms=1, slab=ssd.HOPPER_SLAB,
                                 chunk=ssd.CHUNK)
-        return out[0] if h0 is None else out
+        return out if final else out[0]
 
     isz = 2 if dt == torch.bfloat16 else 4
     nbytes = (2 * B * S * nh * hd + 2 * B * S * ds) * isz \
         + B * S * nh * 4 + 2 * nh * 4
-    if h0 is not None:                   # the state read and written
-        nbytes += 2 * B * nh * ds * hd * 4
+    if h0 is not None:                   # the state read
+        nbytes += B * nh * ds * hd * 4
+    if final:                            # and written
+        nbytes += B * nh * ds * hd * 4
     Q = ssd.CHUNK
     nc = -(-S // Q)
     cb = 2 * B * nc * Q * Q * ds
@@ -4396,6 +4444,418 @@ def phase_stack_bits(state, out):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the train step through the block-schedule IR
+# ---------------------------------------------------------------------------
+
+
+# "" = phase 6's period-at-a-time step under remat; the other two run the
+# layers unrolled through the IR, without remat
+SCHED_MODES = ("", "sequential", "overlap")
+SCHED_TURNS = 2
+
+
+def sched_launches(L, remat):
+    """The launches one fwd+bwd of phase 6's configuration makes per
+    kernel: the forward's (twice under remat: its recompute), one dgrad
+    and one wgrad per MoE layer, 2L+1 norms a forward."""
+    f = 2 if remat else 1
+    return {"fused_mlp": f * L, "fused_mlp_hopper": f * L,
+            "topk_combine": f * L, "fused_mlp_dgrad": L,
+            "fused_mlp_dgrad_hopper": L, "fused_mlp_wgrad": L,
+            "fused_mlp_wgrad_hopper": L, "grouped_gemm": 0,
+            "grouped_gemm_hopper": 0, "flash_attention": f * L,
+            "flash_attention_hopper": f * L, "ssd_forward": 0,
+            "ssd_forward_hopper": 0, "rmsnorm": f * 2 * L + 1}
+
+
+def phase_train_scheduled(state, out):
+    """Phase 6's qwen2-moe-2.7b step (4 layers at full width, bf16, comet,
+    pallas_fused, 4 x 1024 tokens) through the block-schedule IR
+    (``build_train_step(schedule=)``): (1) loss and every gradient of one
+    fwd+bwd from the same weights under schedule "" (remat), "sequential"
+    and "overlap", launch counters zeroed before and read after each: the
+    two scheduled runs give the same bits (loss and every leaf), each
+    within bf16 2e-2 of the remat run (per leaf rel L2; identical leaves
+    counted), every fused_mlp, dgrad, wgrad and flash launch on the wgmma
+    path, the plain versions seeing no CUDA tensor. (2) The three steps
+    (AdamW) in turns, a warm-up step each, then SCHED_TURNS rounds: ms,
+    tokens/s, max_memory_allocated and launches per step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import AdamW
+    state.clear()
+    torch.cuda.empty_cache()
+    L = TRAIN_LAYERS
+    cfg = train_cfg(L, "bfloat16")
+    params = lm.init_params(cfg, seed=2, device="cuda")
+    batch = train_batch(cfg)
+    rec = {"grads": {}, "steps": {}}
+    runs = {}
+    for mode in SCHED_MODES:
+        c = dataclasses.replace(cfg, block_schedule=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with PlainGuard() as guard:
+            runs[mode] = loss_and_grads(c, params, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = sched_launches(L, remat=not mode)
+        rec["grads"][mode or "remat"] = {
+            "loss": float(runs[mode][0]),
+            "fwd_bwd_ms": (time.perf_counter() - t0) * 1e3,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts, "plain_calls_on_cuda": guard.cuda_calls}
+        check(counts == want, f"{mode or 'remat'}: launches {counts}, "
+                              f"expected {want}")
+        check(guard.cuda_calls == 0,
+              f"{mode or 'remat'}: plain versions saw CUDA tensors")
+    (ls, gs), (lo, go), (lr, gr) = (runs[m] for m in ("sequential",
+                                                       "overlap", ""))
+    same = [p for p in gs if torch.equal(gs[p], go[p])]
+    rel = {"/".join(map(str, p)): rel_l2(go[p], gr[p]) for p in go}
+    ident = sum(torch.equal(go[p], gr[p]) for p in go)
+    loss_rel = abs(float(lo) - float(lr)) / abs(float(lr))
+    rec["compare"] = {
+        "leaves": len(go), "sequential_overlap_identical": len(same),
+        "loss_identical": bool(torch.equal(ls, lo)),
+        "vs_remat_loss_rel_err": loss_rel,
+        "vs_remat_loss_identical": bool(torch.equal(lo, lr)),
+        "vs_remat_identical_leaves": ident,
+        "vs_remat_grad_rel_l2_max": max(rel.values()),
+        "vs_remat_grad_rel_l2": rel}
+    log("  " + json.dumps({k: v for k, v in rec["compare"].items()
+                           if k != "vs_remat_grad_rel_l2"}))
+    check(torch.equal(ls, lo) and len(same) == len(gs),
+          f"sequential and overlap differ: loss {float(ls)} / {float(lo)}, "
+          f"{len(same)} of {len(gs)} leaves identical")
+    check(loss_rel <= TOL["bf16"] and max(rel.values()) <= TOL["bf16"],
+          f"scheduled step against the remat step: loss rel err "
+          f"{loss_rel:.3e}, worst leaf {max(rel.values()):.3e} > 2e-2")
+    del runs, gs, go, gr
+    for _, t in tree_leaves(params):
+        t.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    # (2) the steps in turns, from one state updated in place
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    steps = {m: build_train_step(cfg, shape, schedule=m)["fn"]
+             for m in SCHED_MODES}
+    tstate = {"params": params, "opt": AdamW().init(params), "step": 0}
+    batches = [train_batch(cfg, step=i) for i in range(1 + SCHED_TURNS)]
+    for m in SCHED_MODES:                         # warm-up
+        tstate, _ = steps[m](tstate, batches[0])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for m in SCHED_MODES:
+        rec["steps"][m or "remat"] = {"runs": []}
+    for turn in range(SCHED_TURNS):
+        for m in SCHED_MODES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            tstate, met = steps[m](tstate, batches[1 + turn])
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            rec["steps"][m or "remat"]["runs"].append({
+                "ms": ms, "loss": loss, "skipped": met["skipped"],
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts})
+            check(np.isfinite(loss) and not met["skipped"],
+                  f"{m or 'remat'}: non-finite or skipped step")
+            check(counts == sched_launches(L, remat=not m),
+                  f"{m or 'remat'} step launches {counts}")
+    for m, r in rec["steps"].items():
+        r["step_ms_median"] = statistics.median(x["ms"] for x in r["runs"])
+        r["tokens_per_s"] = tokens / r["step_ms_median"] * 1e3
+        r["max_memory_allocated_gb"] = max(x["max_memory_allocated_gb"]
+                                           for x in r["runs"])
+        r["launches"] = r["runs"][-1]["launches"]
+        log(f"  {m}: {r['step_ms_median']:.1f} ms a step, "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak "
+            f"{r['max_memory_allocated_gb']:.2f} GB")
+    out["train_scheduled"] = rec
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the monolithic prefill and its left-padded decode
+# ---------------------------------------------------------------------------
+
+
+PREFILL_EQUAL = (8, 512)                   # rows, tokens each
+PREFILL_MIXED = (8, 64, 512)               # rows, shortest, longest
+PREFILL_DECODE = 32
+PREFILL_SSM = (4, 1024)
+PREFILL_ITERS = 3
+PREFILL_CHUNK = 256
+# the bf16 floor: the chunked admission at another chunk, against 256
+PREFILL_FLOOR_CHUNK = 128
+
+
+def _left_padded(prompts):
+    """(tokens, mask or None, pads) of prompts left-padded to the longest,
+    on the card; no mask when every prompt has the longest's length."""
+    import torch
+    plen = max(len(p) for p in prompts)
+    toks = torch.zeros((len(prompts), plen), dtype=torch.long)
+    mask = torch.zeros((len(prompts), plen), dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = torch.tensor(p)
+        mask[i, plen - len(p):] = True
+    pads = (plen - mask.sum(1)).cuda()
+    return toks.cuda(), (None if bool(mask.all()) else mask.cuda()), pads
+
+
+def _greedy(cfg, params, cache, nxt, t_pos, steps, **kw):
+    """``steps`` greedy decode steps from the tokens ``nxt`` at write
+    indices ``t_pos`` (RoPE positions ``kw["rope_pos"]`` + t where given):
+    (the first step's logits, the tokens, prefill token first, per row)."""
+    import torch
+
+    from repro_torch.models import lm
+    streams, first = [nxt.tolist()], None
+    for t in range(steps):
+        step_kw = dict(kw)
+        if "rope_pos" in kw:
+            step_kw["rope_pos"] = kw["rope_pos"] + t
+        lg, cache = lm.decode_step(cfg, params, cache, nxt[:, None],
+                                   t_pos + t, **step_kw)
+        first = lg if first is None else first
+        nxt = torch.argmax(lg, -1)
+        streams.append(nxt.tolist())
+    return first, [list(s) for s in zip(*streams)]
+
+
+def monolithic(cfg, params, prompts, steps, forced, timed=True):
+    """lm.prefill of the left-padded prompts, timed over PREFILL_ITERS
+    calls after a warm-up (launch counters zeroed before, read after),
+    its cache stitched into a decode cache: ``steps`` greedy decode steps
+    at each row's real position (rope_pos, kv_start), and one decode step
+    of the tokens ``forced`` from a second stitch. Returns (record, the
+    prefill's logits, the forced step's logits, the streams)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serving import stitch_prefill_cache
+    toks, mask, pads = _left_padded(prompts)
+    n, plen = toks.shape
+    batch = {"tokens": toks} if mask is None else {"tokens": toks,
+                                                  "mask": mask}
+    if timed:
+        lm.prefill(cfg, params, batch)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms = []
+    with PlainGuard() as guard:
+        for _ in range(PREFILL_ITERS if timed else 1):
+            t0 = time.perf_counter()
+            logits, pre = lm.prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    real = sum(len(p) for p in prompts)
+    rec = {"rows": n, "padded_len": plen, "tokens": real,
+           "masked": mask is not None, "ms": ms,
+           "ms_median": statistics.median(ms),
+           "tokens_per_s": real / statistics.median(ms) * 1e3,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "plain_calls_on_cuda": guard.cuda_calls}
+    t_pos = torch.full((n,), plen, device="cuda")
+
+    def stitched():
+        return stitch_prefill_cache(cfg, lm.init_cache(
+            cfg, n, plen + steps, "cuda"), pre, plen)
+
+    kw = dict(rope_pos=plen - pads, kv_start=pads)
+    forced_first, _ = _greedy(cfg, params, stitched(), forced, t_pos, 1,
+                              **kw)
+    t0 = time.perf_counter()
+    _, streams = _greedy(cfg, params, stitched(), torch.argmax(logits, -1),
+                         t_pos, steps, **kw)
+    torch.cuda.synchronize()
+    rec["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    return rec, logits, forced_first, streams
+
+
+def chunked(cfg, params, prompts, steps, chunk=PREFILL_CHUNK, forced=None,
+            timed=True):
+    """The engine's admission of the same prompts: stacked prefill_chunk
+    calls of ``chunk`` tokens (each row from slot index 0, tail-padded,
+    identity rows once a prompt ends), timed over PREFILL_ITERS rounds,
+    then ``steps`` greedy decode steps, the first from ``forced`` (default
+    its own argmax). Returns (record, each row's prefill logits, the first
+    decode step's logits, the streams)."""
+    import torch
+
+    from repro_torch.models import lm
+    n = len(prompts)
+    lens = torch.tensor([len(p) for p in prompts], device="cuda")
+    plen = max(len(p) for p in prompts)
+    toks = torch.zeros((n, plen), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    toks = toks.cuda()
+    slots = torch.arange(n, device="cuda")
+
+    def admit():
+        cache = lm.init_cache(cfg, n, plen + steps, "cuda")
+        logits = None
+        for c0 in range(0, plen, chunk):
+            valid = torch.clamp(lens - c0, 0, chunk)
+            lg, cache = lm.prefill_chunk(
+                cfg, params, cache, toks[:, c0:c0 + chunk],
+                torch.full((n,), c0, device="cuda"), valid, slots)
+            ends = (lens > c0) & (lens <= c0 + chunk)
+            logits = lg if logits is None else torch.where(
+                ends[:, None], lg, logits)
+        return logits, cache
+
+    if timed:
+        admit()                                         # warm-up
+    ms = []
+    for _ in range(PREFILL_ITERS if timed else 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = admit()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"chunk": chunk, "ms": ms, "ms_median": statistics.median(ms),
+           "tokens_per_s": int(lens.sum()) / statistics.median(ms) * 1e3}
+    nxt = torch.argmax(logits, -1) if forced is None else forced
+    first, streams = _greedy(cfg, params, cache, nxt, lens, steps)
+    return rec, logits, first, streams
+
+
+def prefill_case(cfg, params, prompts, steps, want_launches, timed=True):
+    """The monolithic prefill beside the chunked admission of the same
+    prompts (each prefill's logits; the first decode step's from the
+    chunked path's first tokens; the free-running streams: identical
+    ones counted), and the floor between two chunked admissions (chunk
+    PREFILL_FLOOR_CHUNK against PREFILL_CHUNK, the same first tokens).
+    Returns the record."""
+    import torch
+    chunk, c_lg, c_first, c_streams = chunked(cfg, params, prompts, steps,
+                                              timed=timed)
+    forced = torch.argmax(c_lg, -1)
+    mono, m_lg, m_first, m_streams = monolithic(cfg, params, prompts,
+                                                steps, forced, timed)
+    _, f_lg, f_first, _ = chunked(cfg, params, prompts, 1,
+                                  PREFILL_FLOOR_CHUNK, forced, timed=False)
+    rec = {"monolithic": mono, "chunked": chunk,
+           "prefill_logits": compare_logits(m_lg, c_lg),
+           "first_decode_logits": compare_logits(m_first, c_first),
+           "floor_prefill_logits": compare_logits(f_lg, c_lg),
+           "floor_first_decode_logits": compare_logits(f_first, c_first),
+           "identical_streams": sum(a == b for a, b in zip(m_streams,
+                                                           c_streams)),
+           "streams": len(prompts)}
+    log("  " + json.dumps({k: v for k, v in rec.items()
+                           if k not in ("monolithic", "chunked")}))
+    log(f"  monolithic {mono['ms_median']:.1f} ms "
+        f"({mono['tokens_per_s']:.0f} tokens/s), chunked "
+        f"{chunk['ms_median']:.1f} ms ({chunk['tokens_per_s']:.0f})")
+    n = PREFILL_ITERS if timed else 1
+    check(mono["launches"] == {k: n * v for k, v in want_launches.items()},
+          f"prefill launches {mono['launches']}, expected "
+          f"{n} x {want_launches}")
+    check(mono["plain_calls_on_cuda"] == 0,
+          "plain versions saw CUDA tensors")
+    return rec
+
+
+def _prefill_launches(cfg, flash):
+    """One prefill call's launches: a fused_mlp and a topk_combine per MoE
+    layer, 2L+1 norms, a flash_attention per attention layer where the
+    batch is unmasked; the Hopper paths' alike in bf16."""
+    L = cfg.n_layers
+    hop = cfg.param_dtype == "bfloat16"
+    n = {k: 0 for k in read_counts()}
+    if cfg.moe is not None:
+        n.update(fused_mlp=L, fused_mlp_hopper=L * hop, topk_combine=L)
+    if flash:
+        n.update(flash_attention=L, flash_attention_hopper=L * hop)
+    n["rmsnorm"] = 2 * L + 1
+    return n
+
+
+def phase_prefill(state, out):
+    """The monolithic prefill (``lm.prefill``: the whole prompt in one
+    forward, the cache returned) and the left-padded decode it feeds
+    (``serving.stitch_prefill_cache``, ``decode_step(rope_pos=,
+    kv_start=)``), beside the chunked admission (stacked prefill_chunk
+    calls of 256) of the same prompts, launch counters zeroed before and
+    read after the prefill calls, each case 8 prompts of 512 tokens
+    (unmasked: the flash kernel) and 8 of 64-512 left-padded (masked).
+    (a) qwen2-moe-2.7b at full width, 4 layers, fp32 (pallas_fused,
+    no-drop capacity, seed 0): each prefill's logits and the first decode
+    step's (both paths fed the chunked path's first tokens) within fp32
+    1e-4 (rel L2) of the chunked path's. (b) qwen2 whole in bf16: 3
+    timed prefill calls (every flash_attention and fused_mlp launch on
+    the wgmma path), 32 decode steps; the logits' distances recorded
+    beside the floor between two chunked admissions (chunk 128 against
+    256), the identical streams counted. (c) mamba2-780m whole, 4 x 1024
+    tokens: every ssd_forward (a zero state, h_final returned) on the
+    tensor-core path, the distances recorded. ms, tokens/s, peak memory
+    and launches of each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import lm
+    state.clear()
+    torch.cuda.empty_cache()
+    cfg = with_gemm(get_config(ARCH), "pallas_fused")
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    n, S = PREFILL_EQUAL
+    equal = make_trace(cfg.vocab_size, n, S, S, 11)
+    n, lo, hi = PREFILL_MIXED
+    mixed = make_trace(cfg.vocab_size, n, lo, hi, 12)
+    rec = {}
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    p32 = lm.init_params(c32, seed=0, device="cuda")
+    for key, prompts, flash in (("fp32_equal", equal, True),
+                                ("fp32_mixed", mixed, False)):
+        rec[key] = prefill_case(c32, p32, prompts, 1,
+                                _prefill_launches(c32, flash), timed=False)
+        for what in ("prefill_logits", "first_decode_logits"):
+            err = rec[key][what]["rel_l2_err"]
+            check(err <= TOL["fp32"], f"{key}: {what} rel L2 {err:.3e} "
+                                      f"from the chunked path's")
+    del p32
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    for key, prompts, flash in (("bf16_equal", equal, True),
+                                ("bf16_mixed", mixed, False)):
+        rec[key] = prefill_case(cfg, params, prompts, PREFILL_DECODE,
+                                _prefill_launches(cfg, flash))
+    del params
+    torch.cuda.empty_cache()
+    scfg = ssm_cfg(get_config(SSM_ARCH).n_layers, "bfloat16")
+    sparams = lm.init_params(scfg, seed=0, device="cuda")
+    n, S = PREFILL_SSM
+    want = _prefill_launches(scfg, False)
+    want.update(ssd_forward=scfg.n_layers, ssd_forward_hopper=scfg.n_layers)
+    rec["mamba2"] = prefill_case(
+        scfg, sparams, make_trace(scfg.vocab_size, n, S, S, 13), 1, want)
+    out["prefill"] = rec
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -4645,6 +5105,23 @@ def kernel_records(out):
             "faults", {}).get("launches", {})
         if life_l:                    # phase 15's run under the fault plan
             extra["serve_lifecycle_launches"] = life_l.get(name, 0)
+        sched = out.get("train_scheduled", {}).get("steps", {})
+        if sched:                     # a train step of each order, phase 17
+            extra["train_scheduled_launches"] = {
+                m: r["launches"].get(name, 0) for m, r in sched.items()}
+        pre = out.get("prefill", {})
+        if pre:                       # phase 18's monolithic prefills
+            extra["prefill_launches"] = {
+                k: r["monolithic"]["launches"].get(name, 0)
+                for k, r in pre.items()}
+        pcase = {"fused_mlp": PREFILL_MLP_CASE,
+                 "flash_attention": PREFILL_FLASH_CASE,
+                 "ssd_forward": PREFILL_SSD_CASE}.get(name)
+        if pcase:                     # phase 2 at phase 18's shape
+            extra["prefill_case"] = {"case": pcase, **{
+                k: case_rec(name, pcase).get(k) for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms", "general_ms", "path")}}
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (
@@ -4731,7 +5208,8 @@ def main(argv=None):
              "profile_train", "train_ssm", "profile_train_ssm", "ranked",
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
-             "serve_lifecycle", "serve_disagg", "stack_bits", "nccl_pair")
+             "serve_lifecycle", "serve_disagg", "train_scheduled", "prefill",
+             "stack_bits", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -4796,6 +5274,10 @@ def main(argv=None):
                 phase_serve_lifecycle(state, out)
             elif name == "serve_disagg":
                 phase_serve_disagg(state, out)
+            elif name == "train_scheduled":
+                phase_train_scheduled(state, out)
+            elif name == "prefill":
+                phase_prefill(state, out)
             elif name == "stack_bits":
                 phase_stack_bits(state, out)
             elif name == "nccl_pair":

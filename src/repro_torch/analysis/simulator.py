@@ -378,6 +378,13 @@ def sim_e2e_graph(hw: Hardware, s: MoEShape, plan, d_model: int,
                   n_layers: int, n_slices: int = 2, training: bool = False,
                   scheduled: bool = True) -> float:
     """Whole-graph e2e: ``n_layers`` blocks through the block-schedule IR
-    (the JAX package's core/schedule.py), which is not ported: raises."""
-    raise NotImplementedError("sim_e2e_graph: the whole-graph model needs "
-                              "core/schedule.py, which is not ported")
+    (core/schedule.py) under a comet ``plan``. ``scheduled=False`` is the
+    layer-at-a-time per-layer-overlap baseline (same segments, per-block
+    barriers, no micro-slicing). Modeled on a two-block window and scaled:
+    the schedule is periodic, so per-block steady-state time is what an
+    L-layer stack repeats."""
+    from repro_torch.core import schedule as SCH   # lazy: an import cycle
+    t = SCH.graph_step_time(hw, s, plan, d_model=d_model, n_blocks=2,
+                            n_slices=n_slices, training=training,
+                            scheduled=scheduled)
+    return n_layers * t["total"] / 2.0

@@ -22,8 +22,9 @@ Two layers, as in the paper:
 
 The presets keep the JAX package's names and values. The port's default
 hardware key is ``h100_nvlink`` (the JAX package's is ``tpu_v5e``): it is
-the card the port runs on. The whole-graph terms need ``core/schedule.py``,
-which is not ported: they raise ``NotImplementedError``.
+the card the port runs on. The whole-graph terms (``ring_bubble_time``,
+``cross_layer_fill_time``, ``modeled_graph_step_time``) price the
+block-schedule IR of ``core/schedule.py``.
 """
 from __future__ import annotations
 
@@ -600,19 +601,17 @@ def candidate_plans(s: MoEShape, max_col_blocks: int = 8,
     trip vs. the per-column-block GEMM1 recompute), as is the comet
     ``fused_combine`` streaming-consumer flag.
 
-    ``include_graph=True`` would add the whole-graph variants
-    (``schedule="overlap"``), which rank on ``core/schedule.py``: not
-    ported, so it raises.
+    ``include_graph=True`` adds whole-graph variants of every comet
+    candidate that passes the gate: ``schedule="overlap"`` with 2 or 4
+    token micro-slices (one slice has no cross-layer freedom:
+    attn_{i+1} truly depends on combine_i). They rank on the two-block
+    graph model (``core/schedule.py``) against the per-layer candidates.
 
     ``hw`` (default H100_NVL) gates the fused backend's candidates
     (``analysis.kernel_check.plan_vmem_ok``): a TPU preset on its VMEM
     budget, as the JAX package gates every preset, a GPU preset on the
     port's fused kernel fitting one block's shared memory. A Hardware
     with ``vmem_bytes=0`` disables the gate."""
-    if include_graph:
-        raise NotImplementedError(
-            "candidate_plans(include_graph=True): the whole-graph "
-            "schedules rank on core/schedule.py, which is not ported")
     hw = H100_NVL if hw is None else hw
     from repro_torch.analysis.kernel_check import plan_vmem_ok
     n_cols = [n for n in range(1, max_col_blocks + 1)
@@ -630,6 +629,10 @@ def candidate_plans(s: MoEShape, max_col_blocks: int = 8,
                     if not plan_vmem_ok(s, p, hw):
                         continue
                     yield p
+                    if include_graph:
+                        for ns in (2, 4):
+                            yield Plan("comet", rg, n_col, gi, fc,
+                                       schedule="overlap", n_slices=ns)
         # hierarchical variants only where the topology declares real node
         # structure (1 < intra_group < ep after legalization): a flat
         # fabric gains nothing and the flat presets stay byte-identical in
@@ -1066,16 +1069,11 @@ def modeled_step_time(hw: Hardware, s: MoEShape, plan: Plan) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Cross-layer (whole-graph) cost terms. The JAX package prices them on its
-# block-schedule IR (core/schedule.py), which the port does not have yet:
-# each raises by name rather than pricing something else.
+# Cross-layer (whole-graph) cost terms: the block-schedule IR's view.
+# core/schedule.py lowers blocks to segments; these wrappers expose its
+# bubble/fill accounting to the tuner so whole-graph schedules rank in the
+# same candidate stream as per-layer plans.
 # ---------------------------------------------------------------------------
-
-
-def _no_schedule(what: str):
-    raise NotImplementedError(
-        f"{what}: the whole-graph cost terms need core/schedule.py, which "
-        "is not ported")
 
 
 def modeled_graph_step_time(hw: Hardware, s: MoEShape, plan: Plan,
@@ -1083,23 +1081,47 @@ def modeled_graph_step_time(hw: Hardware, s: MoEShape, plan: Plan,
                             training: bool = True,
                             scheduled: Optional[bool] = None) -> float:
     """PER-BLOCK modeled time of an ``n_blocks`` whole-graph window under
-    ``plan`` (not ported: raises)."""
-    _no_schedule("modeled_graph_step_time")
+    ``plan`` (attention + ring segments + lump HBM terms; fwd+bwd when
+    ``training``). ``scheduled=None`` follows ``plan.schedule``; False
+    forces the layer-at-a-time barrier baseline: the difference of the
+    two isolates the cross-layer fill. ``d_model`` defaults to s.N (equal
+    except under BigMac wire-width shapes, where callers that know the
+    real width should pass it)."""
+    from repro_torch.core import schedule as SCH   # lazy: it imports us
+    if scheduled is None:
+        scheduled = plan.schedule == "overlap"
+    t = SCH.graph_step_time(hw, s, plan, d_model=d_model or s.N,
+                            n_blocks=n_blocks, n_slices=plan.n_slices,
+                            training=training, scheduled=scheduled)
+    return t["total"] / max(1, n_blocks)
 
 
 def ring_bubble_time(hw: Hardware, s: MoEShape, plan: Plan,
                      training: bool = False) -> float:
-    """Compute-idle time of one block's comet ring under per-layer
-    execution (not ported: raises)."""
-    _no_schedule("ring_bubble_time")
+    """Compute-idle time of ONE block's comet ring under per-layer
+    execution: the bubble budget cross-layer scheduling can feed with
+    neighbouring-layer compute (next block's attn/norm forward; previous
+    layer's wgrad flush backward)."""
+    from repro_torch.core import schedule as SCH
+    g = SCH.lower_model_graph(hw, s, plan, d_model=s.N, n_blocks=1,
+                              n_slices=1, training=training)
+    t = SCH.schedule_time(g, SCH.sequential_order(g), layer_barriers=True)
+    return t.get("idle_compute", 0.0)
 
 
 def cross_layer_fill_time(hw: Hardware, s: MoEShape, plan: Plan,
                           n_blocks: int = 2, n_slices: int = 2,
                           training: bool = False) -> float:
-    """What whole-graph scheduling reclaims per block (not ported:
-    raises)."""
-    _no_schedule("cross_layer_fill_time")
+    """What whole-graph scheduling reclaims per block: barrier baseline
+    minus scheduled time for the same window (>= 0 by construction: the
+    scheduler never legalizes a slower order than the baseline)."""
+    p = dataclasses.replace(plan, schedule="overlap",
+                            n_slices=max(1, n_slices))
+    base = modeled_graph_step_time(hw, s, p, n_blocks=n_blocks,
+                                   training=training, scheduled=False)
+    sched = modeled_graph_step_time(hw, s, p, n_blocks=n_blocks,
+                                    training=training, scheduled=True)
+    return max(0.0, base - sched)
 
 
 def phase_measure(hw: Hardware, s: MoEShape,
@@ -1177,8 +1199,6 @@ def tune_plan(s: MoEShape, hw: Hardware, cache: Optional[PlanCache] = None,
     for p in cands:
         try:
             t = float(meas(p))
-        except NotImplementedError:       # an unported path: no ranking
-            raise
         except Exception as e:            # illegal candidate for this shape
             failed.append((p, e))
             continue

@@ -1,7 +1,8 @@
 """Train batch shapes for every (arch x shape) cell (the port's copy of
 ``repro.launch.specs``), the batch's partition specs on a mesh, and this
-rank's rows of a global batch; the decode cache's shapes and specs, which
-the serving steps share (``decode_inputs``).
+rank's rows of a global batch; the monolithic prefill's batch
+(``prefill_batch_specs``); the decode cache's shapes and specs, which the
+serving steps share (``decode_inputs``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,16 @@ def train_batch_specs(cfg, shape, accum: int) -> Dict[str, Tuple[int, ...]]:
         return {"frames": shp(S, cfg.d_model), "tokens": shp(Sd),
                 "labels": shp(Sd)}
     return {"tokens": shp(S), "labels": shp(S)}
+
+
+def prefill_batch_specs(cfg, shape) -> Dict[str, Tuple[int, ...]]:
+    """The shape of each entry of one monolithic-prefill batch
+    (``repro/launch/specs.py:71-77``): the train batch's of ``shape``
+    without accumulation and without labels. A batch of mixed lengths
+    adds a "mask" of the tokens' shape (left padding)."""
+    structs = train_batch_specs(cfg, shape, 1)
+    structs.pop("labels", None)
+    return structs
 
 
 def train_batch_pspecs(cfg, shape, accum: int,

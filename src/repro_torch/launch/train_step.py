@@ -4,7 +4,8 @@ one rank or on a mesh; and the serving engine's two steps on the same
 terms (``build_prefill_chunk_step``, ``build_decode_step``).
 
 PyTorch runs eagerly, so there is nothing to compile: ``build_train_step``
-returns the step function itself. The step updates the state in place
+returns the step function itself; so does ``build_prefill_step``, the
+monolithic prefill at one rank. The step updates the state in place
 (see ``optim/adamw.py``).
 
 On a mesh every rank runs the step on its rows of the batch and its shard
@@ -140,12 +141,14 @@ def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,
     embed dimension over the data axes, ``seq_shard`` shards the MoE
     tokens over the sequence, as in the JAX package. ``plan_cache`` (and
     its hardware key ``plan_hw``) resolves every MoE layer's train-phase
-    schedule from a tuned plan cache (``_with_plan_cache``). A block
-    schedule raises (not ported)."""
+    schedule from a tuned plan cache (``_with_plan_cache``). ``schedule``:
+    "" keeps the period-at-a-time forward, "sequential"/"overlap" run the
+    step through the block-schedule IR (``cfg.block_schedule``, the
+    layers unrolled and without remat: ``lm.forward_scheduled``); the
+    numerics are the same either way."""
     cfg = _with_plan_cache(cfg, plan_cache, plan_hw)
     if schedule:
-        raise NotImplementedError("schedule: the whole-graph schedule is "
-                                  "not ported yet")
+        cfg = dataclasses.replace(cfg, block_schedule=schedule)
     optim = optim or AdamW()
     accum = SP.legal_accum(shape.global_batch,
                            accum or SP.TRAIN_ACCUM.get(shape.name, 1))
@@ -172,11 +175,27 @@ def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,
 
 def build_prefill_step(cfg, shape, mesh=None, fsdp: bool = True,
                        plan_cache: Optional[str] = None, plan_hw: str = ""):
-    """The monolithic prefill (``lm.prefill``) is not ported: the engine
-    admits prompts through ``build_prefill_chunk_step``."""
-    raise NotImplementedError("build_prefill_step: the monolithic prefill "
-                              "(lm.prefill) is not ported yet (ROADMAP "
-                              "Queue 1 item 10)")
+    """The monolithic prefill (``repro/launch/train_step.py:159-179``):
+    ``fn(params, batch) -> (last-token logits (B, V) fp32, cache)``, the
+    cache stacked (n_periods, B, S, ...) per period position
+    (``lm.prefill``; ``serving.stitch_prefill_cache`` writes it into a
+    decode cache). ``batch`` holds "tokens" (B, S) and, for a left-padded
+    batch of mixed lengths, "mask" (B, S); ``batch_structs`` gives the
+    shapes of ``shape``. Prefill-phase plans resolve from ``plan_cache``.
+    At one rank only: on a mesh it raises (ROADMAP Queue 1, the mesh
+    monolithic prefill). Returns {"fn", "batch_structs", "ctx", "cfg"}."""
+    if mesh is not None:
+        raise NotImplementedError("build_prefill_step: the monolithic "
+                                  "prefill on a mesh is not ported yet "
+                                  "(ROADMAP Queue 1, the mesh monolithic "
+                                  "prefill)")
+    cfg = _with_plan_cache(cfg, plan_cache, plan_hw, phase="prefill")
+
+    def fn(params, batch):
+        return lm.prefill(cfg, params, batch)
+
+    return {"fn": fn, "batch_structs": SP.prefill_batch_specs(cfg, shape),
+            "ctx": SH.make_ctx(cfg, None), "cfg": cfg}
 
 
 def _serve_built(cfg, shape, mesh, fsdp, phase, plan_cache, plan_hw):

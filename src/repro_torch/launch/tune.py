@@ -83,10 +83,16 @@ def smoke_plan_shapes():
 
 def tune_model_backed(args, hw, cache):
     """Returns the rows printed: (tag, shape, plan) per tuned shape."""
-    from repro_torch.core.adaptive import MoEShape, tune_plan
-    if args.graph:
-        raise NotImplementedError("--graph: the whole-graph candidates rank "
-                                  "on core/schedule.py, which is not ported")
+    from repro_torch.core.adaptive import (MoEShape, candidate_plans,
+                                           tune_plan)
+
+    # --graph widens the candidate set with whole-graph scheduled variants
+    # (schedule="overlap", n_slices 2 and 4) so they rank in the same
+    # cache rows as the per-layer plans
+    def cands(s):
+        return (candidate_plans(s, include_graph=True, hw=hw)
+                if args.graph else None)
+
     models = args.models or list(PAPER_MODELS)
     rows = []
     for phase in args.phase:
@@ -99,12 +105,14 @@ def tune_model_backed(args, hw, cache):
                              etp=args.etp)
                 rows.append((name, s, tune_plan(s, hw, cache,
                                                 force=args.force,
-                                                phase=phase)))
+                                                phase=phase,
+                                                candidates=cands(s))))
         if not args.models:
             for tag, s in smoke_plan_shapes():
                 rows.append((tag, s, tune_plan(s, hw, cache,
                                                force=args.force,
-                                               phase=phase)))
+                                               phase=phase,
+                                               candidates=cands(s))))
     return rows
 
 
@@ -244,7 +252,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--force", action="store_true",
                     help="re-tune even on a cache hit")
     ap.add_argument("--graph", action="store_true",
-                    help="whole-graph candidates (not ported: raises)")
+                    help="also rank whole-graph block-schedule candidates "
+                         "(schedule=overlap, micro-sliced) against the "
+                         "per-layer plans (model mode)")
     ap.add_argument("--measured", action="store_true",
                     help="time real executions instead of the cost model")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

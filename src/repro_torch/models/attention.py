@@ -6,9 +6,9 @@ scores and softmax in fp32. They are not ``scaled_dot_product_attention``;
 the training forward's full-sequence attention goes to the flash-attention
 kernel instead (``models/blocks.attn_apply``). Masks are by
 absolute positions (``q_pos``/``kv_pos``, causal or not) and an optional
-(B, Sk) key validity ``kv_mask``; the JAX functions' ``q_offset`` and
-``decode_attention``'s ``kv_start`` are not ported (the engine passes
-none). The split-KV decode of a cache cut over positions reduces each
+(B, Sk) key validity ``kv_mask``, and ``decode_attention``'s
+``kv_start`` (a left-padded row's first valid index); the JAX functions'
+``q_offset`` is not ported (no caller passes one). The split-KV decode of a cache cut over positions reduces each
 shard to flash-decode partials (``decode_attention_partial``) and merges
 them across the shards' ranks (``merge_decode_partials``). The paged
 cache's pools are read through block tables (``paged_gather``) and
@@ -201,13 +201,16 @@ def paged_chunk_update(k_pool, v_pool, k, v, pos_off, block_table,
                                   k_pool.shape[1]))
 
 
-def decode_attention(q, k_cache, v_cache, pos, block_table=None):
+def decode_attention(q, k_cache, v_cache, pos, block_table=None,
+                     kv_start=None):
     """q: (B, 1, H, hd); caches: (B, S, Hkv, hd); pos: (B,) per-row current
-    index. Attends over cache[: pos + 1] by masking (a ``where`` on the
-    scores). block_table: optional (B, nb); the caches are then shared
-    (n_pages, page, Hkv, hd) pools and each row's logical view is
-    gathered through its table (``paged_gather``; unmapped blocks read the
-    null page, masked like stale contiguous rows)."""
+    index. Attends over cache[kv_start : pos + 1] by masking (a ``where``
+    on the scores); kv_start: optional (B,) first valid index per row (a
+    left-padded row excludes its pads). block_table: optional (B, nb);
+    the caches are then shared (n_pages, page, Hkv, hd) pools and each
+    row's logical view is gathered through its table (``paged_gather``;
+    unmapped blocks read the null page, masked like stale contiguous
+    rows)."""
     if block_table is not None:
         k_cache = paged_gather(k_cache, block_table)
         v_cache = paged_gather(v_cache, block_table)
@@ -217,7 +220,10 @@ def decode_attention(q, k_cache, v_cache, pos, block_table=None):
     v = _expand_kv(v_cache, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
     ar = torch.arange(S, device=q.device)[None, None, None, :]
-    s = torch.where(ar <= pos.reshape(-1, 1, 1, 1), s, NEG_INF)
+    valid = ar <= pos.reshape(-1, 1, 1, 1)
+    if kv_start is not None:
+        valid = valid & (ar >= kv_start.reshape(-1, 1, 1, 1))
+    s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)

@@ -1,8 +1,10 @@
 """Layer blocks: (attention | Mamba-2 SSM) + (dense FFN | MoE), schema,
-the training forward (``apply_layer``, the sequential form of the JAX
-package's ``block_segments``) and the two cached serving modes,
-single-token decode and chunked prefill, of both layer kinds. No
-cross-attention yet.
+the lowering of a layer to executed segments (``block_segments``: named
+values and declared dataflow, which ``core/schedule.py`` orders), the
+training forward and the monolithic prefill (``apply_layer``, the
+sequential interpretation of that lowering; ``return_cache`` gives the
+layer's cache entry) and the two cached serving modes, single-token
+decode and chunked prefill, of both layer kinds. No cross-attention yet.
 
 The training forward also runs on a mesh (a ranked ``AxisCtx``): each
 rank holds its rows of the batch, the same on every model rank, and its
@@ -25,7 +27,7 @@ shared by every slot, read and written through block tables
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -160,28 +162,43 @@ def _moe_ranked(cfg, pm, h, ctx, sliced: bool = False):
     return y, CL.grad_share(aux, dist.get_world_size())
 
 
+def _moe_out(cfg, p, x, ctx=None, sp: bool = False):
+    """ln2 -> the MoE block of a layer, on the mid residual x: (y, aux
+    loss fp32). ``sp``: x is this rank's slice of the sequence."""
+    h = sp_norm(cfg, p["ln2"], x, ctx, sp)
+    if _ranked(ctx):
+        return _moe_ranked(cfg, p["moe"], h, ctx, sp)
+    return moe_ffn(cfg, cfg.moe, p["moe"], h, n_col=cfg.moe.n_col_blocks)
+
+
+def _shared_out(cfg, p, x, ctx=None, sp: bool = False):
+    """ln2 -> the MoE block's shared expert, on the mid residual x (as the
+    JAX package's ``f_shared``: it reads nothing of the routed experts)."""
+    return _seq_whole(lambda t: ffn_apply(
+        cfg, p["moe"]["shared"], t, ctx,
+        cfg.moe.d_expert * cfg.moe.num_shared_experts),
+        sp_norm(cfg, p["ln2"], x, ctx, sp), ctx, sp)
+
+
+def _ffn_out(cfg, p, x, ctx=None, sp: bool = False):
+    """ln2 -> the dense FFN of a layer, on the mid residual x."""
+    return _seq_whole(lambda t: ffn_apply(cfg, p["ffn"], t, ctx, cfg.d_ff),
+                      sp_norm(cfg, p["ln2"], x, ctx, sp), ctx, sp)
+
+
 def _mlp_tail(cfg, p, x, ctx=None, sp: bool = False):
-    """ln2 -> (MoE | FFN) -> residual. Returns (x, aux loss fp32). ``sp``:
-    x is this rank's slice of the sequence (``apply_layer``)."""
+    """ln2 -> (MoE | FFN) -> residual, in the order of ``block_segments``'
+    tail. Returns (x, aux loss fp32). ``sp``: x is this rank's slice of
+    the sequence."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ln2" not in p:
         return x, aux
-    h = sp_norm(cfg, p["ln2"], x, ctx, sp)
     if "moe" in p:
-        if _ranked(ctx):
-            h, aux = _moe_ranked(cfg, p["moe"], h, ctx, sp)
-        else:
-            h, aux = moe_ffn(cfg, cfg.moe, p["moe"], h,
-                             n_col=cfg.moe.n_col_blocks)
+        h, aux = _moe_out(cfg, p, x, ctx, sp)
         if "shared" in p["moe"]:
-            # reads the mid residual, as the JAX package's f_shared
-            h = h + _seq_whole(lambda t: ffn_apply(
-                cfg, p["moe"]["shared"], t, ctx,
-                cfg.moe.d_expert * cfg.moe.num_shared_experts),
-                sp_norm(cfg, p["ln2"], x, ctx, sp), ctx, sp)
+            h = h + _shared_out(cfg, p, x, ctx, sp)
     else:
-        h = _seq_whole(lambda t: ffn_apply(cfg, p["ffn"], t, ctx, cfg.d_ff),
-                       h, ctx, sp)
+        h = _ffn_out(cfg, p, x, ctx, sp)
     return x + h.to(x.dtype), aux
 
 
@@ -223,30 +240,37 @@ def _local_kv(k, v, kv_map, rep: int):
 
 
 def _attn_core(a, causal, use_rope, q, k, v, qp, kp, kv_mask,
-               head_base: int = 0, kv_base: int = 0, flash: bool = False):
+               head_base: int = 0, kv_base: int = 0, flash: bool = False,
+               return_kv: bool = False):
     """The per-rank attention body (``repro/models/blocks.py:87-113``).
     q: (B, Sq_l, H_l, hd); k/v: (B, Sk, Hkv_l, hd); qp/kp: absolute
     positions (B, Sq_l)/(B, Sk). ``head_base``/``kv_base``: the global
     index of the first local q/kv head, from which each local q head
     finds its kv head (every sharding case). ``flash``: the region is the
     kernel's case (causal, unmasked, positions arange(S) on both sides),
-    sent to ``ops.flash_attention``."""
+    sent to ``ops.flash_attention``. ``return_kv``: returns (o, {"k", "v"}),
+    the K/V after RoPE and before the heads' expansion (the prefill's
+    cache entry)."""
     if use_rope:
         q = apply_rope(q, qp, a.rope_theta)
         k = apply_rope(k, kp, a.rope_theta)
+    kv = {"k": k, "v": v}
     rep = a.n_heads // a.n_kv_heads
     kv_map = [(head_base + i) // rep - kv_base for i in range(q.shape[2])]
     k, v = _local_kv(k, v, kv_map, rep)
     if flash:
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True)
-        return o.transpose(1, 2)
-    return A.attention(q, k, v, qp, kp, q_block=a.q_block,
-                       kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+                                v.transpose(1, 2), causal=True).transpose(
+                                    1, 2)
+    else:
+        o = A.attention(q, k, v, qp, kp, q_block=a.q_block,
+                        kv_block=a.kv_block, causal=causal, kv_mask=kv_mask)
+    return (o, kv) if return_kv else o
 
 
 def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
-               kv_mask=None, arange_positions: bool = False, ctx=None):
+               kv_mask=None, arange_positions: bool = False, ctx=None,
+               return_kv: bool = False):
     """Full-sequence self-attention (blocks.py:116 of the JAX package).
     x: (B, S, d); positions: (B, S) or (1, S) absolute positions (RoPE and
     the causal mask); kv_mask: optional (B, S) key validity;
@@ -259,7 +283,10 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
     hand-written kernel on a CUDA tensor). Every other case keeps the
     plain attention, as the JAX package does. With a ranked ``ctx`` the
     heads shard as ``attn_case`` says; the ``seq`` case's query positions
-    are a slice, so it takes the plain attention."""
+    are a slice, so it takes the plain attention. ``return_kv`` (at one
+    rank: the monolithic prefill, ``block_segments``): returns (the
+    o-projection, {"k", "v"} (B, S, Hkv, hd) after RoPE), the layer's
+    cache entry."""
     a = cfg.attn
     B, S, _ = x.shape
     positions = positions.expand(B, S)
@@ -271,7 +298,10 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
                             kv_mask, flash)
     q, k, v = _qkv_proj(a, p, x)
     o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
-                   kv_mask, flash=flash)
+                   kv_mask, flash=flash, return_kv=return_kv)
+    if return_kv:
+        o, kv = o
+        return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"], kv
     return o.reshape(B, S, a.n_heads * a.head_dim) @ p["wo"]
 
 
@@ -349,33 +379,154 @@ def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
     return o.reshape(B, S, Hq * hd) @ w["wo"]
 
 
+@dataclasses.dataclass(frozen=True)
+class ExecSeg:
+    """One executed segment of a layer (``repro/models/blocks.py:
+    205-218``): a closure over an env dict of named values, with its
+    dataflow declared (``reads`` / ``writes``) so ``core/schedule.py`` can
+    derive dependencies and reorder emission legally. A legal order only
+    permutes which segment runs first over the same expressions."""
+    name: str
+    kind: str
+    block: int
+    reads: Tuple[str, ...]
+    writes: Tuple[str, ...]
+    fn: Any                     # Callable[[Dict[str, Any]], None]
+
+
+_MESH_PREFILL = ("the monolithic prefill (return_cache) on a mesh is not "
+                 "ported yet (ROADMAP Queue 1, the mesh monolithic prefill)")
+
+
+def block_segments(cfg, pos: int, p, positions, mask=None,
+                   return_cache: bool = False, block: int = 0,
+                   x_in: str = "x", x_out: str = "x_out", ctx=None,
+                   sp: bool = False, arange_positions: bool = False):
+    """Lower one layer to its executed segment list (``repro/models/
+    blocks.py:221-351``). The residual stream enters as env[``x_in``] and
+    leaves as env[``x_out``]; the values inside are named ``L{block}.*``:
+    ``h0`` the mixer's output, ``xm`` the mid residual, ``h1`` the MoE's
+    or the dense FFN's output, ``hsh`` the shared expert's, ``aux`` the
+    MoE's aux loss, ``cache`` the layer's cache entry (``return_cache``:
+    {"k", "v"} (B, S, Hkv, hd) after RoPE for attention, the SSM's
+    {"conv", "state"}). The bodies are ``apply_layer``'s expressions; the
+    lowering only names the values between them, so the scheduler sees,
+    e.g., that a shared expert reads the mid residual only.
+
+    positions, mask, ``arange_positions``, ``ctx`` and ``sp``: as
+    ``apply_layer``. ``return_cache`` at one rank only."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the cross-attention segment of encoder-decoder "
+            f"models is not ported yet")
+    if return_cache and _ranked(ctx):
+        raise NotImplementedError(_MESH_PREFILL)
+    kind = "attn" if cfg.layer_kind(pos) == "a" else "ssm"
+    pr = f"L{block}."
+    xm = pr + "xm"
+    cache_w = (pr + "cache",) if return_cache else ()
+
+    def mixer(h):
+        """(the mixer's output, its cache entry or None)."""
+        if kind == "attn":
+            a = cfg.attn
+            out = attn_apply(cfg, p["attn"], h, positions, a.causal,
+                             a.rope_theta > 0, kv_mask=mask,
+                             arange_positions=arange_positions, ctx=ctx,
+                             return_kv=return_cache)
+            return out if return_cache else (out, None)
+        return SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h,
+                               return_cache=return_cache, mask=mask,
+                               ctx=ctx)
+
+    def f_mix(env):
+        h = sp_norm(cfg, p["ln1"], env[x_in], ctx, sp)
+        if return_cache:                  # one rank: no sequence slice
+            h, env[pr + "cache"] = mixer(h)
+        else:
+            h = _seq_whole(lambda t: mixer(t)[0], h, ctx, sp)
+        env[pr + "h0"] = h
+
+    def f_res1(env):
+        x = env[x_in]
+        env[xm] = x + env[pr + "h0"].to(x.dtype)
+
+    segs = [ExecSeg(pr + kind, kind, block, (x_in,), (pr + "h0",) + cache_w,
+                    f_mix),
+            ExecSeg(pr + "res1", "residual", block, (x_in, pr + "h0"),
+                    (xm,), f_res1)]
+    tail = []
+    if "ln2" in p and "moe" in p:
+        def f_moe(env):
+            env[pr + "h1"], env[pr + "aux"] = _moe_out(cfg, p, env[xm], ctx,
+                                                       sp)
+
+        segs.append(ExecSeg(pr + "moe", "moe", block, (xm,),
+                            (pr + "h1", pr + "aux"), f_moe))
+        tail.append(pr + "h1")
+        if "shared" in p["moe"]:
+            # reads the mid residual only: independent of the ring, the
+            # one executed segment the scheduler can move past it
+            def f_shared(env):
+                env[pr + "hsh"] = _shared_out(cfg, p, env[xm], ctx, sp)
+
+            segs.append(ExecSeg(pr + "shared", "shared_ffn", block, (xm,),
+                                (pr + "hsh",), f_shared))
+            tail.append(pr + "hsh")
+    elif "ln2" in p:
+        def f_ffn(env):
+            env[pr + "h1"] = _ffn_out(cfg, p, env[xm], ctx, sp)
+
+        segs.append(ExecSeg(pr + "ffn", "ffn", block, (xm,), (pr + "h1",),
+                            f_ffn))
+        tail.append(pr + "h1")
+
+    def f_tail(env):
+        x = env[xm]
+        if tail:
+            h = env[tail[0]]
+            if len(tail) > 1:
+                h = h + env[tail[1]]
+            x = x + h.to(x.dtype)
+        env[x_out] = x
+
+    segs.append(ExecSeg(pr + "res2", "residual", block, (xm,) + tuple(tail),
+                        (x_out,), f_tail))
+    return segs
+
+
+def run_segments(segs, env):
+    """Execute segments in the given emission order against ``env``."""
+    for s in segs:
+        s.fn(env)
+    return env
+
+
 def apply_layer(cfg, pos: int, p, x, positions, mask=None,
-                arange_positions: bool = False, ctx=None, sp: bool = False):
-    """The training forward of one layer (blocks.py:361 of the JAX package,
-    written sequentially): ln1 -> (attention | SSM) -> residual -> ln2 ->
+                arange_positions: bool = False, ctx=None, sp: bool = False,
+                return_cache: bool = False):
+    """One layer of the training forward and the monolithic prefill
+    (``repro/models/blocks.py:361-378``): the sequential interpretation of
+    ``block_segments``, ln1 -> (attention | SSM) -> residual -> ln2 ->
     (MoE | FFN) -> residual. mask: optional (B, S) validity; pad keys are
     excluded from attention and pad steps are identities of the SSM scan.
     ``arange_positions``: see attn_apply. ``ctx``: a ranked context (the
-    module docstring), or None at one rank. Returns (x, aux loss fp32).
+    module docstring), or None at one rank. Returns (x, aux loss fp32,
+    the layer's cache entry with ``return_cache``, else None).
 
     ``sp``: the sequence-parallel residual (``lm.sp_split``). x, and the x
     returned, are this rank's slice of the sequence; the norms and
     residual adds run on the slice, attention, the SSM and the dense FFN
     on the gathered sequence (``_seq_whole``), and a sequence-sharded MoE
     routes the slice as it is. positions and mask stay whole."""
-
-    def mixer(h):
-        if cfg.layer_kind(pos) == "a":
-            a = cfg.attn
-            return attn_apply(cfg, p["attn"], h, positions, a.causal,
-                              a.rope_theta > 0, kv_mask=mask,
-                              arange_positions=arange_positions, ctx=ctx)
-        return SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, mask=mask,
-                               ctx=ctx)[0]
-
-    h = _seq_whole(mixer, sp_norm(cfg, p["ln1"], x, ctx, sp), ctx, sp)
-    x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x, ctx, sp)
+    segs = block_segments(cfg, pos, p, positions, mask, return_cache,
+                          block=pos, ctx=ctx, sp=sp,
+                          arange_positions=arange_positions)
+    env = run_segments(segs, {"x": x})
+    aux = env.get(f"L{pos}.aux")
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return env["x_out"], aux, env.get(f"L{pos}.cache")
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +613,7 @@ def _write_decode_row(kc, vc, k, v, t_pos, ctx, cut: str):
 
 
 def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
-                             block_table=None):
+                             block_table=None, kv_start=None):
     """Decode attention against this rank's slice of the cache, with no
     gather of the cache (``repro/models/blocks.py:417-500``). q: this
     rank's rows and q heads (B_l, 1, H_l, hd); t_pos: (B_l,). The arms
@@ -482,27 +633,35 @@ def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
     are page pools, read through the table (``repro/models/blocks.py:
     447-487``): cut on their kv heads (``kv_group``, the table whole on
     every model rank: local decode) or whole (``replicated``); never
-    split-KV, since pages interleave positions."""
+    split-KV, since pages interleave positions. ``kv_start``: optional
+    (B_l,) first valid cache index per row (a left-padded prefill's
+    pads excluded)."""
     if block_table is not None:
         if cut == "split_kv":
             raise ValueError("a paged pool is never cut over positions "
                              "(sharding.kv_cut(..., paged=True))")
-        return A.decode_attention(q, k_cache, v_cache, t_pos, block_table)
+        return A.decode_attention(q, k_cache, v_cache, t_pos, block_table,
+                                  kv_start)
     if cut == "split_kv" and _ranked(ctx) and ctx.model_size > 1:
         off = ctx.model_rank * k_cache.shape[1]
         m, l, acc = A.decode_attention_partial(q, k_cache, v_cache, t_pos,
-                                               off)
+                                               off, kv_start)
         out = A.merge_decode_partials(m, l, acc, ctx.model_group)
         return out.transpose(1, 2).to(q.dtype)
-    return A.decode_attention(q, k_cache, v_cache, t_pos)
+    return A.decode_attention(q, k_cache, v_cache, t_pos,
+                              kv_start=kv_start)
 
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
-                 cut: str = "replicated", paged: Optional[PagedKV] = None):
+                 cut: str = "replicated", paged: Optional[PagedKV] = None,
+                 rope_pos=None, kv_start=None):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
     {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
-    write index (= RoPE position). Returns x. ``paged``: the K/V entries
-    are page pools (n_pages, page, Hkv, hd), written and read through it.
+    write index (= RoPE position unless ``rope_pos`` (B,) gives it: a
+    left-padded row's real position is its index less its pads);
+    ``kv_start``: optional (B,) first valid cache index per row. Returns
+    x. ``paged``: the K/V entries are page pools (n_pages, page, Hkv, hd),
+    written and read through it.
 
     ``ctx``: a ranked context of the serving steps (``seq_shard`` off), or
     None at one rank. x and t_pos are then this rank's slots, the cache
@@ -523,7 +682,7 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     w, partial = _serve_attn(cfg, p["attn"], ctx, cut)
     q, k, v = _qkv_proj(a, w, h)
     if a.rope_theta > 0:
-        pos_arr = t_pos.reshape(B, 1)
+        pos_arr = (t_pos if rope_pos is None else rope_pos).reshape(B, 1)
         q = apply_rope(q, pos_arr, a.rope_theta)
         k = apply_rope(k, pos_arr, a.rope_theta)
     if paged is None:
@@ -531,7 +690,8 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     else:
         _write_paged(cache["k"], cache["v"], k, v, paged)
     o = sharded_decode_attention(ctx, q, cache["k"], cache["v"], t_pos, cut,
-                                 None if paged is None else paged.table)
+                                 None if paged is None else paged.table,
+                                 kv_start)
     o = o.reshape(B, 1, -1) @ w["wo"]
     if partial:
         o = CL.reduce_from(o, ctx.model_group)

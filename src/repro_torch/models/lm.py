@@ -1,5 +1,6 @@
-"""Full model: schema, init, the training forward and loss, prefill chunks
-and decode.
+"""Full model: schema, init, the training forward and loss (period by
+period, or through the block-schedule IR: ``forward_scheduled``), the
+monolithic prefill, prefill chunks and decode.
 
 Layers are stacked by *period* as in the JAX package: ``params["layers"]``
 is a list over period positions of trees whose leaves carry a leading
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -251,19 +253,78 @@ def sp_split(cfg, ctx, S: int) -> bool:
 
 
 def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None,
-                 sp: bool = False):
-    """The layers of one period: returns (h, the period's aux loss). On a
-    mesh the period's leaves cut over the data axes are gathered first
-    (inside the remat region: the recompute gathers them again). ``sp``:
-    h is this rank's slice of the sequence (``sp_split``)."""
+                 sp: bool = False, return_cache: bool = False):
+    """The layers of one period: returns (h, the period's aux loss, its
+    cache entries per period position with ``return_cache``, else None).
+    On a mesh the period's leaves cut over the data axes are gathered
+    first (inside the remat region: the recompute gathers them again).
+    ``sp``: h is this rank's slice of the sequence (``sp_split``)."""
     if specs is not None:
         lp = SH.fsdp_gather_tree(lp, specs, ctx, drop=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = []
     for pos in range(period_of(cfg)):
-        h, a = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
-                             arange_positions=arange, ctx=ctx, sp=sp)
+        h, a, ce = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
+                                 arange_positions=arange, ctx=ctx, sp=sp,
+                                 return_cache=return_cache)
         aux = aux + a
-    return h, aux
+        caches.append(ce)
+    return h, aux, caches if return_cache else None
+
+
+def _scheduled_layers(cfg, params, h, positions, mask, arange, ctx=None,
+                      specs=None, sp: bool = False):
+    """Every layer through the block-schedule IR (``repro/models/lm.py:
+    196-240``): each layer lowered to its executed segments
+    (``blocks.block_segments``), the whole list ordered by
+    ``core/schedule.exec_order`` under ``cfg.block_schedule``
+    ("sequential": program order, "overlap": the greedy earliest-start
+    scheduler), the race detector run on the order unless
+    ``REPRO_VERIFY_SCHEDULE=0``, and the order run against one env.
+    Returns (h, aux loss fp32).
+
+    The layers are unrolled and nothing is recomputed (no remat): the
+    scheduler needs segments of different blocks in one window. On a mesh
+    every period's leaves cut over the data axes are gathered first, in
+    period order on every rank, so each segment finds its leaves whole."""
+    from repro_torch.core import schedule as SCH
+    p = period_of(cfg)
+    segs = []
+    for n in range(cfg.n_layers // p):
+        lp = [_period(params["layers"][pos], n) for pos in range(p)]
+        if specs is not None:
+            lp = SH.fsdp_gather_tree(lp, specs, ctx, drop=1)
+        for pos in range(p):
+            i = n * p + pos
+            segs += B.block_segments(cfg, pos, lp[pos], positions, mask,
+                                     block=i, x_in=f"x{i}",
+                                     x_out=f"x{i + 1}", ctx=ctx, sp=sp,
+                                     arange_positions=arange)
+    program = segs
+    segs = SCH.exec_order(segs, cfg.block_schedule)
+    if os.environ.get("REPRO_VERIFY_SCHEDULE", "1") != "0":
+        # re-derive RAW/WAR/WAW hazards from the segments' declared
+        # reads/writes (not the deps the scheduler used) and refuse any
+        # order that violates one, before a segment runs
+        from repro_torch.analysis.verify.schedule_check import \
+            assert_exec_order_safe
+        assert_exec_order_safe(program, segs)
+    env = B.run_segments(segs, {"x0": h})
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.n_layers):
+        a = env.get(f"L{i}.aux")
+        if a is not None:
+            aux = aux + a
+    return env[f"x{cfg.n_layers}"], aux
+
+
+def _stack_caches(cfg, caches):
+    """Per-period lists of per-position cache entries -> a tuple over
+    period positions of {entry: (n_periods, B, ...)}, the JAX scan's
+    stacking."""
+    return tuple({k: torch.stack([c[pos][k] for c in caches])
+                  for k in caches[0][pos]}
+                 for pos in range(period_of(cfg)))
 
 
 def _top_level(cfg, params, ctx, specs):
@@ -274,12 +335,21 @@ def _top_level(cfg, params, ctx, specs):
     return SH.fsdp_gather_tree(top, {k: specs[k] for k in top}, ctx)
 
 
-def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
+def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
+             return_cache: bool = False):
     """Returns (h_final (B, S, d), aux loss fp32, the top-level leaves as
-    used). With
+    used, the caches with ``return_cache`` or None). With
     ``cfg.remat == "full"`` every period runs under a non-reentrant
     ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of its
-    scan body): its activations are recomputed in the backward.
+    scan body): its activations are recomputed in the backward. With
+    ``cfg.block_schedule`` set and no cache asked for, the layers run
+    through the block-schedule IR instead (``_scheduled_layers``: unrolled,
+    no remat), as the JAX package's ``forward_scheduled``.
+
+    ``return_cache`` (the monolithic prefill, at one rank): each layer's
+    cache entry, stacked per period position as ``(n_periods, B, S, ...)``
+    (attention {"k", "v"} after RoPE, the SSM's {"conv", "state"}); no
+    remat.
 
     ``ctx``: None (or inactive) at one rank. A ranked context is the JAX
     package's mesh step, one rank of it: ``params`` is this rank's shard
@@ -292,11 +362,11 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
     the embeddings are cut to this rank's slice of the sequence, every
     period carries (and under remat saves) the slice, and the final norm's
     output is gathered whole."""
-    if cfg.block_schedule:
-        raise NotImplementedError("block_schedule: the whole-graph schedule "
-                                  "is not ported yet")
+    ranked = ctx is not None and ctx.active
+    if return_cache and ranked:
+        raise NotImplementedError(B._MESH_PREFILL)
     specs = None
-    if ctx is not None and ctx.active:
+    if ranked:
         specs = SH.param_specs(model_schema(cfg, ctx), ctx.mesh, fsdp)
     params = {**_top_level(cfg, params, ctx, specs),
               "layers": params["layers"]}
@@ -304,27 +374,55 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True):
     sp = sp_split(cfg, ctx, h.shape[1])
     if sp:
         h = CL.scatter_to(h, ctx.model_group, 1)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    p = period_of(cfg)
-    for n in range(cfg.n_layers // p):
-        lp = [_period(params["layers"][pos], n) for pos in range(p)]
-        lspecs = None if specs is None else specs["layers"]
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            h, a = checkpoint(_period_body, cfg, h, lp, positions, mask,
-                              arange, ctx, lspecs, sp, use_reentrant=False)
-        else:
-            h, a = _period_body(cfg, h, lp, positions, mask, arange, ctx,
-                                lspecs, sp)
-        aux = aux + a
+    lspecs = None if specs is None else specs["layers"]
+    caches = None
+    if cfg.block_schedule and not return_cache:
+        h, aux = _scheduled_layers(cfg, params, h, positions, mask, arange,
+                                   ctx, lspecs, sp)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        caches = []
+        p = period_of(cfg)
+        for n in range(cfg.n_layers // p):
+            lp = [_period(params["layers"][pos], n) for pos in range(p)]
+            if (cfg.remat == "full" and torch.is_grad_enabled()
+                    and not return_cache):
+                h, a, _ = checkpoint(_period_body, cfg, h, lp, positions,
+                                     mask, arange, ctx, lspecs, sp,
+                                     use_reentrant=False)
+            else:
+                h, a, ce = _period_body(cfg, h, lp, positions, mask, arange,
+                                        ctx, lspecs, sp, return_cache)
+                caches.append(ce)
+            aux = aux + a
+        caches = _stack_caches(cfg, caches) if return_cache else None
     h = B.sp_norm(cfg, params["ln_f"], h, ctx, sp)
     if sp:
         h = CL.gather_from(h, ctx.model_group, 1)
-    return h, aux, params
+    return h, aux, params, caches
 
 
-def forward(cfg, params, batch, ctx=None, fsdp: bool = True):
-    """Returns (h_final (B, S, d), aux loss fp32, None): ``_forward``."""
-    return _forward(cfg, params, batch, ctx, fsdp)[:2] + (None,)
+def forward(cfg, params, batch, ctx=None, fsdp: bool = True,
+            return_cache: bool = False):
+    """Returns (h_final (B, S, d), aux loss fp32, caches or None):
+    ``_forward``. batch may carry a "mask" (B, S) bool, the pad-token
+    validity of a left-padded batch of mixed lengths: pad keys are
+    excluded from attention, pad steps of the SSM are identities, and each
+    row's positions count its valid tokens from 0, so the padded forward
+    is exact."""
+    h, aux, _, caches = _forward(cfg, params, batch, ctx, fsdp,
+                                 return_cache)
+    return h, aux, caches
+
+
+def forward_scheduled(cfg, params, batch, ctx=None, fsdp: bool = True):
+    """The block-schedule-IR forward (``repro/models/lm.py:196-240``):
+    ``forward`` with ``cfg.block_schedule`` ("sequential" | "overlap")
+    required. Returns (h_final, aux loss fp32, None)."""
+    if not cfg.block_schedule:
+        raise ValueError("forward_scheduled: cfg.block_schedule is not set "
+                         "(\"sequential\" or \"overlap\")")
+    return forward(cfg, params, batch, ctx, fsdp)
 
 
 def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
@@ -333,10 +431,25 @@ def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
     context (``forward``) every rank returns the global loss: the mean
     over every rank's tokens, as the JAX package's mesh step computes it
     from the global batch."""
-    h, aux, top = _forward(cfg, params, batch, ctx, fsdp)
+    h, aux, top, _ = _forward(cfg, params, batch, ctx, fsdp)
     loss, cnt = chunked_xent(h, output_head(cfg, top), batch["labels"],
                              ctx=ctx, vocab=cfg.vocab_size)
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
+
+
+@torch.no_grad()
+def prefill(cfg, params, batch):
+    """The monolithic prefill at one rank (``repro/models/lm.py:248-257``):
+    returns (last-token logits (B, V) fp32, the cache: a tuple over period
+    positions of {entry: (n_periods, B, S, ...)}, ``forward(...,
+    return_cache=True)``). A batch of mixed lengths is left-padded (every
+    prompt ends at index S-1, where the logits are read) and passes
+    "mask" (B, S): the padded forward is then exact. The logits are one
+    fp32 product per row (``_logits(per_row=True)``), so a request's bits
+    do not depend on the batch it came in. ``serving.stitch_prefill_cache``
+    writes the cache into a decode cache."""
+    h, _, top, caches = _forward(cfg, params, batch, return_cache=True)
+    return _logits(cfg, top, h[:, -1], per_row=True), caches
 
 
 # ---------------------------------------------------------------------------
@@ -416,11 +529,17 @@ def _page_size(cfg, cache) -> int:
 
 @torch.no_grad()
 def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
-                layout: Optional[ServeLayout] = None, block_tables=None):
+                layout: Optional[ServeLayout] = None, block_tables=None,
+                rope_pos=None, kv_start=None):
     """tokens: (B, 1) int; t_pos: (B,) int per-row cache write indices
     (every slot decodes at its own position). Returns (logits (B, V) fp32,
     cache), the cache updated in place: K/V at each row's index, and every
     row's SSM carry (free slots decode too, as in the JAX engine).
+    ``rope_pos``: optional (B,) RoPE positions where they differ from the
+    cache index, and ``kv_start``: optional (B,) first valid cache index
+    per row: a left-padded monolithic prefill's rows (``prefill``) decode
+    at their real positions with their pads excluded (``repro/models/
+    lm.py:334-350``).
 
     ``ctx``: a ranked context (``seq_shard`` off), or None at one rank.
     ``params`` is then this rank's shard of the mesh tree
@@ -448,8 +567,12 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
         if not layout.slots_cut:       # every dp rank holds every slot
             ctx = dataclasses.replace(ctx, dp_axes=())
     Bsz = tokens.shape[0]
-    t_vec = torch.as_tensor(t_pos, device=tokens.device).long().reshape(
-        -1).expand(Bsz)
+
+    def vec(v):
+        return None if v is None else torch.as_tensor(
+            v, device=tokens.device).long().reshape(-1).expand(Bsz)
+
+    t_vec, rope_vec, start_vec = vec(t_pos), vec(rope_pos), vec(kv_start)
     h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
     paged = None
     page = _page_size(cfg, cache) if block_tables is not None else 0
@@ -467,7 +590,8 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
 
     def layer(pos, lp, n, h):
         return B.decode_layer(cfg, pos, lp, h, _period(cache[pos], n), t_vec,
-                              ctx if ranked else None, cuts[pos], paged)
+                              ctx if ranked else None, cuts[pos], paged,
+                              rope_vec, start_vec)
 
     h = _serve_layers(cfg, params, specs, ctx, h, layer)
     h = apply_norm(cfg, top["ln_f"], h)

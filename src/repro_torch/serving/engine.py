@@ -72,6 +72,10 @@ rank's handoff holds its own slice of the pages (its kv heads, or the
 whole pool where the pool is not cut), and a slot's SSM row, which lives
 on one dp rank where the slots are cut, is gathered over dp at export.
 ``EngineConfig(disagg=True).build`` returns the ``Router``.
+
+``stitch_prefill_cache`` writes a monolithic prefill's cache
+(``lm.prefill``) into a contiguous decode cache, for the batched
+(non-chunked) prefill path outside the engine.
 """
 from __future__ import annotations
 
@@ -96,6 +100,23 @@ from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import sharding as SH
 from repro_torch.serving.paged_cache import BlockAllocator, pages_for
 from repro_torch.training.trainer import StragglerMonitor
+
+
+def stitch_prefill_cache(cfg, decode_cache, prefill_cache, prompt_len: int):
+    """Insert a monolithic prefill's cache (``lm.prefill``: stacked
+    (n_periods, B, S, ...) per period position) into a contiguous decode
+    cache of B slots at positions [0, prompt_len) (``repro/serving/
+    engine.py:95-116``): K/V rows, the SSM's conv window and state. The
+    port's caches are updated in place, so this writes into
+    ``decode_cache`` and returns it (the JAX function returns a new
+    tree)."""
+    for entry, pre in zip(decode_cache, prefill_cache):
+        for k, buf in entry.items():
+            if k in ("k", "v"):
+                buf[:, :, :prompt_len] = pre[k].to(buf.dtype)
+            else:                            # conv window, ssm state
+                buf.copy_(pre[k])
+    return decode_cache
 
 
 class RequestStatus(str, enum.Enum):

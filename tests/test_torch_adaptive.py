@@ -19,8 +19,9 @@ the JAX ``moe_ffn`` does with the same file (forward and gradients, fp32
 1e-4, bf16 2e-2), and gives the bits of the port's ``moe_ffn`` under
 ``plan.apply``; ``plan_override`` pins the explicit knobs; an
 ``n_col_blocks`` of 0 takes the cost model's split. The serving engine
-threads the prefill and decode phases. The unported whole-graph terms
-raise by name, and the Hopper gate agrees with the fused kernel's plan.
+threads the prefill and decode phases. The whole-graph terms, graph
+candidates and ``tune --graph`` give the JAX package's values, and the
+Hopper gate agrees with the fused kernel's plan.
 """
 import dataclasses
 import importlib.util
@@ -805,19 +806,55 @@ def test_measure_on_a_missing_gpu_raises_by_name(tmp_path):
 
 
 def test_unported_whole_graph_terms_raise_by_name(tmp_path):
+    """The whole-graph terms once raised by name here; now ported, the
+    same calls return the JAX package's values: the three graph terms,
+    the graph candidates' phase measure and ranking, ``include_graph``'s
+    candidate stream, ``sim_e2e_graph`` and ``tune --graph``'s cache. The
+    mesh monolithic prefill still raises by name."""
     s = A.MoEShape(M=4096, N=2048, K=1408, E=64, topk=4, ep=4, etp=1)
+    js = JA.MoEShape(**dataclasses.asdict(s))
     p = A.Plan("comet", 1, 1, schedule="overlap", n_slices=2)
-    for call in (lambda: A.modeled_graph_step_time(A.H100_NVL, s, p),
-                 lambda: A.ring_bubble_time(A.H100_NVL, s, p),
-                 lambda: A.cross_layer_fill_time(A.H100_NVL, s, p),
-                 lambda: list(A.candidate_plans(s, include_graph=True)),
-                 lambda: A.phase_measure(A.H100_NVL, s, "train")(p),
-                 lambda: A.tune_plan(s, A.H100_NVL, candidates=[A.Plan(), p]),
-                 lambda: SIM.sim_e2e_graph(A.H100_NVL, s, p, 2048, 4),
-                 lambda: tune.main(["--graph", "--out",
-                                    str(tmp_path / "g.json")])):
-        with pytest.raises(NotImplementedError, match="core/schedule.py"):
-            call()
+    jp = _jplan(p)
+    for hw in ("tpu_v5e", "h100_nvlink"):
+        h, jh = A.HW[hw], JA.HW[hw]
+        for training in (False, True):
+            pairs = [
+                (A.modeled_graph_step_time(h, s, p, training=training),
+                 JA.modeled_graph_step_time(jh, js, jp, training=training)),
+                (A.ring_bubble_time(h, s, p, training),
+                 JA.ring_bubble_time(jh, js, jp, training)),
+                (A.cross_layer_fill_time(h, s, p, training=training),
+                 JA.cross_layer_fill_time(jh, js, jp, training=training)),
+                (SIM.sim_e2e_graph(h, s, p, 2048, 4, training=training),
+                 JSIM.sim_e2e_graph(jh, js, jp, 2048, 4,
+                                    training=training))]
+            for got, want in pairs:
+                assert got == pytest.approx(want, rel=REL) and got > 0
+        for phase in ("train", "prefill", "decode"):
+            assert A.phase_measure(h, s, phase)(p) == pytest.approx(
+                JA.phase_measure(jh, js, phase)(jp), rel=REL)
+        _same_plan(A.tune_plan(s, h, candidates=[A.Plan(), p]),
+                   JA.tune_plan(js, jh, candidates=[JA.Plan(), jp]))
+    got = list(A.candidate_plans(s, include_graph=True, hw=A.TPU_V5E))
+    want = list(JA.candidate_plans(js, include_graph=True, hw=JA.TPU_V5E))
+    assert [q.to_json() for q in got] == [q.to_json() for q in want]
+    assert any(q.schedule == "overlap" for q in got)
+    path, jpath = tmp_path / "g.json", tmp_path / "jg.json"
+    rows = tune.main(["--graph", "--hw", "tpu_v5e", "--out", str(path)]
+                     + TUNE_ARGV)
+    assert _jax_tuner().main(["--graph", "--hw", "tpu_v5e", "--out",
+                              str(jpath)] + TUNE_ARGV) == 0
+    jcache, cache = JA.PlanCache(str(jpath)), A.PlanCache(str(path))
+    assert len(rows["rows"]) == len(cache.plans) == 21
+    assert {k: q.to_json() for k, q in cache.plans.items()} == \
+        {k: q.to_json() for k, q in jcache.plans.items()}
+    assert any(q.schedule == "overlap" for q in cache.plans.values())
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import train_step as TS
+    with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
+        TS.build_prefill_step(get_config("qwen2-moe-2.7b-smoke"),
+                              ShapeConfig("p", 32, 4, "prefill"),
+                              mesh=object())
 
 
 def _cu_consts(*sources):

@@ -928,8 +928,10 @@ def test_kv_cache_per_rank_is_a_quarter_on_1x4():
 
 
 def test_unported_serving_paths_raise_by_name():
-    """The monolithic prefill raises, naming its ROADMAP item (10); the
-    disaggregated topology builds its Router once its config validates;
+    """The monolithic prefill builds at one rank and runs there (logits
+    (B, V), a cache entry per period position); on a mesh it raises,
+    naming its ROADMAP item; the disaggregated topology builds its Router
+    once its config validates;
     the paged arm of the sharded decode attention runs: through a block
     table it gives the decode over the gathered logical view, and a pool
     is never taken over positions."""
@@ -938,8 +940,19 @@ def test_unported_serving_paths_raise_by_name():
     from repro_torch.models import blocks
     cfg = get_config("qwen2-moe-2.7b-smoke")
     shape = ShapeConfig("serve", 32, 4, "decode")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.build_prefill_step(cfg, shape)
+    built = TS.build_prefill_step(cfg, shape)
+    assert built["batch_structs"] == {"tokens": (4, 32)}
+    params = lm.init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 32),
+                         generator=torch.Generator().manual_seed(1))
+    logits, cache = built["fn"](params, {"tokens": toks})
+    assert logits.shape == (4, cfg.vocab_size) and len(cache) == \
+        lm.period_of(cfg)
+    assert cache[0]["k"].shape[:3] == (cfg.n_layers // lm.period_of(cfg),
+                                       4, 32)
+    with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
+        TS.build_prefill_step(cfg, shape, mesh=_StubMesh({"data": 1,
+                                                          "model": 4}))
     from repro_torch.serving import EngineConfig, Router
     assert isinstance(EngineConfig(disagg=True, page_size=8).build(
         cfg, device="cpu"), Router)

@@ -24,7 +24,10 @@ parallel: attention takes ``none``). The sequence-parallel residual
 (``sp_residual``) on (1, 4) and (2, 2): qwen2-moe with the comet ring,
 qwen2-0.5b, mamba2 and jamba at one period (once under remat), each
 period carrying this rank's slice of the sequence, and a sequence of 30
-at mp 4, which keeps the residual whole. MoE capacity is the expert count (no
+at mp 4, which keeps the residual whole. The block-schedule IR
+(``cfg.block_schedule``): a MoE cell at ep 4 and the sequence-parallel
+residual on (2, 2), each in both emission orders, the same bits in both
+and within the bounds of JAX's step. MoE capacity is the expert count (no
 drop): capacity follows the local token count, so a mesh would drop
 other tokens than one rank does (the JAX self-test makes the same
 choice).
@@ -214,7 +217,17 @@ CELLS = {
                                             {**SPRES, "remat": "full"},
                                             True),
 }
-SP_CELLS = [c for c in CELLS if CELLS[c][4].get("sp_residual")]
+# the block-schedule IR on the mesh: scheduled twins of a MoE cell at
+# ep 4 and of a sequence-parallel-residual cell (over dp 2, its leaves
+# cut over the data axis), each in both emission orders
+SCHED_BASES = ("dp1mp4-qmoe-ep4-comet1-sp1", "dp2mp2-qmoe-comet1-sp1-spres")
+SCHED_MODES = ("sequential", "overlap")
+CELLS.update({f"{b}-{m}": CELLS[b][:4] + ({**CELLS[b][4],
+                                            "block_schedule": m},
+                                           CELLS[b][5])
+              for b in SCHED_BASES for m in SCHED_MODES})
+SP_CELLS = [c for c in CELLS if CELLS[c][4].get("sp_residual")
+            and not CELLS[c][4].get("block_schedule")]
 # plan-cache cells at ep 4 (``selftest._plan_job``): the cache's plan for
 # the cell's train key runs in place of the config's naive knobs, the
 # flat ring's or the two-level ring's. name -> (plan, seq_shard)
@@ -602,6 +615,24 @@ def test_sp_residual_carries_the_sequence_slice(run, cell):
         2 if CELLS[cell][4].get("remat") == "full" else 1)
     want = [B // dp, seq // mp if split else seq, cfg.d_model]
     assert got["carried"].tolist() == [want] * calls
+
+
+@pytest.mark.parametrize("base", SCHED_BASES)
+def test_scheduled_orders_give_the_same_bits(run, base):
+    """The scheduled forward on the mesh: ``sequential`` and ``overlap``
+    give the same loss, aux and gradient bits (gathered from every rank's
+    shard), no period runs through the period-at-a-time body, and the
+    sequence-parallel residual is carried as the unscheduled cell carries
+    it; each lies within the mesh step's bounds of JAX's one-rank step
+    (``test_loss_and_grads_match_jax``)."""
+    layout = CELLS[base][0]
+    seq, ovl = (_load(run, layout, f"{base}-{m}") for m in SCHED_MODES)
+    plain = _load(run, layout, base)
+    assert seq.files == ovl.files
+    for k in seq.files:
+        assert np.array_equal(seq[k], ovl[k]), k
+    assert seq["carried"].size == 0
+    assert bool(seq["sp_split"]) == bool(plain["sp_split"])
 
 
 def test_train_cli_sp_residual_on_a_1x4_mesh(run):
