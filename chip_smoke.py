@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all eighteen phases, one card
+  python3 chip_smoke.py              # all nineteen phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
@@ -9,6 +9,7 @@
   python3 chip_smoke.py --only build,serve_disagg
   python3 chip_smoke.py --only build,stack_bits
   python3 chip_smoke.py --only build,train_scheduled,prefill
+  python3 chip_smoke.py --only build,kernels,whisper
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -44,7 +45,12 @@ Phases:
              heads, d_state 16) and at a small shape; phase 18's shapes
              (fused_mlp at qwen2's no-drop capacity for 8 x 512 tokens,
              R 4096; flash_attention on 8 x 512; ssd_forward from a
-             zero state returning h_final at 4 x 1024). At the small shape,
+             zero state returning h_final at 4 x 1024); phase 19's
+             (flash_attention at whisper-small's 12 heads of 64, B 8:
+             the encoder's non-causal 1500 x 1500, the cross-attention's
+             375 and 32 queries over 1500 keys, the decoder's causal 375;
+             SDPA non-causal beside the non-causal ones; every bf16 flash
+             case also timed from a CUDA graph). At the small shape,
              the train shape and the serving chunk, over 8 seeded draws,
              the tensor-core kernel is held to its rule against the fp64
              sequential oracle (ssd.ORACLE_*: y's max error within 2x
@@ -264,7 +270,8 @@ Phases:
              injected crash recovered, the plan's and the robustness
              summaries printed.
  16 serve_disagg  the earlier phases' state is freed first. Phase 15's
-             model and trace at no-drop capacity: (a) the shared paged
+             model cut to 4 of its 24 layers (DISAGG_LAYERS: the script's
+             time) and its trace at no-drop capacity: (a) the shared paged
              engine (8 slots, 129 pages) and (b) the router of
              serving/disagg.py, 1 prefill worker of 4 slots (65 pages)
              and 1 decode worker of 8 slots (129 pages) sharing one
@@ -312,6 +319,31 @@ Phases:
              mamba2-780m whole, 4 x 1024 tokens: every ssd_forward (a
              zero state, h_final returned) on the tensor-core path.
              ms, tokens/s, peak memory and launches of each.
+ 19 whisper  the earlier phases' state is freed first. whisper-small,
+             the encoder-decoder, at every published width (12 encoder
+             and 12 decoder layers, d 768, 12 heads of 64, vocab 51,865,
+             seeded weights on the card). (a) fp32, whole: lm.prefill of
+             32 tokens beside 1500 frames, the cache stitched into a
+             decode cache of 1500 encoder rows, one decode_step: its
+             logits within rel L2 1e-4 of the full forward's at position
+             32; the forward through the kernels within 1e-4 of the plain
+             versions'. (b) bf16, 2 + 2 layers, 4 rows: loss and every
+             gradient through the kernels against the plain versions,
+             per leaf within max(2e-2, 3 x the floor to a second plain
+             route: the chunked online-softmax attention of
+             models/attention.py in blocks of 125). (c)
+             launch/train.py's Trainer at --batch 8 --seq 1500 (1500
+             frames and 375 tokens a row): a warm-up and 3 timed steps,
+             finite, none skipped, 72 flash_attention launches a step
+             (36 regions: 12 encoder, 12 decoder causal, 12 cross; and
+             their remat recompute), every one on the wgmma path; step
+             ms, frames/s, tokens/s, peak memory. (d) 8 requests of 1500
+             frames and a 32-token prompt: a warm-up and 3 timed
+             monolithic prefills (36 flash launches each, all wgmma), the
+             stitch into a decode cache of 448 positions and 1500 encoder
+             rows, 64 greedy decode steps (no kernel launch); the first
+             step's logits within rel L2 2e-2 of the full forward's at
+             position 32; ms, memory and launches.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -362,7 +394,7 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
           "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle",
-          "serve_disagg", "train_scheduled", "prefill")
+          "serve_disagg", "train_scheduled", "prefill", "whisper")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
@@ -412,6 +444,17 @@ HYBRID_CASES = {
 PREFILL_MLP_CASE = "prefill no-drop R=4096 expert_major"
 PREFILL_FLASH_CASE = "prefill B8 H16 S512 hd128"
 PREFILL_SSD_CASE = "prefill final A4 S1024 nh48 hd64 ds128"
+# phase 2's flash cases at phase 19's shapes (whisper-small, B 8)
+WHISPER_FLASH_CASES = {
+    "whisper encoder B8 H12 S1500 hd64": dict(B=8, Hq=12, Hkv=12, S=1500,
+                                              hd=64, c=False),
+    "whisper cross B8 H12 Sq375 Sk1500 hd64": dict(B=8, Hq=12, Hkv=12,
+                                                   S=375, Sk=1500, hd=64,
+                                                   c=False),
+    "whisper cross B8 H12 Sq32 Sk1500 hd64": dict(B=8, Hq=12, Hkv=12, S=32,
+                                                  Sk=1500, hd=64, c=False),
+    "whisper decoder B8 H12 S375 hd64": dict(B=8, Hq=12, Hkv=12, S=375,
+                                             hd=64, c=True)}
 # the train phase: 4 layers at full width (optimizer state for all 24 does
 # not fit one card), 4 x 1024 tokens per step
 TRAIN_LAYERS = 4
@@ -717,23 +760,34 @@ def kernel_cases():
                       dict(B=8, Hq=16, Hkv=16, S=512, hd=128, c=True)))
         cases.append(("ssd_forward", PREFILL_SSD_CASE, dt,
                       dict(B=4, S=1024, nh=48, hd=64, ds=128, final=True)))
+    # phase 19's shapes (whisper-small, 12 heads of 64, B 8): the
+    # encoder's self-attention over 1500 frames, the cross-attention of
+    # the train step's 375 tokens and of the prefill's 32 over them
+    # (non-causal, Sq != Sk, the last kv tile partial), the decoder's
+    # causal self-attention at 375
+    for dt in ("bf16", "fp32"):
+        for label, spec in WHISPER_FLASH_CASES.items():
+            cases.append(("flash_attention", label, dt,
+                          dict(spec, draws=DRAWS if dt == "bf16" else 1)))
     return cases
 
 
 def flash_case(dt, isz, spec, gen):
     """(kernel fn, plain fn, library fn, backward fn, bytes, flops) of a
-    flash-attention case. q/k/v are made in the model's (B, S, H, hd)
-    layout and passed as transposed views, as the model passes them. The
-    FLOPs count QK^T and PV over the pairs the mask keeps."""
+    flash-attention case: S queries over Sk keys (default S). q/k/v are
+    made in the model's (B, S, H, hd) layout and passed as transposed
+    views, as the model passes them. The FLOPs count QK^T and PV over the
+    pairs the mask keeps."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
     B, Hq, Hkv, S, hd, causal = (spec[k] for k in
                                  ("B", "Hq", "Hkv", "S", "hd", "c"))
+    Sk = spec.get("Sk", S)
     q = _randn((B, S, Hq, hd), dt, 1.0, gen).transpose(1, 2)
-    k = _randn((B, S, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
-    v = _randn((B, S, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
+    k = _randn((B, Sk, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
+    v = _randn((B, Sk, Hkv, hd), dt, 1.0, gen).transpose(1, 2)
     ct = _randn((B, Hq, S, hd), dt, 1.0, gen)
 
     def kf():
@@ -749,8 +803,8 @@ def flash_case(dt, isz, spec, gen):
     def bwd():
         return ref.flash_attention_vjp(q, k, v, causal, ct)
 
-    pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd) * isz
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * Sk * hd) * isz
     return kf, pf, lib, bwd, nbytes, 2 * 2 * B * Hq * pairs * hd
 
 
@@ -1296,8 +1350,8 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
             # the general kernel on the same inputs
             with general_path():
                 rec["general_ms"] = timer(k)
-        if rec.get("path") == "hopper" and kernel in ("grouped_gemm",
-                                                      "ssd_forward"):
+        if rec.get("path") == "hopper" and kernel in (
+                "grouped_gemm", "ssd_forward", "flash_attention"):
             # device time alone, the calls replayed from a CUDA graph (the
             # eager times above include each call's host work)
             rec["device_ms"] = graph_ms(lambda i: k(), reps=20)
@@ -3972,12 +4026,18 @@ DISAGG_EC = dict(max_seq=1024, chunk=256, page_size=PAGED_PAGE,
                  prefill_slots=4, decode_slots=8, n_pages=LIFECYCLE_POOL)
 DISAGG_TURNS = ("shared", "router", "router", "shared")
 DISAGG_PREFILL_CRASH = 3
+# phase 16's qwen2-moe-2.7b depth (a, b, c): 4 of 24 layers at every
+# published width, so the nineteen phases stay within half the contract's
+# 1200 s (the snapshots of the crash runs scale with the layers); the CLI
+# (e) serves the whole model
+DISAGG_LAYERS = 4
 DISAGG_SSM_REQUESTS = 8
 
 
 def phase_serve_disagg(state, out):
     """Disaggregated serving on phase 3's model and trace (qwen2-moe-2.7b
-    whole, bf16, seed 0, pallas_fused, no-drop capacity, max_seq 1024,
+    at DISAGG_LAYERS of its 24 layers and every published width, bf16,
+    seed 0, pallas_fused, no-drop capacity, max_seq 1024,
     chunk 256, page 64; 16 requests of 64-512 prompt tokens, max_new 32):
     (a) the shared paged engine at 8 slots (129 pages) and (b) the router,
     1 prefill worker of 4 slots and 1 decode worker of 8 slots (129 pages)
@@ -4013,8 +4073,10 @@ def phase_serve_disagg(state, out):
     torch.cuda.empty_cache()
     cfg = with_gemm(get_config(ARCH), "pallas_fused")
     moe = cfg.moe
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        moe, capacity_factor=moe.num_experts / moe.top_k))
+    cfg = dataclasses.replace(cfg, n_layers=DISAGG_LAYERS,
+                              moe=dataclasses.replace(
+                                  moe, capacity_factor=moe.num_experts
+                                  / moe.top_k))
     params = lm.init_params(cfg, seed=0, device="cuda")
     prompts = make_trace(cfg.vocab_size, 16, 64, 512, 0)
     warm = ServeEngine(cfg, params=params, max_seq=1024, batch_size=8,
@@ -4025,7 +4087,7 @@ def phase_serve_disagg(state, out):
     warm.run()
     del warm
     runs, streams = {}, {}
-    rec = {"runs": runs}
+    rec = {"runs": runs, "layers": DISAGG_LAYERS}
     for i, tag in enumerate(DISAGG_TURNS):
         key = f"{tag}{i}"
         torch.cuda.empty_cache()
@@ -4856,6 +4918,273 @@ def phase_prefill(state, out):
     out["prefill"] = rec
 
 
+# the whisper phase: whisper-small whole (12 encoder and 12 decoder
+# layers at every published width); fp32: 2 rows of 1500 frames and 32
+# tokens; bf16 gradients at 2 + 2 layers on 4 rows; the train step at
+# --batch 8 --seq 1500 (1500 frames and 375 tokens a row, the JAX
+# package's ratio); serving: 8 requests of 1500 frames and 32 prompt
+# tokens, a decode cache of 448 positions (whisper's text context) and
+# 1500 encoder rows, 64 greedy decode steps
+WHISPER_ARCH = "whisper-small"
+WHISPER_FP32 = (2, 1500, 32)               # rows, frames, tokens
+WHISPER_GRAD = (4, 1500, 375, 2)           # rows, frames, tokens, layers
+WHISPER_TRAIN = (8, 1500)                  # --batch, --seq
+WHISPER_SERVE = (8, 1500, 32, 448, 64)     # rows, frames, prompt, ctx, steps
+
+
+def whisper_cfg(dtype, layers=0):
+    """whisper-small at full width in ``dtype``; ``layers`` cuts both
+    stacks to that depth (0: all 12 + 12)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), param_dtype=dtype,
+                              compute_dtype=dtype)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers, n_enc_layers=layers)
+    return cfg
+
+
+def whisper_inputs(cfg, rows, frames, tokens, seed):
+    """Seeded stub-frontend frames (B, frames, d) and tokens (B, tokens)
+    on the card, as the synthetic data draws them."""
+    import torch
+    g = _gen(seed)
+    fr = torch.randn((rows, frames, cfg.d_model), device="cuda",
+                     generator=g) * 0.02
+    toks = torch.randint(0, cfg.vocab_size, (rows, tokens), device="cuda",
+                         generator=g)
+    return fr, toks
+
+
+def whisper_flash_launches(cfg, train=False):
+    """Flash launches of one forward: the encoder's self-attention and
+    each decoder layer's causal self-attention and cross-attention (36
+    for whisper-small); a train step under remat recomputes them all."""
+    n = cfg.n_enc_layers + 2 * cfg.n_layers
+    return 2 * n if train and cfg.remat == "full" else n
+
+
+# the second plain route's blocks of queries and keys: 125 divides every
+# length of phase 19's attention (1500 frames, 375 tokens)
+WHISPER_FLOOR_BLOCK = 125
+
+
+@contextlib.contextmanager
+def chunked_attention_route():
+    """While active, ops.flash_attention calls the plain chunked
+    online-softmax attention of models/attention.py by name, in blocks of
+    WHISPER_FLOOR_BLOCK (a second plain route: the JAX package's chunked
+    jnp form, fp32 like ref.flash_attention_ref but summed block by
+    block)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    saved = ops.flash_attention
+
+    def chunked(q, k, v, causal=True):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qp, kp = (torch.arange(t.shape[1], device=q.device)[None, :]
+                  .expand(t.shape[0], -1) for t in (qt, kt))
+        return A.chunked_attention(qt, kt, vt, WHISPER_FLOOR_BLOCK,
+                                   WHISPER_FLOOR_BLOCK, qp, kp,
+                                   causal).transpose(1, 2)
+
+    ops.flash_attention = chunked
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def phase_whisper(state, out):
+    """whisper-small, the encoder-decoder, through the port's entry points
+    (the encoder's self-attention, the cross-attention and the decoder's
+    unmasked causal self-attention on the flash kernel). (a) fp32, whole:
+    lm.prefill of 32 tokens beside 1500 frames, the cache stitched into a
+    decode cache of 1500 encoder rows, one decode_step: its logits within
+    rel L2 1e-4 of the full forward's at position 32; the forward's
+    logits through the kernels within 1e-4 of the plain versions'. (b)
+    bf16 at 2 + 2 layers: loss and every gradient through the kernels
+    against the plain versions, per leaf within max(2e-2, 3 x the floor
+    between two plain routes: the chunked attention beside the plain
+    one), as phase 6. (c) launch/train.py's Trainer
+    at --batch 8 --seq 1500: a warm-up and 3 timed steps, finite and none
+    skipped, 72 flash launches a step (36 regions and their remat
+    recompute), every one on the wgmma path. (d) 8 requests of 1500
+    frames and 32 tokens: a warm-up and 3 timed monolithic prefills (36
+    flash launches each, all wgmma), the stitch into a decode cache of
+    448 positions and 1500 encoder rows, 64 greedy decode steps (no flash
+    launch); the first step's logits within rel L2 2e-2 of the full
+    forward's. ms, memory and launches of each."""
+    import numpy as np
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.serving import stitch_prefill_cache
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    state.clear()
+    torch.cuda.empty_cache()
+    rec = out["whisper"] = {}
+
+    # (a) fp32, the whole model
+    cfg = whisper_cfg("float32")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    Bz, F_, S = WHISPER_FP32
+    fr, toks = whisper_inputs(cfg, Bz, F_, S + 1, 31)
+    with torch.no_grad():
+        h, _, _ = lm.forward(cfg, params, {"frames": fr, "tokens": toks})
+        with plain_ops():
+            hp, _, _ = lm.forward(cfg, params, {"frames": fr, "tokens": toks})
+    want = lm._logits(cfg, params, h[:, S], per_row=True)
+    plain = lm._logits(cfg, params, hp[:, S], per_row=True)
+    _, pre = lm.prefill(cfg, params, {"frames": fr, "tokens": toks[:, :S]})
+    cache = stitch_prefill_cache(cfg, lm.init_cache(
+        cfg, Bz, S + 8, "cuda", enc_len=F_), pre, S)
+    got, _ = lm.decode_step(cfg, params, cache, toks[:, S:],
+                            torch.full((Bz,), S, device="cuda"))
+    rec["fp32"] = {"decode_vs_forward_rel_l2": rel_l2(got, want),
+                   "kernels_vs_plain_rel_l2": rel_l2(want, plain)}
+    log("  fp32 whole: " + json.dumps(rec["fp32"]))
+    del params, cache, pre, h, hp
+    torch.cuda.empty_cache()
+    for k, v in rec["fp32"].items():
+        check(v <= TOL["fp32"], f"fp32 {k} {v:.3e} > 1e-4")
+
+    # (b) bf16 gradients at 2 + 2 layers
+    Bz, F_, S, L = WHISPER_GRAD
+    c16 = whisper_cfg("bfloat16", L)
+    p16 = lm.init_params(c16, seed=2, device="cuda")
+    fr, toks = whisper_inputs(c16, Bz, F_, S + 1, 32)
+    batch = {"frames": fr, "tokens": toks[:, :S], "labels": toks[:, 1:]}
+    runs = {"plain": loss_and_grads(c16, p16, batch, plain=True),
+            "kernels": loss_and_grads(c16, p16, batch)}
+    with plain_ops(), chunked_attention_route():
+        runs["chunked"] = loss_and_grads(c16, p16, batch)
+    torch.cuda.synchronize()
+    del p16
+    want_l, want_g = runs.pop("plain")
+    g = {}
+    for name, (loss, grads) in runs.items():
+        check(bool(torch.isfinite(loss)) and all(
+            bool(t.isfinite().all()) for t in grads.values()),
+            f"bf16 {name}: non-finite loss or gradient")
+        g[name] = {"loss_rel_err": abs(float(loss) - float(want_l))
+                   / abs(float(want_l)),
+                   "grad_rel_l2": {"/".join(map(str, p)): rel_l2(t, want_g[p])
+                                   for p, t in grads.items()}}
+    del runs, want_g
+    torch.cuda.empty_cache()
+    bad = [f"{leaf}: {err:.3e}" for leaf, err in
+           g["kernels"]["grad_rel_l2"].items()
+           if err > max(TOL["bf16"], 3 * g["chunked"]["grad_rel_l2"][leaf])]
+    rec["bf16_grads"] = {
+        name: {"loss_rel_err": r["loss_rel_err"],
+               "grad_rel_l2_max": max(r["grad_rel_l2"].values()),
+               "grad_rel_l2": r["grad_rel_l2"]} for name, r in g.items()}
+    log(f"  bf16 {L}+{L} layers: kernels vs plain loss rel err "
+        f"{g['kernels']['loss_rel_err']:.3e}, worst leaf "
+        f"{rec['bf16_grads']['kernels']['grad_rel_l2_max']:.3e}; chunked "
+        f"route vs plain {g['chunked']['loss_rel_err']:.3e}, worst leaf "
+        f"{rec['bf16_grads']['chunked']['grad_rel_l2_max']:.3e}")
+    check(g["kernels"]["loss_rel_err"]
+          <= max(TOL["bf16"], 3 * g["chunked"]["loss_rel_err"]),
+          f"bf16 loss rel err {g['kernels']['loss_rel_err']:.3e}")
+    check(not bad, f"bf16 gradients outside max(2e-2, 3 x floor): {bad}")
+
+    # (c) the Trainer of launch/train.py at --batch 8 --seq 1500
+    cfg = whisper_cfg("bfloat16")
+    Bz, F_ = WHISPER_TRAIN
+    tr = Trainer(cfg, ShapeConfig("train", F_, Bz, "train"), None,
+                 TrainerConfig(ckpt_dir=tempfile.mkdtemp(
+                     prefix="chip_smoke_whisper_")), device="cuda")
+    tstate = tr.init_state()
+    n_params = sum(t.numel() for t in _leaves(tstate["params"]))
+    batches = [tr._device_batch(tr.data.batch_at(i)) for i in range(4)]
+    T = batches[0]["tokens"].shape[1]
+    tstate, m = tr.built["fn"](tstate, batches[0])        # warm-up
+    warm_loss = float(m["loss"])
+    tstate, steps, counts, plain_calls = train_steps(tr, tstate, batches[1:])
+    ms = statistics.median(st["ms"] for st in steps)
+    rec["train"] = {
+        "rows": Bz, "frames": F_, "tokens": T, "params": n_params,
+        "warmup_loss": warm_loss, "steps": steps, "step_ms_median": ms,
+        "frames_per_s": Bz * F_ / ms * 1e3, "tokens_per_s": Bz * T / ms * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts, "plain_calls_on_cuda": plain_calls}
+    log("  train: " + json.dumps(rec["train"]))
+    del tr, tstate, batches
+    torch.cuda.empty_cache()
+    n = 3 * whisper_flash_launches(cfg, train=True)
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n, flash_attention_hopper=n)
+    check(counts == want, f"train launches {counts}, expected {want}")
+    check(plain_calls == 0, f"plain versions saw CUDA tensors {plain_calls} "
+                            f"times")
+    check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+              and not st["skipped"] for st in steps),
+          f"non-finite or skipped steps: {steps}")
+
+    # (d) serving: the monolithic prefill, the stitch, greedy decode
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    Bz, F_, S, ctx_len, n_steps = WHISPER_SERVE
+    fr, toks = whisper_inputs(cfg, Bz, F_, S, 33)
+    batch = {"frames": fr, "tokens": toks}
+    lm.prefill(cfg, params, batch)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pre_ms = []
+    with PlainGuard() as guard:
+        for _ in range(PREFILL_ITERS):
+            t0 = time.perf_counter()
+            logits, pre = lm.prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        pre_counts = read_counts()
+        cache = stitch_prefill_cache(cfg, lm.init_cache(
+            cfg, Bz, ctx_len, "cuda", enc_len=F_), pre, S)
+        del pre
+        reset_counts()
+        t0 = time.perf_counter()
+        first, streams = _greedy(cfg, params, cache, torch.argmax(logits, -1),
+                                 torch.full((Bz,), S, device="cuda"), n_steps)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        dec_counts = read_counts()
+    with torch.no_grad():
+        full = torch.cat([toks, torch.argmax(logits, -1)[:, None]], 1)
+        h, _, _ = lm.forward(cfg, params, {"frames": fr, "tokens": full})
+    ref_logits = lm._logits(cfg, params, h[:, S], per_row=True)
+    rec["serve"] = {
+        "rows": Bz, "frames": F_, "prompt": S, "max_seq": ctx_len,
+        "decode_steps": n_steps, "prefill_ms": pre_ms,
+        "prefill_ms_median": statistics.median(pre_ms),
+        "decode_ms_per_step": dec_ms,
+        "decode_tokens_per_s": Bz / dec_ms * 1e3,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "prefill_launches": pre_counts, "decode_launches": dec_counts,
+        "plain_calls_on_cuda": guard.cuda_calls,
+        "first_decode_vs_forward": compare_logits(first, ref_logits),
+        "streams_len": len(streams[0])}
+    log("  serve: " + json.dumps(rec["serve"]))
+    del params, cache
+    torch.cuda.empty_cache()
+    n = PREFILL_ITERS * whisper_flash_launches(cfg)
+    want = {k: 0 for k in pre_counts}
+    want.update(flash_attention=n, flash_attention_hopper=n)
+    check(pre_counts == want, f"prefill launches {pre_counts}, expected "
+                              f"{want}")
+    check(dec_counts == {k: 0 for k in dec_counts},
+          f"decode launched kernels: {dec_counts}")
+    check(guard.cuda_calls == 0, "plain versions saw CUDA tensors")
+    err = rec["serve"]["first_decode_vs_forward"]["rel_l2_err"]
+    check(err <= TOL["bf16"], f"bf16 first decode logits rel L2 {err:.3e} "
+                              f"from the forward's")
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -5122,6 +5451,18 @@ def kernel_records(out):
                 k: case_rec(name, pcase).get(k) for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "device_ms", "general_ms", "path")}}
+        if name == "flash_attention":  # phase 2 at phase 19's shapes
+            extra["whisper_cases"] = {
+                case: {k: case_rec(name, case).get(k) for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_ms", "library_device_ms", "path",
+                    "draws_max_abs_err", "general_max_abs_err")}
+                for case in WHISPER_FLASH_CASES}
+            wh = out.get("whisper", {})
+            extra["whisper_launches"] = {
+                "train_3_steps": wh.get("train", {}).get("launches", {})
+                .get(name), "prefill_3_calls": wh.get("serve", {}).get(
+                    "prefill_launches", {}).get(name)}
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (
@@ -5209,7 +5550,7 @@ def main(argv=None):
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
              "serve_lifecycle", "serve_disagg", "train_scheduled", "prefill",
-             "stack_bits", "nccl_pair")
+             "whisper", "stack_bits", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -5278,6 +5619,8 @@ def main(argv=None):
                 phase_train_scheduled(state, out)
             elif name == "prefill":
                 phase_prefill(state, out)
+            elif name == "whisper":
+                phase_whisper(state, out)
             elif name == "stack_bits":
                 phase_stack_bits(state, out)
             elif name == "nccl_pair":

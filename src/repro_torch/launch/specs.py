@@ -11,6 +11,7 @@ from typing import Dict, Tuple
 # default grad-accumulation per train shape name (microbatch count)
 TRAIN_ACCUM = {"train_4k": 8, "smoke": 1}
 WHISPER_DEC_RATIO = 4          # decoder text length = seq_len // ratio
+WHISPER_ENC_LEN_DECODE = 4096  # encoder frames cached during decode
 
 
 def legal_accum(global_batch: int, accum: int) -> int:
@@ -42,8 +43,9 @@ def train_batch_specs(cfg, shape, accum: int) -> Dict[str, Tuple[int, ...]]:
 def prefill_batch_specs(cfg, shape) -> Dict[str, Tuple[int, ...]]:
     """The shape of each entry of one monolithic-prefill batch
     (``repro/launch/specs.py:71-77``): the train batch's of ``shape``
-    without accumulation and without labels. A batch of mixed lengths
-    adds a "mask" of the tokens' shape (left padding)."""
+    without accumulation and without labels (an encoder-decoder's:
+    "frames" (B, S, d) and "tokens" (B, max(64, S // 4))). A batch of
+    mixed lengths adds a "mask" of the tokens' shape (left padding)."""
     structs = train_batch_specs(cfg, shape, 1)
     structs.pop("labels", None)
     return structs
@@ -83,17 +85,24 @@ def decode_inputs(cfg, shape, ctx) -> Tuple:
     mesh). One shape gives the prefill and decode steps the same layout.
     ``shape.page_size`` > 0 switches to the paged layout
     (``lm.paged_cache_shapes`` of ``shape.pages_total()`` pages,
-    ``sharding.paged_cache_specs``)."""
+    ``sharding.paged_cache_specs``). An encoder-decoder's cache holds
+    ``WHISPER_ENC_LEN_DECODE`` rows of encoder K/V (``repro/launch/
+    specs.py:92-95``), at one rank."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.sharding import P
     B, S = shape.global_batch, shape.seq_len
+    ranked = ctx is not None and ctx.active
+    if ranked and cfg.n_enc_layers:
+        from repro_torch.models.blocks import MESH_ENCDEC
+        raise NotImplementedError(MESH_ENCDEC)
     if shape.paged:
         cache = lm.paged_cache_shapes(cfg, B, shape.pages_total(),
                                       shape.page_size)
     else:
-        cache = lm.cache_shapes(cfg, B, S)
-    if ctx is not None and ctx.active:
+        enc_len = WHISPER_ENC_LEN_DECODE if cfg.n_enc_layers else 0
+        cache = lm.cache_shapes(cfg, B, S, enc_len)
+    if ranked:
         cspecs = (SH.paged_cache_specs(cfg, ctx, B) if shape.paged
                   else SH.cache_specs(cfg, ctx, B, S))
         dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]

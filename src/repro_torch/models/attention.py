@@ -1,5 +1,7 @@
-"""GQA attention in plain PyTorch: dense and chunked online-softmax
-prefill attention, and decode against a contiguous KV cache.
+"""GQA attention in plain PyTorch: the projections' schema
+(``attn_schema``, self- and cross-attention), dense and chunked
+online-softmax prefill attention, and decode against a contiguous KV
+cache.
 
 These mirror the JAX package's jnp einsums (``repro.models.attention``),
 scores and softmax in fp32. They are not ``scaled_dot_product_attention``;
@@ -21,10 +23,32 @@ import math
 
 import torch
 
+from repro_torch.models.common import ParamDecl
 from repro_torch.parallel import collectives as CL
 
 NEG_INF = -1e30
 DENSE_THRESHOLD = 1024          # the JAX package's attention() default
+
+
+def attn_schema(cfg, a, cross: bool = False):
+    """The q/k/v/o projections (and their biases where ``a.qkv_bias``) of
+    an attention block (``repro/models/attention.py:23-35``). A
+    cross-attention (``cross``) has the same leaves: its k and v project
+    the encoder's output."""
+    d = cfg.d_model
+    s = {
+        "wq": ParamDecl((d, a.n_heads * a.head_dim), ("embed", "qheads")),
+        "wk": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
+        "wv": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
+        "wo": ParamDecl((a.n_heads * a.head_dim, d), ("qheads", "embed")),
+    }
+    if a.qkv_bias:
+        s["bq"] = ParamDecl((a.n_heads * a.head_dim,), ("qheads",), "zeros")
+        s["bk"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
+                            "zeros")
+        s["bv"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
+                            "zeros")
+    return s
 
 
 def _expand_kv(k, n_heads):

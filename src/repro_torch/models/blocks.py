@@ -4,7 +4,10 @@ values and declared dataflow, which ``core/schedule.py`` orders), the
 training forward and the monolithic prefill (``apply_layer``, the
 sequential interpretation of that lowering; ``return_cache`` gives the
 layer's cache entry) and the two cached serving modes, single-token
-decode and chunked prefill, of both layer kinds. No cross-attention yet.
+decode and chunked prefill, of both layer kinds. An encoder-decoder's
+decoder layer (``cross``) adds a cross-attention over the encoder's
+output after its self-attention, at one rank; its chunked prefill is not
+ported, as the JAX package has none.
 
 The training forward also runs on a mesh (a ranked ``AxisCtx``): each
 rank holds its rows of the batch, the same on every model rank, and its
@@ -36,43 +39,28 @@ from repro_torch.core.moe_layer import moe_ffn, moe_schema
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
-from repro_torch.models.common import (ParamDecl, apply_norm, apply_rope,
-                                       ffn_apply, ffn_schema, model_sharded,
+from repro_torch.models.common import (apply_norm, apply_rope, ffn_apply,
+                                       ffn_schema, model_sharded,
                                        norm_schema)
 from repro_torch.parallel import collectives as CL
-
-
-def attn_schema(cfg, a) -> Dict[str, ParamDecl]:
-    d = cfg.d_model
-    s = {
-        "wq": ParamDecl((d, a.n_heads * a.head_dim), ("embed", "qheads")),
-        "wk": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
-        "wv": ParamDecl((d, a.n_kv_heads * a.head_dim), ("embed", "kvheads")),
-        "wo": ParamDecl((a.n_heads * a.head_dim, d), ("qheads", "embed")),
-    }
-    if a.qkv_bias:
-        s["bq"] = ParamDecl((a.n_heads * a.head_dim,), ("qheads",), "zeros")
-        s["bk"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
-                            "zeros")
-        s["bv"] = ParamDecl((a.n_kv_heads * a.head_dim,), ("kvheads",),
-                            "zeros")
-    return s
 
 
 def _ranked(ctx) -> bool:
     return ctx is not None and ctx.active
 
 
-def layer_schema(cfg, pos: int, ctx=None) -> Dict:
+def layer_schema(cfg, pos: int, ctx=None, cross: bool = False) -> Dict:
     """One layer position's schema. On a mesh the experts are stored
     packed for the model axis: (W, E_loc, ...) with W its size
-    (``repro/models/blocks.py:35-53``)."""
-    if cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet")
+    (``repro/models/blocks.py:35-53``). ``cross``: an encoder-decoder's
+    decoder layer, whose attention position adds the cross-attention's
+    norm ``ln_x`` and projections ``xattn``."""
     s: Dict[str, Any] = {"ln1": norm_schema(cfg, cfg.d_model)}
     if cfg.layer_kind(pos) == "a":
-        s["attn"] = attn_schema(cfg, cfg.attn)
+        s["attn"] = A.attn_schema(cfg, cfg.attn)
+        if cross:
+            s["ln_x"] = norm_schema(cfg, cfg.d_model)
+            s["xattn"] = A.attn_schema(cfg, cfg.attn, cross=True)
     else:
         s["ssm"] = SSM.ssm_schema(cfg, cfg.ssm)
     if cfg.d_ff > 0 or cfg.is_moe_layer(pos):
@@ -247,8 +235,9 @@ def _attn_core(a, causal, use_rope, q, k, v, qp, kp, kv_mask,
     positions (B, Sq_l)/(B, Sk). ``head_base``/``kv_base``: the global
     index of the first local q/kv head, from which each local q head
     finds its kv head (every sharding case). ``flash``: the region is the
-    kernel's case (causal, unmasked, positions arange(S) on both sides),
-    sent to ``ops.flash_attention``. ``return_kv``: returns (o, {"k", "v"}),
+    kernel's case (unmasked, and non-causal or causal with positions
+    arange(S) on both sides), sent to ``ops.flash_attention`` with its
+    ``causal``. ``return_kv``: returns (o, {"k", "v"}),
     the K/V after RoPE and before the heads' expansion (the prefill's
     cache entry)."""
     if use_rope:
@@ -260,7 +249,7 @@ def _attn_core(a, causal, use_rope, q, k, v, qp, kp, kv_mask,
     k, v = _local_kv(k, v, kv_map, rep)
     if flash:
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True).transpose(
+                                v.transpose(1, 2), causal=causal).transpose(
                                     1, 2)
     else:
         o = A.attention(q, k, v, qp, kp, q_block=a.q_block,
@@ -270,34 +259,49 @@ def _attn_core(a, causal, use_rope, q, k, v, qp, kp, kv_mask,
 
 def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
                kv_mask=None, arange_positions: bool = False, ctx=None,
-               return_kv: bool = False):
-    """Full-sequence self-attention (blocks.py:116 of the JAX package).
-    x: (B, S, d); positions: (B, S) or (1, S) absolute positions (RoPE and
-    the causal mask); kv_mask: optional (B, S) key validity;
-    ``arange_positions``: the caller built positions as arange(S) (the
-    training forward without a mask). Returns the o-projection (B, S, d).
+               return_kv: bool = False, kv_x=None):
+    """Full-sequence attention (blocks.py:116 of the JAX package). x:
+    (B, S, d); positions: (B, S) or (1, S) absolute positions of the
+    queries (RoPE and the causal mask); kv_mask: optional (B, Sk) key
+    validity; ``arange_positions``: the caller built positions as
+    arange(S) (the training forward without a mask). ``kv_x``: (B, Sk, d)
+    the keys' and values' source (the encoder's output: a
+    cross-attention, its key positions arange(Sk)); None: x itself.
+    Returns the o-projection (B, S, d).
 
-    Causal, unmasked, with positions arange(S): there the JAX package's
-    ``__fusable__flash`` region computes exactly what its flash kernel
-    computes, and the port sends it to ``ops.flash_attention`` (the
-    hand-written kernel on a CUDA tensor). Every other case keeps the
+    Unmasked, and non-causal or causal with positions arange(S): there
+    the JAX package's ``__fusable__flash`` region computes exactly what
+    its flash kernel computes (``causal`` passed through), and the port
+    sends it to ``ops.flash_attention`` (the hand-written kernel on a
+    CUDA tensor): an encoder's self-attention, a cross-attention and an
+    unmasked decoder's causal self-attention. Every other case keeps the
     plain attention, as the JAX package does. With a ranked ``ctx`` the
-    heads shard as ``attn_case`` says; the ``seq`` case's query positions
-    are a slice, so it takes the plain attention. ``return_kv`` (at one
-    rank: the monolithic prefill, ``block_segments``): returns (the
-    o-projection, {"k", "v"} (B, S, Hkv, hd) after RoPE), the layer's
-    cache entry."""
+    heads shard as ``attn_case`` says (self-attention only); the ``seq``
+    case's query positions are a slice, so it takes the plain attention.
+    ``return_kv`` (at one rank: the monolithic prefill,
+    ``block_segments``): returns (the o-projection, {"k", "v"} (B, Sk,
+    Hkv, hd) after RoPE, before the heads' expansion), the layer's cache
+    entry."""
     a = cfg.attn
     B, S, _ = x.shape
     positions = positions.expand(B, S)
+    Sk = S if kv_x is None else kv_x.shape[1]
     if kv_mask is not None:
-        kv_mask = kv_mask.expand(B, S)
-    flash = causal and kv_mask is None and arange_positions
+        kv_mask = kv_mask.expand(B, Sk)
+    flash = kv_mask is None and (not causal or arange_positions)
     if _ranked(ctx) and ctx.model_size > 1:
+        if kv_x is not None:
+            raise NotImplementedError(MESH_ENCDEC)
         return _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope,
                             kv_mask, flash)
-    q, k, v = _qkv_proj(a, p, x)
-    o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
+    if kv_x is None:
+        q, k, v = _qkv_proj(a, p, x)
+        kv_pos = positions
+    else:
+        q = _proj(a, p, x, "q")
+        k, v = _proj(a, p, kv_x, "k"), _proj(a, p, kv_x, "v")
+        kv_pos = torch.arange(Sk, device=x.device)[None, :].expand(B, Sk)
+    o = _attn_core(a, causal, use_rope, q, k, v, positions, kv_pos,
                    kv_mask, flash=flash, return_kv=return_kv)
     if return_kv:
         o, kv = o
@@ -396,12 +400,15 @@ class ExecSeg:
 
 _MESH_PREFILL = ("the monolithic prefill (return_cache) on a mesh is not "
                  "ported yet (ROADMAP Queue 1, the mesh monolithic prefill)")
+MESH_ENCDEC = ("the encoder-decoder on a mesh is not ported yet (ROADMAP "
+               "Queue 1, item 3c, the encoder-decoder on a mesh)")
 
 
 def block_segments(cfg, pos: int, p, positions, mask=None,
                    return_cache: bool = False, block: int = 0,
                    x_in: str = "x", x_out: str = "x_out", ctx=None,
-                   sp: bool = False, arange_positions: bool = False):
+                   sp: bool = False, arange_positions: bool = False,
+                   enc_out=None):
     """Lower one layer to its executed segment list (``repro/models/
     blocks.py:221-351``). The residual stream enters as env[``x_in``] and
     leaves as env[``x_out``]; the values inside are named ``L{block}.*``:
@@ -413,17 +420,23 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
     lowering only names the values between them, so the scheduler sees,
     e.g., that a shared expert reads the mid residual only.
 
+    ``enc_out``: (B, Sk, d) the encoder's output, at an encoder-decoder's
+    attention position (``repro/models/blocks.py:235-300``): the mixer's
+    residual writes ``xm0``, the ``xattn`` segment (ln_x -> attention of
+    the queries over ``enc_out``, non-causal, no RoPE) reads it and writes
+    ``hx``, and ``resx`` adds them into ``xm``; under ``return_cache`` the
+    cache entry gains {"xk", "xv"} (B, Sk, Hkv, hd), K/V of ``enc_out``
+    before the heads' expansion.
+
     positions, mask, ``arange_positions``, ``ctx`` and ``sp``: as
     ``apply_layer``. ``return_cache`` at one rank only."""
-    if cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the cross-attention segment of encoder-decoder "
-            f"models is not ported yet")
     if return_cache and _ranked(ctx):
         raise NotImplementedError(_MESH_PREFILL)
     kind = "attn" if cfg.layer_kind(pos) == "a" else "ssm"
+    cross = kind == "attn" and enc_out is not None
     pr = f"L{block}."
     xm = pr + "xm"
+    xm0 = pr + ("xm0" if cross else "xm")
     cache_w = (pr + "cache",) if return_cache else ()
 
     def mixer(h):
@@ -449,12 +462,31 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
 
     def f_res1(env):
         x = env[x_in]
-        env[xm] = x + env[pr + "h0"].to(x.dtype)
+        env[xm0] = x + env[pr + "h0"].to(x.dtype)
 
     segs = [ExecSeg(pr + kind, kind, block, (x_in,), (pr + "h0",) + cache_w,
                     f_mix),
             ExecSeg(pr + "res1", "residual", block, (x_in, pr + "h0"),
-                    (xm,), f_res1)]
+                    (xm0,), f_res1)]
+    if cross:
+        def f_xattn(env):
+            hx = apply_norm(cfg, p["ln_x"], env[xm0])
+            out = attn_apply(cfg, p["xattn"], hx, positions, False, False,
+                             return_kv=return_cache, kv_x=enc_out)
+            if return_cache:
+                out, xkv = out
+                env[pr + "cache"]["xk"] = xkv["k"]
+                env[pr + "cache"]["xv"] = xkv["v"]
+            env[pr + "hx"] = out
+
+        def f_resx(env):
+            x = env[xm0]
+            env[xm] = x + env[pr + "hx"].to(x.dtype)
+
+        segs += [ExecSeg(pr + "xattn", "attn", block, (xm0,) + cache_w,
+                         (pr + "hx",) + cache_w, f_xattn),
+                 ExecSeg(pr + "resx", "residual", block, (xm0, pr + "hx"),
+                         (xm,), f_resx)]
     tail = []
     if "ln2" in p and "moe" in p:
         def f_moe(env):
@@ -504,11 +536,13 @@ def run_segments(segs, env):
 
 def apply_layer(cfg, pos: int, p, x, positions, mask=None,
                 arange_positions: bool = False, ctx=None, sp: bool = False,
-                return_cache: bool = False):
+                return_cache: bool = False, enc_out=None):
     """One layer of the training forward and the monolithic prefill
     (``repro/models/blocks.py:361-378``): the sequential interpretation of
     ``block_segments``, ln1 -> (attention | SSM) -> residual -> ln2 ->
-    (MoE | FFN) -> residual. mask: optional (B, S) validity; pad keys are
+    (MoE | FFN) -> residual, with ln_x -> cross-attention over ``enc_out``
+    (B, Sk, d) -> residual after the attention of an encoder-decoder's
+    decoder layer. mask: optional (B, S) validity; pad keys are
     excluded from attention and pad steps are identities of the SSM scan.
     ``arange_positions``: see attn_apply. ``ctx``: a ranked context (the
     module docstring), or None at one rank. Returns (x, aux loss fp32,
@@ -521,7 +555,7 @@ def apply_layer(cfg, pos: int, p, x, positions, mask=None,
     routes the slice as it is. positions and mask stay whole."""
     segs = block_segments(cfg, pos, p, positions, mask, return_cache,
                           block=pos, ctx=ctx, sp=sp,
-                          arange_positions=arange_positions)
+                          arange_positions=arange_positions, enc_out=enc_out)
     env = run_segments(segs, {"x": x})
     aux = env.get(f"L{pos}.aux")
     if aux is None:
@@ -654,7 +688,7 @@ def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
                  cut: str = "replicated", paged: Optional[PagedKV] = None,
-                 rope_pos=None, kv_start=None):
+                 rope_pos=None, kv_start=None, has_cross: bool = False):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
     {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
     write index (= RoPE position unless ``rope_pos`` (B,) gives it: a
@@ -669,7 +703,13 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     (``parallel.sharding.kv_cut``) says: see ``sharded_decode_attention``
     and ``_serve_attn``. The SSM block runs whole on every model rank, the
     MoE through the ranked ``moe_ffn``, the dense FFN column- then
-    row-parallel (``_mlp_tail``)."""
+    row-parallel (``_mlp_tail``).
+
+    ``has_cross``: an encoder-decoder's decoder layer, at one rank: after
+    the self-attention, ln_x -> q of ``xattn.wq`` (no bias, as the JAX
+    package takes it) -> plain non-causal attention over every row of the
+    cache's {"xk", "xv"} (B, enc_len, Hkv, hd), unwritten rows included
+    (``repro/models/blocks.py:541-546``) -> ``xattn.wo`` -> residual."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
         h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache,
@@ -695,7 +735,16 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     o = o.reshape(B, 1, -1) @ w["wo"]
     if partial:
         o = CL.reduce_from(o, ctx.model_group)
-    return _mlp_tail(cfg, p, x + o, ctx)[0]
+    x = x + o
+    if has_cross:
+        if _ranked(ctx):
+            raise NotImplementedError(MESH_ENCDEC)
+        hx = apply_norm(cfg, p["ln_x"], x)
+        qx = (hx @ p["xattn"]["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
+        ox = A.dense_attention(qx, cache["xk"], cache["xv"], None, None,
+                               causal=False)
+        x = x + ox.reshape(B, 1, -1) @ p["xattn"]["wo"]
+    return _mlp_tail(cfg, p, x, ctx)[0]
 
 
 def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,

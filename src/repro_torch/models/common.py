@@ -180,6 +180,28 @@ def apply_rope(x, positions, theta):
 
 
 # ---------------------------------------------------------------------------
+# Sinusoid positions (the encoder-decoder's absolute positions)
+# ---------------------------------------------------------------------------
+
+
+def sinusoid_at(pos, d: int):
+    """fp32 sinusoid embeddings of the positions ``pos`` (a tensor of any
+    shape): (..., d), sin on the even columns and cos on the odd ones
+    (``repro/models/common.py:176-182``, vectorized over ``pos``)."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[..., None] / torch.pow(10000.0, dim / d)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(
+        pos.shape + (d,))
+
+
+def sinusoid_positions(S: int, d: int, device=None):
+    """(S, d) fp32 sinusoid embeddings of positions 0 .. S-1
+    (``repro/models/common.py:168-173``); cast to the activations' dtype
+    where they are added."""
+    return sinusoid_at(torch.arange(S, device=device), d)
+
+
+# ---------------------------------------------------------------------------
 # Chunked softmax cross-entropy: never keeps (tokens, vocab) logits alive
 # ---------------------------------------------------------------------------
 

@@ -8,6 +8,12 @@ is a list over period positions of trees whose leaves carry a leading
 over periods, the port loops in Python and takes views of period ``n``.
 The cache is updated in place.
 
+An encoder-decoder (whisper: ``cfg.n_enc_layers``) adds an ``encoder``
+stack of bidirectional layers over the stub audio frontend's frames
+(``encode``) whose output every decoder layer's cross-attention reads, and
+sinusoid positions on both sides; it runs the training forward, the
+scheduled forward, the monolithic prefill and the decode at one rank.
+
 The training forward and loss also run on a mesh: with a ranked
 ``AxisCtx`` each rank holds its rows of the batch and its shard of the
 parameters (``parallel.sharding.to_mesh``); see ``forward``. So do the
@@ -30,8 +36,10 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamDecl, apply_norm,
-                                       chunked_xent, init_from_schema,
-                                       model_sharded, norm_schema, tree_map)
+                                       chunked_xent, ffn_apply, ffn_schema,
+                                       init_from_schema, model_sharded,
+                                       norm_schema, sinusoid_at,
+                                       sinusoid_positions, tree_map)
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import sharding as SH
 
@@ -51,7 +59,19 @@ def _stack(schema: Tree, n: int) -> Tree:
                     schema)
 
 
+def _enc_layer_schema(cfg) -> Dict:
+    """One encoder layer (``repro/models/lm.py:43-49``): ln1 ->
+    bidirectional self-attention -> ln2 -> dense FFN."""
+    return {"ln1": norm_schema(cfg, cfg.d_model),
+            "attn": A.attn_schema(cfg, cfg.attn),
+            "ln2": norm_schema(cfg, cfg.d_model),
+            "ffn": ffn_schema(cfg, cfg.d_model, cfg.d_ff)}
+
+
 def model_schema(cfg, ctx=None) -> Dict:
+    """The parameter tree's schema (``repro/models/lm.py:52-69``); an
+    encoder-decoder adds the ``encoder`` stack (n_enc_layers, ...) and its
+    final norm ``ln_enc``, and its decoder layers their cross-attention."""
     d, V = cfg.d_model, cfg.vocab_size
     s: Dict[str, Any] = {"embed": ParamDecl((V, d), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
@@ -62,8 +82,12 @@ def model_schema(cfg, ctx=None) -> Dict:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not stack "
                          f"by period {p}")
     n_periods = cfg.n_layers // p
-    s["layers"] = [_stack(B.layer_schema(cfg, pos, ctx), n_periods)
-                   for pos in range(p)]
+    cross = cfg.n_enc_layers > 0
+    s["layers"] = [_stack(B.layer_schema(cfg, pos, ctx, cross=cross),
+                          n_periods) for pos in range(p)]
+    if cross:
+        s["encoder"] = _stack(_enc_layer_schema(cfg), cfg.n_enc_layers)
+        s["ln_enc"] = norm_schema(cfg, d)
     return s
 
 
@@ -103,16 +127,15 @@ def _period(tree: Tree, n: int) -> Tree:
     return tree_map(lambda a: a[n], tree)
 
 
-def cache_shapes(cfg, batch_size: int, seq_len: int) -> Tuple:
+def cache_shapes(cfg, batch_size: int, seq_len: int,
+                 enc_len: int = 0) -> Tuple:
     """The decode cache's global layout, a tuple over period positions of
     {entry: (shape, dtype)}: an attention position holds {"k", "v"}
-    (n_periods, batch, seq_len, Hkv, hd) in the param dtype, an SSM
-    position {"conv" (n_periods, batch, W-1, d_in + 2 ds) in the param
-    dtype, "state" (n_periods, batch, nh, ds, hd) fp32}
-    (``repro/models/lm.py:263-294``)."""
-    if cfg.n_enc_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not ported yet (init_cache)")
+    (n_periods, batch, seq_len, Hkv, hd) in the param dtype, and an
+    encoder-decoder's also {"xk", "xv"} (n_periods, batch, enc_len, Hkv,
+    hd), the encoder output's K/V; an SSM position {"conv" (n_periods,
+    batch, W-1, d_in + 2 ds) in the param dtype, "state" (n_periods,
+    batch, nh, ds, hd) fp32} (``repro/models/lm.py:263-294``)."""
     p = period_of(cfg)
     n_periods = cfg.n_layers // p
     dt = dtype_of(cfg.param_dtype)
@@ -122,7 +145,12 @@ def cache_shapes(cfg, batch_size: int, seq_len: int) -> Tuple:
             a = cfg.attn
             shape = (n_periods, batch_size, seq_len, a.n_kv_heads,
                      a.head_dim)
-            out.append({"k": (shape, dt), "v": (shape, dt)})
+            e = {"k": (shape, dt), "v": (shape, dt)}
+            if cfg.n_enc_layers:
+                xshape = (n_periods, batch_size, enc_len, a.n_kv_heads,
+                          a.head_dim)
+                e.update(xk=(xshape, dt), xv=(xshape, dt))
+            out.append(e)
         else:
             s = cfg.ssm
             d_in = s.expand * cfg.d_model
@@ -141,7 +169,12 @@ def paged_cache_shapes(cfg, n_slots: int, n_pages: int,
     299-330``): an attention position holds {"k", "v"} page pools
     (n_periods, n_pages, page_size, Hkv, hd) shared by every slot, page 0
     the null page; an SSM position keeps ``cache_shapes``' dense per-slot
-    {"conv", "state"} (O(1) per request, no per-token history)."""
+    {"conv", "state"} (O(1) per request, no per-token history). Decoder-
+    only models, as the JAX package's (``repro/models/lm.py:306``)."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: paged serving runs decoder-only models; the JAX "
+            f"package asserts so (repro/models/lm.py:306)")
     n_periods = cfg.n_layers // period_of(cfg)
     out = []
     for pos, e in enumerate(cache_shapes(cfg, n_slots, 1)):
@@ -166,12 +199,16 @@ def _zeros(shapes, specs, device, ctx) -> Tuple:
 
 
 def init_cache(cfg, batch_size: int, seq_len: int,
-               device: DeviceLike = None, ctx=None) -> Tuple:
-    """Zero contiguous decode cache of ``cache_shapes``' layout. With a
+               device: DeviceLike = None, ctx=None,
+               enc_len: int = 0) -> Tuple:
+    """Zero contiguous decode cache of ``cache_shapes``' layout
+    (``enc_len``: an encoder-decoder's rows of encoder K/V). With a
     ranked ``ctx``, this rank's slice of it, cut as
     ``parallel.sharding.cache_specs`` says."""
     ranked = ctx is not None and ctx.active
-    return _zeros(cache_shapes(cfg, batch_size, seq_len),
+    if ranked and cfg.n_enc_layers:
+        raise NotImplementedError(B.MESH_ENCDEC)
+    return _zeros(cache_shapes(cfg, batch_size, seq_len, enc_len),
                   SH.cache_specs(cfg, ctx, batch_size, seq_len)
                   if ranked else None, device, ctx)
 
@@ -199,19 +236,28 @@ def _embed(cfg, params, tokens):
 
 def embed_inputs(cfg, params, batch, ctx=None):
     """Token embeddings (or the stub frontend's ``embeds``) in the compute
-    dtype. With a ranked context whose vocab is stored cut over the model
-    axis, each rank looks up the ids its slice holds (zeros elsewhere) and
-    the rows are summed over the model group."""
-    if cfg.n_enc_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not ported yet")
+    dtype; an encoder-decoder's decoder adds the sinusoid of each index,
+    0 .. S-1 (``repro/models/lm.py:86-94``), whatever the mask (left pads
+    included)."""
     if "embeds" in batch:
         return batch["embeds"].to(dtype_of(cfg.compute_dtype))
+    h = token_embeds(cfg, params, batch["tokens"], ctx)
+    if cfg.n_enc_layers:
+        h = h + sinusoid_positions(h.shape[1], cfg.d_model,
+                                   h.device).to(h.dtype)
+    return h
+
+
+def token_embeds(cfg, params, tokens, ctx=None):
+    """The rows of ``tokens`` in the embedding, in the compute dtype. With
+    a ranked context whose vocab is stored cut over the model axis, each
+    rank looks up the ids its slice holds (zeros elsewhere) and the rows
+    are summed over the model group."""
     if not model_sharded(ctx, cfg.vocab_size):
-        return _embed(cfg, params, batch["tokens"])
+        return _embed(cfg, params, tokens)
     table = params["embed"]
     Vl = table.shape[0]
-    ids = batch["tokens"].long() - ctx.model_rank * Vl
+    ids = tokens.long() - ctx.model_rank * Vl
     inside = (ids >= 0) & (ids < Vl)
     rows = table[ids.clamp(0, Vl - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=
@@ -220,12 +266,45 @@ def embed_inputs(cfg, params, batch, ctx=None):
         dtype_of(cfg.compute_dtype))
 
 
+def _enc_layer(cfg, p, x, positions):
+    """One encoder layer: ln1 -> non-causal self-attention without RoPE
+    (the flash kernel's region) -> residual -> ln2 -> dense FFN ->
+    residual (``repro/models/lm.py:112-120``)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    x = x + B.attn_apply(cfg, p["attn"], h, positions, False, False)
+    return x + ffn_apply(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+
+
+def encode(cfg, params, frames, ctx=None):
+    """The encoder (``repro/models/lm.py:108-126``): frames (B, S_enc, d)
+    in the compute dtype plus the sinusoid positions, every layer of the
+    ``encoder`` stack, the final norm ``ln_enc``. Returns (B, S_enc, d).
+    Under ``cfg.remat == "full"`` each layer runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of
+    its scan body). At one rank only."""
+    if ctx is not None and ctx.active:
+        raise NotImplementedError(B.MESH_ENCDEC)
+    h = frames.to(dtype_of(cfg.compute_dtype))
+    h = h + sinusoid_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for n in range(cfg.n_enc_layers):
+        lp = _period(params["encoder"], n)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            h = checkpoint(_enc_layer, cfg, lp, h, positions,
+                           use_reentrant=False)
+        else:
+            h = _enc_layer(cfg, lp, h, positions)
+    return apply_norm(cfg, params["ln_enc"], h)
+
+
 def _forward_inputs(cfg, params, batch, ctx=None):
-    """Embeddings, pad-aware positions, the mask, and whether the
-    positions are the default arange(S): with ``mask`` (B, S) a row's
-    position is its rank among its valid tokens (left padding starts at 0
-    at the first real token). The flag is known here, where the positions
-    are built, so no layer has to compare them on the device."""
+    """Embeddings, pad-aware positions, the mask, whether the positions
+    are the default arange(S), and the encoder's output (an
+    encoder-decoder's, from ``batch["frames"]``; else None): with
+    ``mask`` (B, S) a row's position is its rank among its valid tokens
+    (left padding starts at 0 at the first real token). The flag is known
+    here, where the positions are built, so no layer has to compare them
+    on the device (``repro/models/lm.py:133-151``)."""
     h = embed_inputs(cfg, params, batch, ctx)
     Bsz, Ssz, _ = h.shape
     mask = batch.get("mask")
@@ -238,7 +317,9 @@ def _forward_inputs(cfg, params, batch, ctx=None):
         positions = torch.arange(Ssz, device=h.device)[None, :].expand(
             Bsz, Ssz)
         arange = True
-    return h, positions, mask, arange
+    enc_out = (encode(cfg, params, batch["frames"], ctx)
+               if cfg.n_enc_layers else None)
+    return h, positions, mask, arange, enc_out
 
 
 def sp_split(cfg, ctx, S: int) -> bool:
@@ -253,9 +334,11 @@ def sp_split(cfg, ctx, S: int) -> bool:
 
 
 def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None,
-                 sp: bool = False, return_cache: bool = False):
+                 sp: bool = False, return_cache: bool = False,
+                 enc_out=None):
     """The layers of one period: returns (h, the period's aux loss, its
     cache entries per period position with ``return_cache``, else None).
+    ``enc_out``: the encoder's output, which the cross-attention reads.
     On a mesh the period's leaves cut over the data axes are gathered
     first (inside the remat region: the recompute gathers them again).
     ``sp``: h is this rank's slice of the sequence (``sp_split``)."""
@@ -266,14 +349,14 @@ def _period_body(cfg, h, lp, positions, mask, arange, ctx=None, specs=None,
     for pos in range(period_of(cfg)):
         h, a, ce = B.apply_layer(cfg, pos, lp[pos], h, positions, mask=mask,
                                  arange_positions=arange, ctx=ctx, sp=sp,
-                                 return_cache=return_cache)
+                                 return_cache=return_cache, enc_out=enc_out)
         aux = aux + a
         caches.append(ce)
     return h, aux, caches if return_cache else None
 
 
 def _scheduled_layers(cfg, params, h, positions, mask, arange, ctx=None,
-                      specs=None, sp: bool = False):
+                      specs=None, sp: bool = False, enc_out=None):
     """Every layer through the block-schedule IR (``repro/models/lm.py:
     196-240``): each layer lowered to its executed segments
     (``blocks.block_segments``), the whole list ordered by
@@ -299,7 +382,8 @@ def _scheduled_layers(cfg, params, h, positions, mask, arange, ctx=None,
             segs += B.block_segments(cfg, pos, lp[pos], positions, mask,
                                      block=i, x_in=f"x{i}",
                                      x_out=f"x{i + 1}", ctx=ctx, sp=sp,
-                                     arange_positions=arange)
+                                     arange_positions=arange,
+                                     enc_out=enc_out)
     program = segs
     segs = SCH.exec_order(segs, cfg.block_schedule)
     if os.environ.get("REPRO_VERIFY_SCHEDULE", "1") != "0":
@@ -348,8 +432,11 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
 
     ``return_cache`` (the monolithic prefill, at one rank): each layer's
     cache entry, stacked per period position as ``(n_periods, B, S, ...)``
-    (attention {"k", "v"} after RoPE, the SSM's {"conv", "state"}); no
-    remat.
+    (attention {"k", "v"} after RoPE, and an encoder-decoder's {"xk",
+    "xv"} (n_periods, B, S_enc, Hkv, hd); the SSM's {"conv", "state"}); no
+    remat. An encoder-decoder runs ``encode`` on ``batch["frames"]``
+    first (its layers under remat as well) and every decoder layer reads
+    its output.
 
     ``ctx``: None (or inactive) at one rank. A ranked context is the JAX
     package's mesh step, one rank of it: ``params`` is this rank's shard
@@ -363,6 +450,8 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
     period carries (and under remat saves) the slice, and the final norm's
     output is gathered whole."""
     ranked = ctx is not None and ctx.active
+    if ranked and cfg.n_enc_layers:
+        raise NotImplementedError(B.MESH_ENCDEC)
     if return_cache and ranked:
         raise NotImplementedError(B._MESH_PREFILL)
     specs = None
@@ -370,7 +459,8 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
         specs = SH.param_specs(model_schema(cfg, ctx), ctx.mesh, fsdp)
     params = {**_top_level(cfg, params, ctx, specs),
               "layers": params["layers"]}
-    h, positions, mask, arange = _forward_inputs(cfg, params, batch, ctx)
+    h, positions, mask, arange, enc_out = _forward_inputs(cfg, params,
+                                                          batch, ctx)
     sp = sp_split(cfg, ctx, h.shape[1])
     if sp:
         h = CL.scatter_to(h, ctx.model_group, 1)
@@ -378,7 +468,7 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
     caches = None
     if cfg.block_schedule and not return_cache:
         h, aux = _scheduled_layers(cfg, params, h, positions, mask, arange,
-                                   ctx, lspecs, sp)
+                                   ctx, lspecs, sp, enc_out)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         caches = []
@@ -388,11 +478,12 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
             if (cfg.remat == "full" and torch.is_grad_enabled()
                     and not return_cache):
                 h, a, _ = checkpoint(_period_body, cfg, h, lp, positions,
-                                     mask, arange, ctx, lspecs, sp,
-                                     use_reentrant=False)
+                                     mask, arange, ctx, lspecs, sp, False,
+                                     enc_out, use_reentrant=False)
             else:
                 h, a, ce = _period_body(cfg, h, lp, positions, mask, arange,
-                                        ctx, lspecs, sp, return_cache)
+                                        ctx, lspecs, sp, return_cache,
+                                        enc_out)
                 caches.append(ce)
             aux = aux + a
         caches = _stack_caches(cfg, caches) if return_cache else None
@@ -539,7 +630,11 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     cache index, and ``kv_start``: optional (B,) first valid cache index
     per row: a left-padded monolithic prefill's rows (``prefill``) decode
     at their real positions with their pads excluded (``repro/models/
-    lm.py:334-350``).
+    lm.py:334-350``). An encoder-decoder (at one rank) adds the sinusoid
+    of each row's write index ``t_pos`` (not ``rope_pos``: the JAX
+    package's ``sinusoid_at(t_vec)``, ``repro/models/lm.py:353-356``) and
+    runs every decoder layer's cross-attention over the cache's {"xk",
+    "xv"} (``blocks.decode_layer(has_cross=True)``).
 
     ``ctx``: a ranked context (``seq_shard`` off), or None at one rank.
     ``params`` is then this rank's shard of the mesh tree
@@ -560,6 +655,8 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     are cut over dp, each dp rank writes every slot's K/V (its own rows'
     summed with the other dp ranks' over the dp group, ``PagedKV``)."""
     ranked = _ranked_layout(ctx, layout)
+    if ranked and cfg.n_enc_layers:
+        raise NotImplementedError(B.MESH_ENCDEC)
     specs, cuts, top = None, ["replicated"] * period_of(cfg), params
     if ranked:
         specs, cuts = layout.gather_specs, layout.cuts
@@ -573,7 +670,9 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
             v, device=tokens.device).long().reshape(-1).expand(Bsz)
 
     t_vec, rope_vec, start_vec = vec(t_pos), vec(rope_pos), vec(kv_start)
-    h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
+    h = token_embeds(cfg, top, tokens, ctx if ranked else None)
+    if cfg.n_enc_layers:
+        h = h + sinusoid_at(t_vec, cfg.d_model)[:, None, :].to(h.dtype)
     paged = None
     page = _page_size(cfg, cache) if block_tables is not None else 0
     if page:
@@ -591,7 +690,7 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     def layer(pos, lp, n, h):
         return B.decode_layer(cfg, pos, lp, h, _period(cache[pos], n), t_vec,
                               ctx if ranked else None, cuts[pos], paged,
-                              rope_vec, start_vec)
+                              rope_vec, start_vec, cfg.n_enc_layers > 0)
 
     h = _serve_layers(cfg, params, specs, ctx, h, layer)
     h = apply_norm(cfg, top["ln_f"], h)
@@ -647,6 +746,10 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     null page) and ``slot`` indexes the SSM entries only (``repro/models/
     lm.py:385-473``). Where the slots are cut over dp, each dp rank writes
     every row's K/V, as ``decode_step`` does."""
+    if cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the chunked prefill runs decoder-only models; the "
+            f"JAX package asserts so (repro/models/lm.py:407)")
     Ac, C = tokens.shape
     dev = tokens.device
 
@@ -682,7 +785,7 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
     A_run = tokens.shape[0]
     q_pos = pos_off[:, None] + torch.arange(C, device=dev)[None, :]
     mask = torch.arange(C, device=dev)[None, :] < valid_len[:, None]
-    h = embed_inputs(cfg, top, {"tokens": tokens}, ctx if ranked else None)
+    h = token_embeds(cfg, top, tokens, ctx if ranked else None)
 
     def layer(pos, lp, n, h):
         return B.chunk_layer(cfg, pos, lp, h, _period(cache[pos], n), slots,

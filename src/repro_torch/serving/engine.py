@@ -106,14 +106,17 @@ def stitch_prefill_cache(cfg, decode_cache, prefill_cache, prompt_len: int):
     """Insert a monolithic prefill's cache (``lm.prefill``: stacked
     (n_periods, B, S, ...) per period position) into a contiguous decode
     cache of B slots at positions [0, prompt_len) (``repro/serving/
-    engine.py:95-116``): K/V rows, the SSM's conv window and state. The
-    port's caches are updated in place, so this writes into
-    ``decode_cache`` and returns it (the JAX function returns a new
-    tree)."""
+    engine.py:95-116``): K/V rows, an encoder-decoder's encoder K/V
+    ("xk", "xv") into rows [0, frames) of the cache's enc_len rows, the
+    SSM's conv window and state. The port's caches are updated in place,
+    so this writes into ``decode_cache`` and returns it (the JAX function
+    returns a new tree)."""
     for entry, pre in zip(decode_cache, prefill_cache):
         for k, buf in entry.items():
             if k in ("k", "v"):
                 buf[:, :, :prompt_len] = pre[k].to(buf.dtype)
+            elif k in ("xk", "xv"):
+                buf[:, :, :pre[k].shape[2]] = pre[k].to(buf.dtype)
             else:                            # conv window, ssm state
                 buf.copy_(pre[k])
     return decode_cache
@@ -345,6 +348,13 @@ class ServeEngine:
                  role: str = "both"):
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode, got {role!r}")
+        if cfg.n_enc_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only models; an "
+                f"encoder-decoder has no chunked or paged path in the JAX "
+                f"package (repro/models/lm.py:306, 407). Serve it through "
+                f"lm.prefill, serving.stitch_prefill_cache and "
+                f"lm.decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh

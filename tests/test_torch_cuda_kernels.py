@@ -5,9 +5,10 @@ at two row tiles and through ops.fused_mlp's autograd; the forward's,
 dgrad's and wgrad's wgmma paths (ragged M tiles, split hidden, aligned
 slices, their counters, identical bits on a second call) beside the
 general kernels; flash attention (MHA, GQA, MQA, ragged lengths, causal
-and not, strided views; the wgmma path within twice the general kernel's
-error, its counter, identical bits) and the SSD (ragged lengths, small and model-size states, strided
-views, mixed dtypes, an initial and a final state) with their autograd
+and not, strided views, non-causal with Sq != Sk at whisper-small's
+cross-attention and encoder lengths; the wgmma path within twice the
+general kernel's error, its counter, identical bits) and the SSD (ragged
+lengths, small and model-size states, strided views, mixed dtypes, an initial and a final state) with their autograd
 backward; the SSD's tensor-core path at phase 2's shapes with and without
 a state (its counter, the same bits, its error against the fp64 oracle
 within twice the general kernel's) and the general path for the rest;
@@ -433,6 +434,37 @@ def test_flash_attention_hopper_path(cuda, monkeypatch, causal, B, Hq, Hkv,
         err = max(err, float((got.float() - want.float()).abs().max()))
         g_err = max(g_err, float((general.float() - want.float()).abs().max()))
     assert err <= 2 * g_err, (err, g_err)
+
+
+# (B, Hq, Hkv, Sq, Sk, hd), non-causal: whisper-small's cross-attention
+# (375 and 32 queries against 1500 keys, the last kv tile partial) and
+# encoder (1500 against 1500) at a few heads, more queries than keys, a
+# GQA case, and the general kernel's head widths
+_FLASH_CROSS_SHAPES = [(1, 4, 4, 375, 1500, 64), (2, 4, 4, 32, 1500, 64),
+                       (1, 2, 2, 1500, 1500, 64), (1, 4, 2, 300, 77, 64),
+                       (2, 4, 1, 130, 200, 128), (1, 2, 2, 33, 70, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,hd", _FLASH_CROSS_SHAPES)
+def test_flash_attention_non_causal_cross_lengths(cuda, dtype, B, Hq, Hkv,
+                                                  Sq, Sk, hd):
+    """Non-causal attention of Sq queries over Sk keys: keys past Sk in the
+    last tile excluded, the kernel's path by the operands (bf16 at
+    head_dim 64 or 128: the wgmma kernel)."""
+    from repro_torch.kernels import flash_attention, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(Sq + 7 * Sk + hd)
+    q = _randn(gen, (B, Sq, Hq, hd), dtype).transpose(1, 2)
+    k = _randn(gen, (B, Sk, Hkv, hd), dtype).transpose(1, 2)
+    v = _randn(gen, (B, Sk, Hkv, hd), dtype).transpose(1, 2)
+    flash_attention.reset()
+    got = flash_attention.flash_attention(q, k, v, False)
+    hopper = dtype == torch.bfloat16 and hd in (64, 128)
+    assert (flash_attention.launches,
+            flash_attention.hopper_launches) == (1, int(hopper))
+    assert got.shape == (B, Hq, Sq, hd)
+    _close(got, ref.flash_attention_ref(q, k, v, False), dtype)
 
 
 def _ssd_operands(gen, B, S, nh, hd, ds, xdt, bdt):

@@ -256,6 +256,12 @@ def test_build_prefill_step_at_one_rank_and_its_mesh_raise():
 
     with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
         TS.build_prefill_step(cfg, shape, mesh=Mesh())
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        lm.prefill(get_config("whisper-small-smoke"), tp,
-                   _port_batch(toks))
+    # an encoder-decoder's monolithic prefill: frames beside the tokens
+    cfg, jcfg, jp, tp = _weights("whisper-small-smoke")
+    frames = np.random.default_rng(6).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32) * 0.02
+    logits, _ = lm.prefill(cfg, tp, {**_port_batch(toks),
+                                     "frames": torch.from_numpy(frames)})
+    jl, _ = jlm.prefill(jcfg, jp, {**_jax_batch(toks),
+                                   "frames": jnp.asarray(frames)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)

@@ -398,8 +398,10 @@ def test_graph_candidates_and_tuner_match_jax(hw, shape):
 # ---------------------------------------------------------------------------
 
 
-SMOKE = [a for a in list_archs(include_smoke=True) if a.endswith("-smoke")
-         and not get_config(a).n_enc_layers]
+SMOKE = [a for a in list_archs(include_smoke=True) if a.endswith("-smoke")]
+# an encoder-decoder's layers lower with their cross-attention segments
+# when given the encoder's output (any object: lowering runs no segment)
+ENC_OUT = object()
 
 
 def _exec_names(cfg, jcfg):
@@ -408,13 +410,14 @@ def _exec_names(cfg, jcfg):
     p = lm.period_of(cfg)
     segs, jsegs = [], []
     for i in range(cfg.n_layers):
+        enc = ENC_OUT if cfg.n_enc_layers else None
         segs += B.block_segments(cfg, i % p, B.layer_schema(cfg, i % p),
                                  None, block=i, x_in=f"x{i}",
-                                 x_out=f"x{i + 1}")
+                                 x_out=f"x{i + 1}", enc_out=enc)
         jsegs += JB.block_segments(jcfg, i % p,
                                    JB.layer_schema(jcfg, i % p, JAxisCtx()),
-                                   JAxisCtx(), None, block=i, x_in=f"x{i}",
-                                   x_out=f"x{i + 1}")
+                                   JAxisCtx(), None, enc_out=enc, block=i,
+                                   x_in=f"x{i}", x_out=f"x{i + 1}")
     assert [(s.name, s.kind, s.block, s.reads, s.writes) for s in segs] == \
         [(s.name, s.kind, s.block, s.reads, s.writes) for s in jsegs]
     return ([s.name for s in SCH.exec_order(segs, "overlap")],
@@ -430,10 +433,11 @@ def test_exec_order_matches_jax(arch):
     cfg = get_config(arch)
     if not (cfg.moe is not None and cfg.moe.num_shared_experts):
         p = lm.period_of(cfg)
+        enc = ENC_OUT if cfg.n_enc_layers else None
         names = [s.name for i in range(cfg.n_layers)
                  for s in B.block_segments(cfg, i % p,
                                            B.layer_schema(cfg, i % p), None,
-                                           block=i)]
+                                           block=i, enc_out=enc)]
         assert got == names
 
 

@@ -6,7 +6,7 @@ window and state; ``ops.ssd_forward_state`` (CPU: the plain chunked form)
 against the JAX ``ssd_chunked`` with an initial state; and the model's
 ``init_cache``, ``prefill_chunk`` (slots, the carry reset where
 pos_off == 0) and ``decode_step`` in logits and every cache entry. fp32
-1e-4. An encoder-decoder config still raises by name."""
+1e-4. The engine still refuses an encoder-decoder config by name."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -204,9 +204,15 @@ def test_model_prefill_and_decode_match_jax(model):
 
 
 def test_encoder_decoder_serving_still_raises_by_name():
+    """``init_cache`` gives JAX's layout, encoder K/V rows included; the
+    engine, whose JAX counterpart has no encoder-decoder path, refuses."""
     cfg = get_config("whisper-small-smoke")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        lm.init_cache(cfg, 2, 16, "cpu")
+    got = lm.init_cache(cfg, 2, 16, "cpu", enc_len=24)
+    want = jlm.init_cache(jax_config("whisper-small-smoke"), 2, 16,
+                          enc_len=24)
+    assert [{k: (tuple(t.shape), str(t.dtype)[6:]) for k, t in e.items()}
+            for e in got] == [{k: (tuple(t.shape), str(t.dtype))
+                               for k, t in e.items()} for e in want]
     from repro_torch.serving import ServeEngine
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         ServeEngine(cfg, device="cpu")

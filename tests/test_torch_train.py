@@ -2,7 +2,9 @@
 qwen2-moe-2.7b-smoke: synthetic batches (bit-identical), ``loss_fn`` and
 every gradient (xla and pallas_fused backends, remat none and full; fp32
 1e-4; and, at their smoke configs, phi3.5-moe, qwen3-moe, phi3-medium,
-nemotron-4, qwen1.5-4b, llava-next-34b and mixtral), one AdamW update (fp32 and bf16 parameters), three train steps from
+nemotron-4, qwen1.5-4b, llava-next-34b, mixtral and whisper-small, the
+encoder-decoder, its frames beside the tokens), one AdamW update (fp32
+and bf16 parameters), three train steps from
 the same weights, and the port's Trainer (restart replay, non-finite skip,
 device choice). Weights cross through ``bridge.from_jax``; the JAX Pallas
 kernels run in interpret mode."""
@@ -58,7 +60,10 @@ def _bridged(jcfg, cfg, seed):
 
 
 def _torch_batch(nb):
-    return {k: torch.from_numpy(v).long() for k, v in nb.items()}
+    """Integer entries as int64; float ones (an encoder-decoder's frames)
+    as they are."""
+    return {k: torch.from_numpy(v) if v.dtype.kind == "f"
+            else torch.from_numpy(v).long() for k, v in nb.items()}
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -95,7 +100,7 @@ def test_prefetcher_yields_the_batches_in_order():
 # at its smoke config
 ARCHS = ("phi3.5-moe-smoke", "qwen3-moe-235b-a22b-smoke",
          "phi3-medium-14b-smoke", "nemotron-4-340b-smoke", "qwen1.5-4b-smoke",
-         "llava-next-34b-smoke", "mixtral-8x7b-smoke")
+         "llava-next-34b-smoke", "mixtral-8x7b-smoke", "whisper-small-smoke")
 
 
 @pytest.mark.parametrize("gemm_impl", ["xla", "pallas_fused"])
@@ -117,13 +122,16 @@ def _check_loss_and_grads(jcfg, cfg):
     toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
     labels[0, 3] = labels[1, 15] = -1                   # ignored labels
-    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    arrs = {"tokens": toks, "labels": labels}
+    if cfg.n_enc_layers:                  # whisper: 24 frames of d_model
+        arrs["frames"] = (rng.standard_normal((2, 24, cfg.d_model))
+                          * 0.02).astype(np.float32)
+    jb = {k: jnp.asarray(v) for k, v in arrs.items()}
     (jl, jm), jg = jax.value_and_grad(
         lambda p: jlm.loss_fn(jcfg, p, jb), has_aux=True)(jp)
     for _, t in tree_leaves(tp):
         t.requires_grad_(True)
-    loss, met = lm.loss_fn(cfg, tp, _torch_batch({"tokens": toks,
-                                                  "labels": labels}))
+    loss, met = lm.loss_fn(cfg, tp, _torch_batch(arrs))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
     np.testing.assert_allclose(met["aux"].item(), float(jm["aux"]),
