@@ -318,7 +318,15 @@ Phases:
              (rel L2) of the chunked path's, identical streams counted;
              mamba2-780m whole, 4 x 1024 tokens: every ssd_forward (a
              zero state, h_final returned) on the tensor-core path.
-             ms, tokens/s, peak memory and launches of each.
+             ms, tokens/s, peak memory and launches of each. The mesh
+             arms, at world 1 over NCCL: qwen2 at 4 layers in fp32 (both
+             prompt sets) and mamba2's 4 x 1024 through
+             build_prefill_step(mesh=) on a (1, 1) mesh, the cache
+             stitched by stitch_prefill_cache(ctx=) and one decode_step,
+             beside the same without a mesh (counters zeroed before each
+             arm's prefill and read after: the same launches): logits,
+             both caches and the decode logits compared, identical bits
+             counted, each within fp32 1e-4 / bf16 2e-2.
  19 whisper  the earlier phases' state is freed first. whisper-small,
              the encoder-decoder, at every published width (12 encoder
              and 12 decoder layers, d 768, 12 heads of 64, vocab 51,865,
@@ -327,11 +335,16 @@ Phases:
              decode cache of 1500 encoder rows, one decode_step: its
              logits within rel L2 1e-4 of the full forward's at position
              32; the forward through the kernels within 1e-4 of the plain
-             versions'. (b) bf16, 2 + 2 layers, 4 rows: loss and every
-             gradient through the kernels against the plain versions,
-             per leaf within max(2e-2, 3 x the floor to a second plain
-             route: the chunked online-softmax attention of
-             models/attention.py in blocks of 125). (c)
+             versions'; the same prefill, stitch and decode step on a
+             (1, 1) mesh at world 1 over NCCL beside the mesh-less arm,
+             as phase 18's mesh arms (36 flash launches each). (b) bf16,
+             2 + 2 layers, 4 rows: loss and every gradient through the
+             kernels against the plain versions, per leaf within
+             max(2e-2, 3 x the floor to a second plain route: the
+             chunked online-softmax attention of models/attention.py in
+             blocks of 125); and on a (1, 1) mesh against the mesh-less
+             kernel run (identical bits counted, within 2e-2; the same
+             launches, every flash launch on the wgmma path). (c)
              launch/train.py's Trainer at --batch 8 --seq 1500 (1500
              frames and 375 tokens a row): a warm-up and 3 timed steps,
              finite, none skipped, 72 flash_attention launches a step
@@ -4853,6 +4866,89 @@ def _prefill_launches(cfg, flash):
     return n
 
 
+def mesh_prefill_arms(cfg, params, batch, enc_len=0):
+    """The monolithic prefill of ``batch`` ("tokens" (B, S), and a
+    left-padded batch's "mask" or an encoder-decoder's "frames") through
+    build_prefill_step twice, without a mesh and on a (1, 1) mesh over the
+    world-1 NCCL group (build_prefill_step(mesh=) on to_mesh's shard,
+    stitch_prefill_cache(ctx=, layout=) into init_cache(ctx=), decode_step
+    on the serving context), launch counters zeroed before each arm's
+    prefill and read after: its cache stitched into a decode cache of S +
+    1 positions (and ``enc_len`` encoder rows), one decode step from the
+    prefill's argmax (a left-padded row at its real position). The mesh
+    arm's logits, prefill cache leaves, decode logits and decode cache
+    leaves against the mesh-less arm's: identical bits counted, rel L2 of
+    each, within fp32 1e-4 / bf16 2e-2. Returns the record."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.train_step import build_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.serving import stitch_prefill_cache
+    n, plen = batch["tokens"].shape
+    mask = batch.get("mask")
+    kw = {} if mask is None else dict(rope_pos=(plen - (~mask).sum(1)),
+                                      kv_start=(~mask).sum(1))
+    shape = ShapeConfig("prefill", plen, n, "prefill")
+    arms = {}
+    with world1("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for tag, m in (("meshless", None), ("mesh", mesh)):
+            built = build_prefill_step(cfg, shape, m)
+            p, ctx, layout = params, None, None
+            if m is not None:
+                p = SH.to_mesh(params, cfg, built["ctx"])
+                ctx = SH.make_ctx(cfg, m, seq_shard=False)
+                layout = lm.serve_layout(cfg, ctx, n, plen + 1,
+                                         built["param_specs"],
+                                         enc_len=enc_len)
+            torch.cuda.synchronize()
+            reset_counts()
+            with PlainGuard() as guard:
+                t0 = time.perf_counter()
+                logits, pre = built["fn"](p, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_counts()
+                cache = stitch_prefill_cache(cfg, lm.init_cache(
+                    cfg, n, plen + 1, "cuda", ctx, enc_len), pre, plen, ctx,
+                    layout)
+                dec, cache = lm.decode_step(
+                    cfg, p, cache, torch.argmax(logits, -1)[:, None],
+                    torch.full((n,), plen, device="cuda"), ctx, layout, **kw)
+            torch.cuda.synchronize()
+            arms[tag] = {"logits": logits, "decode_logits": dec,
+                         **{"prefill_cache/" + "/".join(map(str, k)): t
+                            for k, t in tree_leaves(pre)},
+                         **{"decode_cache/" + "/".join(map(str, k)): t
+                            for k, t in tree_leaves(cache)},
+                         "_rec": {"ms": ms, "launches": counts,
+                                  "plain_calls_on_cuda": guard.cuda_calls}}
+    want, got = arms["meshless"], arms["mesh"]
+    recs = {t: arms[t].pop("_rec") for t in arms}
+    check(set(got) == set(want), "the two arms' caches hold other leaves")
+    errs = {k: rel_l2(got[k], want[k]) for k in want}
+    same = sum(bool(torch.equal(got[k], want[k])) for k in want)
+    worst = max(errs, key=errs.get)
+    rec = {"arms": recs, "compared": len(want), "identical_bits": same,
+           "worst": worst, "worst_rel_l2": errs[worst],
+           "logits_rel_l2": errs["logits"],
+           "decode_logits_rel_l2": errs["decode_logits"]}
+    log("  (1, 1) mesh vs mesh-less: " + json.dumps(rec))
+    tol = TOL["bf16" if cfg.param_dtype == "bfloat16" else "fp32"]
+    check(recs["mesh"]["launches"] == recs["meshless"]["launches"],
+          f"mesh arm launches {recs['mesh']['launches']}, mesh-less "
+          f"{recs['meshless']['launches']}")
+    check(all(r["plain_calls_on_cuda"] == 0 for r in recs.values()),
+          "plain versions saw CUDA tensors")
+    check(errs[worst] <= tol, f"mesh arm: {worst} rel L2 {errs[worst]:.3e} "
+                              f"from the mesh-less arm's")
+    return rec
+
+
 def phase_prefill(state, out):
     """The monolithic prefill (``lm.prefill``: the whole prompt in one
     forward, the cache returned) and the left-padded decode it feeds
@@ -4871,7 +4967,8 @@ def phase_prefill(state, out):
     256), the identical streams counted. (c) mamba2-780m whole, 4 x 1024
     tokens: every ssd_forward (a zero state, h_final returned) on the
     tensor-core path, the distances recorded. ms, tokens/s, peak memory
-    and launches of each."""
+    and launches of each. (d) The (1, 1) mesh arms of (a)'s two prompt
+    sets and (c)'s (``mesh_prefill_arms``)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4899,6 +4996,14 @@ def phase_prefill(state, out):
             err = rec[key][what]["rel_l2_err"]
             check(err <= TOL["fp32"], f"{key}: {what} rel L2 {err:.3e} "
                                       f"from the chunked path's")
+        toks, mask, _ = _left_padded(prompts)
+        rec[key]["mesh_1x1"] = mesh_prefill_arms(
+            c32, p32, {"tokens": toks} if mask is None else
+            {"tokens": toks, "mask": mask})
+        if flash:
+            n = rec[key]["mesh_1x1"]["arms"]["mesh"]["launches"]
+            check(n["flash_attention"] == c32.n_layers,
+                  f"{key}: mesh arm flash launches {n}")
     del p32
     torch.cuda.empty_cache()
     params = lm.init_params(cfg, seed=0, device="cuda")
@@ -4913,8 +5018,13 @@ def phase_prefill(state, out):
     n, S = PREFILL_SSM
     want = _prefill_launches(scfg, False)
     want.update(ssd_forward=scfg.n_layers, ssd_forward_hopper=scfg.n_layers)
-    rec["mamba2"] = prefill_case(
-        scfg, sparams, make_trace(scfg.vocab_size, n, S, S, 13), 1, want)
+    prompts = make_trace(scfg.vocab_size, n, S, S, 13)
+    rec["mamba2"] = prefill_case(scfg, sparams, prompts, 1, want)
+    rec["mamba2"]["mesh_1x1"] = mesh_prefill_arms(
+        scfg, sparams, {"tokens": _left_padded(prompts)[0]})
+    n = rec["mamba2"]["mesh_1x1"]["arms"]["mesh"]["launches"]
+    check(n["ssd_forward"] == n["ssd_forward_hopper"] == scfg.n_layers,
+          f"mamba2 mesh arm launches {n}")
     out["prefill"] = rec
 
 
@@ -4996,6 +5106,28 @@ def chunked_attention_route():
         ops.flash_attention = saved
 
 
+def mesh_loss_and_grads(cfg, params, batch):
+    """loss_fn and the gradient of every leaf on a (1, 1) mesh over the
+    world-1 NCCL group: the mesh train step's context (``seq_shard`` on)
+    and to_mesh's shard of ``params``, keyed as ``loss_and_grads`` keys
+    them."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.mesh import make_mesh
+    with world1("nccl"):
+        ctx = SH.make_ctx(cfg, make_mesh((1, 1), ("data", "model")),
+                          seq_shard=True)
+        p = SH.to_mesh(params, cfg, ctx)
+        leaves = [(k, t.requires_grad_(True)) for k, t in tree_leaves(p)]
+        loss, _ = lm.loss_fn(cfg, p, batch, ctx)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        torch.cuda.synchronize()
+    return loss.detach(), {k: g for (k, _), g in zip(leaves, grads)}
+
+
 def phase_whisper(state, out):
     """whisper-small, the encoder-decoder, through the port's entry points
     (the encoder's self-attention, the cross-attention and the decoder's
@@ -5015,7 +5147,9 @@ def phase_whisper(state, out):
     flash launches each, all wgmma), the stitch into a decode cache of
     448 positions and 1500 encoder rows, 64 greedy decode steps (no flash
     launch); the first step's logits within rel L2 2e-2 of the full
-    forward's. ms, memory and launches of each."""
+    forward's. ms, memory and launches of each. (a) and (b) also on a (1,
+    1) mesh at world 1 beside their mesh-less runs (``mesh_prefill_arms``,
+    ``mesh_loss_and_grads``)."""
     import numpy as np
     import tempfile
 
@@ -5048,7 +5182,13 @@ def phase_whisper(state, out):
     rec["fp32"] = {"decode_vs_forward_rel_l2": rel_l2(got, want),
                    "kernels_vs_plain_rel_l2": rel_l2(want, plain)}
     log("  fp32 whole: " + json.dumps(rec["fp32"]))
-    del params, cache, pre, h, hp
+    del cache, pre, h, hp
+    rec["fp32_mesh_1x1"] = mesh_prefill_arms(
+        cfg, params, {"frames": fr, "tokens": toks[:, :S]}, enc_len=F_)
+    n = rec["fp32_mesh_1x1"]["arms"]["mesh"]["launches"]
+    check(n["flash_attention"] == whisper_flash_launches(cfg),
+          f"fp32 mesh arm flash launches {n}")
+    del params
     torch.cuda.empty_cache()
     for k, v in rec["fp32"].items():
         check(v <= TOL["fp32"], f"fp32 {k} {v:.3e} > 1e-4")
@@ -5059,10 +5199,16 @@ def phase_whisper(state, out):
     p16 = lm.init_params(c16, seed=2, device="cuda")
     fr, toks = whisper_inputs(c16, Bz, F_, S + 1, 32)
     batch = {"frames": fr, "tokens": toks[:, :S], "labels": toks[:, 1:]}
-    runs = {"plain": loss_and_grads(c16, p16, batch, plain=True),
-            "kernels": loss_and_grads(c16, p16, batch)}
+    runs = {"plain": loss_and_grads(c16, p16, batch, plain=True)}
+    reset_counts()
+    runs["kernels"] = loss_and_grads(c16, p16, batch)
+    torch.cuda.synchronize()
+    counts16 = {"meshless": read_counts()}
     with plain_ops(), chunked_attention_route():
         runs["chunked"] = loss_and_grads(c16, p16, batch)
+    reset_counts()
+    mesh_l, mesh_g = mesh_loss_and_grads(c16, p16, batch)
+    counts16["mesh"] = read_counts()
     torch.cuda.synchronize()
     del p16
     want_l, want_g = runs.pop("plain")
@@ -5075,8 +5221,33 @@ def phase_whisper(state, out):
                    / abs(float(want_l)),
                    "grad_rel_l2": {"/".join(map(str, p)): rel_l2(t, want_g[p])
                                    for p, t in grads.items()}}
-    del runs, want_g
+    kern_l, kern_g = runs["kernels"]
+    check(set(mesh_g) == set(kern_g), "the mesh arm's leaves differ")
+    mesh_errs = {"/".join(map(str, k)): rel_l2(mesh_g[k], t)
+                 for k, t in kern_g.items()}
+    worst = max(mesh_errs, key=mesh_errs.get)
+    rec["bf16_mesh_1x1"] = {
+        "loss_identical": bool(torch.equal(mesh_l, kern_l)),
+        "loss_rel_err": abs(float(mesh_l) - float(kern_l))
+        / abs(float(kern_l)),
+        "leaves": len(kern_g),
+        "identical_bits": sum(bool(torch.equal(mesh_g[k], t))
+                              for k, t in kern_g.items()),
+        "worst": worst, "worst_rel_l2": mesh_errs[worst],
+        "launches": counts16}
+    log("  bf16 (1, 1) mesh vs mesh-less: " + json.dumps(
+        rec["bf16_mesh_1x1"]))
+    del runs, want_g, mesh_g, kern_g
     torch.cuda.empty_cache()
+    m16 = rec["bf16_mesh_1x1"]
+    check(m16["loss_rel_err"] <= TOL["bf16"]
+          and m16["worst_rel_l2"] <= TOL["bf16"],
+          f"bf16 mesh arm: loss rel err {m16['loss_rel_err']:.3e}, "
+          f"{worst} rel L2 {m16['worst_rel_l2']:.3e}")
+    check(counts16["mesh"] == counts16["meshless"]
+          and counts16["mesh"]["flash_attention"]
+          == counts16["mesh"]["flash_attention_hopper"] > 0,
+          f"bf16 gradient launches {counts16}")
     bad = [f"{leaf}: {err:.3e}" for leaf, err in
            g["kernels"]["grad_rel_l2"].items()
            if err > max(TOL["bf16"], 3 * g["chunked"]["grad_rel_l2"][leaf])]
@@ -5443,6 +5614,9 @@ def kernel_records(out):
             extra["prefill_launches"] = {
                 k: r["monolithic"]["launches"].get(name, 0)
                 for k, r in pre.items()}
+            extra["prefill_mesh_1x1_launches"] = {
+                k: r["mesh_1x1"]["arms"]["mesh"]["launches"].get(name, 0)
+                for k, r in pre.items() if "mesh_1x1" in r}
         pcase = {"fused_mlp": PREFILL_MLP_CASE,
                  "flash_attention": PREFILL_FLASH_CASE,
                  "ssd_forward": PREFILL_SSD_CASE}.get(name)
@@ -5462,7 +5636,12 @@ def kernel_records(out):
             extra["whisper_launches"] = {
                 "train_3_steps": wh.get("train", {}).get("launches", {})
                 .get(name), "prefill_3_calls": wh.get("serve", {}).get(
-                    "prefill_launches", {}).get(name)}
+                    "prefill_launches", {}).get(name),
+                "mesh_1x1_fp32_prefill": wh.get("fp32_mesh_1x1", {}).get(
+                    "arms", {}).get("mesh", {}).get("launches", {})
+                .get(name),
+                "mesh_1x1_bf16_grads": wh.get("bf16_mesh_1x1", {}).get(
+                    "launches", {}).get("mesh", {}).get(name)}
         if name in HYBRID_CASES:      # phase 2 at phase 12's shapes
             extra["serve_hybrid_cases"] = {
                 case: {k: case_rec(name, case).get(k) for k in (

@@ -203,6 +203,7 @@ def _rank_main(rank: int, n: int, init: str, device: str, fn, args):
                             rank=rank)
     try:
         code = fn(*args)
+        dist.barrier()            # no rank tears down while one still talks
     finally:
         dist.destroy_process_group()
     sys.exit(code or 0)
@@ -533,8 +534,16 @@ def _unflat(cfg, flat: Dict[str, np.ndarray], prefix: str = ""):
 
 
 def _batch(data, key: str, device) -> Dict[str, torch.Tensor]:
-    return {k.split("/", 1)[1]: torch.from_numpy(data[k]).long().to(device)
-            for k in data.files if k.startswith(key + "/")}
+    """The entries "key/*": integer arrays as int64 (tokens, labels),
+    floats (an encoder-decoder's frames) and masks as they are."""
+    out = {}
+    for k in data.files:
+        if k.startswith(key + "/"):
+            t = torch.from_numpy(np.array(data[k]))
+            if not (t.is_floating_point() or t.dtype == torch.bool):
+                t = t.long()
+            out[k.split("/", 1)[1]] = t.to(device)
+    return out
 
 
 def _grad_job(job, data, mesh, device):
@@ -764,6 +773,15 @@ def _global_cache(data, cfg):
                       cfg, 1, 1)))
 
 
+def _cache_res(res: Dict, prefix: str, cache, specs) -> None:
+    """Each leaf of this rank's ``cache`` and its spec into ``res``, as
+    "<prefix>cache/<pos>/<entry>" and "<prefix>spec/<pos>/<entry>"."""
+    for i, (e, sp) in enumerate(zip(cache, specs)):
+        for k, v in e.items():
+            res[f"{prefix}cache/{i}/{k}"] = v.numpy().copy()
+            res[f"{prefix}spec/{i}/{k}"] = json.dumps(list(sp[k]))
+
+
 def _per_rank(res: Dict) -> Dict:
     """Every rank's entries of ``res`` as "rank<r>/<key>" on rank 0
     (``all_gather_object``)."""
@@ -813,10 +831,60 @@ def _serve_step_job(job, data, mesh, device):
                                     arr("slots"), *tables)
     res["logits"] = logits.numpy()
     res["coords"] = np.array([mesh.coords[a] for a in mesh.axis_names])
-    for i, (e, sp) in enumerate(zip(cache, cspecs)):
-        for k, v in e.items():
-            res[f"cache/{i}/{k}"] = v.numpy().copy()
-            res[f"spec/{i}/{k}"] = json.dumps(list(sp[k]))
+    _cache_res(res, "", cache, cspecs)
+    return _per_rank(res)
+
+
+def _prefill_job(job, data, mesh, device):
+    """The monolithic prefill on the mesh and the decode it feeds:
+    ``build_prefill_step(mesh=)``'s fn on the global batch "batch/*"
+    ("tokens" (B, S), and "mask" or "frames" where given), its cache
+    stitched (``stitch_prefill_cache(ctx=)``) into a decode cache of B
+    slots, ``max_seq`` positions and ``enc_len`` encoder rows on the
+    serving context, then one ``lm.decode_step`` per row of "dec_tokens"
+    (steps, B), step t at index S + t (a left-padded row at RoPE
+    position S + t less its pads, its pads excluded). Every rank's
+    prefill logits, prefill cache leaves and their specs ("pre_"), each
+    step's logits (gathered over dp where the slots are cut), the decode
+    cache's leaves after the steps and their specs, and its mesh
+    coordinates."""
+    from repro_torch import bridge
+    from repro_torch.launch.train_step import build_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.serving import stitch_prefill_cache
+    cfg = cell_config(job["arch"], job.get("over"))
+    batch = _batch(data, "batch", device)
+    B, S = batch["tokens"].shape
+    built = build_prefill_step(cfg, ShapeConfig("cell", S, B, "prefill"),
+                               mesh)
+    params = bridge.from_jax_sharded(_unflat(cfg, data, "params/"), cfg,
+                                     built["ctx"], True, device)
+    logits, pre = built["fn"](params, batch)
+    res = {"prefill_logits": logits.numpy(),
+           "coords": np.array([mesh.coords[a] for a in mesh.axis_names])}
+    _cache_res(res, "pre_", pre, built["cache_specs"])
+    ctx = SH.make_ctx(cfg, mesh, seq_shard=False)
+    T, E = job["max_seq"], job.get("enc_len", 0)
+    layout = lm.serve_layout(cfg, ctx, B, T, built["param_specs"],
+                             enc_len=E)
+    cache = stitch_prefill_cache(cfg, lm.init_cache(cfg, B, T, device, ctx,
+                                                    E), pre, S, ctx, layout)
+    n = layout.local_slots
+    base = SH._dp_index(ctx, ctx.dp_axes) * n if layout.slots_cut else 0
+    rows = torch.arange(base, base + n)
+    pads = (~batch["mask"]).sum(1)[rows] if "mask" in batch else None
+    for t, tok in enumerate(torch.from_numpy(np.array(data["dec_tokens"]))):
+        kw = {} if pads is None else dict(rope_pos=S + t - pads,
+                                          kv_start=pads)
+        lg, cache = lm.decode_step(cfg, params, cache,
+                                   tok.long()[rows, None],
+                                   torch.full((n,), S + t), ctx, layout,
+                                   **kw)
+        if layout.slots_cut:
+            lg = CL.all_gather(lg, mesh.group(ctx.dp_axes)).reshape(
+                -1, lg.shape[-1])
+        res[f"logits{t}"] = lg.numpy()
+    _cache_res(res, "", cache, SH.cache_specs(cfg, ctx, B, T, E))
     return _per_rank(res)
 
 
@@ -1070,11 +1138,12 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
     0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
-    "trainer", "cli", and the serving kinds "decode", "chunk", "engine",
-    "lifecycle" and "disagg"), arch and ``over`` (``cell_config``);
-    "grad", "plan", "adamw" and the serving kinds read the one-rank weights
-    ("params/<leaf>") and their inputs (batches "batch*/<key>", a cache
-    "cache/<pos>/<entry>", prompts) from ``in_dir/<data>.npz``. Results
+    "trainer", "cli", and the serving kinds "decode", "chunk", "prefill",
+    "engine", "lifecycle" and "disagg"), arch and ``over``
+    (``cell_config``); "grad", "plan", "adamw" and the serving kinds read
+    the one-rank weights ("params/<leaf>") and their inputs (batches
+    "batch*/<key>", a cache "cache/<pos>/<entry>", prompts) from
+    ``in_dir/<data>.npz``. Results
     are gathered into the one-rank layout. A serving job with a
     ``page_size`` runs the paged cache (block tables "tables"; the engine
     also takes ``n_pages`` and ``admit_k``). Gloo ranks: every tensor on
@@ -1083,11 +1152,12 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     mesh = make_mesh(tuple(layout), ("data", "model"))
     for job in jobs:
         kind = job["kind"]
-        if kind in ("grad", "plan", "adamw", "decode", "chunk", "engine"):
+        if kind in ("grad", "plan", "adamw", "decode", "chunk", "prefill",
+                    "engine"):
             data = np.load(Path(in_dir) / f"{job['data']}.npz")
             res = {"grad": _grad_job, "plan": _plan_job,
                    "adamw": _adamw_job, "decode": _serve_step_job,
-                   "chunk": _serve_step_job,
+                   "chunk": _serve_step_job, "prefill": _prefill_job,
                    "engine": _engine_job}[kind](job, data, mesh, device)
         elif kind in ("lifecycle", "disagg"):
             data = np.load(Path(in_dir) / f"{job['data']}.npz")

@@ -1,8 +1,9 @@
 """Train batch shapes for every (arch x shape) cell (the port's copy of
 ``repro.launch.specs``), the batch's partition specs on a mesh, and this
-rank's rows of a global batch; the monolithic prefill's batch
-(``prefill_batch_specs``); the decode cache's shapes and specs, which the
-serving steps share (``decode_inputs``).
+rank's rows of a global batch; the monolithic prefill's batch and its
+specs (``prefill_batch_specs``, ``prefill_batch_pspecs``); the decode
+cache's shapes and specs, which the serving steps share
+(``decode_inputs``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,24 @@ def prefill_batch_specs(cfg, shape) -> Dict[str, Tuple[int, ...]]:
     return structs
 
 
+def prefill_batch_pspecs(cfg, shape, ctx) -> Dict:
+    """The partition spec of each entry of ``prefill_batch_specs`` on
+    ``ctx``'s mesh (``repro/launch/train_step.py:167-168``): the rows
+    split over the dp axes where they split as the decode cache's slots
+    of the same count do (``sharding.slots_cut``: the stitch then writes
+    each dp rank's rows into its own slots), whole on every rank
+    otherwise; the rest of each entry whole. A left-padded batch's "mask"
+    is cut as its "tokens"."""
+    from repro_torch.parallel.sharding import P, slots_cut
+    dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
+    b = dp if slots_cut(ctx, shape.global_batch) else None
+    specs = {k: P(*((b,) + (None,) * (len(v) - 1)))
+             for k, v in prefill_batch_specs(cfg, shape).items()}
+    if "tokens" in specs:
+        specs["mask"] = specs["tokens"]
+    return specs
+
+
 def train_batch_pspecs(cfg, shape, accum: int,
                        dp_axes: Tuple[str, ...] = ("data",)) -> Dict:
     """The partition spec of each entry of ``train_batch_specs``: the
@@ -75,6 +94,12 @@ def local_batch(batch: Dict, pspecs: Dict, mesh) -> Dict:
             for k, v in batch.items()}
 
 
+def enc_len_decode(cfg) -> int:
+    """The encoder rows a decode cache of ``cfg`` holds: 0 but for an
+    encoder-decoder (``WHISPER_ENC_LEN_DECODE``)."""
+    return WHISPER_ENC_LEN_DECODE if cfg.n_enc_layers else 0
+
+
 def decode_inputs(cfg, shape, ctx) -> Tuple:
     """(cache shapes, cache specs, the decode tokens' spec) of the decode
     cache that ``shape`` (global_batch slots of seq_len positions)
@@ -87,24 +112,21 @@ def decode_inputs(cfg, shape, ctx) -> Tuple:
     (``lm.paged_cache_shapes`` of ``shape.pages_total()`` pages,
     ``sharding.paged_cache_specs``). An encoder-decoder's cache holds
     ``WHISPER_ENC_LEN_DECODE`` rows of encoder K/V (``repro/launch/
-    specs.py:92-95``), at one rank."""
+    specs.py:92-95``), cut on a mesh as ``cache_specs(enc_len=)`` says."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.sharding import P
     B, S = shape.global_batch, shape.seq_len
     ranked = ctx is not None and ctx.active
-    if ranked and cfg.n_enc_layers:
-        from repro_torch.models.blocks import MESH_ENCDEC
-        raise NotImplementedError(MESH_ENCDEC)
+    enc_len = enc_len_decode(cfg)
     if shape.paged:
         cache = lm.paged_cache_shapes(cfg, B, shape.pages_total(),
                                       shape.page_size)
     else:
-        enc_len = WHISPER_ENC_LEN_DECODE if cfg.n_enc_layers else 0
         cache = lm.cache_shapes(cfg, B, S, enc_len)
     if ranked:
         cspecs = (SH.paged_cache_specs(cfg, ctx, B) if shape.paged
-                  else SH.cache_specs(cfg, ctx, B, S))
+                  else SH.cache_specs(cfg, ctx, B, S, enc_len))
         dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
         tok_spec = P(dp if SH.slots_cut(ctx, B) else None, None)
     else:

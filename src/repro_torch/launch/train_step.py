@@ -5,8 +5,8 @@ terms (``build_prefill_chunk_step``, ``build_decode_step``).
 
 PyTorch runs eagerly, so there is nothing to compile: ``build_train_step``
 returns the step function itself; so does ``build_prefill_step``, the
-monolithic prefill at one rank. The step updates the state in place
-(see ``optim/adamw.py``).
+monolithic prefill. The step updates the state in place (see
+``optim/adamw.py``).
 
 On a mesh every rank runs the step on its rows of the batch and its shard
 of the state (``parallel.sharding.state_specs``). Each leaf's gradient is
@@ -179,23 +179,44 @@ def build_prefill_step(cfg, shape, mesh=None, fsdp: bool = True,
     ``fn(params, batch) -> (last-token logits (B, V) fp32, cache)``, the
     cache stacked (n_periods, B, S, ...) per period position
     (``lm.prefill``; ``serving.stitch_prefill_cache`` writes it into a
-    decode cache). ``batch`` holds "tokens" (B, S) and, for a left-padded
-    batch of mixed lengths, "mask" (B, S); ``batch_structs`` gives the
-    shapes of ``shape``. Prefill-phase plans resolve from ``plan_cache``.
-    At one rank only: on a mesh it raises (ROADMAP Queue 1, the mesh
-    monolithic prefill). Returns {"fn", "batch_structs", "ctx", "cfg"}."""
-    if mesh is not None:
-        raise NotImplementedError("build_prefill_step: the monolithic "
-                                  "prefill on a mesh is not ported yet "
-                                  "(ROADMAP Queue 1, the mesh monolithic "
-                                  "prefill)")
+    decode cache). ``batch`` holds "tokens" (B, S) (an encoder-decoder's
+    also "frames" (B, F, d)) and, for a left-padded batch of mixed
+    lengths, "mask" (B, S); ``batch_structs`` gives the shapes of
+    ``shape``. Prefill-phase plans resolve from ``plan_cache``.
+
+    On a mesh (a ``parallel.mesh.Mesh`` with ("data", "model") axes) the
+    context shards the MoE tokens over the sequence (``seq_shard``, as
+    the JAX builder's), ``params`` is this rank's shard of the mesh tree
+    (its data-axis cuts gathered per period, as the mesh train step
+    gathers them) and every rank is handed the global batch: it takes its
+    rows as ``batch_pspecs`` cut them (``specs.prefill_batch_pspecs``).
+    The logits are the whole (B, V) on every rank, the cache this rank's
+    slice (``cache_specs``: ``sharding.prefill_cache_specs``). Returns
+    {"fn", "batch_structs", "ctx", "cfg"} and, on a mesh, "batch_pspecs",
+    "param_specs", "cache_specs"."""
     cfg = _with_plan_cache(cfg, plan_cache, plan_hw, phase="prefill")
+    ctx = SH.make_ctx(cfg, mesh, seq_shard=True)
+    built = {"batch_structs": SP.prefill_batch_specs(cfg, shape),
+             "ctx": ctx, "cfg": cfg}
+    if mesh is None:
+        built["fn"] = lambda params, batch: lm.prefill(cfg, params, batch)
+        return built
+    pspecs = SP.prefill_batch_pspecs(cfg, shape, ctx)
+    B = shape.global_batch
+    # the rows are this dp rank's where they are cut, every rank's alike
+    # otherwise: the MoE then routes them within each model group
+    run_ctx = ctx if SH.slots_cut(ctx, B) else dataclasses.replace(
+        ctx, dp_axes=())
 
     def fn(params, batch):
-        return lm.prefill(cfg, params, batch)
+        return lm.prefill(cfg, params, SP.local_batch(batch, pspecs, mesh),
+                          run_ctx, fsdp)
 
-    return {"fn": fn, "batch_structs": SP.prefill_batch_specs(cfg, shape),
-            "ctx": SH.make_ctx(cfg, None), "cfg": cfg}
+    built.update(fn=fn, batch_pspecs=pspecs,
+                 param_specs=SH.param_specs(lm.model_schema(cfg, ctx), mesh,
+                                            fsdp),
+                 cache_specs=SH.prefill_cache_specs(cfg, ctx, B))
+    return built
 
 
 def _serve_built(cfg, shape, mesh, fsdp, phase, plan_cache, plan_hw):
@@ -213,7 +234,8 @@ def _serve_built(cfg, shape, mesh, fsdp, phase, plan_cache, plan_hw):
                                               mesh, fsdp)
         built["layout"] = lm.serve_layout(cfg, ctx, shape.global_batch,
                                           shape.seq_len,
-                                          built["param_specs"], shape.paged)
+                                          built["param_specs"], shape.paged,
+                                          SP.enc_len_decode(cfg))
     return built
 
 

@@ -6,8 +6,8 @@ sequential interpretation of that lowering; ``return_cache`` gives the
 layer's cache entry) and the two cached serving modes, single-token
 decode and chunked prefill, of both layer kinds. An encoder-decoder's
 decoder layer (``cross``) adds a cross-attention over the encoder's
-output after its self-attention, at one rank; its chunked prefill is not
-ported, as the JAX package has none.
+output after its self-attention; its chunked prefill is not ported, as
+the JAX package has none.
 
 The training forward also runs on a mesh (a ranked ``AxisCtx``): each
 rank holds its rows of the batch, the same on every model rank, and its
@@ -18,6 +18,8 @@ over the model axis as the JAX package's explicit ``shard_map`` does
 dense FFN is column- then row-parallel where its width divides. Around
 them the collectives are Megatron's conjugate pairs
 (``parallel.collectives``): every model rank computes the same loss.
+The monolithic prefill (``return_cache``) runs the same forward and
+keeps each rank's cache entry (``sharding.prefill_cache_specs``).
 
 So do the serving modes (``decode_layer``, ``chunk_layer``): each rank
 holds its slots' slice of the decode cache, cut over the model axis by
@@ -276,12 +278,13 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
     CUDA tensor): an encoder's self-attention, a cross-attention and an
     unmasked decoder's causal self-attention. Every other case keeps the
     plain attention, as the JAX package does. With a ranked ``ctx`` the
-    heads shard as ``attn_case`` says (self-attention only); the ``seq``
-    case's query positions are a slice, so it takes the plain attention.
-    ``return_kv`` (at one rank: the monolithic prefill,
-    ``block_segments``): returns (the o-projection, {"k", "v"} (B, Sk,
-    Hkv, hd) after RoPE, before the heads' expansion), the layer's cache
-    entry."""
+    heads shard as ``attn_case`` says of the queries' length, a
+    cross-attention's as a self-attention's (``_attn_ranked``); the
+    ``seq`` case's query positions are a slice, so it takes the plain
+    attention. ``return_kv`` (the monolithic prefill, ``block_segments``):
+    returns (the o-projection, {"k", "v"} (B, Sk, Hkv, hd) after RoPE,
+    before the heads' expansion), the layer's cache entry; on a mesh this
+    rank's, as ``sharding.prefill_cache_specs`` cuts it."""
     a = cfg.attn
     B, S, _ = x.shape
     positions = positions.expand(B, S)
@@ -290,10 +293,8 @@ def attn_apply(cfg, p, x, positions, causal: bool, use_rope: bool = True,
         kv_mask = kv_mask.expand(B, Sk)
     flash = kv_mask is None and (not causal or arange_positions)
     if _ranked(ctx) and ctx.model_size > 1:
-        if kv_x is not None:
-            raise NotImplementedError(MESH_ENCDEC)
         return _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope,
-                            kv_mask, flash)
+                            kv_mask, flash, kv_x, return_kv)
     if kv_x is None:
         q, k, v = _qkv_proj(a, p, x)
         kv_pos = positions
@@ -324,14 +325,23 @@ def _whole(p, ctx, keys, full: int):
 
 
 def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
-                 flash):
-    """attn_apply on a model axis of m > 1 ranks. x and positions are
-    the same on every model rank; so is the result."""
+                 flash, kv_x=None, return_kv: bool = False):
+    """attn_apply on a model axis of m > 1 ranks. x, ``kv_x`` (a
+    cross-attention's keys' and values' source, whose key positions are
+    arange(Sk)) and positions are the same on every model rank; so is the
+    result. ``return_kv``: also this rank's K/V after RoPE and before the
+    heads' expansion, as ``sharding.prefill_cache_specs`` cuts them: its
+    own kv heads in the ``heads`` case, every real kv head otherwise
+    (``padded`` drops the dummy heads, ``repro/models/blocks.py:
+    189-193``)."""
     a = cfg.attn
     B, S, _ = x.shape
     hd = a.head_dim
     G, m, r = ctx.model_group, ctx.model_size, ctx.model_rank
     Hq, Hkv = a.n_heads, a.n_kv_heads
+    src = x if kv_x is None else kv_x
+    kv_pos = positions if kv_x is None else torch.arange(
+        src.shape[1], device=x.device)[None, :].expand(B, src.shape[1])
     kv_keys = ("wk", "bk", "wv", "bv")
     case = ("padded" if a.pad_heads and (Hq % m or Hkv % m)
             else attn_case(ctx, a, S))
@@ -341,22 +351,30 @@ def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
         xq = CL.copy_to(x, G)
         q = _proj(a, p, xq, "q")
         if case == "heads":
-            k, v = _proj(a, p, xq, "k"), _proj(a, p, xq, "v")
+            xs = xq if kv_x is None else CL.copy_to(kv_x, G)
+            k, v = _proj(a, p, xs, "k"), _proj(a, p, xs, "v")
         else:
             # K/V whole on every rank, each rank's q heads reading some
             # of them: the cotangents summed over the group
             w = _whole(p, ctx, kv_keys, Hkv * hd)
-            k = CL.copy_to(_proj(a, w, x, "k"), G)
-            v = CL.copy_to(_proj(a, w, x, "v"), G)
-        o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
-                       kv_mask, r * q.shape[2],
-                       r * k.shape[2] if case == "heads" else 0, flash)
-        return CL.reduce_from(o.reshape(B, S, -1) @ p["wo"], G)
+            k = CL.copy_to(_proj(a, w, src, "k"), G)
+            v = CL.copy_to(_proj(a, w, src, "v"), G)
+        o, kv = _attn_core(a, causal, use_rope, q, k, v, positions, kv_pos,
+                           kv_mask, r * q.shape[2],
+                           r * k.shape[2] if case == "heads" else 0, flash,
+                           return_kv=True)
+        out = CL.reduce_from(o.reshape(B, S, -1) @ p["wo"], G)
+        return (out, kv) if return_kv else out
     # padded / seq / none: every rank projects with the whole weights
     w = {**_whole(p, ctx, ("wq", "bq", "wo"), Hq * hd),
          **_whole(p, ctx, kv_keys, Hkv * hd)}
-    q, k, v = _qkv_proj(a, w, x)
+    q = _proj(a, w, x, "q")
+    k, v = _proj(a, w, src, "k"), _proj(a, w, src, "v")
     if case == "padded":
+        # the cache's entry: the real heads, whole
+        kv = None if not return_kv else {
+            "k": apply_rope(k, kv_pos, a.rope_theta) if use_rope else k,
+            "v": v}
         # pad the kv heads up to the axis, keep the group ratio for q:
         # zero K/V give dummy heads a zero output, and real q head h keeps
         # kv head h // rep; then heads as above, gathered back whole
@@ -366,21 +384,23 @@ def _attn_ranked(cfg, p, x, ctx, positions, causal, use_rope, kv_mask,
         q, k, v = (CL.scatter_to(torch.nn.functional.pad(
             t, (0, 0, 0, n - t.shape[2])), G, 2)
             for t, n in ((q, ap.n_heads), (k, Hkv_p), (v, Hkv_p)))
-        o = _attn_core(ap, causal, use_rope, q, k, v, positions, positions,
+        o = _attn_core(ap, causal, use_rope, q, k, v, positions, kv_pos,
                        kv_mask, r * q.shape[2], r * k.shape[2], flash)
         o = CL.gather_from(o, G, 2)[:, :, :Hq]
     elif case == "seq":
         # this rank's slice of the queries (their gradient gathered back),
         # all of K/V (their cotangents summed)
         Sl = S // m
-        o = _attn_core(a, causal, use_rope, CL.scatter_to(q, G, 1),
-                       CL.copy_to(k, G), CL.copy_to(v, G),
-                       positions[:, r * Sl:(r + 1) * Sl], positions, kv_mask)
+        o, kv = _attn_core(a, causal, use_rope, CL.scatter_to(q, G, 1),
+                           CL.copy_to(k, G), CL.copy_to(v, G),
+                           positions[:, r * Sl:(r + 1) * Sl], kv_pos,
+                           kv_mask, return_kv=True)
         o = CL.gather_from(o, G, 1)
     else:
-        o = _attn_core(a, causal, use_rope, q, k, v, positions, positions,
-                       kv_mask, flash=flash)
-    return o.reshape(B, S, Hq * hd) @ w["wo"]
+        o, kv = _attn_core(a, causal, use_rope, q, k, v, positions, kv_pos,
+                           kv_mask, flash=flash, return_kv=True)
+    out = o.reshape(B, S, Hq * hd) @ w["wo"]
+    return (out, kv) if return_kv else out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,12 +416,6 @@ class ExecSeg:
     reads: Tuple[str, ...]
     writes: Tuple[str, ...]
     fn: Any                     # Callable[[Dict[str, Any]], None]
-
-
-_MESH_PREFILL = ("the monolithic prefill (return_cache) on a mesh is not "
-                 "ported yet (ROADMAP Queue 1, the mesh monolithic prefill)")
-MESH_ENCDEC = ("the encoder-decoder on a mesh is not ported yet (ROADMAP "
-               "Queue 1, item 3c, the encoder-decoder on a mesh)")
 
 
 def block_segments(cfg, pos: int, p, positions, mask=None,
@@ -429,9 +443,10 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
     before the heads' expansion.
 
     positions, mask, ``arange_positions``, ``ctx`` and ``sp``: as
-    ``apply_layer``. ``return_cache`` at one rank only."""
-    if return_cache and _ranked(ctx):
-        raise NotImplementedError(_MESH_PREFILL)
+    ``apply_layer``. On a mesh the cache entry is this rank's, as
+    ``sharding.prefill_cache_specs`` cuts it; under ``sp`` the mixer and
+    the cross-attention run on the gathered sequence (``_seq_whole``), so
+    the entry covers the whole sequence."""
     kind = "attn" if cfg.layer_kind(pos) == "a" else "ssm"
     cross = kind == "attn" and enc_out is not None
     pr = f"L{block}."
@@ -453,12 +468,17 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
                                ctx=ctx)
 
     def f_mix(env):
+        entry = []
+
+        def run(t):
+            out, ce = mixer(t)
+            entry.append(ce)
+            return out
+
         h = sp_norm(cfg, p["ln1"], env[x_in], ctx, sp)
-        if return_cache:                  # one rank: no sequence slice
-            h, env[pr + "cache"] = mixer(h)
-        else:
-            h = _seq_whole(lambda t: mixer(t)[0], h, ctx, sp)
-        env[pr + "h0"] = h
+        env[pr + "h0"] = _seq_whole(run, h, ctx, sp)
+        if return_cache:
+            env[pr + "cache"] = entry[0]
 
     def f_res1(env):
         x = env[x_in]
@@ -470,14 +490,22 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
                     (xm0,), f_res1)]
     if cross:
         def f_xattn(env):
-            hx = apply_norm(cfg, p["ln_x"], env[xm0])
-            out = attn_apply(cfg, p["xattn"], hx, positions, False, False,
-                             return_kv=return_cache, kv_x=enc_out)
+            xkv = []
+
+            def run(t):
+                out = attn_apply(cfg, p["xattn"], t, positions, False,
+                                 False, ctx=ctx, return_kv=return_cache,
+                                 kv_x=enc_out)
+                if return_cache:
+                    out, kv = out
+                    xkv.append(kv)
+                return out
+
+            hx = sp_norm(cfg, p["ln_x"], env[xm0], ctx, sp)
+            env[pr + "hx"] = _seq_whole(run, hx, ctx, sp)
             if return_cache:
-                out, xkv = out
-                env[pr + "cache"]["xk"] = xkv["k"]
-                env[pr + "cache"]["xv"] = xkv["v"]
-            env[pr + "hx"] = out
+                env[pr + "cache"]["xk"] = xkv[0]["k"]
+                env[pr + "cache"]["xv"] = xkv[0]["v"]
 
         def f_resx(env):
             x = env[xm0]
@@ -688,7 +716,8 @@ def sharded_decode_attention(ctx, q, k_cache, v_cache, t_pos, cut: str,
 
 def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
                  cut: str = "replicated", paged: Optional[PagedKV] = None,
-                 rope_pos=None, kv_start=None, has_cross: bool = False):
+                 rope_pos=None, kv_start=None, has_cross: bool = False,
+                 xcut: str = "replicated"):
     """x: (B, 1, d); cache: this layer's {"k", "v"} (B, S, Hkv, hd) or SSM
     {"conv", "state"} (B, ...), updated in place; t_pos: (B,) per-row cache
     write index (= RoPE position unless ``rope_pos`` (B,) gives it: a
@@ -705,11 +734,18 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     MoE through the ranked ``moe_ffn``, the dense FFN column- then
     row-parallel (``_mlp_tail``).
 
-    ``has_cross``: an encoder-decoder's decoder layer, at one rank: after
-    the self-attention, ln_x -> q of ``xattn.wq`` (no bias, as the JAX
-    package takes it) -> plain non-causal attention over every row of the
-    cache's {"xk", "xv"} (B, enc_len, Hkv, hd), unwritten rows included
-    (``repro/models/blocks.py:541-546``) -> ``xattn.wo`` -> residual."""
+    ``has_cross``: an encoder-decoder's decoder layer: after the
+    self-attention, ln_x -> q of ``xattn.wq`` (no bias, as the JAX package
+    takes it) -> plain non-causal attention over every row of the cache's
+    {"xk", "xv"} (B, enc_len, Hkv, hd), unwritten rows included
+    (``repro/models/blocks.py:541-546``) -> ``xattn.wo`` -> residual. On a
+    mesh it follows the "xk"/"xv" cut ``xcut``, which may differ from the
+    self-attention's (``sharding.kv_cut`` of enc_len rows): ``kv_group``
+    this rank's q heads (columns of ``xattn.wq``) over its kv heads, its
+    rows of ``xattn.wo``, the partial sums reduced; ``split_kv``
+    flash-decode partials over this rank's rows, every row valid (no
+    position mask), merged by the MAX and SUM all-reduces; ``replicated``
+    whole."""
     h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
         h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache,
@@ -737,14 +773,36 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
         o = CL.reduce_from(o, ctx.model_group)
     x = x + o
     if has_cross:
-        if _ranked(ctx):
-            raise NotImplementedError(MESH_ENCDEC)
-        hx = apply_norm(cfg, p["ln_x"], x)
-        qx = (hx @ p["xattn"]["wq"]).reshape(B, 1, a.n_heads, a.head_dim)
-        ox = A.dense_attention(qx, cache["xk"], cache["xv"], None, None,
-                               causal=False)
-        x = x + ox.reshape(B, 1, -1) @ p["xattn"]["wo"]
+        x = x + _decode_cross(cfg, p, x, cache, ctx, xcut)
     return _mlp_tail(cfg, p, x, ctx)[0]
+
+
+def _decode_cross(cfg, p, x, cache, ctx, xcut: str):
+    """A decode step's cross-attention output (B, 1, d) over the cache's
+    "xk"/"xv", cut over the model axis as ``xcut`` says
+    (``decode_layer``)."""
+    a = cfg.attn
+    B = x.shape[0]
+    hx = apply_norm(cfg, p["ln_x"], x)
+    w, partial = p["xattn"], False
+    ranked = _ranked(ctx) and ctx.model_size > 1
+    if ranked and xcut == "kv_group":
+        partial = True
+    elif ranked:
+        w = _whole(w, ctx, ("wq", "wo"), a.n_heads * a.head_dim)
+    q = (hx @ w["wq"]).reshape(B, 1, -1, a.head_dim)
+    xk, xv = cache["xk"], cache["xv"]
+    if ranked and xcut == "split_kv":
+        n = xk.shape[1]
+        every = torch.full((B,), n * ctx.model_size - 1, device=x.device)
+        m, l, acc = A.decode_attention_partial(q, xk, xv, every,
+                                               ctx.model_rank * n)
+        o = A.merge_decode_partials(m, l, acc, ctx.model_group).transpose(
+            1, 2).to(q.dtype)
+    else:
+        o = A.dense_attention(q, xk, xv, None, None, causal=False)
+    o = o.reshape(B, 1, -1) @ w["wo"]
+    return CL.reduce_from(o, ctx.model_group) if partial else o
 
 
 def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,

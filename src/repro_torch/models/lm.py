@@ -12,13 +12,15 @@ An encoder-decoder (whisper: ``cfg.n_enc_layers``) adds an ``encoder``
 stack of bidirectional layers over the stub audio frontend's frames
 (``encode``) whose output every decoder layer's cross-attention reads, and
 sinusoid positions on both sides; it runs the training forward, the
-scheduled forward, the monolithic prefill and the decode at one rank.
+scheduled forward, the monolithic prefill and the decode.
 
 The training forward and loss also run on a mesh: with a ranked
 ``AxisCtx`` each rank holds its rows of the batch and its shard of the
-parameters (``parallel.sharding.to_mesh``); see ``forward``. So do the
-serving calls, each rank also holding its slice of the decode cache
-(``init_cache``, ``decode_step``, ``prefill_chunk``). The decode cache is
+parameters (``parallel.sharding.to_mesh``); see ``forward``. So does the
+monolithic prefill (``prefill``), each rank keeping its slice of the
+cache, and so do the serving calls, each rank also holding its slice of
+the decode cache (``init_cache``, ``decode_step``, ``prefill_chunk``);
+an encoder-decoder's as well. The decode cache is
 contiguous (one ``seq_len`` region per slot) or paged (``init_paged_cache``:
 K/V page pools shared by every slot, reached through block tables).
 """
@@ -36,7 +38,7 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ParamDecl, apply_norm,
-                                       chunked_xent, ffn_apply, ffn_schema,
+                                       chunked_xent, ffn_schema,
                                        init_from_schema, model_sharded,
                                        norm_schema, sinusoid_at,
                                        sinusoid_positions, tree_map)
@@ -206,10 +208,8 @@ def init_cache(cfg, batch_size: int, seq_len: int,
     ranked ``ctx``, this rank's slice of it, cut as
     ``parallel.sharding.cache_specs`` says."""
     ranked = ctx is not None and ctx.active
-    if ranked and cfg.n_enc_layers:
-        raise NotImplementedError(B.MESH_ENCDEC)
     return _zeros(cache_shapes(cfg, batch_size, seq_len, enc_len),
-                  SH.cache_specs(cfg, ctx, batch_size, seq_len)
+                  SH.cache_specs(cfg, ctx, batch_size, seq_len, enc_len)
                   if ranked else None, device, ctx)
 
 
@@ -266,13 +266,16 @@ def token_embeds(cfg, params, tokens, ctx=None):
         dtype_of(cfg.compute_dtype))
 
 
-def _enc_layer(cfg, p, x, positions):
+def _enc_layer(cfg, p, x, positions, ctx=None):
     """One encoder layer: ln1 -> non-causal self-attention without RoPE
     (the flash kernel's region) -> residual -> ln2 -> dense FFN ->
-    residual (``repro/models/lm.py:112-120``)."""
+    residual (``repro/models/lm.py:112-120``); on a mesh the attention
+    and the FFN shard over the model axis as a decoder layer's do, the
+    norms and the residual whole on every model rank."""
     h = apply_norm(cfg, p["ln1"], x)
-    x = x + B.attn_apply(cfg, p["attn"], h, positions, False, False)
-    return x + ffn_apply(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    x = x + B.attn_apply(cfg, p["attn"], h, positions, False, False,
+                         ctx=ctx)
+    return x + B._ffn_out(cfg, p, x, ctx)
 
 
 def encode(cfg, params, frames, ctx=None):
@@ -281,19 +284,23 @@ def encode(cfg, params, frames, ctx=None):
     ``encoder`` stack, the final norm ``ln_enc``. Returns (B, S_enc, d).
     Under ``cfg.remat == "full"`` each layer runs under a non-reentrant
     ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of
-    its scan body). At one rank only."""
-    if ctx is not None and ctx.active:
-        raise NotImplementedError(B.MESH_ENCDEC)
+    its scan body). ``ctx``: a ranked context, whose rank holds its rows
+    of the frames and the encoder's leaves as ``sharding.param_specs``
+    cuts them, their data-axis cuts gathered (``_forward`` gathers them):
+    each layer's attention goes through ``blocks._attn_ranked``
+    (``attn_case`` of the frame count) and its FFN column- then
+    row-parallel; the encoder carries no sequence-parallel residual, as
+    in the JAX package."""
     h = frames.to(dtype_of(cfg.compute_dtype))
     h = h + sinusoid_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for n in range(cfg.n_enc_layers):
         lp = _period(params["encoder"], n)
         if cfg.remat == "full" and torch.is_grad_enabled():
-            h = checkpoint(_enc_layer, cfg, lp, h, positions,
+            h = checkpoint(_enc_layer, cfg, lp, h, positions, ctx,
                            use_reentrant=False)
         else:
-            h = _enc_layer(cfg, lp, h, positions)
+            h = _enc_layer(cfg, lp, h, positions, ctx)
     return apply_norm(cfg, params["ln_enc"], h)
 
 
@@ -411,9 +418,12 @@ def _stack_caches(cfg, caches):
                  for pos in range(period_of(cfg)))
 
 
-def _top_level(cfg, params, ctx, specs):
-    """The embedding, head and final norm, the data-axis cuts gathered."""
-    top = {k: v for k, v in params.items() if k != "layers"}
+def _top_level(cfg, params, ctx, specs, encoder: bool = True):
+    """The embedding, head and final norm (and an encoder-decoder's
+    encoder stack, unless ``encoder`` is false: a serving step's), the
+    data-axis cuts gathered."""
+    skip = ("layers",) if encoder else ("layers", "encoder", "ln_enc")
+    top = {k: v for k, v in params.items() if k not in skip}
     if specs is None:
         return top
     return SH.fsdp_gather_tree(top, {k: specs[k] for k in top}, ctx)
@@ -430,8 +440,8 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
     through the block-schedule IR instead (``_scheduled_layers``: unrolled,
     no remat), as the JAX package's ``forward_scheduled``.
 
-    ``return_cache`` (the monolithic prefill, at one rank): each layer's
-    cache entry, stacked per period position as ``(n_periods, B, S, ...)``
+    ``return_cache`` (the monolithic prefill): each layer's cache entry,
+    stacked per period position as ``(n_periods, B, S, ...)``
     (attention {"k", "v"} after RoPE, and an encoder-decoder's {"xk",
     "xv"} (n_periods, B, S_enc, Hkv, hd); the SSM's {"conv", "state"}); no
     remat. An encoder-decoder runs ``encode`` on ``batch["frames"]``
@@ -448,12 +458,12 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
     on every rank. Under the sequence-parallel residual (``sp_split``)
     the embeddings are cut to this rank's slice of the sequence, every
     period carries (and under remat saves) the slice, and the final norm's
-    output is gathered whole."""
+    output is gathered whole. An encoder-decoder's frames are this rank's
+    rows, as its tokens are, and its encoder runs on every model rank
+    (``encode``). With ``return_cache`` each rank keeps its slice of the
+    caches, as ``sharding.prefill_cache_specs`` cuts them (whole over
+    the sequence, also under ``sp_split``)."""
     ranked = ctx is not None and ctx.active
-    if ranked and cfg.n_enc_layers:
-        raise NotImplementedError(B.MESH_ENCDEC)
-    if return_cache and ranked:
-        raise NotImplementedError(B._MESH_PREFILL)
     specs = None
     if ranked:
         specs = SH.param_specs(model_schema(cfg, ctx), ctx.mesh, fsdp)
@@ -529,18 +539,35 @@ def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch):
-    """The monolithic prefill at one rank (``repro/models/lm.py:248-257``):
-    returns (last-token logits (B, V) fp32, the cache: a tuple over period
+def prefill(cfg, params, batch, ctx=None, fsdp: bool = True):
+    """The monolithic prefill (``repro/models/lm.py:248-257``): returns
+    (last-token logits (B, V) fp32, the cache: a tuple over period
     positions of {entry: (n_periods, B, S, ...)}, ``forward(...,
     return_cache=True)``). A batch of mixed lengths is left-padded (every
     prompt ends at index S-1, where the logits are read) and passes
     "mask" (B, S): the padded forward is then exact. The logits are one
     fp32 product per row (``_logits(per_row=True)``), so a request's bits
     do not depend on the batch it came in. ``serving.stitch_prefill_cache``
-    writes the cache into a decode cache."""
-    h, _, top, caches = _forward(cfg, params, batch, return_cache=True)
-    return _logits(cfg, top, h[:, -1], per_row=True), caches
+    writes the cache into a decode cache.
+
+    ``ctx``: a ranked context (``seq_shard`` on, as the JAX builder makes
+    it), or None at one rank. ``params`` is then this rank's shard of the
+    mesh tree and ``batch`` its rows: cut over the dp axes where
+    ``ctx.dp_axes`` is set (``train_step.build_prefill_step`` cuts them
+    as the decode cache's slots of the same count are cut and clears
+    ``dp_axes`` otherwise), the same on every model rank. The logits are
+    the whole (B, V) on every rank: gathered over the model axis where
+    the vocab is stored cut, and over dp where the rows are. The cache is
+    this rank's slice, as ``sharding.prefill_cache_specs`` cuts it."""
+    ranked = ctx is not None and ctx.active
+    h, _, top, caches = _forward(cfg, params, batch, ctx, fsdp,
+                                 return_cache=True)
+    logits = _serve_logits(cfg, top, h[:, -1], ctx if ranked else None,
+                           per_row=True)
+    if ranked and ctx.dp_size > 1:
+        logits = CL.all_gather(logits, ctx.mesh.group(ctx.dp_axes)).reshape(
+            -1, logits.shape[-1])
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -554,27 +581,36 @@ class ServeLayout(NamedTuple):
     each call gathers (None where no data axis holds more than one rank:
     nothing is then stored cut over one), each period position's K/V cut
     (``sharding.kv_cut``), whether the cache's slots are cut over the dp
-    axes (``sharding.slots_cut``) and how many slots this rank holds."""
+    axes (``sharding.slots_cut``), how many slots this rank holds, and
+    each period position's "xk"/"xv" cut (an encoder-decoder's: the kv
+    cut of its ``enc_len`` rows, which may differ from ``cuts``')."""
     gather_specs: Optional[Tree]
     cuts: Tuple[str, ...]
     slots_cut: bool
     local_slots: int
+    xcuts: Tuple[str, ...] = ()
 
 
 def serve_layout(cfg, ctx, batch: int, seq_len: int,
-                 param_specs: Tree, paged: bool = False) -> ServeLayout:
+                 param_specs: Tree, paged: bool = False,
+                 enc_len: int = 0) -> ServeLayout:
     """The ``ServeLayout`` of a decode cache of ``batch`` slots and
-    ``seq_len`` positions on ``ctx``'s mesh, the parameters stored as
+    ``seq_len`` positions (and an encoder-decoder's ``enc_len`` rows of
+    encoder K/V) on ``ctx``'s mesh, the parameters stored as
     ``param_specs`` (``sharding.param_specs``) cut them; ``paged``: its
     K/V are page pools, never cut over positions."""
-    cuts = tuple(SH.kv_cut(ctx, cfg.attn.n_kv_heads, seq_len, paged)
-                 if cfg.layer_kind(pos) == "a" else "replicated"
-                 for pos in range(period_of(cfg)))
+    def cuts(n, paged_):
+        return tuple(SH.kv_cut(ctx, cfg.attn.n_kv_heads, n, paged_)
+                     if cfg.layer_kind(pos) == "a" else "replicated"
+                     for pos in range(period_of(cfg)))
+
     cut_data = any(n > 1 for a, n in ctx.mesh.shape.items()
                    if a != ctx.model_axis)
     cut = SH.slots_cut(ctx, batch)
-    return ServeLayout(param_specs if cut_data else None, cuts, cut,
-                       batch // ctx.dp_size if cut else batch)
+    return ServeLayout(param_specs if cut_data else None,
+                       cuts(seq_len, paged), cut,
+                       batch // ctx.dp_size if cut else batch,
+                       cuts(enc_len, False) if cfg.n_enc_layers else ())
 
 
 def _ranked_layout(ctx, layout: Optional[ServeLayout]) -> bool:
@@ -634,7 +670,8 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     of each row's write index ``t_pos`` (not ``rope_pos``: the JAX
     package's ``sinusoid_at(t_vec)``, ``repro/models/lm.py:353-356``) and
     runs every decoder layer's cross-attention over the cache's {"xk",
-    "xv"} (``blocks.decode_layer(has_cross=True)``).
+    "xv"} (``blocks.decode_layer(has_cross=True)``; on a mesh cut as
+    ``layout.xcuts`` says).
 
     ``ctx``: a ranked context (``seq_shard`` off), or None at one rank.
     ``params`` is then this rank's shard of the mesh tree
@@ -655,12 +692,12 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     are cut over dp, each dp rank writes every slot's K/V (its own rows'
     summed with the other dp ranks' over the dp group, ``PagedKV``)."""
     ranked = _ranked_layout(ctx, layout)
-    if ranked and cfg.n_enc_layers:
-        raise NotImplementedError(B.MESH_ENCDEC)
-    specs, cuts, top = None, ["replicated"] * period_of(cfg), params
+    cuts = ["replicated"] * period_of(cfg)
+    specs, xcuts, top = None, cuts, params
     if ranked:
         specs, cuts = layout.gather_specs, layout.cuts
-        top = _top_level(cfg, params, ctx, specs)
+        xcuts = layout.xcuts or cuts
+        top = _top_level(cfg, params, ctx, specs, encoder=False)
         if not layout.slots_cut:       # every dp rank holds every slot
             ctx = dataclasses.replace(ctx, dp_axes=())
     Bsz = tokens.shape[0]
@@ -690,7 +727,8 @@ def decode_step(cfg, params, cache, tokens, t_pos, ctx=None,
     def layer(pos, lp, n, h):
         return B.decode_layer(cfg, pos, lp, h, _period(cache[pos], n), t_vec,
                               ctx if ranked else None, cuts[pos], paged,
-                              rope_vec, start_vec, cfg.n_enc_layers > 0)
+                              rope_vec, start_vec, cfg.n_enc_layers > 0,
+                              xcuts[pos])
 
     h = _serve_layers(cfg, params, specs, ctx, h, layer)
     h = apply_norm(cfg, top["ln_f"], h)
@@ -769,7 +807,7 @@ def prefill_chunk(cfg, params, cache, tokens, pos_off, valid_len,
         paged = B.PagedKV(table, A.chunk_rows(pos_off, table, valid, page))
     if ranked:
         specs, cuts, slots_cut = layout[:3]
-        top = _top_level(cfg, params, ctx, specs)
+        top = _top_level(cfg, params, ctx, specs, encoder=False)
         if slots_cut:
             rows, slots, n_write = _owned_rows(ctx, slots,
                                                layout.local_slots)

@@ -344,7 +344,9 @@ def kv_cut(ctx: AxisCtx, n_kv_heads: int, seq_len: int,
     choice is made (``kv_spec``, ``repro/parallel/sharding.py:88-93``, and
     the arms of ``sharded_decode_attention``): "kv_group" when the model
     axis divides the kv heads, else "split_kv" when it divides the
-    positions, else "replicated" (also on a model axis of one rank). A
+    positions, else "replicated" (also on a model axis of one rank). An
+    encoder-decoder's "xk"/"xv" take it of their ``enc_len`` rows (the
+    decode's cross-attention arms, ``blocks.decode_layer``). A
     ``paged`` pool is never "split_kv": its pages interleave positions
     (``paged_cache_specs``, ``repro/parallel/sharding.py:119-146``)."""
     m = ctx.model_size if ctx is not None and ctx.active else 1
@@ -357,11 +359,14 @@ def kv_cut(ctx: AxisCtx, n_kv_heads: int, seq_len: int,
     return "replicated"
 
 
-def cache_specs(cfg, ctx: AxisCtx, batch: int, seq_len: int) -> Tuple:
+def cache_specs(cfg, ctx: AxisCtx, batch: int, seq_len: int,
+                enc_len: int = 0) -> Tuple:
     """The spec of every entry of ``lm.init_cache``'s tree, a tuple over
     period positions (``repro/parallel/sharding.py:79-116``): the leading
     (n_periods,) axis whole, the slots over the dp axes (``slots_cut``),
-    K/V (.., B, S, Hkv, hd) over the model axis as ``kv_cut`` says.
+    K/V (.., B, S, Hkv, hd) over the model axis as ``kv_cut`` says; an
+    encoder-decoder's encoder K/V "xk"/"xv" (.., B, enc_len, Hkv, hd) as
+    ``kv_cut`` says of ``enc_len`` rows, a cut of their own.
 
     The SSM entries, conv (.., B, W-1, C) and state (.., B, nh, ds, hd),
     are cut over the dp slots only. The JAX package also cuts the conv
@@ -372,17 +377,44 @@ def cache_specs(cfg, ctx: AxisCtx, batch: int, seq_len: int) -> Tuple:
     from repro_torch.models.lm import period_of
     dp = ctx.dp_axes if len(ctx.dp_axes) != 1 else ctx.dp_axes[0]
     b = dp if slots_cut(ctx, batch) else None
+
+    def kv_spec(n: int) -> PartitionSpec:
+        cut = kv_cut(ctx, cfg.attn.n_kv_heads, n)
+        return P(None, b, "model" if cut == "split_kv" else None,
+                 "model" if cut == "kv_group" else None, None)
+
     specs = []
     for pos in range(period_of(cfg)):
         if cfg.layer_kind(pos) == "a":
-            cut = kv_cut(ctx, cfg.attn.n_kv_heads, seq_len)
-            kv = P(None, b, "model" if cut == "split_kv" else None,
-                   "model" if cut == "kv_group" else None, None)
-            specs.append({"k": kv, "v": kv})
+            kv = kv_spec(seq_len)
+            e = {"k": kv, "v": kv}
+            if cfg.n_enc_layers:
+                x = kv_spec(enc_len)
+                e.update(xk=x, xv=x)
+            specs.append(e)
         else:
             specs.append({"conv": P(None, b, None, None),
                           "state": P(None, b, None, None, None)})
     return tuple(specs)
+
+
+def prefill_cache_specs(cfg, ctx: AxisCtx, batch: int) -> Tuple:
+    """The spec of every entry of the monolithic prefill's cache on a mesh
+    (``lm.prefill(ctx=)``: (n_periods, B, S, ...) per period position),
+    the layout ``serving.stitch_prefill_cache`` reads: ``cache_specs``'
+    cut on every axis but the sequence. K/V and "xk"/"xv" are cut on
+    their kv heads where the model axis divides them (the attention's
+    ``heads`` case, whose ranks each project their own kv heads) and are
+    whole on every model rank otherwise, where the decode cache may cut
+    the positions (``split_kv``): a prompt of S positions cut S/m ways
+    would not line up with a decode cache's cut of its own length, so
+    each rank keeps every position and the stitch takes the rows its
+    decode slice holds. The rows are cut over dp as the decode cache's
+    slots of the same count; the SSM entries as ``cache_specs`` cuts
+    them."""
+    # at a length of 1 no model axis of more than one rank divides the
+    # positions: every K/V entry is cut on its heads or whole
+    return cache_specs(cfg, ctx, batch, 1, 1)
 
 
 def paged_cache_specs(cfg, ctx: AxisCtx, n_slots: int) -> Tuple:

@@ -102,7 +102,8 @@ from repro_torch.serving.paged_cache import BlockAllocator, pages_for
 from repro_torch.training.trainer import StragglerMonitor
 
 
-def stitch_prefill_cache(cfg, decode_cache, prefill_cache, prompt_len: int):
+def stitch_prefill_cache(cfg, decode_cache, prefill_cache, prompt_len: int,
+                         ctx=None, layout=None):
     """Insert a monolithic prefill's cache (``lm.prefill``: stacked
     (n_periods, B, S, ...) per period position) into a contiguous decode
     cache of B slots at positions [0, prompt_len) (``repro/serving/
@@ -110,15 +111,34 @@ def stitch_prefill_cache(cfg, decode_cache, prefill_cache, prompt_len: int):
     ("xk", "xv") into rows [0, frames) of the cache's enc_len rows, the
     SSM's conv window and state. The port's caches are updated in place,
     so this writes into ``decode_cache`` and returns it (the JAX function
-    returns a new tree)."""
-    for entry, pre in zip(decode_cache, prefill_cache):
+    returns a new tree).
+
+    ``ctx``: a ranked context, with the decode cache's ``layout``
+    (``lm.serve_layout``). Each rank writes its own slice from its own:
+    ``prefill_cache`` cut as ``sharding.prefill_cache_specs`` says
+    (``lm.prefill(ctx=)``), ``decode_cache`` as ``sharding.cache_specs``
+    does, the slots over dp alike on both sides. Under a kv-head cut both
+    hold the rank's kv heads; where the decode cache's positions are cut
+    (``split_kv``, of K/V by ``layout.cuts`` and of "xk"/"xv" by
+    ``layout.xcuts``) the prefill entry is whole, and the rank writes the
+    rows of [0, prompt_len) (or [0, frames)) that its slice holds."""
+    ranked = ctx is not None and ctx.active
+    if ranked and layout is None:
+        raise ValueError("a ranked stitch needs the decode cache's layout "
+                         "(lm.serve_layout)")
+    for pos, (entry, pre) in enumerate(zip(decode_cache, prefill_cache)):
         for k, buf in entry.items():
-            if k in ("k", "v"):
-                buf[:, :, :prompt_len] = pre[k].to(buf.dtype)
-            elif k in ("xk", "xv"):
-                buf[:, :, :pre[k].shape[2]] = pre[k].to(buf.dtype)
-            else:                            # conv window, ssm state
+            if k not in ("k", "v", "xk", "xv"):      # conv window, state
                 buf.copy_(pre[k])
+                continue
+            n = prompt_len if k in ("k", "v") else pre[k].shape[2]
+            cut = "replicated"
+            if ranked:
+                cut = (layout.cuts if k in ("k", "v") else layout.xcuts)[pos]
+            lo = ctx.model_rank * buf.shape[2] if cut == "split_kv" else 0
+            hi = min(n, lo + buf.shape[2])
+            if hi > lo:
+                buf[:, :, :hi - lo] = pre[k][:, :, lo:hi].to(buf.dtype)
     return decode_cache
 
 

@@ -809,8 +809,9 @@ def test_unported_whole_graph_terms_raise_by_name(tmp_path):
     """The whole-graph terms once raised by name here; now ported, the
     same calls return the JAX package's values: the three graph terms,
     the graph candidates' phase measure and ranking, ``include_graph``'s
-    candidate stream, ``sim_e2e_graph`` and ``tune --graph``'s cache. The
-    mesh monolithic prefill still raises by name."""
+    candidate stream, ``sim_e2e_graph`` and ``tune --graph``'s cache. So
+    does the mesh monolithic prefill: it builds on a mesh with that
+    cache."""
     s = A.MoEShape(M=4096, N=2048, K=1408, E=64, topk=4, ep=4, etp=1)
     js = JA.MoEShape(**dataclasses.asdict(s))
     p = A.Plan("comet", 1, 1, schedule="overlap", n_slices=2)
@@ -851,10 +852,24 @@ def test_unported_whole_graph_terms_raise_by_name(tmp_path):
     assert any(q.schedule == "overlap" for q in cache.plans.values())
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import train_step as TS
-    with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
-        TS.build_prefill_step(get_config("qwen2-moe-2.7b-smoke"),
-                              ShapeConfig("p", 32, 4, "prefill"),
-                              mesh=object())
+
+    class Mesh:                 # the axis sizes: enough to build the step
+        shape = {"data": 1, "model": 4}
+
+        def model_subgroups(self, model_axis, etp):
+            return None, None
+
+    # the mesh monolithic prefill, refused by name until it was ported,
+    # builds on a mesh and resolves the prefill phase's plans from the
+    # graph tuner's cache
+    built = TS.build_prefill_step(get_config("qwen2-moe-2.7b-smoke"),
+                                  ShapeConfig("p", 32, 4, "prefill"),
+                                  mesh=Mesh(), plan_cache=str(path),
+                                  plan_hw="tpu_v5e")
+    assert built["ctx"].seq_shard and built["ctx"].model_size == 4
+    assert (built["cfg"].moe.plan_cache, built["cfg"].moe.plan_hw,
+            built["cfg"].moe.plan_phase) == (str(path), "tpu_v5e",
+                                             "prefill")
 
 
 def _cu_consts(*sources):

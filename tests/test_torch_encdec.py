@@ -18,8 +18,8 @@ unless noted:
   steps of ``launch/train.py`` against JAX's train step;
 * which attention regions reach ``ops.flash_attention`` (the encoder's,
   the cross-attention and the unmasked causal self-attention) and the
-  refusals by name (a ranked context, the engine, the chunked and paged
-  caches).
+  refusals by name (the engine, the chunked and paged caches); a ranked
+  context's encoder K/V cut as JAX's.
 """
 import dataclasses
 import functools
@@ -46,10 +46,10 @@ from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import specs as SP
 from repro_torch.launch import train_step as TS
-from repro_torch.models import blocks as B
 from repro_torch.models import lm
 from repro_torch.models.common import (sinusoid_at, sinusoid_positions,
                                        tree_leaves)
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving import stitch_prefill_cache
 
 torch.set_num_threads(1)
@@ -343,36 +343,48 @@ def test_flash_regions(monkeypatch):
     assert calls == enc + [(16, FRAMES, False)] * cfg.n_layers
 
 
-class _Ranked:
-    """A ranked context's face: the entry points refuse before any
-    collective."""
-    active = True
-    model_size = 2
-    dp_axes = ()
+class _StubMesh:
+    """A (1, 2) mesh's axis sizes and rank 0's coordinates: enough for a
+    ranked context's specs and local shapes, no process group."""
+    shape = {"data": 1, "model": 2}
+    coords = {"data": 0, "model": 0}
+
+    def model_subgroups(self, model_axis, etp):
+        return None, None
 
 
 def test_refusals_by_name():
-    cfg, _ = _configs()
+    """The engine, the chunked prefill and the paged cache refuse an
+    encoder-decoder by name, as the JAX package asserts. On a mesh the
+    encoder-decoder is ported (it once raised by name here; its runs are
+    the gloo cells of test_torch_mesh_serve.py and
+    test_torch_mesh_train.py): a ranked context's cache holds this rank's
+    slice of the encoder K/V, cut as JAX's ``cache_specs(enc_len=)``
+    cuts it."""
+    from repro.parallel import sharding as JSH
+    cfg, jcfg = _configs()
     _, tp = _weights()
     frames, toks = _inputs(9)
     tb, _ = _batches(frames, toks)
-    ctx = _Ranked()
-    mesh_msg = "encoder-decoder on a mesh.*item 3c"
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        lm.forward(cfg, tp, tb, ctx)
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        lm.encode(cfg, tp, tb["frames"], ctx)
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        lm.init_cache(cfg, 2, 16, "cpu", ctx, enc_len=FRAMES)
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        lm.decode_step(cfg, tp, None, tb["tokens"][:, :1],
-                       torch.zeros(2), ctx, layout=object())
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        SP.decode_inputs(cfg, ShapeConfig("d", 16, 2, "decode"), ctx)
-    with pytest.raises(NotImplementedError, match=mesh_msg):
-        B.attn_apply(cfg, tp["layers"][0]["xattn"], torch.zeros(2, 4, 128),
-                     torch.arange(4)[None], False, False, ctx=ctx,
-                     kv_x=torch.zeros(2, 6, 128))
+    ctx = SH.make_ctx(cfg, _StubMesh(), seq_shard=False)
+    cache = lm.init_cache(cfg, 2, 16, "cpu", ctx, enc_len=FRAMES)
+    a = cfg.attn
+    np_ = cfg.n_layers
+    assert cache[0]["k"].shape == (np_, 2, 16, a.n_kv_heads // 2,
+                                   a.head_dim)
+    assert cache[0]["xk"].shape == (np_, 2, FRAMES, a.n_kv_heads // 2,
+                                    a.head_dim)
+    _, cspecs, _ = SP.decode_inputs(cfg, ShapeConfig("d", 16, 2, "decode"),
+                                    ctx)
+    jspecs = JSH.cache_specs(jcfg, JSH.make_ctx(jcfg, _StubMesh(),
+                                                seq_shard=False), 2, 16,
+                             enc_len=SP.WHISPER_ENC_LEN_DECODE)
+    assert set(cspecs[0]) == set(jspecs[0]) == {"k", "v", "xk", "xv"}
+    for k in ("xk", "xv"):
+        assert tuple(cspecs[0][k])[2:] == tuple(jspecs[0][k])[2:]
+    from repro_torch.serving import ServeEngine
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ServeEngine(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="lm.py:407"):
         lm.prefill_chunk(cfg, tp, None, tb["tokens"], 0, 16)
     with pytest.raises(NotImplementedError, match="lm.py:306"):

@@ -76,6 +76,27 @@ mamba2's SSM carry on (2, 2), whose dp-cut slot rows are gathered over dp
 at export: every rank's streams, statuses, errors, ``summary()``,
 emissions and injected crashes equal to JAX's one-rank Router's.
 
+(i) The monolithic prefill on the mesh and the decode it feeds
+(``selftest._prefill_job``): ``build_prefill_step(mesh=)`` on a global
+batch of 4 rows, its cache stitched into a decode cache
+(``stitch_prefill_cache(ctx=)``), two ``decode_step``s: the prefill's
+logits and each step's against JAX's one-rank ``lm.prefill``,
+``stitch_prefill_cache`` and ``decode_step`` at rel 5e-5, every rank's
+prefill cache leaf (cut as ``sharding.prefill_cache_specs`` says) and
+decode cache leaf against its slice of JAX's at 1e-5 (jamba's at 3e-5:
+its fp32 SSM carries lie up to 8.2e-6 from JAX's at one rank already,
+ROADMAP reference caveat 3). qwen2-moe at ep 4
+with the comet ring on (1, 4) (kv heads) and on (2, 2) (dp-cut rows and
+slots), granite (Hkv 1: a whole prefill entry stitched into split-KV
+slices) on both layouts and once left-padded with a mask (RoPE
+positions and the pads' exclusion in decode), mamba2 on (2, 2), jamba at
+one period on (1, 4), qwen2-moe under ``sp_residual`` on (1, 4). The
+encoder-decoder (whisper-small-smoke, 24 frames): the "xk"/"xv" cut at
+``kv_group`` (Hkv 4, on (1, 4) and (2, 2)), ``split_kv`` (Hkv 2, enc_len
+32: the last rank's rows are all unwritten, and read, ROADMAP reference
+caveat 5), ``replicated`` (enc_len 30, beside split-KV self K/V), and
+the attention's ``seq`` (6 / 2 heads) and ``padded`` arms.
+
 MoE capacity is the expert count (no drop): capacity follows the local
 token count, so a mesh would drop other tokens than one rank does. The
 ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
@@ -102,6 +123,7 @@ from repro.serving import ServeEngine as JaxEngine
 from repro_torch.configs import get_config
 from repro_torch.launch import selftest as ST
 from repro_torch.models import attention as A
+from repro_torch.models import blocks as B_
 from repro_torch.models import lm
 from repro_torch.models.common import tree_leaves
 from repro_torch.parallel import sharding as SH
@@ -110,6 +132,11 @@ torch.set_num_threads(1)
 
 SPAWN_TIMEOUT = 240.0          # seconds for one layout's 4 ranks
 LOGIT_REL, CACHE_REL, PART_REL = 5e-5, 1e-5, 1e-5
+# jamba at one period, prefilled from a fresh prompt and decoded twice:
+# its fp32 SSM carries lie up to 8.2e-6 from JAX's already at one rank
+# (the port's one-rank prefill, layer 5's state; the mesh's within 2.3e-6
+# of the port's one rank), so its mesh caches are held at this bound
+DEEP_CACHE_REL = 3e-5
 LAYOUTS = {"dp1mp4": (1, 4), "dp2mp2": (2, 2)}
 ENGINE = dict(max_seq=64, slots=4, chunk=16, max_new=8)
 PROMPT_LENS = (5, 23, 40, 9, 17, 3, 30, 12)
@@ -133,6 +160,13 @@ REFS = {
     "mamba2": ("mamba2-780m-smoke", {}),
     "jamba": ("jamba-v0.1-52b-smoke",
               _no_drop("jamba-v0.1-52b-smoke", {"n_layers": 8})),
+    "whisper": ("whisper-small-smoke", {}),
+    "whisper_kv2": ("whisper-small-smoke", {"attn": {"n_kv_heads": 2}}),
+    "whisper_gqa6": ("whisper-small-smoke",
+                     {"attn": {"n_heads": 6, "n_kv_heads": 2}}),
+    "whisper_pad6": ("whisper-small-smoke",
+                     {"attn": {"n_heads": 6, "n_kv_heads": 2,
+                               "pad_heads": True}}),
 }
 NAIVE = {"impl": "naive"}
 COMET = {"impl": "comet", "ring_group": 1, "n_col_blocks": 2}
@@ -260,17 +294,43 @@ DISAGG = {
                    recover=True)}),
     "disagg-mamba2-22": ("dp2mp2", "mamba2", {}),
 }
+# monolithic prefill cells: name -> (layout, ref, moe knobs, the cell's
+# extras: "mask" (left-padded rows), an encoder-decoder's "enc_len",
+# other config replacements "other")
+PREFILL_B, PREFILL_S, PREFILL_T, PREFILL_STEPS = 4, 16, 32, 2
+PREFILL_FRAMES = 24
+PREFILL_PADS = (5, 0, 9, 2)            # each row's left pads, masked cells
+PREFILL = {
+    "pre-qmoe-14": ("dp1mp4", "qmoe", dict(COMET, ep=4), {}),
+    "pre-qmoe-22": ("dp2mp2", "qmoe", NAIVE, {}),
+    "pre-granite-14": ("dp1mp4", "granite", COMET, {}),
+    "pre-granite-22": ("dp2mp2", "granite", NAIVE, {}),
+    "pre-granite-14-masked": ("dp1mp4", "granite", NAIVE, {"mask": True}),
+    "pre-mamba2-22": ("dp2mp2", "mamba2", None, {}),
+    "pre-jamba-14": ("dp1mp4", "jamba", COMET, {}),
+    "pre-qmoe-14-spres": ("dp1mp4", "qmoe", COMET,
+                          {"other": {"sp_residual": True}}),
+    "pre-whisper-14": ("dp1mp4", "whisper", None, {"enc_len": 32}),
+    "pre-whisper-22": ("dp2mp2", "whisper", None, {"enc_len": 24}),
+    "pre-whisper_kv2-14-split": ("dp1mp4", "whisper_kv2", None,
+                                 {"enc_len": 32}),
+    "pre-whisper_kv2-14-repl": ("dp1mp4", "whisper_kv2", None,
+                                {"enc_len": 30}),
+    "pre-whisper_gqa6-14": ("dp1mp4", "whisper_gqa6", None, {"enc_len": 32}),
+    "pre-whisper_pad6-14": ("dp1mp4", "whisper_pad6", None, {"enc_len": 28}),
+}
 PLANS = {"prefill": dict(impl="naive", ring_group=1, n_col_blocks=1,
                          gemm_impl="xla", phase="prefill"),
          "decode": dict(impl="coarse", ring_group=1, n_col_blocks=1,
                         gemm_impl="xla", phase="decode")}
 
 
-def _over(ref, moe):
+def _over(ref, moe, other=None):
     over = {k: (dict(v) if isinstance(v, dict) else v)
             for k, v in REFS[ref][1].items()}
     if moe:
         over["moe"] = {**over.get("moe", {}), **moe}
+    over.update(other or {})
     return over
 
 
@@ -282,6 +342,9 @@ def _jax_cfg(ref):
     if "moe" in over:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, **{**over.pop("moe"), "impl": "naive"}))
+    if "attn" in over:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, **over.pop("attn")))
     return dataclasses.replace(cfg, **over)
 
 
@@ -388,6 +451,24 @@ def _inputs(in_dir):
         np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
                  **_cache_arrays(cache), tokens=tokens, pos_off=args[0],
                  valid_len=args[1], slots=args[2], tables=tables)
+    for j, (name, (_, ref, _, extra)) in enumerate(PREFILL.items()):
+        cfg = _jax_cfg(ref)
+        rng = np.random.default_rng(700 + j)
+        B, S = PREFILL_B, PREFILL_S
+        batch = {"tokens": rng.integers(1, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+        if extra.get("mask"):
+            batch["mask"] = (np.arange(S)[None, :]
+                             >= np.array(PREFILL_PADS)[:, None])
+        if cfg.n_enc_layers:
+            batch["frames"] = (rng.standard_normal(
+                (B, PREFILL_FRAMES, cfg.d_model)) * 0.5).astype(np.float32)
+        dec = rng.integers(1, cfg.vocab_size, (PREFILL_STEPS, B)).astype(
+            np.int32)
+        todo[name] = (ref, batch, dec, extra.get("enc_len", 0))
+        np.savez(Path(in_dir) / f"{name}.npz", **pflat[ref],
+                 **{f"batch/{k}": v for k, v in batch.items()},
+                 dec_tokens=dec)
     for ref in sorted({r for _, r, _, _ in ENGINES.values()}
                       | {r for _, r, _, _, _ in PENGINES.values()}):
         rng = np.random.default_rng(400)
@@ -413,6 +494,11 @@ def _references(params, todo):
             if kind == "decode":
                 fns[ref, kind] = jax.jit(lambda p, c, t, q, bt: JL.decode_step(
                     cfg, p, c, t, q, JAxisCtx(), block_tables=bt))
+            elif kind == "prefill":
+                fns[ref, kind] = jax.jit(lambda p, b: JL.prefill(cfg, p, b))
+            elif kind == "padded_decode":
+                fns[ref, kind] = jax.jit(lambda p, c, t, q, r, k: JL.decode_step(
+                    cfg, p, c, t, q, JAxisCtx(), rope_pos=r, kv_start=k))
             else:
                 fns[ref, kind] = jax.jit(
                     lambda p, c, t, o, v, s, bt: JL.prefill_chunk(
@@ -422,6 +508,10 @@ def _references(params, todo):
 
     for name, (ref, *args) in todo.items():
         cfg, p = _jax_cfg(ref), params[ref]
+        if name in PREFILL:
+            refs[name] = _prefill_ref(cfg, p, *args, step(ref, "prefill"),
+                                      step(ref, "padded_decode"))
+            continue
         if name in DECODE or name in PDECODE:
             cache, tokens, pos, live, *bt = args
             logits, new = step(ref, "decode")(
@@ -459,6 +549,33 @@ def _references(params, todo):
         refs[name]["cache"] = [{k: np.asarray(v) for k, v in e.items()}
                                for e in new]
     return refs
+
+
+def _prefill_ref(cfg, p, batch, dec, enc_len, prefill, step):
+    """JAX's one-rank monolithic prefill of ``batch`` (``prefill``, the
+    jitted ``JL.prefill``), its cache stitched into a decode cache of
+    ``PREFILL_T`` positions and ``enc_len`` encoder rows, and a decode
+    step (``step``, the jitted ``JL.decode_step`` with RoPE positions and
+    first valid indices) per row of ``dec`` (a left-padded row at its real
+    position, its pads excluded): the logits and both caches."""
+    from repro.serving import stitch_prefill_cache as jstitch
+    B, S = batch["tokens"].shape
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    logits, pre = prefill(p, jb)
+    out = {"prefill_logits": np.asarray(logits),
+           "pre_cache": [{k: np.asarray(v) for k, v in e.items()}
+                         for e in pre]}
+    cache = jstitch(cfg, JL.init_cache(cfg, B, PREFILL_T, enc_len=enc_len),
+                    pre, S)
+    pads = (None if "mask" not in batch
+            else jnp.asarray((~batch["mask"]).sum(1).astype(np.int32)))
+    for t in range(len(dec)):
+        q = jnp.full((B,), S + t, jnp.int32)
+        lg, cache = step(p, cache, jnp.asarray(dec[t])[:, None], q,
+                         None if pads is None else q - pads, pads)
+        out[f"logits{t}"] = np.asarray(lg)
+    out["cache"] = [{k: np.asarray(v) for k, v in e.items()} for e in cache]
+    return out
 
 
 def _lifecycle_refs(params, prompts):
@@ -549,6 +666,12 @@ def _jobs(layout, in_dir):
             jobs.append(dict(name=name, kind="chunk", arch=REFS[ref][0],
                              over=_over(ref, moe), data=name,
                              slots=CHUNK_SLOTS, max_seq=CHUNK_SEQ))
+    for name, (lay, ref, moe, extra) in PREFILL.items():
+        if lay == layout:
+            jobs.append(dict(name=name, kind="prefill", arch=REFS[ref][0],
+                             over=_over(ref, moe, extra.get("other")),
+                             data=name, max_seq=PREFILL_T,
+                             enc_len=extra.get("enc_len", 0)))
     counts = _plan_counts()
     for name, (lay, ref, moe, plan) in ENGINES.items():
         if lay == layout:
@@ -665,24 +788,26 @@ def _slice(full, spec, sizes, coords):
     return full[tuple(idx)]
 
 
-def _check_caches(got, want_cache, layout, paged=False):
-    """Every rank's cache leaf against its slice of the JAX cache; a
-    ``paged`` cache's pools on pages 1.. (the null page takes duplicate
-    writes)."""
+def _check_caches(got, want_cache, layout, paged=False, prefix="",
+                  bound=CACHE_REL):
+    """Every rank's cache leaf against its slice of the JAX cache, within
+    ``bound``; a ``paged`` cache's pools on pages 1.. (the null page takes
+    duplicate writes). ``prefix``: the results' keys of another cache (the
+    prefill's, "pre_")."""
     sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
     for r in _ranks(got):
         coords = dict(zip(("data", "model"),
                           got[f"rank{r}/coords"].tolist()))
         for i, e in enumerate(want_cache):
             for k, full in e.items():
-                spec = json.loads(str(got[f"rank{r}/spec/{i}/{k}"]))
-                leaf = got[f"rank{r}/cache/{i}/{k}"]
+                spec = json.loads(str(got[f"rank{r}/{prefix}spec/{i}/{k}"]))
+                leaf = got[f"rank{r}/{prefix}cache/{i}/{k}"]
                 want = _slice(full, spec, sizes, coords)
                 assert leaf.shape == want.shape, (r, i, k, leaf.shape)
                 if paged and k in ("k", "v"):
                     leaf, want = leaf[:, 1:], want[:, 1:]
-                assert _rel(leaf, want) < CACHE_REL, (r, i, k,
-                                                      _rel(leaf, want))
+                assert _rel(leaf, want) < bound, (r, i, k,
+                                                  _rel(leaf, want))
 
 
 # ---------------------------------------------------------------------------
@@ -781,6 +906,73 @@ def test_prefill_chunk_matches_jax(run, cell):
         assert _rel(got[f"rank{r}/logits"], want["logits"]) < LOGIT_REL, (
             r, _rel(got[f"rank{r}/logits"], want["logits"]))
     _check_caches(got, want["cache"], layout)
+
+
+@pytest.mark.parametrize("cell", list(PREFILL))
+def test_mesh_prefill_stitch_and_decode_match_jax(run, cell):
+    """``build_prefill_step(mesh=)`` -> ``stitch_prefill_cache(ctx=)`` ->
+    two ``decode_step``s on the mesh: every rank's prefill and decode
+    logits, its prefill cache leaves (cut as ``prefill_cache_specs``
+    says) and its decode cache leaves after the steps against JAX's
+    one-rank path (jamba's caches at ``DEEP_CACHE_REL``)."""
+    layout, ref = PREFILL[cell][:2]
+    got = _load(run, layout, cell)
+    want = run[1][cell]
+    keys = ["prefill_logits"] + [f"logits{t}" for t in range(PREFILL_STEPS)]
+    for r in _ranks(got):
+        for key in keys:
+            err = _rel(got[f"rank{r}/{key}"], want[key])
+            assert err < LOGIT_REL, (r, key, err)
+    bound = DEEP_CACHE_REL if ref == "jamba" else CACHE_REL
+    _check_caches(got, want["pre_cache"], layout, prefix="pre_", bound=bound)
+    _check_caches(got, want["cache"], layout, bound=bound)
+
+
+def test_prefill_cells_reach_every_cut():
+    """The prefill cells take every attention arm of the prefill
+    (``heads``, ``qheads``, ``seq``, ``padded``), the decode cache's K/V
+    cut on kv heads and over positions (the decode cells hold the
+    replicated arm), every cut of "xk"/"xv" (``kv_group``, ``split_kv``,
+    ``replicated``; a cell whose two cuts differ), rows cut over dp and
+    whole, the sequence-parallel residual, a mask, and encoder rows past
+    the frames split across ranks; each rank's prefill cache is cut as
+    ``prefill_cache_specs`` says: on the kv heads or not over the model
+    axis at all."""
+    arms, cuts, xcuts, rows, differ = set(), set(), set(), set(), False
+    for name, (layout, ref, moe, extra) in PREFILL.items():
+        cfg = ST.cell_config(REFS[ref][0], _over(ref, moe,
+                                                 extra.get("other")))
+        sizes = dict(zip(("data", "model"), LAYOUTS[layout]))
+        ctx = SH.make_ctx(cfg, _StubMesh(sizes))
+        rows.add(SH.slots_cut(ctx, PREFILL_B))
+        specs = SH.prefill_cache_specs(cfg, ctx, PREFILL_B)
+        for e in specs:
+            for k, sp in e.items():
+                if k in ("k", "v", "xk", "xv"):
+                    assert sp[2] is None, (name, k, sp)
+        if cfg.attn is None:
+            continue
+        a, m = cfg.attn, sizes["model"]
+        arms.add("padded" if a.pad_heads and (a.n_heads % m
+                                              or a.n_kv_heads % m)
+                 else B_.attn_case(ctx, a, PREFILL_S))
+        cut = SH.kv_cut(ctx, a.n_kv_heads, PREFILL_T)
+        cuts.add(cut)
+        if cfg.n_enc_layers:
+            xcut = SH.kv_cut(ctx, a.n_kv_heads, extra["enc_len"])
+            xcuts.add(xcut)
+            differ |= xcut != cut
+    assert arms == {"heads", "qheads", "seq", "padded"}
+    assert cuts == {"kv_group", "split_kv"}
+    assert xcuts == {"kv_group", "split_kv", "replicated"}
+    assert differ and rows == {True, False}
+    extras = [e for *_, e in PREFILL.values()]
+    assert any(e.get("mask") for e in extras)
+    assert any(e.get("other", {}).get("sp_residual") for e in extras)
+    # the last model rank's slice of 32 rows at mp 4 holds rows 24..31:
+    # no frame was written there
+    assert any(e.get("enc_len", 0) - PREFILL_FRAMES
+               >= e.get("enc_len", 0) // 4 for e in extras)
 
 
 def test_cells_reach_every_decode_arm():
@@ -929,8 +1121,8 @@ def test_kv_cache_per_rank_is_a_quarter_on_1x4():
 
 def test_unported_serving_paths_raise_by_name():
     """The monolithic prefill builds at one rank and runs there (logits
-    (B, V), a cache entry per period position); on a mesh it raises,
-    naming its ROADMAP item; the disaggregated topology builds its Router
+    (B, V), a cache entry per period position), and builds on a mesh with
+    the prefill cache's specs; the disaggregated topology builds its Router
     once its config validates;
     the paged arm of the sharded decode attention runs: through a block
     table it gives the decode over the gathered logical view, and a pool
@@ -950,9 +1142,13 @@ def test_unported_serving_paths_raise_by_name():
         lm.period_of(cfg)
     assert cache[0]["k"].shape[:3] == (cfg.n_layers // lm.period_of(cfg),
                                        4, 32)
-    with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
-        TS.build_prefill_step(cfg, shape, mesh=_StubMesh({"data": 1,
-                                                          "model": 4}))
+    # on a mesh (once refused by name; ported, the PREFILL cells run it):
+    # the batch whole on every rank of (1, 4), the prefill's K/V cut on
+    # the kv heads as the decode cache's
+    built = TS.build_prefill_step(cfg, shape, mesh=_StubMesh({"data": 1,
+                                                              "model": 4}))
+    assert built["batch_pspecs"]["tokens"] == (None, None)
+    assert built["cache_specs"][0]["k"] == (None, None, None, "model", None)
     from repro_torch.serving import EngineConfig, Router
     assert isinstance(EngineConfig(disagg=True, page_size=8).build(
         cfg, device="cpu"), Router)

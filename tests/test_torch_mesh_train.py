@@ -20,7 +20,12 @@ qwen2-0.5b the dense FFN and qkv bias; n_heads 6 / n_kv_heads 2 at mp 4
 reaches ``seq``, and with ``pad_heads`` the padded heads. The naive and
 comet transports (ring_group 1 and 2, two column blocks), sequence
 sharding on and off, remat, layouts (1, 4), (2, 2) and (4, 1) (pure data
-parallel: attention takes ``none``). The sequence-parallel residual
+parallel: attention takes ``none``). The encoder-decoder
+(whisper-small-smoke, 32 frames and 16 tokens a row): its encoder,
+decoder and cross-attention on the ``heads`` case at (1, 4) and (2, 2)
+(once under remat), n_heads 6 / n_kv_heads 2 at mp 4 (``seq``: 4
+divides both lengths) and 8 / 2 (``qheads``), and the sequence-parallel
+residual on (1, 4). The sequence-parallel residual
 (``sp_residual``) on (1, 4) and (2, 2): qwen2-moe with the comet ring,
 qwen2-0.5b, mamba2 and jamba at one period (once under remat), each
 period carrying this rank's slice of the sequence, and a sequence of 30
@@ -38,8 +43,9 @@ at 1e-4 (max abs over max |ref|), every leaf's local shape as its spec
 cuts it; a step whose gradient is non-finite on one rank only, which
 every rank skips; ``Trainer.run`` on (2, 2) with a checkpoint and a
 fault-hook replay; ``launch.train.main`` with ``--mesh 2,2
---distributed`` and with ``--mesh 1,4 --distributed`` with and without
-``--sp-residual``; and ``selftest --case all``.
+--distributed`` (qwen2-moe-2.7b-smoke and whisper-small-smoke) and with
+``--mesh 1,4 --distributed`` with and without ``--sp-residual``; and
+``selftest --case all``.
 
 The ranks run ``selftest.mesh_cells``, one spawn per layout, on a thread
 while this process computes the JAX references; weights and batches
@@ -120,10 +126,17 @@ REFS = {
     "phi35": ("phi3.5-moe-smoke", _no_drop("phi3.5-moe-smoke")),
     "mamba2": ("mamba2-780m-smoke", {}),
     "q05b_s30": ("qwen2-0.5b-smoke", {}),
+    "whisper": ("whisper-small-smoke", {}),
+    "whisper_gqa6": ("whisper-small-smoke",
+                     {"attn": {"n_heads": 6, "n_kv_heads": 2}}),
+    "whisper_gqa8": ("whisper-small-smoke",
+                     {"attn": {"n_heads": 8, "n_kv_heads": 2}}),
 }
 # the sequence length of a reference's batch, where it is not S: 30 is not
-# a multiple of a model axis of 4
-SEQ = {"q05b_s30": 30}
+# a multiple of a model axis of 4; an encoder-decoder's is its tokens'
+SEQ = {"q05b_s30": 30, "whisper": 16, "whisper_gqa6": 16,
+       "whisper_gqa8": 16}
+FRAMES = 32                    # an encoder-decoder's frames a row
 NAIVE = {"impl": "naive"}
 COARSE = {"impl": "coarse"}
 COMET1 = {"impl": "comet", "ring_group": 1, "n_col_blocks": 2}
@@ -216,6 +229,16 @@ CELLS = {
     "dp2mp2-jamba-comet1-sp1-spres-remat": ("dp2mp2", "jamba", COMET1, True,
                                             {**SPRES, "remat": "full"},
                                             True),
+    # the encoder-decoder: encoder, decoder and cross-attention on a mesh
+    "dp1mp4-whisper": ("dp1mp4", "whisper", None, True, {}, True),
+    "dp2mp2-whisper": ("dp2mp2", "whisper", None, True, {}, True),
+    "dp2mp2-whisper-remat": ("dp2mp2", "whisper", None, True,
+                             {"remat": "full"}, True),
+    "dp1mp4-whisper_gqa6-seq": ("dp1mp4", "whisper_gqa6", None, True, {},
+                                True),
+    "dp1mp4-whisper_gqa8-qheads": ("dp1mp4", "whisper_gqa8", None, True,
+                                   {}, True),
+    "dp1mp4-whisper-spres": ("dp1mp4", "whisper", None, True, SPRES, True),
 }
 # the block-schedule IR on the mesh: scheduled twins of a MoE cell at
 # ep 4 and of a sequence-parallel-residual cell (over dp 2, its leaves
@@ -299,6 +322,9 @@ def _inputs(in_dir):
         rng = np.random.default_rng(100 + i)
         batches = {"batch": _tokens(rng, (B, SEQ.get(ref, S)),
                                     cfg.vocab_size)}
+        if cfg.n_enc_layers:
+            batches["batch"] += ((rng.standard_normal(
+                (B, FRAMES, cfg.d_model)) * 0.5).astype(np.float32),)
         if ref == "qmoe":
             for a in (1, 2):
                 for j in range(2):
@@ -306,8 +332,10 @@ def _inputs(in_dir):
                     batches[f"a{a}batch{j}"] = _tokens(rng, shape,
                                                        cfg.vocab_size)
         arrays = {f"params/{k}": v for k, v in _flat(params).items()}
-        for name, (t, lab) in batches.items():
+        for name, (t, lab, *frames) in batches.items():
             arrays[f"{name}/tokens"], arrays[f"{name}/labels"] = t, lab
+            if frames:
+                arrays[f"{name}/frames"] = frames[0]
         np.savez(Path(in_dir) / f"{ref}.npz", **arrays)
         if ref == "qmoe":
             for a in (1, 2):
@@ -355,6 +383,10 @@ def _jobs(layout, in_dir, ckpt_dir):
             "--arch", "qwen2-moe-2.7b-smoke", "--mesh", "2,2",
             "--distributed", "--steps", "2", "--batch", "4", "--seq",
             "32", "--ckpt-dir", str(ckpt_dir)]))
+        jobs.append(dict(name="cli-whisper", kind="cli", argv=[
+            "--arch", "whisper-small-smoke", "--mesh", "2,2",
+            "--distributed", "--steps", "2", "--batch", "4", "--seq",
+            "32", "--ckpt-dir", str(ckpt_dir / "whisper")]))
     if layout == "dp1mp4":
         for name, extra in (("cli-mp4", []), ("cli-mp4-spres",
                                               ["--sp-residual"])):
@@ -367,8 +399,10 @@ def _jobs(layout, in_dir, ckpt_dir):
 
 def _jax_grads(ref, params, batch):
     cfg = _ref_cfg(ref)
-    tok, lab = batch
+    tok, lab, *frames = batch
     b = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)}
+    if frames:
+        b["frames"] = jnp.asarray(frames[0])
     (loss, met), g = jax.jit(jax.value_and_grad(
         lambda p: JL.loss_fn(cfg, p, b, JAxisCtx()), has_aux=True))(params)
     return {"loss": float(loss), "aux": float(met["aux"]),
@@ -671,6 +705,15 @@ def test_trainer_replays_from_a_sharded_checkpoint(run):
 
 def test_train_cli_runs_on_a_2x2_mesh_under_distributed(run):
     got = _load(run, "dp2mp2", "cli")
+    assert int(got["final_step"]) == 2
+    assert np.isfinite(got["losses"]).all() and len(got["losses"]) == 2
+
+
+def test_train_cli_trains_whisper_on_a_2x2_mesh(run):
+    """``launch.train --arch whisper-small-smoke --mesh 2,2
+    --distributed``: the encoder-decoder's Trainer on the mesh, its frames
+    cut over dp as its tokens; finite losses."""
+    got = _load(run, "dp2mp2", "cli-whisper")
     assert int(got["final_step"]) == 2
     assert np.isfinite(got["losses"]).all() and len(got["losses"]) == 2
 

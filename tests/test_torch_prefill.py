@@ -31,6 +31,7 @@ from repro_torch import bridge
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.launch import train_step as TS
 from repro_torch.models import lm
+from repro_torch.parallel import sharding as SH
 from repro_torch.serving import stitch_prefill_cache
 
 torch.set_num_threads(1)
@@ -251,11 +252,21 @@ def test_build_prefill_step_at_one_rank_and_its_mesh_raise():
     jl, _ = jlm.prefill(jcfg, jp, _jax_batch(toks))
     np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
 
-    class Mesh:                       # any mesh: the builder raises first
-        shape = {"data": 1, "model": 2}
+    class Mesh:                       # the axis sizes: enough to build
+        shape = {"data": 2, "model": 2}
 
-    with pytest.raises(NotImplementedError, match="mesh monolithic prefill"):
-        TS.build_prefill_step(cfg, shape, mesh=Mesh())
+        def model_subgroups(self, model_axis, etp):
+            return None, None
+
+    # on a mesh (once refused by name; ported, its runs are the gloo
+    # cells of test_torch_mesh_serve.py): the same batch, its rows cut
+    # over dp as 2 decode slots are, the prefill's cache specs
+    built = TS.build_prefill_step(cfg, shape, mesh=Mesh())
+    assert built["batch_structs"] == {"tokens": (2, 16)}
+    assert built["ctx"].seq_shard
+    assert built["batch_pspecs"]["tokens"] == ("data", None)
+    assert built["cache_specs"] == SH.prefill_cache_specs(cfg,
+                                                          built["ctx"], 2)
     # an encoder-decoder's monolithic prefill: frames beside the tokens
     cfg, jcfg, jp, tp = _weights("whisper-small-smoke")
     frames = np.random.default_rng(6).standard_normal(
