@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all nineteen phases, one card
+  python3 chip_smoke.py              # all twenty phases, one card
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
@@ -10,6 +10,7 @@
   python3 chip_smoke.py --only build,stack_bits
   python3 chip_smoke.py --only build,train_scheduled,prefill
   python3 chip_smoke.py --only build,kernels,whisper
+  python3 chip_smoke.py --only build,elastic
   python3 chip_smoke.py --only build,kernels --kernels fused_mlp,fused_mlp_wgrad
   python3 chip_smoke.py --only build,kernels --kernels grouped_gemm,rmsnorm
 
@@ -357,6 +358,21 @@ Phases:
              rows, 64 greedy decode steps (no kernel launch); the first
              step's logits within rel L2 2e-2 of the full forward's at
              position 32; ms, memory and launches.
+ 20 elastic  the earlier phases' state is freed first; world 1 over NCCL.
+             (a) qwen2-moe-2.7b at 2 of 24 layers, every published width,
+             bf16, phase 6's 4 x 1024 tokens a step, through the Trainer:
+             2 steps without a mesh, rescale to a (1, 1) mesh, 2 steps,
+             rescale to none, 1 step, against 5 uninterrupted steps from
+             the same seed: the same loss bits and every leaf of the final
+             state (parameters, both AdamW moments) the same bits; the ms
+             of each rescale, the peak memory, and the launches of the 5
+             steps (fused_mlp, dgrad, wgrad, flash_attention all on the
+             wgmma path, topk_combine, rmsnorm). (b) allreduce_compressed
+             over the NCCL group on one step's gradient tree with a
+             non-zero residual: the bits of the local round trip
+             (compress, then decompress) and the same residuals; ms
+             (median of 3) beside its wire bytes and the fp32 tree's. (c)
+             python -m repro_torch.analysis.verify --all --json: no error.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -407,7 +423,8 @@ TOL = {"bf16": 2e-2, "fp32": 1e-4,
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
           "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle",
-          "serve_disagg", "train_scheduled", "prefill", "whisper")
+          "serve_disagg", "train_scheduled", "prefill", "whisper",
+          "elastic")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
@@ -519,6 +536,10 @@ LIFECYCLE_EARLY_NAN_STEP = 12
 LIFECYCLE_SQUEEZE = (10, 8, 4)
 LIFECYCLE_SPIKE_STEP = 26
 LIFECYCLE_STRAGGLER = 1.3
+# the elastic phase: qwen2-moe-2.7b at 2 of 24 layers, every published
+# width, phase 6's 4 x 1024 tokens a step, seeded weights
+ELASTIC_LAYERS = 2
+ELASTIC_SEED = 5
 
 
 class PhaseFailed(Exception):
@@ -4040,7 +4061,7 @@ DISAGG_EC = dict(max_seq=1024, chunk=256, page_size=PAGED_PAGE,
 DISAGG_TURNS = ("shared", "router", "router", "shared")
 DISAGG_PREFILL_CRASH = 3
 # phase 16's qwen2-moe-2.7b depth (a, b, c): 4 of 24 layers at every
-# published width, so the nineteen phases stay within half the contract's
+# published width, so the twenty phases stay within half the contract's
 # 1200 s (the snapshots of the crash runs scale with the layers); the CLI
 # (e) serves the whole model
 DISAGG_LAYERS = 4
@@ -5356,6 +5377,179 @@ def phase_whisper(state, out):
                               f"from the forward's")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: elastic re-meshing, int8 gradient compression, the verify driver
+# ---------------------------------------------------------------------------
+
+
+def elastic_trainer(cfg, ckpt_dir):
+    """A Trainer of phase 6's shape without a mesh, seeded weights on the
+    card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tr = Trainer(cfg, shape, None, TrainerConfig(
+        ckpt_dir=ckpt_dir, ckpt_every=10_000, log_every=10_000),
+        device="cuda")
+    return tr, tr.init_state(ELASTIC_SEED)
+
+
+def elastic_rescale(rec):
+    """(a) 2 steps without a mesh, rescale to a (1, 1) mesh, 2 steps,
+    rescale to none, 1 step; then 5 uninterrupted steps from the same
+    seed: the losses and every leaf of the final state must be the same
+    bits. Launches counted over the elastic run's steps and rescales."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.parallel.mesh import make_mesh
+    cfg = train_cfg(ELASTIC_LAYERS, "bfloat16")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rescale_ms = []
+        with PlainGuard() as guard:
+            tr, st = elastic_trainer(cfg, ckpt)
+            step = 0
+            for end, target in ((2, mesh), (4, None), (5, "end")):
+                st, step = tr._run_span(st, step, end)
+                if target == "end":
+                    break
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = tr.rescale(st, target)
+                torch.cuda.synchronize()
+                rescale_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        elastic = [m["loss"] for m in tr.metrics_log]
+        steps_ms = [m["time_s"] * 1e3 for m in tr.metrics_log]
+        got = _state_leaves(st)
+        del tr
+        ref_tr, ref_st = elastic_trainer(cfg, ckpt)
+        ref_st, _ = ref_tr._run_span(ref_st, 0, 5)
+        plain = [m["loss"] for m in ref_tr.metrics_log]
+        want = _state_leaves(ref_st)
+        n_leaves = len(want)
+        same = sum(bool(torch.equal(got[k], want[k])) for k in want)
+        same_keys = set(got) == set(want)
+        del st, ref_st, ref_tr, got, want
+    torch.cuda.empty_cache()
+    L = ELASTIC_LAYERS
+    expect = {k: 0 for k in counts}
+    expect.update(fused_mlp=2 * L * 5, fused_mlp_hopper=2 * L * 5,
+                  topk_combine=2 * L * 5, fused_mlp_dgrad=L * 5,
+                  fused_mlp_dgrad_hopper=L * 5, fused_mlp_wgrad=L * 5,
+                  fused_mlp_wgrad_hopper=L * 5, flash_attention=2 * L * 5,
+                  flash_attention_hopper=2 * L * 5,
+                  rmsnorm=(2 * 2 * L + 1) * 5)
+    rec["rescale"] = {
+        "layers": L, "tokens_per_step": TRAIN_SEQ * TRAIN_BATCH,
+        "path": "none -> (1, 1) -> none", "losses": elastic,
+        "uninterrupted_losses": plain, "step_ms": steps_ms,
+        "rescale_ms": rescale_ms, "leaves": n_leaves,
+        "identical_leaves": same, "max_memory_allocated_gb": peak,
+        "launches": counts, "plain_calls_on_cuda": guard.cuda_calls}
+    log("  elastic run: " + json.dumps(rec["rescale"]))
+    log(f"  rescales {rescale_ms[0]:.2f} ms (to (1, 1)), {rescale_ms[1]:.2f}"
+        f" ms (to none); {same} of {rec['rescale']['leaves']} leaves the "
+        f"uninterrupted run's bits; peak {peak:.1f} GB")
+    check(same_keys and same == rec["rescale"]["leaves"],
+          f"{same} of {rec['rescale']['leaves']} leaves gave the "
+          f"uninterrupted run's bits")
+    check(elastic == plain, f"losses {elastic} against {plain}")
+    check(counts == expect, f"launches {counts}, expected {expect}")
+    check(guard.cuda_calls == 0, "plain versions saw CUDA tensors")
+
+
+def elastic_compression(rec):
+    """(b) allreduce_compressed over the world-1 NCCL group on a train
+    step's gradient tree (phase 6's shape, the elastic depth) with a
+    non-zero residual: the bits of decompress_pytree(compress_pytree(g,
+    r)) and the same residuals; its ms (median of 3) beside its wire
+    bytes and the fp32 tree's."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.optim import compression as C
+    from repro_torch.parallel.mesh import make_mesh
+    cfg = train_cfg(ELASTIC_LAYERS, "bfloat16")
+    params = lm.init_params(cfg, seed=ELASTIC_SEED, device="cuda")
+    _, grads = loss_and_grads(cfg, params, train_batch(cfg))
+    grads = {"/".join(map(str, p)): g for p, g in grads.items()}
+    del params
+    torch.cuda.empty_cache()
+    _, resid = C.compress_pytree(grads, C.init_residuals(grads))
+    group = make_mesh((1, 1), ("data", "model")).group(("data",))
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, new = C.allreduce_compressed(grads, resid, group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if len(ms) < 3:
+            del out, new
+    same_out = same_res = 0
+    for p, g in grads.items():           # leaf by leaf: one copy at a time
+        q, s, r = C.compress_with_feedback(g, resid[p])
+        same_out += bool(torch.equal(out[p], C.dequantize_int8(q, s)))
+        same_res += bool(torch.equal(new[p], r))
+    n = len(grads)
+    elements = sum(g.numel() for g in grads.values())
+    # the payloads of the call's two all-reduces beside the int8 values
+    # and an fp32 all-reduce of the same tree
+    wire = {"int32_payload": 4 * elements, "fp32_scales": 4 * n,
+            "int8_payload": elements, "fp32_tree": 4 * elements}
+    rec["compression"] = {
+        "leaves": n, "elements": elements,
+        "identical_outputs": same_out, "identical_residuals": same_res,
+        "ms": ms, "ms_median": statistics.median(ms), "wire_bytes": wire,
+        "backend": "nccl", "world": 1}
+    log("  allreduce_compressed: " + json.dumps(rec["compression"]))
+    del grads, resid, out, new
+    torch.cuda.empty_cache()
+    check(same_out == n and same_res == n,
+          f"world-1 allreduce_compressed: {same_out} / {same_res} of {n} "
+          f"leaves gave the local round trip's bits")
+
+
+def elastic_verify(rec):
+    """(c) python -m repro_torch.analysis.verify --all --json: no error."""
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.verify", "--all",
+         "--json"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    try:
+        report = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        report = {"ok": False, "errors": None, "diagnostics": []}
+    rec["verify"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                     "errors": report["errors"],
+                     "diagnostics": len(report["diagnostics"])}
+    log("  verify --all: " + json.dumps(rec["verify"]))
+    check(proc.returncode == 0 and report["ok"],
+          f"verify --all failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+
+
+def phase_elastic(state, out):
+    import torch
+    state.clear()                     # earlier phases' weights and state
+    torch.cuda.empty_cache()
+    rec = {}
+    out["elastic"] = rec
+    with world1("nccl"):
+        elastic_rescale(rec)
+        elastic_compression(rec)
+    elastic_verify(rec)
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -5729,7 +5923,7 @@ def main(argv=None):
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
              "serve_lifecycle", "serve_disagg", "train_scheduled", "prefill",
-             "whisper", "stack_bits", "nccl_pair")
+             "whisper", "elastic", "stack_bits", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -5800,6 +5994,8 @@ def main(argv=None):
                 phase_prefill(state, out)
             elif name == "whisper":
                 phase_whisper(state, out)
+            elif name == "elastic":
+                phase_elastic(state, out)
             elif name == "stack_bits":
                 phase_stack_bits(state, out)
             elif name == "nccl_pair":

@@ -16,25 +16,14 @@ preset, as in the JAX package.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List
 
+from repro_torch.analysis.verify.diagnostics import Diagnostic
 from repro_torch.kernels import fused_mlp as FM
 
 # the Pallas grid pipeline keeps the current and the next operand block in
 # VMEM (double buffering); scratch is single-buffered
 PIPELINE_BUFFERS = 2
-
-
-@dataclasses.dataclass(frozen=True)
-class Diagnostic:
-    """One finding of a check."""
-    passname: str
-    rule: str
-    severity: str
-    location: str
-    message: str
-    hint: str = ""
 
 
 def _d(rule: str, loc: str, msg: str, hint: str = "") -> Diagnostic:

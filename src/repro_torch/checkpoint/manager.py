@@ -167,13 +167,13 @@ class CheckpointManager:
         if writer:
             self.save(step, whole, wait=wait, extra=extra)
 
-    def sync(self):
-        """Every rank of the default process group waits until the
-        writer's save has committed (call on every rank before reading
-        the directory)."""
+    def sync(self, group=None):
+        """Every rank of ``group`` (a torch process group; None: the
+        default group) waits until the writer's save has committed (call
+        on every rank of it before reading the directory)."""
         import torch.distributed as dist
         self.wait()
-        dist.barrier()
+        dist.barrier(group=group)
 
     def restore_sharded(self, target: Tree, shard, step: Optional[int] = None,
                         device=None) -> Tuple[Tree, int]:

@@ -743,6 +743,155 @@ def _trainer_job(job, mesh, device):
     return out
 
 
+def _nested(data, prefix: str) -> Dict:
+    """The entries "prefix<a>/<b>..." as a nested dict of CPU tensors."""
+    out: Dict = {}
+    for k in data.files:
+        if k.startswith(prefix):
+            *path, leaf = k[len(prefix):].split("/")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.from_numpy(np.array(data[k]))
+    return out
+
+
+def _compress_job(job, data, mesh, device):
+    """``optim.compression.allreduce_compressed`` of this rank's gradient
+    tree "g<rank>/*" with its residuals "r<rank>/*", over the group of the
+    mesh axes each entry of ``job["groups"]`` names: every rank's reduced
+    tree and new residuals ("<group>/<rank>/out|resid/<leaf>")."""
+    from repro_torch.optim import compression as C
+    r = dist.get_rank()
+    grads, resids = _nested(data, f"g{r}/"), _nested(data, f"r{r}/")
+    res: Dict = {}
+    for name, axes in job["groups"].items():
+        red, new = C.allreduce_compressed(grads, resids, mesh.group(axes))
+        mine = {**{f"out/{k}": v for k, v in _flat(red).items()},
+                **{f"resid/{k}": v for k, v in _flat(new).items()}}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        for rank, d in enumerate(every):
+            res.update({f"{name}/{rank}/{k}": v for k, v in d.items()})
+    return res
+
+
+def _elastic_job(job, data, mesh, device):
+    """The elastic path (``Trainer.rescale``) on the job's (1, 4) mesh of
+    4 ranks, every Trainer starting from the one-rank weights "params/*"
+    (AdamW at ``lr``/``eps``, checkpoints every 2 steps).
+
+    (b) first, on every rank: the weights saved as step 0, ``run(2)`` on
+    (1, 4), the state rescaled to (2, 2), then ``run(6)``, which restores
+    the step-2 checkpoint onto the (2, 2) shards, with a fault hook that
+    raises once after step 5: the loop restores the step-4 checkpoint
+    (written on (2, 2)) and replays step 5 ("b/steps", "b/loss",
+    "b/restarts").
+    (a) then: 2 live steps on (1, 4); the state rescaled to (2, 2) and
+    back, gathered before and after ("a/roundtrip_same"); rescaled to
+    (2, 2), 2 steps; rescaled to (1, 2) over ranks 0-1 (ranks 2 and 3 get
+    None and leave), 2 steps, then a checkpoint on (1, 2) restored onto
+    its shards ("a/shrunk_restore_same"). The losses ("a/loss"), the
+    gathered state after steps 4 and 6 ("a/s4|s6/<part>/<leaf>"), and the
+    plan knobs and tokens of every MoE body ("a/ran/*"): the trainer's
+    plan cache ``job["cache"]`` (written by rank 0) holds one plan for
+    each layout's key, ``job["plans"]``: [layout, plan json]."""
+    from repro_torch import bridge
+    from repro_torch.core import adaptive as A
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = cell_config(job["arch"], job.get("over"))
+    shape = ShapeConfig("cell", job["seq"], job["batch"], "train")
+    optim = AdamW(lr=cosine_schedule(*job["lr"]), eps=job["eps"])
+    meshes = {(1, 4): mesh, (2, 2): make_mesh((2, 2), ("data", "model")),
+              (1, 2): make_mesh((1, 2), ("data", "model"))}
+    if dist.get_rank() == 0:
+        cache = A.PlanCache(job["cache"])
+        for layout, plan in job["plans"]:
+            ctx = SH.make_ctx(cfg, meshes[tuple(layout)])
+            toks = M.local_token_count(ctx, job["batch"], job["seq"])
+            cache.put(A.plan_shape(cfg.moe, cfg.d_model, toks, ctx.ep,
+                                   ctx.etp), A.H100_NVL,
+                      A.Plan.from_json(plan))
+    dirs = [[tempfile.mkdtemp(prefix="repro_torch_el_") for _ in "ab"]
+            if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(dirs, src=0)
+
+    def trainer(tag):
+        tcfg = TrainerConfig(ckpt_dir=dirs[0]["ab".index(tag)],
+                             ckpt_every=2, log_every=10_000,
+                             plan_cache=job["cache"], plan_hw="h100_nvlink")
+        tr = Trainer(cfg, shape, mesh, tcfg, optim=optim, device=device)
+        params = bridge.from_jax_sharded(_unflat(cfg, data, "params/"), cfg,
+                                         tr.ctx, True, device)
+        return tr, {"params": params, "opt": optim.init(params), "step": 0}
+
+    res: Dict = {}
+    tr, state = trainer("b")
+    tr.save(0, state, wait=True)
+    del state
+    tr.run(2)
+    state, _ = tr.restore_or_init()
+    tr.rescale(state, meshes[(2, 2)])
+    del state
+    fired = []
+
+    def hook(step):
+        if step == 5 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    tr.fault_hook = hook
+    out = tr.run(6)
+    res["b/steps"] = np.array([m["step"] for m in tr.metrics_log])
+    res["b/loss"] = np.array([m["loss"] for m in tr.metrics_log])
+    res["b/restarts"] = out["restarts"]
+
+    tr, state = trainer("a")
+    ran = []
+    real = M._moe_body
+
+    def spy(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw):
+        ran.append([mcfg.impl, mcfg.ring_group, n_col, gemm_impl,
+                    x.shape[0] * x.shape[1]])
+        return real(cfg_, mcfg, n_col, gemm_impl, x, *a, **kw)
+
+    def whole(tag, st):
+        g = SH.gather_state(st, cfg, tr.ctx)
+        res.update({f"a/{tag}/{part}/{k}": v for part, tree in
+                    (("params", g["params"]), ("m", g["opt"]["m"]),
+                     ("v", g["opt"]["v"])) for k, v in _flat(tree).items()})
+
+    M._moe_body = spy
+    try:
+        state, step = tr._run_span(state, 0, 2)
+        before = _flat(SH.gather_state(state, cfg, tr.ctx))
+        state = tr.rescale(tr.rescale(state, meshes[(2, 2)]), meshes[(1, 4)])
+        after = _flat(SH.gather_state(state, cfg, tr.ctx))
+        res["a/roundtrip_same"] = before.keys() == after.keys() and all(
+            np.array_equal(before[k], after[k]) for k in before)
+        state = tr.rescale(state, meshes[(2, 2)])
+        state, step = tr._run_span(state, step, 4)
+        whole("s4", state)
+        state = tr.rescale(state, meshes[(1, 2)])
+        if state is not None:                   # ranks 0 and 1
+            state, step = tr._run_span(state, step, 6)
+            whole("s6", state)
+            # a checkpoint of the shrunk mesh, restored onto its shards
+            tr.save(step, state, wait=True)
+            back, at = tr.restore_or_init()
+            a, b = _flat(state), _flat(back)
+            res["a/shrunk_restore_same"] = at == step and a.keys() == \
+                b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    finally:
+        M._moe_body = real
+    res["a/loss"] = np.array([m["loss"] for m in tr.metrics_log])
+    for i, name in enumerate(("impl", "ring_group", "n_col", "gemm_impl",
+                              "tokens")):
+        res[f"a/ran/{name}"] = np.array([r[i] for r in ran])
+    return res
+
+
 def _cli_job(job, device):
     """``launch.train.main`` with ``job["argv"]`` on the initialised
     process group."""
@@ -1138,8 +1287,9 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
     """Runs ``jobs`` on a (data, model) mesh of shape ``layout`` (every
     rank) and writes each job's results to ``out_dir/<name>.npz`` (rank
     0). A job: name, kind ("grad", "plan", "adamw", "roundtrip",
-    "trainer", "cli", and the serving kinds "decode", "chunk", "prefill",
-    "engine", "lifecycle" and "disagg"), arch and ``over``
+    "trainer", "cli", "compress", "elastic", and the serving kinds
+    "decode", "chunk", "prefill", "engine", "lifecycle" and "disagg"),
+    arch and ``over``
     (``cell_config``); "grad", "plan", "adamw" and the serving kinds read
     the one-rank weights ("params/<leaf>") and their inputs (batches
     "batch*/<key>", a cache "cache/<pos>/<entry>", prompts) from
@@ -1163,6 +1313,10 @@ def mesh_cells(layout, jobs: List[Dict], in_dir: str, out_dir: str) -> int:
             data = np.load(Path(in_dir) / f"{job['data']}.npz")
             res = {"lifecycle": _lifecycle_job, "disagg": _disagg_job}[
                 kind](job, data, mesh, device, out_dir)
+        elif kind in ("compress", "elastic"):
+            data = np.load(Path(in_dir) / f"{job['data']}.npz")
+            res = {"compress": _compress_job, "elastic": _elastic_job}[
+                kind](job, data, mesh, device)
         elif kind == "roundtrip":
             res = _roundtrip_job(job, mesh, device)
         elif kind == "trainer":

@@ -35,7 +35,6 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.moe_layer import moe_ffn, moe_schema
 from repro_torch.kernels import ops
@@ -149,7 +148,7 @@ def _moe_ranked(cfg, pm, h, ctx, sliced: bool = False):
                      n_col=cfg.moe.n_col_blocks)
     if not sliced:
         y = CL.gather_from(y, G, 1) if seq else CL.grad_share(y, m)
-    return y, CL.grad_share(aux, dist.get_world_size())
+    return y, CL.grad_share(aux, ctx.mesh.size)
 
 
 def _moe_out(cfg, p, x, ctx=None, sp: bool = False):

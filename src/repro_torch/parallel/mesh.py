@@ -9,6 +9,12 @@ process groups of every axis (and of every set of axes) are built when the
 mesh is built, and the expert-tensor-parallel subgroups when the first
 context with that ``etp`` is built. ``new_group`` is collective: every rank
 builds every group in the same order, including groups it is not in.
+
+A mesh covers the first n ranks of the default group, n the product of its
+shape: fewer than the world after a run has lost ranks (the elastic path,
+``training.trainer.Trainer.rescale``). The ranks after them are outside
+it (``member`` False): they still take part in building its groups, and
+hold none of them.
 """
 from __future__ import annotations
 
@@ -44,21 +50,24 @@ class Mesh:
 
     ``shape``: axis name -> size, in layout order (the last axis varies
     fastest). ``group(axes)`` is the group of ranks that share this rank's
-    coordinates on every other axis."""
+    coordinates on every other axis. A rank outside the mesh has no
+    coordinates and no groups."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str]):
         if not dist.is_initialized():
             raise RuntimeError("make_mesh needs an initialised default "
                                "process group (torch.distributed)")
         n = math.prod(shape)
-        if n != dist.get_world_size():
+        if n > dist.get_world_size():
             raise RuntimeError(f"mesh {tuple(shape)} needs {n} ranks, the "
                                f"process group has {dist.get_world_size()}")
         self.axis_names: Tuple[str, ...] = tuple(axes)
         self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self.size = n
         self.rank = dist.get_rank()
+        self.member = self.rank < n
         self.backend = str(dist.get_backend())
-        self.coords = self.coords_of(self.rank)
+        self.coords = self.coords_of(self.rank) if self.member else None
         self._groups: Dict[Tuple[str, ...], Group] = {}
         self._subgroups: Dict[Tuple[str, int], Tuple[Group, Group]] = {}
         for k in range(1, len(axes) + 1):

@@ -15,9 +15,16 @@ On a mesh (a ``parallel.mesh.Mesh`` over an initialised process group)
 every rank runs the loop: it holds its shard of the state and feeds its
 rows of each global batch; checkpoints are saved whole by rank 0 in the
 one-rank layout and cut again at restore (``checkpoint.manager``), so the
-fault-hook replay restores onto the same shards. The elastic path
-(``rescale``, ``reshard_state``) is not ported yet. The trainer runs on
-the card unless it is given ``device="cpu"``.
+fault-hook replay restores onto the same shards.
+
+Elastic re-meshing: ``Trainer.rescale`` moves a live state onto another
+mesh (or none) and rebuilds the step for it, its context, batch specs
+and plan resolution with it; training goes on at the same step counter,
+and later checkpoints restore onto the new mesh's shards. The state is
+gathered whole on the old mesh first (``reshard_state``), so a mesh over
+fewer ranks (after losing some) loses no data: the ranks outside it get
+None and leave the loop. The trainer runs on the card unless it is given
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from repro_torch.models import lm
 from repro_torch.models.common import tree_map
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.mesh import AxisCtx
 
 Tree = Any
 
@@ -103,6 +111,25 @@ def abstract_state(cfg) -> Dict:
             "step": 0}
 
 
+def reshard_state(state: Dict, cfg, old_ctx: Optional[AxisCtx],
+                  new_ctx: Optional[AxisCtx], fsdp: bool = True
+                  ) -> Optional[Dict]:
+    """Elastic path: a train state cut for ``old_ctx``'s mesh, cut for
+    ``new_ctx``'s (``repro/training/trainer.py:72``). A context that is
+    None or inactive stands for the whole state on one device. Gathering
+    is collective over the old mesh (``sharding.gather_state``), cutting
+    local (``shard_state``); a rank outside the new mesh gets None. The
+    leaves come back without autograd history (the step marks them)."""
+    with torch.no_grad():
+        whole = (SH.gather_state(state, cfg, old_ctx, fsdp)
+                 if old_ctx is not None and old_ctx.active else state)
+        if new_ctx is None or not new_ctx.active:
+            return whole
+        if not new_ctx.mesh.member:
+            return None
+        return SH.shard_state(whole, cfg, new_ctx, fsdp)
+
+
 class Trainer:
     def __init__(self, cfg, shape, mesh=None,
                  tcfg: TrainerConfig = TrainerConfig(),
@@ -112,17 +139,11 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.shape = shape
-        self.mesh = mesh
         self.tcfg = tcfg
         self.optim = optim or AdamW()
         self.fsdp = fsdp
         self.fault_hook = fault_hook          # tests inject failures here
-        self.built = build_train_step(cfg, shape, mesh, self.optim,
-                                      fsdp=fsdp, plan_cache=tcfg.plan_cache,
-                                      plan_hw=tcfg.plan_hw)
-        self.ctx = self.built["ctx"]
-        # on a mesh every rank takes part in a save; rank 0 writes
-        self.writer = mesh is None or dist.get_rank() == 0
+        self._build(mesh)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.monitor = StragglerMonitor(tcfg.straggler_factor)
         self.metrics_log: List[Dict[str, float]] = []
@@ -130,6 +151,17 @@ class Trainer:
         self._consec_nans = 0
         self.data = SyntheticLM(cfg, self.built["batch_structs"],
                                 seed=tcfg.seed)
+
+    def _build(self, mesh):
+        """The step for ``mesh`` (None: one rank) and what goes with it."""
+        self.mesh = mesh
+        self.built = build_train_step(self.cfg, self.shape, mesh, self.optim,
+                                      fsdp=self.fsdp,
+                                      plan_cache=self.tcfg.plan_cache,
+                                      plan_hw=self.tcfg.plan_hw)
+        self.ctx = self.built["ctx"]
+        # on a mesh every rank takes part in a save; rank 0 writes
+        self.writer = mesh is None or dist.get_rank() == 0
 
     # ------------------------------------------------------------------ state
     def init_state(self, seed: Optional[int] = None) -> Dict:
@@ -143,8 +175,8 @@ class Trainer:
         return {"params": params, "opt": self.optim.init(params), "step": 0}
 
     def restore_or_init(self) -> Tuple[Dict, int]:
-        if self.mesh is not None:
-            self.ckpt.sync()                  # every rank sees one latest
+        if self.mesh is not None:             # every rank sees one latest
+            self.ckpt.sync(self.mesh.group(self.mesh.axis_names).pg)
         if self.ckpt.latest_step() is not None:
             if self.mesh is not None:
                 return self.ckpt.restore_sharded(
@@ -253,6 +285,21 @@ class Trainer:
                 # never checkpoint mid-NaN-streak
                 self.save(step, state)
         return state, step
+
+
+    # ----------------------------------------------------------- elastic path
+    def rescale(self, state: Dict, new_mesh) -> Optional[Dict]:
+        """Re-mesh a live state (e.g. after losing ranks) and rebuild the
+        step for ``new_mesh`` (None: one rank, the state whole on the
+        trainer's device). Collective over the default group: every rank
+        of the old mesh calls it. Returns the state cut for the new mesh,
+        or None on a rank outside it, which leaves the loop. The new
+        layout may change (ep, etp) and each rank's tokens: the MoE
+        layers' plan keys resolve again from the same cache."""
+        # gathered on the old mesh before the new one's groups are built
+        whole = reshard_state(state, self.cfg, self.ctx, None, self.fsdp)
+        self._build(new_mesh)
+        return reshard_state(whole, self.cfg, None, self.ctx, self.fsdp)
 
 
 # ---------------------------------------------------------------------------
