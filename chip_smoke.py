@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py              # all twenty phases, one card
+  python3 chip_smoke.py              # all twenty-one phases, one card
+  python3 chip_smoke.py --only build,roofline
   python3 chip_smoke.py --only build,kernels,serve_ssm
   python3 chip_smoke.py --only build,mesh_serve
   python3 chip_smoke.py --only build,serve_paged
@@ -373,6 +374,26 @@ Phases:
              (compress, then decompress) and the same residuals; ms
              (median of 3) beside its wire bytes and the fp32 tree's. (c)
              python -m repro_torch.analysis.verify --all --json: no error.
+ 21 roofline  the earlier phases' state is freed first. (a) phase 20's
+             step (2 layers, bf16, 4 x 1024 tokens): one warm step, then
+             one under analysis/op_cost.count_cost and torch.profiler;
+             analysis/roofline.analyze's report (t_compute, t_memory, the
+             bound against the wall and device ms, mfu); the count must
+             equal a world-1 dry run of the same step on meta tensors
+             (FLOPs, bytes, products by dtype, the kernel regions, no
+             collective bytes), the dry run's argument bytes lie within
+             1% of what the card allocated for the state and the batch,
+             the bound at most the wall, 0 < mfu <= 1, and fused_mlp, its
+             dgrad and wgrad, flash_attention (all on the wgmma path),
+             topk_combine and rmsnorm launched. (c) every compiled kernel
+             instance's registers, static shared memory, spills and
+             thread limit (cudaFuncGetAttributes, csrc/attrs.cuh) against
+             its launch models (analysis/verify/kernel_check.py). (b)
+             python -m repro_torch.launch.dryrun for qwen2-moe-2.7b x
+             train_4k and x decode_32k on the single-pod mesh over 256
+             fake ranks, one process a cell: both ok. They need no card
+             and start in the background when the script starts (at the
+             lowest priority, one thread each); the phase collects them.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -415,16 +436,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen2-moe-2.7b"
-# H100 SXM data-sheet peaks (dense tensor-core rates, HBM3 bandwidth)
-PEAK_BW = 3.35e12                       # bytes/s
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-4,
        "merge": 1e-5}      # the fp32 split-KV merge against fp32 decode
 PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
           "train", "train_ssm", "ranked", "mesh_train", "plan",
           "serve_hybrid", "mesh_serve", "serve_paged", "serve_lifecycle",
           "serve_disagg", "train_scheduled", "prefill", "whisper",
-          "elastic")
+          "elastic", "roofline")
 # run only when named in --only
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
@@ -594,11 +612,11 @@ def graph_ms(fn, reps=50, iters=5):
     return median_ms(graph.replay, iters=iters, warmup=1) / reps
 
 
-def bound_ms(nbytes, flops, dt):
-    t_bytes = nbytes / PEAK_BW
-    t_ops = flops / PEAK_FLOPS[dt]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_ms(cost):
+    """(ms, "bytes" or "operations") of a ``roofline.KernelCost``: the
+    H100's data-sheet peaks, as ``analysis/roofline.py`` holds them."""
+    t, by = cost.bound_s()
+    return t * 1e3, by
 
 
 def _pairs(got, want):
@@ -807,7 +825,7 @@ def kernel_cases():
 
 
 def flash_case(dt, isz, spec, gen):
-    """(kernel fn, plain fn, library fn, backward fn, bytes, flops) of a
+    """(kernel fn, plain fn, library fn, backward fn, roofline cost) of a
     flash-attention case: S queries over Sk keys (default S). q/k/v are
     made in the model's (B, S, H, hd) layout and passed as transposed
     views, as the model passes them. The FLOPs count QK^T and PV over the
@@ -837,15 +855,14 @@ def flash_case(dt, isz, spec, gen):
     def bwd():
         return ref.flash_attention_vjp(q, k, v, causal, ct)
 
-    pairs = S * (S + 1) // 2 if causal else S * Sk
-    nbytes = (2 * B * Hq * S * hd + 2 * B * Hkv * Sk * hd) * isz
-    return kf, pf, lib, bwd, nbytes, 2 * 2 * B * Hq * pairs * hd
+    from repro_torch.analysis.roofline import flash_cost
+    return kf, pf, lib, bwd, flash_cost(B, Hq, Hkv, S, Sk, hd, causal, isz)
 
 
 def ssd_case(dt, spec, gen):
-    """(kernel fn, plain fn, library fn, backward fn, bytes, (flops, flops
-    on the tensor-core path), (fp64 oracle fn, one-term emulation fn)) of
-    an SSD case. x, B and C
+    """(kernel fn, plain fn, library fn, backward fn, (roofline cost,
+    roofline cost on the tensor-core path), (fp64 oracle fn, one-term
+    emulation fn)) of an SSD case. x, B and C
     are slices of one conv-output-like tensor, as the model passes them;
     dt, A, D are fp32. There is no single PyTorch call for the SSD: no
     library yardstick. The FLOPs count the chunked form at the kernels'
@@ -893,25 +910,15 @@ def ssd_case(dt, spec, gen):
                                 chunk=ssd.CHUNK)
         return out if final else out[0]
 
+    from repro_torch.analysis.roofline import ssd_cost
     isz = 2 if dt == torch.bfloat16 else 4
-    nbytes = (2 * B * S * nh * hd + 2 * B * S * ds) * isz \
-        + B * S * nh * 4 + 2 * nh * 4
-    if h0 is not None:                   # the state read
-        nbytes += B * nh * ds * hd * 4
-    if final:                            # and written
-        nbytes += B * nh * ds * hd * 4
-    Q = ssd.CHUNK
-    nc = -(-S // Q)
-    cb = 2 * B * nc * Q * Q * ds
-    rest = B * nh * nc * (2 * Q * Q * hd + 2 * 2 * Q * ds * hd)
-    # the tensor-core path: C.B^T of exact bf16 products, the other three
-    # products once per bf16 term of their fp32 operand
-    tc_flops = cb + ssd.HOPPER_TERMS * rest
-    return kf, pf, None, bwd, nbytes, (cb + rest, tc_flops), (orc, one_term)
+    costs = tuple(ssd_cost(B, S, nh, hd, ds, isz, h0 is not None, final, tc)
+                  for tc in (False, True))
+    return kf, pf, None, bwd, costs, (orc, one_term)
 
 
 def rmsnorm_case(dt, isz, spec, gen):
-    """(kernel fn, plain fn, library fn, bytes, flops) of an rmsnorm case:
+    """(kernel fn, plain fn, library fn, roofline cost) of an rmsnorm case:
     x (T, d) in dt, a non-unit fp32 scale (the model's norm scales are fp32
     leaves). The plain version is the epilogue's: ``ref.rms_norm`` (model)
     or ``ref.rmsnorm_ref`` (tpu). The library yardstick is F.rms_norm with
@@ -939,11 +946,12 @@ def rmsnorm_case(dt, isz, spec, gen):
     def lib(i=0):
         return F.rms_norm(xs[i % n], (d,), weight=scale_lib, eps=eps)
 
-    return k, p, lib, 2 * T * d * isz + d * 4, 4 * T * d
+    from repro_torch.analysis.roofline import rmsnorm_cost
+    return k, p, lib, rmsnorm_cost(T, d, isz)
 
 
 def mlp_bwd_case(kernel, dt, isz, spec, gen):
-    """(kernel fn, plain fn, second plain fn, library fn, bytes, flops) of
+    """(kernel fn, plain fn, second plain fn, library fn, roofline cost) of
     a backward kernel case. The second plain route runs the plain version
     with fp64 products (the same bf16 rounding points). The library
     yardstick is torch.autograd.grad through bmm -> activation -> bmm,
@@ -984,13 +992,8 @@ def mlp_bwd_case(kernel, dt, isz, spec, gen):
         y = torch.bmm(activate(act, gate, torch.bmm(xs, ws[-2])), ws[-1])
         return torch.autograd.grad(y, [xs] if dgrad else ws, dy)
 
-    n_w1 = 2 if glu else 1
-    # operands read once and outputs written once; the FLOPs count the
-    # recompute of the hidden that the interface forces
-    ins = E * R * d + n_w1 * E * d * f + E * f * n_out + E * R * n_out
-    outs = E * R * d if dgrad else n_w1 * E * d * f + E * f * n_out
-    flops = (2 * E * R * f * (2 * n_w1 * d + n_out) if dgrad
-             else 2 * E * R * f * (2 * n_w1 * d + 2 * n_out))
+    from repro_torch.analysis.roofline import fused_mlp_bwd_cost
+    cost = fused_mlp_bwd_cost(kernel, E, R, d, f, n_out, glu, isz)
     path = fused_mlp.hopper_path(x, wg, wu, wd, dy)
     extra = {}
     if dgrad:
@@ -1002,7 +1005,7 @@ def mlp_bwd_case(kernel, dt, isz, spec, gen):
     else:
         extra["scratch_bytes"] = (fused_mlp.wgrad_scratch_bytes(E, R, f, glu)
                                   if path else None)
-    return k, p, p64, lib, (ins + outs) * isz, flops, extra
+    return k, p, p64, lib, cost, extra
 
 
 @contextlib.contextmanager
@@ -1180,6 +1183,7 @@ def floor_stats(runs):
 def run_kernel_case(kernel, dt_name, spec, gen, timed):
     import torch
 
+    from repro_torch.analysis import roofline as RL
     from repro_torch.kernels import fused_mlp, grouped_gemm, ref, \
         topk_combine
     from repro_torch.models.common import activate
@@ -1210,9 +1214,7 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
             return torch.bmm(activate("swiglu", torch.bmm(x, wg),
                                       torch.bmm(x, wu)), wd)
 
-        nbytes = (E * R * d + 2 * E * d * f + E * f * n_out
-                  + E * R * n_out) * isz
-        flops = 2 * E * R * d * f * 2 + 2 * E * R * f * n_out
+        cost = RL.fused_mlp_cost(E, R, d, f, n_out, True, isz)
         path = fused_mlp.hopper_path(x, wg, wu, wd)
         scratch = (fused_mlp.fused_mlp_plan(E, R, d, f, n_out)
                    ["scratch_bytes"] if path else
@@ -1221,17 +1223,17 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
                  "general_scratch_bytes":
                      fused_mlp.general_scratch_bytes(E, R, f, n_out)}
     elif kernel in ("fused_mlp_dgrad", "fused_mlp_wgrad"):
-        k, p, p64, lib, nbytes, flops, extra = mlp_bwd_case(kernel, dt, isz,
+        k, p, p64, lib, cost, extra = mlp_bwd_case(kernel, dt, isz,
                                                             spec, gen)
     elif kernel == "flash_attention":
-        k, p, lib, bwd, nbytes, flops = flash_case(dt, isz, spec, gen)
+        k, p, lib, bwd, cost = flash_case(dt, isz, spec, gen)
         extra = {}
     elif kernel == "ssd_forward":
-        k, p, lib, bwd, nbytes, (flops, tc_flops), oracle_fns = ssd_case(
+        k, p, lib, bwd, (cost, tc_cost), oracle_fns = ssd_case(
             dt, spec, gen)
         extra = {}
     elif kernel == "rmsnorm":
-        k, p, lib, nbytes, flops = rmsnorm_case(dt, isz, spec, gen)
+        k, p, lib, cost = rmsnorm_case(dt, isz, spec, gen)
     elif kernel == "grouped_gemm":
         M, K, Nn = spec["M"], spec["K"], spec["N"]
         lhs = _randn((E, M, K), dt, 1.0, gen)
@@ -1250,8 +1252,7 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         def lib():
             return torch.bmm(lhs, rhs)
 
-        nbytes = (E * M * K + E * K * Nn + E * M * Nn) * isz
-        flops = 2 * E * M * K * Nn
+        cost = RL.grouped_gemm_cost(E, M, K, Nn, isz)
         extra = {}
     else:
         T, kk = spec["T"], spec.get("k", 4)
@@ -1269,8 +1270,7 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
         def lib():
             return torch.einsum("tkd,tk->td", rows, w_lib)
 
-        nbytes = T * kk * d * isz + T * kk * 4 + T * d * isz
-        flops = 2 * T * kk * d
+        cost = RL.topk_combine_cost(T, kk, d, isz, w.element_size())
         extra = {}
         # the graph's TOPK_REPS calls cycle through copies of the rows (no
         # new random draws): at least three, and as many as hold four
@@ -1362,13 +1362,12 @@ def run_kernel_case(kernel, dt_name, spec, gen, timed):
     del got, want
     # the norm's statistics and the general SSD kernel's products are fp32
     # whatever the inputs' dtype; the tensor-core SSD's products are bf16,
-    # counted once per bf16 term of their fp32 operand
+    # counted once per bf16 term of their fp32 operand (roofline.ssd_cost)
     if kernel == "ssd_forward" and rec.get("path") == "hopper":
-        flops, fdt = tc_flops, "bf16"
-    else:
-        fdt = "fp32" if kernel in ("ssd_forward", "rmsnorm") else dt_name
-    b_ms, b_by = bound_ms(nbytes, flops, fdt)
-    rec.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        cost = tc_cost
+    b_ms, b_by = bound_ms(cost)
+    rec.update(bound_ms=b_ms, bound_by=b_by, bytes=cost.bytes,
+               flops=cost.flops)
     if timed:
         iters = 10 if dt_name == "bf16" else 3
         if kernel != "fused_mlp" and kernel.startswith("fused_mlp") \
@@ -2545,6 +2544,7 @@ def ring_producer(rec):
     bf16 tolerance and timed beside it."""
     import torch
 
+    from repro_torch.analysis import roofline as RL
     from repro_torch.configs import get_config
     from repro_torch.core import routing as R
     from repro_torch.core import transport as T
@@ -2572,9 +2572,7 @@ def ring_producer(rec):
         errs = [max_err(b, whole[..., i * blk:(i + 1) * blk], TOL["bf16"])
                 for i, b in enumerate(blocks)]
         R_ = g * C
-        nbytes = 2 * (E_loc * R_ * d + 3 * E_loc * d * f + E_loc * R_ * d)
-        flops = 2 * E_loc * R_ * 3 * d * f
-        whole_bound, by = bound_ms(nbytes, flops, "bf16")
+        whole_bound, by = bound_ms(RL.fused_mlp_cost(E_loc, R_, d, f, d))
         r = {"E_loc": E_loc, "rows": R_, "C": C, "n_col": n_col,
              "launches": launches[0], "hopper_launches": launches[1],
              "max_abs_err": max(e for e, _ in errs),
@@ -5550,6 +5548,221 @@ def phase_elastic(state, out):
     elastic_verify(rec)
 
 
+ROOFLINE_CELLS = ("train_4k", "decode_32k")    # phase 21 (b)
+ROOFLINE_CLI_TIMEOUT = 900
+
+
+class DryrunCli:
+    """Phase 21 (b): ``python -m repro_torch.launch.dryrun`` for ARCH's
+    ROOFLINE_CELLS on the single-pod mesh over 256 fake ranks, one process
+    a cell. The runs need no card and take longer than the phase on the
+    card's host (a train_4k cell runs some 470,000 ops on meta tensors),
+    so ``main`` starts them when the script starts, at the lowest CPU
+    priority and one thread each, and phase 21 collects them; ``stop``
+    kills what is still running."""
+
+    def __init__(self):
+        self.runs = {}
+        self.tmp = None
+
+    def start(self):
+        import os
+        import tempfile
+        self.tmp = tempfile.TemporaryDirectory()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        for shape in ROOFLINE_CELLS:
+            log_path = Path(self.tmp.name) / f"{shape}.log"
+            summary = Path(self.tmp.name) / f"{shape}.json"
+            with open(log_path, "w") as f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", ARCH, "--shape", shape, "--summary",
+                     str(summary)], stdout=f, stderr=subprocess.STDOUT,
+                    env=env, preexec_fn=lambda: os.nice(19))
+            self.runs[shape] = (proc, log_path, summary, time.perf_counter())
+
+    def collect(self, timeout=ROOFLINE_CLI_TIMEOUT):
+        """{shape: {"rc", "s" (start to collect), "cells", "log_tail"}}."""
+        res = {}
+        for shape, (proc, log_path, summary, t0) in self.runs.items():
+            try:
+                rc = proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            cells = (json.loads(summary.read_text()) if summary.exists()
+                     else [])
+            lines = log_path.read_text().splitlines()
+            res[shape] = {"rc": rc, "s": time.perf_counter() - t0,
+                          "cells": cells,
+                          "report": [ln for ln in lines
+                                     if ln.startswith(("==", "  "))][-12:],
+                          "log_tail": lines[-20:]}
+        return res
+
+    def stop(self):
+        for proc, *_ in self.runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if self.tmp is not None:
+            self.tmp.cleanup()
+            self.tmp = None
+
+
+def roofline_step(rec):
+    """(a) phase 20's qwen2-moe-2.7b step (2 layers, every width, bf16, 4 x
+    1024 tokens): one warm step, then one under ``count_cost`` and
+    torch.profiler; its report, and the same step's world-1 dry run on
+    meta: the same FLOPs, bytes and regions, the argument bytes within 1%
+    of what the card allocated for them, a bound no longer than the wall
+    and 0 < mfu <= 1."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.analysis.op_cost import count_cost, top_ops
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+    cfg = train_cfg(ELASTIC_LAYERS, "bfloat16")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    built = build_train_step(cfg, shape)
+    params = lm.init_params(cfg, seed=ELASTIC_SEED, device="cuda")
+    state = {"params": params, "opt": AdamW().init(params), "step": 0}
+    # token ids in int32, as the dry run makes them (launch/dryrun.py)
+    batch = {k: v.to(torch.int32) for k, v in train_batch(cfg).items()}
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - base
+    state, m = built["fn"](state, batch)               # warm
+    float(m["loss"])
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainGuard() as guard, count_cost() as cost, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = built["fn"](state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    del state, params, m
+    report = RL.analyze(cost, 1, cfg, shape,
+                        RL.device_time_by_name(prof, wall))
+    log(RL.fmt_report(f"{ARCH} x {ELASTIC_LAYERS} layers, {TRAIN_BATCH} x "
+                      f"{TRAIN_SEQ} tokens, bf16, on the card", report))
+    t0 = time.perf_counter()
+    run, mem, assumed = dryrun.build_cell(cfg, shape, None)
+    with dryrun.MetaOutputCache(), count_cost() as meta:
+        run()
+    meta_s = time.perf_counter() - t0
+    meta_args = sum(v for k, v in mem.items() if k != "grad_bytes")
+    same = {"flops": cost.flops == meta.flops,
+            "bytes": cost.bytes == meta.bytes,
+            "mxu_by_dtype": cost.mxu_by_dtype == meta.mxu_by_dtype,
+            "regions": cost.regions == meta.regions}
+    diff = [(str(k), v, meta.by_op.get(k)) for k, v in cost.by_op.items()
+            if meta.by_op.get(k) != v]
+    diff += [(str(k), None, v) for k, v in meta.by_op.items()
+             if k not in cost.by_op]
+    rec["step"] = {
+        "layers": ELASTIC_LAYERS, "tokens": TRAIN_SEQ * TRAIN_BATCH,
+        "loss": loss, "report": report, "launches": counts,
+        "plain_calls_on_cuda": guard.cuda_calls,
+        "meta": {"flops": meta.flops, "bytes": meta.bytes,
+                 "mxu_by_dtype": meta.mxu_by_dtype, "regions": meta.regions,
+                 "collective_bytes": meta.ici_bytes, "s": meta_s,
+                 "memory": mem, "argument_bytes": meta_args,
+                 "peak_temp_bytes": meta.peak_bytes, "assumed": assumed},
+        "card_argument_bytes": card_args,
+        "argument_rel_diff": abs(meta_args - card_args) / card_args,
+        "same": same, "by_op_diff": diff[:20],
+        "top_ops_by_bytes": top_ops(cost, "bytes", 8)}
+    rel = rec["step"]["argument_rel_diff"]
+    log("  card vs meta: " + json.dumps(same) + f"; argument bytes meta "
+        f"{meta_args} card {card_args} (rel {rel:.2e}); meta dry run "
+        f"{meta_s:.1f} s; launches {counts}")
+    for row in diff[:20]:
+        log(f"    op count differs: {row}")
+    check(all(same.values()) and cost.ici_bytes == 0 == meta.ici_bytes,
+          f"the card's count differs from the meta dry run's: {same}")
+    check(rel <= 0.01,
+          f"argument bytes {meta_args} (meta) against {card_args} (card)")
+    check(report["bound_time_s"] * 1e3 <= report["wall_ms"],
+          f"bound {report['bound_time_s'] * 1e3:.1f} ms above the wall "
+          f"{report['wall_ms']:.1f} ms: the count is wrong")
+    check(0 < report["mfu"] <= 1, f"mfu {report['mfu']}")
+    L = ELASTIC_LAYERS
+    for k in ("fused_mlp", "fused_mlp_dgrad", "fused_mlp_wgrad",
+              "flash_attention"):
+        check(counts[k] > 0 and counts[f"{k}_hopper"] == counts[k],
+              f"{k}: {counts[k]} launches, {counts[f'{k}_hopper']} on the "
+              f"Hopper path")
+    check(counts["topk_combine"] == 2 * L and counts["rmsnorm"] > 0,
+          f"launches {counts}")
+    check(guard.cuda_calls == 0, "plain versions saw CUDA tensors")
+
+
+def roofline_cli(rec, cli):
+    """(b) the dry-run CLI's cells (``DryrunCli``): every one ``ok``."""
+    res = cli.collect()
+    rec["dryrun_cli"] = res
+    for shape, r in res.items():
+        log(f"  dryrun {ARCH} x {shape}: rc {r['rc']}, {r['s']:.1f} s "
+            f"after its start")
+        for ln in r["report"]:
+            log("    " + ln)
+        for c in r["cells"]:
+            log("    " + json.dumps(c))
+        ok = r["rc"] == 0 and [c["status"] for c in r["cells"]] == ["ok"]
+        check(ok, f"dryrun {shape}: rc {r['rc']}\n" + "\n".join(
+            r["log_tail"]))
+
+
+def roofline_attributes(rec):
+    """(c) every compiled kernel instance's registers, shared memory,
+    spills and thread limit (``cudaFuncGetAttributes``) against its launch
+    models (``kernel_check.check_attributes``)."""
+    import torch
+
+    from repro_torch.analysis.verify import kernel_check as KC
+    from repro_torch.kernels import build
+    attrs = build.kernel_attributes(build.load())
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin",
+                    KC.SMEM_PER_BLOCK)
+    diags = KC.check_attributes(attrs, optin=optin)
+    rec["attributes"] = {"optin_smem": optin, "instances": attrs,
+                         "diagnostics": [d.to_json() for d in diags]}
+    for a in attrs:
+        log(f"    {a['source']:28s} regs {a['regs']:3d} static "
+            f"{a['static_smem']:5d} local {a['local_bytes']:4d} max threads "
+            f"{a['max_threads']:4d}  {a['label']}")
+    for d in diags:
+        log(f"    {d}")
+    check(not diags, f"{len(diags)} kernel instances disagree with their "
+          f"launch models")
+
+
+def phase_roofline(state, out, cli):
+    import torch
+    state.clear()
+    torch.cuda.empty_cache()
+    rec = {}
+    out["roofline"] = rec
+    try:
+        roofline_step(rec)
+    finally:
+        torch.cuda.empty_cache()
+    roofline_attributes(rec)
+    roofline_cli(rec, cli)
+
+
 def phase_profile_hybrid(state, out):
     """phase_profile of phase 12's configuration, its weights drawn anew
     from the seed."""
@@ -5623,6 +5836,8 @@ def profile_step(state, key, out_key, out):
     """Device time by kernel name over one train step of a train phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.roofline import device_time_by_name
     tr, tstate, batch = state[key]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5644,57 +5859,6 @@ def profile_step(state, key, out_key, out):
           "the profiler recorded no device time")
 
 
-# device-kernel name fragments -> the group a profile sums them into (the
-# first match wins; names matching none are "other")
-KERNEL_GROUPS = (
-    ("flash_kernel", "flash_attention kernel"),
-    ("flash_hopper_kernel", "flash_attention kernel"),
-    ("ssd_kernel", "ssd_forward kernel"),
-    ("ssd_hopper_kernel", "ssd_forward kernel"),
-    ("rmsnorm_kernel", "rmsnorm kernel"),
-    ("fused_mlp_wgrad", "fused_mlp_wgrad kernel"),
-    ("wgrad_product", "fused_mlp_wgrad kernel"),
-    ("fused_mlp_dgrad", "fused_mlp_dgrad kernel"),
-    ("dgrad_product", "fused_mlp_dgrad kernel"),
-    # the wgmma dgrad's and wgrad's shared first launch
-    ("recompute_kernel", "fused_mlp backward recompute"),
-    ("fused_mlp", "fused_mlp kernel"),
-    ("sum_partials", "fused_mlp reduce pass"),
-    ("sum_splits", "fused_mlp reduce pass"),
-    ("topk_combine", "topk_combine kernel"),
-    ("gemm", "library GEMMs"), ("nvjet", "library GEMMs"),
-    ("xmma", "library GEMMs"), ("cutlass", "library GEMMs"),
-    ("softmax", "softmax"), ("reduce_kernel", "reductions"),
-    ("index", "indexing"), ("scatter", "indexing"), ("gather", "indexing"),
-    ("copy", "copies and casts"), ("Cat", "copies and casts"),
-    ("elementwise", "elementwise"), ("Memset", "copies and casts"),
-    ("Memcpy", "copies and casts"))
-
-
-def device_time_by_name(prof, wall):
-    """Sum the device kernels and copies of a profile by name: wall and
-    device ms, idle share, the top 20 names and the sums by group."""
-    import torch
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    dev_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
-    groups = {}
-    for name, (ms, n) in by_name.items():
-        g = next((g for frag, g in KERNEL_GROUPS if frag in name), "other")
-        gms, gn = groups.get(g, (0.0, 0))
-        groups[g] = (gms + ms, gn + n)
-    return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
-            "idle_share": max(0.0, 1 - dev_ms / (wall * 1e3)),
-            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                    for k, (ms, n) in top],
-            "groups": {g: {"ms": ms, "calls": n} for g, (ms, n) in
-                       sorted(groups.items(), key=lambda kv: -kv[1][0])}}
-
-
 def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512,
                   engine_kw=None):
     """Device time by kernel name over one admission round (prefill) and 8
@@ -5702,6 +5866,7 @@ def phase_profile(cfg, params, out, out_key, max_seq=1024, prompt_max=512,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis.roofline import device_time_by_name
     from repro_torch.launch.serve import make_trace
     from repro_torch.serving import ServeEngine
     eng = ServeEngine(cfg, params=params, max_seq=max_seq, batch_size=8,
@@ -5914,6 +6079,11 @@ def main(argv=None):
     state = {}
     t_all = time.perf_counter()
     failed = []
+    # phase 21 (b) runs on the host's CPU only: start it now, beside the
+    # card's phases, and collect it in phase 21
+    dryrun_cli = DryrunCli()
+    if "roofline" in phases:
+        dryrun_cli.start()
     # each profile phase right after the phase whose state it profiles;
     # serve_ssm, train and train_ssm free the earlier phases' weights and
     # state
@@ -5923,7 +6093,7 @@ def main(argv=None):
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
              "serve_lifecycle", "serve_disagg", "train_scheduled", "prefill",
-             "whisper", "elastic", "stack_bits", "nccl_pair")
+             "whisper", "elastic", "roofline", "stack_bits", "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -5996,6 +6166,8 @@ def main(argv=None):
                 phase_whisper(state, out)
             elif name == "elastic":
                 phase_elastic(state, out)
+            elif name == "roofline":
+                phase_roofline(state, out, dryrun_cli)
             elif name == "stack_bits":
                 phase_stack_bits(state, out)
             elif name == "nccl_pair":
@@ -6009,6 +6181,7 @@ def main(argv=None):
         out["phases"][name] = {"status": status,
                                "s": time.perf_counter() - t0}
         log(f"  phase {name}: {status} ({time.perf_counter() - t0:.1f} s)")
+    dryrun_cli.stop()
     out["wall_s"] = time.perf_counter() - t_all
     out["kernels"] = kernel_records(out)
     dest = ROOT / "chiprun_out"

@@ -753,6 +753,80 @@ def builtin_kernel_models() -> List[KernelModel]:
     return out
 
 
+def attribute_models() -> List[KernelModel]:
+    """``builtin_kernel_models`` and, for the instances no main-path shape
+    launches, a model at a shape that launches each: the general kernels
+    in bf16 (a width that is not a multiple of 8, a head_dim of 96 or 48
+    keeps them off the wgmma paths) and ``topk_combine``'s other k
+    templates and its scalar form."""
+    out = builtin_kernel_models()
+    bf = "bfloat16"
+    out += fused_mlp_models(4, 24, 100, 136, 100, dtype=bf)
+    out += fused_mlp_bwd_models("fused_mlp_dgrad", 4, 24, 100, 136, 100,
+                                dtype=bf)
+    out += fused_mlp_bwd_models("fused_mlp_wgrad", 4, 24, 100, 136, 100,
+                                dtype=bf)
+    out += grouped_gemm_models(4, 24, 100, 136, dtype=bf)
+    out += flash_models(2, 4, 4, 64, 64, 96, dtype=bf)
+    out += ssd_models(1, 64, 2, 48, 16, dtype=bf)
+    for dt in (bf, "float32"):
+        for k in (2, 3, 8):
+            out += topk_combine_models(2048, k, 2048, dtype=dt)
+        out += topk_combine_models(64, 4, 2047, dtype=dt)     # scalar
+    return out
+
+
+def check_attributes(attrs: Sequence[Dict], models: Optional[
+        Sequence[KernelModel]] = None, optin: int = SMEM_PER_BLOCK,
+        regs_per_sm: int = 65536) -> List[Diagnostic]:
+    """Every compiled instance (``kernels/build.kernel_attributes``: its
+    label names the models it runs and their input dtype) against each of
+    those models (``attribute_models``): the model's threads at most the
+    instance's ``maxThreadsPerBlock``, its ``static_smem`` the compiled
+    ``sharedSizeBytes``, its dynamic plus the static shared memory within
+    the opt-in limit, registers x threads within one SM's file. An
+    instance with no model, and a model family no instance runs, are
+    errors too: the check covers every launch."""
+    models = attribute_models() if models is None else list(models)
+    diags: List[Diagnostic] = []
+    covered = set()
+    for a in attrs:
+        names, dtype, _ = a["label"].split("|")
+        loc = f"kernel:{a['source']}:{a['label']}"
+        mine = [m for m in models if m.name in names.split(",")
+                and m.in_dtypes[0] == dtype]
+        if not mine:
+            diags.append(_d("attr-no-model", loc,
+                            "no launch model runs this instance"))
+        for m in mine:
+            covered.add((m.name, dtype))
+            if m.threads > a["max_threads"]:
+                diags.append(_d("attr-threads", loc,
+                                f"model {m.name} launches {m.threads} "
+                                f"threads, the instance takes at most "
+                                f"{a['max_threads']}"))
+            if m.static_smem != a["static_smem"]:
+                diags.append(_d("attr-static-smem", loc,
+                                f"model {m.name} has {m.static_smem} bytes "
+                                f"of static shared memory, the instance "
+                                f"{a['static_smem']}"))
+            if m.dyn_smem + a["static_smem"] > optin:
+                diags.append(_d("attr-smem", loc,
+                                f"model {m.name}: {m.dyn_smem} dynamic + "
+                                f"{a['static_smem']} static bytes exceed "
+                                f"the {optin} a block may opt into"))
+            if a["regs"] * m.threads > regs_per_sm:
+                diags.append(_d("attr-registers", loc,
+                                f"model {m.name}: {a['regs']} registers x "
+                                f"{m.threads} threads exceed the "
+                                f"{regs_per_sm} of an SM"))
+    for key in sorted({(m.name, m.in_dtypes[0]) for m in models} - covered):
+        diags.append(_d("attr-no-instance", f"kernel:{key[0]}",
+                        f"no compiled instance runs model {key[0]} on "
+                        f"{key[1]}"))
+    return diags
+
+
 def check_builtin_kernels() -> List[Diagnostic]:
     diags: List[Diagnostic] = []
     for m in builtin_kernel_models():

@@ -243,6 +243,27 @@ class ShapeConfig:
         return self.n_pages or self.global_batch * self.max_blocks + 1
 
 
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 4, "train")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; else reason for the documented skip."""
+    if shape.name == "long_500k":
+        subquad = cfg.family in ("ssm", "hybrid")
+        if not subquad:
+            return False, ("pure full-attention arch: O(S) KV read per decoded "
+                           "token at S=524288 exceeds the HBM envelope and the "
+                           "assignment marks long_500k sub-quadratic-only")
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

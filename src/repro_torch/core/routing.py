@@ -134,3 +134,9 @@ def combine(recv_flat, info: DispatchInfo, weights, E_loc: int, C: int,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     rows = rows.reshape(info.T, info.k, -1)
     return ops.topk_combine_diff(rows, weights)
+
+
+def moe_flops(T: int, k: int, d: int, f: int, glu: bool) -> int:
+    """Active FLOPs of one MoE FFN on T tokens (for roofline / adaptive)."""
+    n_mat = 3 if glu else 2
+    return 2 * T * k * n_mat * d * f

@@ -74,6 +74,10 @@ SIGNATURES = {
     "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P),
 }
+# each source's attribute query (csrc/attrs.cuh): (instance, out, label, cap)
+ATTR_QUERIES = tuple(f"repro_attrs_{p.stem}"
+                     for p in sorted(CSRC.glob("*.cu")))
+SIGNATURES.update({q: (_I, _P, _P, _I) for q in ATTR_QUERIES})
 
 
 @dataclass
@@ -161,6 +165,32 @@ def load() -> KernelLibrary:
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, path, build_s, log)
+
+
+def kernel_attributes(lib: KernelLibrary) -> list:
+    """Every compiled kernel instance's attributes, as each source's query
+    reports them (``csrc/attrs.cuh``): a dict per instance with its
+    source, label ("<model names>|<input dtype>|<template arguments>"),
+    registers a thread, static shared bytes, local (spill) bytes a thread
+    and the most threads a block may have."""
+    out = []
+    vals = (ctypes.c_int * 4)()
+    label = ctypes.create_string_buffer(256)
+    for q in ATTR_QUERIES:
+        fn = getattr(lib.lib, q)
+        i = 0
+        while True:
+            err = fn(i, ctypes.cast(vals, ctypes.c_void_p),
+                     ctypes.cast(label, ctypes.c_void_p), len(label))
+            if err == -1:
+                break
+            lib.check(q, err)
+            out.append({"source": q[len("repro_attrs_"):] + ".cu",
+                        "label": label.value.decode(), "regs": vals[0],
+                        "static_smem": vals[1], "local_bytes": vals[2],
+                        "max_threads": vals[3]})
+            i += 1
+    return out
 
 
 def dtype_code(name: str, *tensors) -> int:

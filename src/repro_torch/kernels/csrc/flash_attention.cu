@@ -27,6 +27,7 @@
 // read in the model's (B, S, H, hd) layout through their strides; a
 // head_dim below 64 or 128 is zero-filled in shared memory.
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -219,4 +220,28 @@ extern "C" int repro_flash_attention(const void* q, long long sqb,
                                    st);
   return dispatch<float>(q, sqb, sqs, sqh, k, skb, sks, skh, v, svb, svs, svh,
                          o, B, Hq, Hkv, Sq, Sk, hd, causal, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_flash_attention(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&flash_kernel<float, 64>,
+                                 "flash_attention[general]|float32|HD 64", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&flash_kernel<float, 128>,
+                                 "flash_attention[general]|float32|HD 128", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&flash_kernel<__nv_bfloat16, 64>,
+                                 "flash_attention[general]|bfloat16|HD 64", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&flash_kernel<__nv_bfloat16, 128>,
+                                 "flash_attention[general]|bfloat16|HD 128", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -63,6 +63,7 @@
 // repeated copy. No atomics: two calls give the same bits.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 using namespace repro::hopper;
@@ -342,4 +343,20 @@ extern "C" int repro_flash_attention_hopper(
   if (err != cudaSuccess) return err;
   if (hd == 64) return launch<64>(tq, tk, tv, o, B, Hq, Hkv, Sq, Sk, causal, st);
   return launch<128>(tq, tk, tv, o, B, Hq, Hkv, Sq, Sk, causal, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_flash_attention_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&flash_hopper_kernel<64>,
+                                 "flash_attention[wgmma]|bfloat16|HD 64", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&flash_hopper_kernel<128>,
+                                 "flash_attention[wgmma]|bfloat16|HD 128", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

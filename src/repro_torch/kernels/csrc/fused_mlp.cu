@@ -35,6 +35,7 @@
 // slab 0 of every expert first. Blocks run in parallel on the GPU, so it
 // sets issue order only.
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -186,4 +187,36 @@ extern "C" int repro_fused_mlp(const void* x, long long sxe, long long sxr,
                                   st);
   return launch<float, 32, 128>(x, sxe, sxr, wg, wu, swe, swk, wd, sde, sdf,
                                 part, out, E, R, d, f, N, act, order, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&fused_mlp_partial_kernel<float, 16, 128>,
+                                 "fused_mlp[general]/expert_major,fused_mlp[general]/n_major|float32|BM 16, BN 128", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&fused_mlp_partial_kernel<float, 32, 128>,
+                                 "fused_mlp[general]/expert_major,fused_mlp[general]/n_major|float32|BM 32, BN 128", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&fused_mlp_partial_kernel<__nv_bfloat16, 16, 256>,
+                                 "fused_mlp[general]/expert_major,fused_mlp[general]/n_major|bfloat16|BM 16, BN 256", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&fused_mlp_partial_kernel<__nv_bfloat16, 32, 256>,
+                                 "fused_mlp[general]/expert_major,fused_mlp[general]/n_major|bfloat16|BM 32, BN 256", out,
+                                 label, cap);
+    case 4:
+      return repro_attrs::query(&sum_partials_kernel<float>,
+                                 "fused_mlp[general]/sum_partials|float32|out float32", out,
+                                 label, cap);
+    case 5:
+      return repro_attrs::query(&sum_partials_kernel<__nv_bfloat16>,
+                                 "fused_mlp[general]/sum_partials|float32|out bfloat16", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -32,6 +32,7 @@
 // training shape. Ragged R, d, f and N are zero-filled on load and masked on
 // store; w_down and dY may be column slices (their own row strides).
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -228,4 +229,28 @@ extern "C" int repro_fused_mlp_dgrad(
                                  st);
   return launch<float>(x, sxe, sxr, wg, wu, swe, swk, wd, sde, sdf, dy, sye,
                        syr, part, out, E, R, d, f, N, act, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp_dgrad(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&fused_mlp_dgrad_partial_kernel<float>,
+                                 "fused_mlp_dgrad[general]/partial|float32|", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&fused_mlp_dgrad_partial_kernel<__nv_bfloat16>,
+                                 "fused_mlp_dgrad[general]/partial|bfloat16|", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&sum_partials_kernel<float>,
+                                 "fused_mlp_dgrad[general]/sum_partials|float32|out float32", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&sum_partials_kernel<__nv_bfloat16>,
+                                 "fused_mlp_dgrad[general]/sum_partials|float32|out bfloat16", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -39,6 +39,7 @@
 // Ragged R, d and f arrive as zeros from TMA and are masked on store. No
 // reduce pass and no atomics: two calls give the same bits.
 #include "fused_mlp_recompute.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -206,4 +207,28 @@ extern "C" int repro_fused_mlp_dgrad_hopper(
   kern<<<static_cast<unsigned>(blocks), 3 * kWarpgroup, SMEM2, st>>>(
       tdu, tbu, tdg, tbg, static_cast<bf16*>(dx), E, R, d, f);
   return cudaGetLastError();
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp_dgrad_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&recompute_kernel<true>,
+                                 "fused_mlp_dgrad[wgmma]/recompute|bfloat16|GLU", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&recompute_kernel<false>,
+                                 "fused_mlp_dgrad[wgmma]/recompute|bfloat16|no GLU", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&dgrad_product_kernel<true>,
+                                 "fused_mlp_dgrad[wgmma]/product|bfloat16|GLU", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&dgrad_product_kernel<false>,
+                                 "fused_mlp_dgrad[wgmma]/product|bfloat16|no GLU", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

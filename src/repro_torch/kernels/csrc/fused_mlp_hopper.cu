@@ -51,6 +51,7 @@
 // common.cuh::tile_of does, and the reduce pass's traversal.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 using namespace repro::hopper;
@@ -329,4 +330,24 @@ extern "C" int repro_fused_mlp_hopper(const void* x, long long sxe,
                       st>>>(static_cast<const float*>(part),
                             static_cast<bf16*>(out), rows, N, S, order);
   return cudaGetLastError();
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&fused_mlp_hopper_kernel<true>,
+                                 "fused_mlp[wgmma]/expert_major,fused_mlp[wgmma]/n_major|bfloat16|GLU", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&fused_mlp_hopper_kernel<false>,
+                                 "fused_mlp[wgmma]/expert_major,fused_mlp[wgmma]/n_major|bfloat16|no GLU", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&sum_splits_kernel,
+                                 "fused_mlp[wgmma]/sum_splits|float32|", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -34,6 +34,7 @@
 // zero-filled on load and masked on the final store (the scratch is padded to
 // whole tiles); w_down and dY may be column slices.
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -260,4 +261,20 @@ extern "C" int repro_fused_mlp_wgrad(
         static_cast<float*>(dwd), E, R, d, f, N, act);
   }
   return cudaGetLastError();
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp_wgrad(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&fused_mlp_wgrad_kernel<float>,
+                                 "fused_mlp_wgrad[general]/fused|float32|", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&fused_mlp_wgrad_kernel<__nv_bfloat16>,
+                                 "fused_mlp_wgrad[general]/fused|bfloat16|", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

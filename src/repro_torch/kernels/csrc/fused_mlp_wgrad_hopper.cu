@@ -46,6 +46,7 @@
 // f and N arrive as zeros from TMA and are masked on store. No atomics: two
 // calls give the same bits.
 #include "fused_mlp_recompute.cuh"
+#include "attrs.cuh"
 
 namespace {
 
@@ -265,4 +266,28 @@ extern "C" int repro_fused_mlp_wgrad_hopper(
   const Product pu{static_cast<bf16*>(dwu), static_cast<bf16*>(dwg), d, f};
   return glu ? launch_product<true>(ops.x, tdu, tdg, pu, E, R, st)
              : launch_product<false>(ops.x, tdu, tdu, pu, E, R, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_fused_mlp_wgrad_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&recompute_kernel<true>,
+                                 "fused_mlp_wgrad[wgmma]/recompute|bfloat16|GLU", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&recompute_kernel<false>,
+                                 "fused_mlp_wgrad[wgmma]/recompute|bfloat16|no GLU", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&wgrad_product_kernel<true>,
+                                 "fused_mlp_wgrad[wgmma]/dw_down,fused_mlp_wgrad[wgmma]/dw_up_gate|bfloat16|two outputs", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&wgrad_product_kernel<false>,
+                                 "fused_mlp_wgrad[wgmma]/dw_down,fused_mlp_wgrad[wgmma]/dw_up_gate|bfloat16|one output", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -20,6 +20,7 @@
 // zero-filled on load and masked on store instead of padded
 // (grouped_gemm_padded pads them); the rhs may be a column slice.
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -100,4 +101,20 @@ extern "C" int repro_grouped_gemm(const void* lhs, long long sle,
                                           E, M, K, N, order, st);
   return launch<float, 64, 64>(lhs, sle, slm, rhs, sre, srk, out, E, M, K, N,
                                order, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_grouped_gemm(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&grouped_gemm_kernel<float, 64, 64>,
+                                 "grouped_gemm[general]/expert_major,grouped_gemm[general]/n_major|float32|BM 64, BN 64", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&grouped_gemm_kernel<__nv_bfloat16, 64, 128>,
+                                 "grouped_gemm[general]/expert_major,grouped_gemm[general]/n_major|bfloat16|BM 64, BN 128", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

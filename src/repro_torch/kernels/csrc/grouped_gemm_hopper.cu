@@ -57,6 +57,7 @@
 // and two calls give the same bits.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 using namespace repro::hopper;
@@ -298,4 +299,20 @@ extern "C" int repro_grouped_gemm_hopper(const void* lhs, long long sle,
                        st);
   return launch<128>(tl, tr, out, E, M, K, N, order, frags, stages, blocks,
                      st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_grouped_gemm_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&grouped_gemm_hopper_kernel<256>,
+                                 "grouped_gemm[wgmma]/expert_major,grouped_gemm[wgmma]/n_major|bfloat16|BN 256", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&grouped_gemm_hopper_kernel<128>,
+                                 "grouped_gemm[wgmma]/expert_major,grouped_gemm[wgmma]/n_major|bfloat16|BN 128", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

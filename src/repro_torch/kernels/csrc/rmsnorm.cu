@@ -38,6 +38,7 @@
 // two calls give the same bits.
 #include <type_traits>
 
+#include "attrs.cuh"
 #include "common.cuh"
 
 using namespace repro;
@@ -310,4 +311,63 @@ extern "C" int repro_rmsnorm(const void* x, const void* scale, void* y,
   if (sdtype == 1) return cudaErrorInvalidValue;   // fp32 x, bf16 scale
   return dispatch_vec<float, float>(x, scale, y, rows, d, eps, epilogue, vec,
                                     wpr, nv, groups, blocks, reg_scale, st);
+}
+
+namespace {
+
+const char* dtype_name(float) { return "float32"; }
+const char* dtype_name(__nv_bfloat16) { return "bfloat16"; }
+
+template <typename T, typename TS, int V, int NV, bool kModel, bool kRegScale>
+int rmsnorm_attrs(int* out, char* label, int cap) {
+  char text[128];
+  snprintf(text, sizeof(text), "rmsnorm|%s|scale %s, V %d, NV %d, %s, %s",
+           dtype_name(T()), dtype_name(TS()), V, NV,
+           kModel ? "model" : "tpu", kRegScale ? "scale in registers"
+                                               : "scale in shared memory");
+  return repro_attrs::query(&rmsnorm_kernel<T, TS, V, NV, kModel, kRegScale>,
+                            text, out, label, cap);
+}
+
+using AttrsFn = int (*)(int*, char*, int);
+constexpr int kPerVector = 14;   // launch_nv's instances at one (T, TS, V)
+
+// the instances launch() reaches at one (T, TS, V): the scale in registers
+// at NV 1 and 2, in shared memory at NV 1, 2, 4, 6 and 8, both epilogues
+template <typename T, typename TS, int V>
+int rmsnorm_attrs_at(int i, int* out, char* label, int cap) {
+  static const AttrsFn fns[kPerVector] = {
+      rmsnorm_attrs<T, TS, V, 1, true, true>,
+      rmsnorm_attrs<T, TS, V, 1, false, true>,
+      rmsnorm_attrs<T, TS, V, 2, true, true>,
+      rmsnorm_attrs<T, TS, V, 2, false, true>,
+      rmsnorm_attrs<T, TS, V, 1, true, false>,
+      rmsnorm_attrs<T, TS, V, 1, false, false>,
+      rmsnorm_attrs<T, TS, V, 2, true, false>,
+      rmsnorm_attrs<T, TS, V, 2, false, false>,
+      rmsnorm_attrs<T, TS, V, 4, true, false>,
+      rmsnorm_attrs<T, TS, V, 4, false, false>,
+      rmsnorm_attrs<T, TS, V, 6, true, false>,
+      rmsnorm_attrs<T, TS, V, 6, false, false>,
+      rmsnorm_attrs<T, TS, V, 8, true, false>,
+      rmsnorm_attrs<T, TS, V, 8, false, false>};
+  return fns[i](out, label, cap);
+}
+
+}  // namespace
+
+// The attributes of every kernel instance this file launches (attrs.cuh):
+// dispatch_vec's (T, TS) pairs, each at the 16-byte vector and at V 1.
+extern "C" int repro_attrs_rmsnorm(int i, int* out, char* label, int cap) {
+  using bf16 = __nv_bfloat16;
+  if (i < 0 || i >= 6 * kPerVector) return -1;
+  const int j = i % kPerVector;
+  switch (i / kPerVector) {
+    case 0: return rmsnorm_attrs_at<bf16, bf16, 8>(j, out, label, cap);
+    case 1: return rmsnorm_attrs_at<bf16, bf16, 1>(j, out, label, cap);
+    case 2: return rmsnorm_attrs_at<bf16, float, 8>(j, out, label, cap);
+    case 3: return rmsnorm_attrs_at<bf16, float, 1>(j, out, label, cap);
+    case 4: return rmsnorm_attrs_at<float, float, 4>(j, out, label, cap);
+    default: return rmsnorm_attrs_at<float, float, 1>(j, out, label, cap);
+  }
 }

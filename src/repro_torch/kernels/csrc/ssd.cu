@@ -36,6 +36,7 @@
 // through the index, with no per-head broadcast. Every product is fp32 FMAs
 // in registers over shared-memory tiles (fma_tile in common.cuh).
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -256,4 +257,28 @@ extern "C" int repro_ssd_forward(const void* x, long long sxb, long long sxs,
   return dispatch_bc<float>(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A, Bm, sbb,
                             sbs, Cm, scb, scs, D, y, h0, hf, B, S, nh, hd,
                             ds, bcdtype, st);
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_ssd(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&ssd_kernel<float, float>,
+                                 "ssd_forward[general]|float32|B/C float32", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&ssd_kernel<float, __nv_bfloat16>,
+                                 "ssd_forward[general]|float32|B/C bfloat16", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&ssd_kernel<__nv_bfloat16, float>,
+                                 "ssd_forward[general]|bfloat16|B/C float32", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&ssd_kernel<__nv_bfloat16, __nv_bfloat16>,
+                                 "ssd_forward[general]|bfloat16|B/C bfloat16", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

@@ -52,6 +52,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "attrs.cuh"
 
 namespace {
 
@@ -562,4 +563,16 @@ extern "C" int repro_ssd_forward_hopper(
   return launch(x, sxb, sxs, sxh, dt, sdb, sds, sdh, A, Bm, sbb, sbs, Cm,
                 scb, scs, D, y, h0, hf, B, S, nh, hd, ds,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_ssd_hopper(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&ssd_hopper_kernel,
+                                 "ssd_forward[mma]|bfloat16|", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

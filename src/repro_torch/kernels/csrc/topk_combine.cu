@@ -22,6 +22,7 @@
 // order (no fused multiply-add): the bits of the plain j-order sum
 // (ref.topk_combine_ordered). Every input byte is read once.
 #include "common.cuh"
+#include "attrs.cuh"
 
 using namespace repro;
 
@@ -193,4 +194,68 @@ extern "C" int repro_topk_combine(const void* rows, const void* w, void* out,
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The attributes of every kernel instance this file launches (attrs.cuh).
+extern "C" int repro_attrs_topk_combine(int i, int* out, char* label, int cap) {
+  switch (i) {
+    case 0:
+      return repro_attrs::query(&topk_combine_vec<float, 2, 2>,
+                                 "topk_combine[2]|float32|K 2, PER 2", out,
+                                 label, cap);
+    case 1:
+      return repro_attrs::query(&topk_combine_vec<float, 0, 2>,
+                                 "topk_combine[generic]|float32|K 0, PER 2", out,
+                                 label, cap);
+    case 2:
+      return repro_attrs::query(&topk_combine_vec<float, 2, 1>,
+                                 "topk_combine[2]|float32|K 2, PER 1", out,
+                                 label, cap);
+    case 3:
+      return repro_attrs::query(&topk_combine_vec<float, 4, 1>,
+                                 "topk_combine[4]|float32|K 4, PER 1", out,
+                                 label, cap);
+    case 4:
+      return repro_attrs::query(&topk_combine_vec<float, 8, 1>,
+                                 "topk_combine[8]|float32|K 8, PER 1", out,
+                                 label, cap);
+    case 5:
+      return repro_attrs::query(&topk_combine_vec<float, 0, 1>,
+                                 "topk_combine[generic]|float32|K 0, PER 1", out,
+                                 label, cap);
+    case 6:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 2, 2>,
+                                 "topk_combine[2]|bfloat16|K 2, PER 2", out,
+                                 label, cap);
+    case 7:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 0, 2>,
+                                 "topk_combine[generic]|bfloat16|K 0, PER 2", out,
+                                 label, cap);
+    case 8:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 2, 1>,
+                                 "topk_combine[2]|bfloat16|K 2, PER 1", out,
+                                 label, cap);
+    case 9:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 4, 1>,
+                                 "topk_combine[4]|bfloat16|K 4, PER 1", out,
+                                 label, cap);
+    case 10:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 8, 1>,
+                                 "topk_combine[8]|bfloat16|K 8, PER 1", out,
+                                 label, cap);
+    case 11:
+      return repro_attrs::query(&topk_combine_vec<__nv_bfloat16, 0, 1>,
+                                 "topk_combine[generic]|bfloat16|K 0, PER 1", out,
+                                 label, cap);
+    case 12:
+      return repro_attrs::query(&topk_combine_scalar<float>,
+                                 "topk_combine[generic]|float32|scalar", out,
+                                 label, cap);
+    case 13:
+      return repro_attrs::query(&topk_combine_scalar<__nv_bfloat16>,
+                                 "topk_combine[generic]|bfloat16|scalar", out,
+                                 label, cap);
+    default:
+      return -1;
+  }
 }

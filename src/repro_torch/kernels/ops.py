@@ -21,12 +21,20 @@ devices, because the JAX package has no backward kernel for either
 forward, the plain form recomputed under autograd backward, for the same
 reason. ``ssd_forward_state`` is the serving chunks' SSD, with an initial
 and a final state, under ``no_grad``.
+
+A ``meta`` tensor goes to the plain version too: on ``meta`` it only
+propagates shapes (the dry run, ``launch/dryrun.py``). Each kernel call
+(forward, and the fused MLP's dgrad and wgrad) runs through ``_kernel``:
+under ``analysis/op_cost.count_cost`` it is one region, priced by the
+kernel's cost function and not by what runs inside it, so a step counts
+the same on CPU, CUDA and ``meta`` tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_mlp as _fm
@@ -39,17 +47,30 @@ from repro_torch.kernels import topk_combine as _tc
 
 def _on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
     kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"operands on unsupported or mixed devices {kinds}")
 
 
+def _kernel(name: str, fn: Callable, *operands):
+    """``fn()``, one call of kernel ``name`` on ``operands``: under a cost
+    counter (a dispatch mode with a ``kernel_region``) the counter runs it
+    as one region, else it just runs."""
+    for mode in _get_current_dispatch_mode_stack():
+        region = getattr(mode, "kernel_region", None)
+        if region is not None:
+            return region(name, operands, fn)
+    return fn()
+
+
 def topk_combine(rows, weights):
-    if _on_cuda(rows, weights):
-        return _tc.topk_combine(rows, weights)
-    return ref.topk_combine_ref(rows, weights)
+    def run():
+        if _on_cuda(rows, weights):
+            return _tc.topk_combine(rows, weights)
+        return ref.topk_combine_ref(rows, weights)
+    return _kernel("topk_combine", run, rows, weights)
 
 
 def grouped_gemm(lhs, rhs, order: str = "expert_major"):
@@ -66,9 +87,11 @@ def grouped_gemm(lhs, rhs, order: str = "expert_major"):
             'grouped_gemm: the "pallas" GroupGEMM backend has no backward '
             '(as in the JAX package); differentiate through gemm_impl='
             '"xla" or "pallas_fused", or through impl="comet"')
-    if _on_cuda(lhs, rhs):
-        return _gg.grouped_gemm(lhs, rhs, order=order)
-    return ref.grouped_gemm_ref(lhs, rhs)
+    def run():
+        if _on_cuda(lhs, rhs):
+            return _gg.grouped_gemm(lhs, rhs, order=order)
+        return ref.grouped_gemm_ref(lhs, rhs)
+    return _kernel("grouped_gemm", run, lhs, rhs)
 
 
 class _TopkCombine(torch.autograd.Function):
@@ -104,10 +127,13 @@ class _FusedMLP(torch.autograd.Function):
     def forward(ctx, rows, w_gate, w_up, w_down, activation, order):
         ctx.save_for_backward(rows, w_gate, w_up, w_down)
         ctx.activation = activation
-        if _on_cuda(rows, w_gate, w_up, w_down):
-            return _fm.fused_mlp(rows, w_gate, w_up, w_down, activation,
-                                 order)
-        return ref.fused_mlp_ref(rows, w_gate, w_up, w_down, activation)
+
+        def run():
+            if _on_cuda(rows, w_gate, w_up, w_down):
+                return _fm.fused_mlp(rows, w_gate, w_up, w_down, activation,
+                                     order)
+            return ref.fused_mlp_ref(rows, w_gate, w_up, w_down, activation)
+        return _kernel("fused_mlp", run, rows, w_gate, w_up, w_down)
 
     @staticmethod
     def backward(ctx, ct):
@@ -138,11 +164,15 @@ def fused_mlp_dgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
     covers the output columns ``col_slice`` (all of them when None). Per
     column block calls sum to the full dX."""
     wd, wg = _sliced_wd(w, col_slice), w.get("w_gate")
-    if _on_cuda(rows, wg, w["w_up"], wd, dy):
-        # an autograd cotangent may be an expanded (stride-0) tensor
-        return _fm.fused_mlp_dgrad(rows, wg, w["w_up"], wd, dy.contiguous(),
-                                   activation)
-    return ref.fused_mlp_dgrad_ref(rows, wg, w["w_up"], wd, dy, activation)
+
+    def run():
+        if _on_cuda(rows, wg, w["w_up"], wd, dy):
+            # an autograd cotangent may be an expanded (stride-0) tensor
+            return _fm.fused_mlp_dgrad(rows, wg, w["w_up"], wd,
+                                       dy.contiguous(), activation)
+        return ref.fused_mlp_dgrad_ref(rows, wg, w["w_up"], wd, dy,
+                                       activation)
+    return _kernel("fused_mlp_dgrad", run, rows, wg, w["w_up"], wd, dy)
 
 
 def fused_mlp_wgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
@@ -151,10 +181,14 @@ def fused_mlp_wgrad(rows, w: Dict[str, torch.Tensor], dy, activation: str,
     columns ``col_slice``: dw_down covers that column block, dw_up/dw_gate
     are the block's partials (they sum over blocks to the full gradient)."""
     wd, wg = _sliced_wd(w, col_slice), w.get("w_gate")
-    if _on_cuda(rows, wg, w["w_up"], wd, dy):
-        return _fm.fused_mlp_wgrad(rows, wg, w["w_up"], wd, dy.contiguous(),
-                                   activation)
-    return ref.fused_mlp_wgrad_ref(rows, wg, w["w_up"], wd, dy, activation)
+
+    def run():
+        if _on_cuda(rows, wg, w["w_up"], wd, dy):
+            return _fm.fused_mlp_wgrad(rows, wg, w["w_up"], wd,
+                                       dy.contiguous(), activation)
+        return ref.fused_mlp_wgrad_ref(rows, wg, w["w_up"], wd, dy,
+                                       activation)
+    return _kernel("fused_mlp_wgrad", run, rows, wg, w["w_up"], wd, dy)
 
 
 class _Flash(torch.autograd.Function):
@@ -162,9 +196,12 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        if _on_cuda(q, k, v):
-            return _fa.flash_attention(q, k, v, causal)
-        return ref.flash_attention_ref(q, k, v, causal)
+
+        def run():
+            if _on_cuda(q, k, v):
+                return _fa.flash_attention(q, k, v, causal)
+            return ref.flash_attention_ref(q, k, v, causal)
+        return _kernel("flash_attention", run, q, k, v, causal)
 
     @staticmethod
     def backward(ctx, ct):
@@ -187,9 +224,12 @@ class _SSD(torch.autograd.Function):
         on_cuda = _on_cuda(x, dt, A, Bm, Cm, D)
         # the backward differentiates the form the forward ran
         ctx.chunk = _ssd.CHUNK if on_cuda else chunk
-        if on_cuda:
-            return _ssd.ssd_forward(x, dt, A, Bm, Cm, D)
-        return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+
+        def run():
+            if on_cuda:
+                return _ssd.ssd_forward(x, dt, A, Bm, Cm, D)
+            return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+        return _kernel("ssd_forward", run, x, dt, A, Bm, Cm, D, None, False)
 
     @staticmethod
     def backward(ctx, ct):
@@ -219,10 +259,12 @@ def ssd_forward_state(x, dt, A, Bm, Cm, D, chunk: int = 64,
     ``ssd_chunked(..., h0)`` in ``repro/models/ssm.py:180-188``). On the
     CPU the plain chunked form runs at ``chunk``; the CUDA kernel runs its
     own chunk of ``kernels/ssd.CHUNK``. Not differentiable."""
-    if _on_cuda(x, dt, A, Bm, Cm, D, h0):
-        return _ssd.ssd_forward_state(x, dt, A, Bm, Cm, D,
-                                      None if h0 is None else h0.contiguous())
-    return ref.ssd_state_ref(x, dt, A, Bm, Cm, D, h0, chunk)
+    def run():
+        if _on_cuda(x, dt, A, Bm, Cm, D, h0):
+            return _ssd.ssd_forward_state(
+                x, dt, A, Bm, Cm, D, None if h0 is None else h0.contiguous())
+        return ref.ssd_state_ref(x, dt, A, Bm, Cm, D, h0, chunk)
+    return _kernel("ssd_forward", run, x, dt, A, Bm, Cm, D, h0, True)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -230,11 +272,14 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        if _on_cuda(x, scale):
-            y = _rn.rmsnorm(x.reshape(-1, x.shape[-1]).contiguous(),
-                            scale.contiguous(), eps, epilogue="model")
-            return y.reshape(x.shape)
-        return ref.rms_norm(x, scale, eps)
+
+        def run():
+            if _on_cuda(x, scale):
+                y = _rn.rmsnorm(x.reshape(-1, x.shape[-1]).contiguous(),
+                                scale.contiguous(), eps, epilogue="model")
+                return y.reshape(x.shape)
+            return ref.rms_norm(x, scale, eps)
+        return _kernel("rmsnorm", run, x, scale)
 
     @staticmethod
     def backward(ctx, ct):

@@ -206,8 +206,11 @@ def flash_attention_ref(q, k, v, causal=True):
     """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Sk, hd) -> (B, Hq, Sq, hd).
     fp32 scores scaled after the product, -1e30 causal mask by positions
     from 0, fp32 softmax, output rounded to q's dtype (the JAX package's
-    ``ref.flash_attention_ref``)."""
-    return _attention_fp32(q, k, v, causal)
+    ``ref.flash_attention_ref``). Laid out as the kernels return it, a
+    view of a contiguous (B, Sq, Hq, hd) tensor, so the code after it
+    runs the same ops on every device."""
+    out = _attention_fp32(q, k, v, causal)
+    return out.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 def flash_attention_vjp(q, k, v, causal, ct):

@@ -65,6 +65,23 @@ def _reduce_over_dp(ctx: AxisCtx, grads, specs) -> None:
             CL.all_reduce_(g, group)
 
 
+def _grad(lo: torch.Tensor, leaves):
+    """d lo / d each leaf; a leaf the loss does not use (a VLM's token
+    embedding under an ``embeds`` batch) gets zeros, as ``jax.grad``
+    gives them."""
+    return torch.autograd.grad(lo, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
+def _all_finite(flag: torch.Tensor) -> bool:
+    """The non-finite guard's host read of ``flag``. A ``meta`` step (the
+    dry run, ``launch/dryrun.py``) holds no values: it takes the finite
+    branch, so the update's ops run on the state's shapes."""
+    if flag.is_meta:
+        return True
+    return bool(flag)                                   # host sync
+
+
 def make_train_fn(cfg, ctx: Optional[AxisCtx], optim: AdamW, accum: int,
                   fsdp: bool = True):
     """step(state, batch) -> (state, metrics). ``accum > 1`` takes batch
@@ -95,14 +112,14 @@ def make_train_fn(cfg, ctx: Optional[AxisCtx], optim: AdamW, accum: int,
                                device=leaves[0].device)
             for i in range(accum):
                 lo, _ = loss(params, {k: v[i] for k, v in batch.items()})
-                for acc, g in zip(grads, torch.autograd.grad(lo, leaves)):
+                for acc, g in zip(grads, _grad(lo, leaves)):
                     acc.add_(g.float())
                 lsum = lsum + lo.detach()
             grads = [g / accum for g in grads]
             lo = lsum / accum
         else:
             lo, _ = loss(params, batch)
-            grads = list(torch.autograd.grad(lo, leaves))
+            grads = list(_grad(lo, leaves))
             lo = lo.detach()
         if ranked:
             _reduce_over_dp(ctx, grads, specs)
@@ -112,10 +129,10 @@ def make_train_fn(cfg, ctx: Optional[AxisCtx], optim: AdamW, accum: int,
             # every rank counts the ranks whose loss is not finite
             bad = CL.all_reduce_((~torch.isfinite(lo)).float().reshape(1),
                                  ctx.mesh.group(ctx.mesh.axis_names))
-            ok = bool((bad[0] == 0) & torch.isfinite(gnorm))   # host sync
+            ok = _all_finite((bad[0] == 0) & torch.isfinite(gnorm))
         else:
             gnorm = global_norm(gtree)
-            ok = bool(torch.isfinite(lo) & torch.isfinite(gnorm))
+            ok = _all_finite(torch.isfinite(lo) & torch.isfinite(gnorm))
         if ok:
             _, state["opt"], stats = optim.update(gtree, state["opt"], params,
                                                   gnorm=gnorm)
@@ -150,8 +167,10 @@ def build_train_step(cfg, shape, mesh=None, optim: Optional[AdamW] = None,
     if schedule:
         cfg = dataclasses.replace(cfg, block_schedule=schedule)
     optim = optim or AdamW()
-    accum = SP.legal_accum(shape.global_batch,
-                           accum or SP.TRAIN_ACCUM.get(shape.name, 1))
+    # the shape's own microbatch size, else its name's default count
+    default = (shape.global_batch // shape.microbatch if shape.microbatch
+               else SP.TRAIN_ACCUM.get(shape.name, 1))
+    accum = SP.legal_accum(shape.global_batch, accum or default)
     ctx = SH.make_ctx(cfg, mesh, seq_shard=seq_shard)
     built = {"fn": make_train_fn(cfg, ctx, optim, accum, fsdp),
              "batch_structs": SP.train_batch_specs(cfg, shape, accum),

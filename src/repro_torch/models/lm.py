@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,7 +41,8 @@ from repro_torch.models.common import (ParamDecl, apply_norm,
                                        chunked_xent, ffn_schema,
                                        init_from_schema, model_sharded,
                                        norm_schema, sinusoid_at,
-                                       sinusoid_positions, tree_map)
+                                       sinusoid_positions, tree_leaves,
+                                       tree_map, tree_map_path)
 from repro_torch.parallel import collectives as CL
 from repro_torch.parallel import sharding as SH
 
@@ -127,6 +128,17 @@ def _logits(cfg, params, h, per_row: bool = False):
 
 def _period(tree: Tree, n: int) -> Tree:
     return tree_map(lambda a: a[n], tree)
+
+
+def _periods(tree: Tree, count: int) -> List[Tree]:
+    """``[_period(tree, n) for n in range(count)]`` by one ``unbind`` a
+    leaf: under autograd its backward stacks the periods' gradients once,
+    where each period's ``a[n]`` writes a gradient of the whole stacked
+    leaf (``select_backward``), which the accumulation then adds:
+    O(periods^2) bytes a step."""
+    parts = {path: a.unbind(0) for path, a in tree_leaves(tree)}
+    return [tree_map_path(lambda path, _, n=n: parts[path][n], tree)
+            for n in range(count)]
 
 
 def cache_shapes(cfg, batch_size: int, seq_len: int,
@@ -294,8 +306,7 @@ def encode(cfg, params, frames, ctx=None):
     h = frames.to(dtype_of(cfg.compute_dtype))
     h = h + sinusoid_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for n in range(cfg.n_enc_layers):
-        lp = _period(params["encoder"], n)
+    for n, lp in enumerate(_periods(params["encoder"], cfg.n_enc_layers)):
         if cfg.remat == "full" and torch.is_grad_enabled():
             h = checkpoint(_enc_layer, cfg, lp, h, positions, ctx,
                            use_reentrant=False)
@@ -380,8 +391,10 @@ def _scheduled_layers(cfg, params, h, positions, mask, arange, ctx=None,
     from repro_torch.core import schedule as SCH
     p = period_of(cfg)
     segs = []
+    periods = [_periods(params["layers"][pos], cfg.n_layers // p)
+               for pos in range(p)]
     for n in range(cfg.n_layers // p):
-        lp = [_period(params["layers"][pos], n) for pos in range(p)]
+        lp = [periods[pos][n] for pos in range(p)]
         if specs is not None:
             lp = SH.fsdp_gather_tree(lp, specs, ctx, drop=1)
         for pos in range(p):
@@ -483,8 +496,10 @@ def _forward(cfg, params, batch, ctx=None, fsdp: bool = True,
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         caches = []
         p = period_of(cfg)
+        periods = [_periods(params["layers"][pos], cfg.n_layers // p)
+                   for pos in range(p)]
         for n in range(cfg.n_layers // p):
-            lp = [_period(params["layers"][pos], n) for pos in range(p)]
+            lp = [periods[pos][n] for pos in range(p)]
             if (cfg.remat == "full" and torch.is_grad_enabled()
                     and not return_cache):
                 h, a, _ = checkpoint(_period_body, cfg, h, lp, positions,

@@ -330,9 +330,14 @@ def ppermute(x: torch.Tensor, ctx, pairs: Sequence[Tuple[int, int]]
     wire = (x.view(torch.uint8)
             if x.is_floating_point() and x.element_size() == 1 else x)
     buf = torch.empty_like(wire)
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, wire, group.ranks[dst], group.pg),
-        dist.P2POp(dist.irecv, buf, group.ranks[src], group.pg)])
+    if wire.is_meta:
+        # the dry run's meta tensors have no device backend to batch on
+        works = [dist.isend(wire, group.ranks[dst], group.pg),
+                 dist.irecv(buf, group.ranks[src], group.pg)]
+    else:
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, wire, group.ranks[dst], group.pg),
+            dist.P2POp(dist.irecv, buf, group.ranks[src], group.pg)])
     return Pending(buf.view(x.dtype), works, wire)
 
 
