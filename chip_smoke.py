@@ -391,9 +391,20 @@ Phases:
              its launch models (analysis/verify/kernel_check.py). (b)
              python -m repro_torch.launch.dryrun for qwen2-moe-2.7b x
              train_4k and x decode_32k on the single-pod mesh over 256
-             fake ranks, one process a cell: both ok. They need no card
-             and start in the background when the script starts (at the
-             lowest priority, one thread each); the phase collects them.
+             fake ranks, one process a cell: both ok. (a') the same step
+             once more, untimed, under count_cost(attribute=True), and
+             its meta dry run so: the same buckets (FLOPs, products,
+             bytes, calls) on both, their sums the timed count's totals,
+             each kernel's launches its region's calls, every one filed
+             under its region's bucket or that bucket's bwd:; the
+             card's bucket table is printed. (d) python -m
+             repro_torch.analysis.attribute qwen2-moe-2.7b decode_32k and
+             python -m repro_torch.launch.hillclimb qwen2-moe-2.7b
+             decode_32k n_col=2 save=1: both exit 0, the attribution's
+             buckets sum to its totals, the climb's saved report names
+             its overrides. (b) and (d) need no card and start in the
+             background when the script starts (at the lowest priority,
+             one thread each); the phase collects them.
 
 Extra phases, run only when named: ``--only build,serve,profile`` profiles
 one admission round and 8 decode steps of the serve configuration
@@ -5549,56 +5560,74 @@ def phase_elastic(state, out):
 
 
 ROOFLINE_CELLS = ("train_4k", "decode_32k")    # phase 21 (b)
+# phase 21 (d): the attribution and the override-climb CLIs on one cell
+# each: (name, the module's arguments, the JSON file the run writes, in
+# the run's directory)
+ROOFLINE_TOOLS = (
+    ("attribute", ["repro_torch.analysis.attribute", ARCH, "decode_32k",
+                   "--json", "attribute.json"], "attribute.json"),
+    ("hillclimb", ["repro_torch.launch.hillclimb", ARCH, "decode_32k",
+                   "n_col=2", "save=1"],
+     f"experiments/perf/{ARCH}_decode_32k_n_col2.json"))
 ROOFLINE_CLI_TIMEOUT = 900
 
 
 class DryrunCli:
-    """Phase 21 (b): ``python -m repro_torch.launch.dryrun`` for ARCH's
-    ROOFLINE_CELLS on the single-pod mesh over 256 fake ranks, one process
-    a cell. The runs need no card and take longer than the phase on the
-    card's host (a train_4k cell runs some 470,000 ops on meta tensors),
-    so ``main`` starts them when the script starts, at the lowest CPU
-    priority and one thread each, and phase 21 collects them; ``stop``
-    kills what is still running."""
+    """Phase 21 (b) and (d): ``python -m repro_torch.launch.dryrun`` for
+    ARCH's ROOFLINE_CELLS on the single-pod mesh over 256 fake ranks, one
+    process a cell, and the ROOFLINE_TOOLS runs, one process each, in a
+    directory of their own. The runs need no card and take longer than
+    the phase on the card's host (a train_4k cell runs some 470,000 ops
+    on meta tensors), so ``main`` starts them when the script starts, at
+    the lowest CPU priority and one thread each, and phase 21 collects
+    them; ``stop`` kills what is still running."""
 
     def __init__(self):
         self.runs = {}
         self.tmp = None
 
-    def start(self):
+    def _spawn(self, name, args, out, cwd=None):
         import os
-        import tempfile
-        self.tmp = tempfile.TemporaryDirectory()
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        log_path = Path(self.tmp.name) / f"{name}.log"
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", *args], stdout=f,
+                stderr=subprocess.STDOUT, env=env, cwd=cwd,
+                preexec_fn=lambda: os.nice(19))
+        self.runs[name] = (proc, log_path, out, time.perf_counter())
+
+    def start(self):
+        import tempfile
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = Path(self.tmp.name)
         for shape in ROOFLINE_CELLS:
-            log_path = Path(self.tmp.name) / f"{shape}.log"
-            summary = Path(self.tmp.name) / f"{shape}.json"
-            with open(log_path, "w") as f:
-                proc = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", ARCH, "--shape", shape, "--summary",
-                     str(summary)], stdout=f, stderr=subprocess.STDOUT,
-                    env=env, preexec_fn=lambda: os.nice(19))
-            self.runs[shape] = (proc, log_path, summary, time.perf_counter())
+            summary = tmp / f"{shape}.json"
+            self._spawn(shape, ["repro_torch.launch.dryrun", "--arch", ARCH,
+                                "--shape", shape, "--summary", str(summary)],
+                        summary)
+        for name, args, out in ROOFLINE_TOOLS:
+            (tmp / name).mkdir()
+            self._spawn(name, args, tmp / name / out, cwd=tmp / name)
 
     def collect(self, timeout=ROOFLINE_CLI_TIMEOUT):
-        """{shape: {"rc", "s" (start to collect), "cells", "log_tail"}}."""
+        """{name: {"rc", "s" (start to collect), "out" (the JSON the run
+        wrote, None if none), "report", "log_tail"}}."""
         res = {}
-        for shape, (proc, log_path, summary, t0) in self.runs.items():
+        for name, (proc, log_path, out, t0) in self.runs.items():
             try:
                 rc = proc.wait(timeout=timeout)
             except subprocess.TimeoutExpired:
                 proc.kill()
                 rc = proc.wait()
-            cells = (json.loads(summary.read_text()) if summary.exists()
-                     else [])
             lines = log_path.read_text().splitlines()
-            res[shape] = {"rc": rc, "s": time.perf_counter() - t0,
-                          "cells": cells,
-                          "report": [ln for ln in lines
-                                     if ln.startswith(("==", "  "))][-12:],
-                          "log_tail": lines[-20:]}
+            res[name] = {"rc": rc, "s": time.perf_counter() - t0,
+                         "out": (json.loads(out.read_text()) if out.exists()
+                                 else None),
+                         "report": [ln for ln in lines
+                                    if ln.startswith(("==", "  "))][-12:],
+                         "log_tail": lines[-24:]}
         return res
 
     def stop(self):
@@ -5651,6 +5680,15 @@ def roofline_step(rec):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = read_counts()
+    # (a') the same step once more, untimed, under attribution
+    reset_counts()
+    t0 = time.perf_counter()
+    with count_cost(attribute=True) as attr:
+        state, m = built["fn"](state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    rec["attributed_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    attr_counts = read_counts()
     del state, params, m
     report = RL.analyze(cost, 1, cfg, shape,
                         RL.device_time_by_name(prof, wall))
@@ -5706,22 +5744,99 @@ def roofline_step(rec):
     check(counts["topk_combine"] == 2 * L and counts["rmsnorm"] > 0,
           f"launches {counts}")
     check(guard.cuda_calls == 0, "plain versions saw CUDA tensors")
+    roofline_buckets(rec, cost, attr, attr_counts, run)
+
+
+def roofline_buckets(rec, cost, attr, launches, run):
+    """(a') the attributed count of the step on the card against the
+    same step's on meta: the same buckets (FLOPs, products, bytes,
+    calls), their sums the un-attributed count's totals, and each
+    kernel's launches its region's calls, every one filed under the
+    region's bucket or that bucket's ``bwd:``."""
+    from repro_torch.analysis.attribute import fmt_rows
+    from repro_torch.analysis.op_cost import (bucket_of, bucket_rows,
+                                              count_cost)
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    with dryrun.MetaOutputCache(), count_cost(attribute=True) as meta:
+        run()
+    meta_s = time.perf_counter() - t0
+    sums = {k: sum(r[k] for r in attr.by_bucket.values()) == getattr(cost, k)
+            for k in ("flops", "mxu_flops", "bytes", "ici_bytes")}
+    held = {}
+    for k in attr.regions:
+        held[k] = {"bucket": bucket_of(k), "launches": launches[k],
+                   "calls": attr.regions[k]["calls"],
+                   "filed": attr.region_buckets.get(k, {})}
+    same = (attr.by_bucket == meta.by_bucket
+            and attr.region_buckets == meta.region_buckets)
+    rec["buckets"] = {"rows": bucket_rows(attr), "same_as_meta": same,
+                      "sums_equal_totals": sums, "kernels": held,
+                      "meta_s": meta_s}
+    log("  the step's buckets on the card (attributed, untimed; GFLOP "
+        "1e9, GiB 2**30):")
+    log("\n".join("    " + ln
+                  for ln in fmt_rows(bucket_rows(attr), 30).splitlines()))
+    log(f"  buckets card vs meta: same {same}; "
+        f"sums equal the totals {sums}; the attributed step "
+        f"{rec['attributed_wall_ms']:.1f} ms (host clock, no profiler); "
+        f"meta {meta_s:.1f} s; kernels "
+        f"{json.dumps(held)}")
+    for b in sorted(set(attr.by_bucket) | set(meta.by_bucket)):
+        if attr.by_bucket.get(b) != meta.by_bucket.get(b):
+            log(f"    bucket differs: {b} card {attr.by_bucket.get(b)} "
+                f"meta {meta.by_bucket.get(b)}")
+    check(same, "the card's buckets differ from the meta dry run's: "
+                f"regions filed {attr.region_buckets} (card) against "
+                f"{meta.region_buckets} (meta)")
+    check(all(sums.values()), f"the buckets do not sum to the count: {sums}")
+    check((attr.flops, attr.bytes, attr.regions) ==
+          (cost.flops, cost.bytes, cost.regions),
+          "the attributed step counts otherwise than the timed one")
+    for k, h in held.items():
+        b = h["bucket"]
+        check(0 < h["launches"] == h["calls"] == sum(h["filed"].values())
+              and set(h["filed"]) <= {b, "bwd:" + b},
+              f"{k}: {h['launches']} launches, {h['calls']} region calls, "
+              f"filed {h['filed']}: not all under {b} or bwd:{b}")
 
 
 def roofline_cli(rec, cli):
-    """(b) the dry-run CLI's cells (``DryrunCli``): every one ``ok``."""
+    """(b) the dry-run CLI's cells (``DryrunCli``): every one ``ok``; (d)
+    the attribution and override-climb runs: both exit 0, the
+    attribution's rows sum to its totals, the climb's saved report names
+    its overrides."""
     res = cli.collect()
-    rec["dryrun_cli"] = res
-    for shape, r in res.items():
-        log(f"  dryrun {ARCH} x {shape}: rc {r['rc']}, {r['s']:.1f} s "
-            f"after its start")
+    rec["dryrun_cli"] = {k: v for k, v in res.items()
+                         if k in ROOFLINE_CELLS}
+    rec["tools_cli"] = {k: v for k, v in res.items()
+                        if k not in ROOFLINE_CELLS}
+    for name, r in res.items():
+        log(f"  {name} {ARCH}: rc {r['rc']}, {r['s']:.1f} s after its start")
         for ln in r["report"]:
             log("    " + ln)
-        for c in r["cells"]:
-            log("    " + json.dumps(c))
-        ok = r["rc"] == 0 and [c["status"] for c in r["cells"]] == ["ok"]
-        check(ok, f"dryrun {shape}: rc {r['rc']}\n" + "\n".join(
-            r["log_tail"]))
+        out = r["out"]
+        if name in ROOFLINE_CELLS:
+            for c in out or []:
+                log("    " + json.dumps(c))
+            ok = r["rc"] == 0 and [c["status"] for c in out or []] == ["ok"]
+        elif name == "attribute":
+            if out:
+                from repro_torch.analysis.attribute import fmt_rows
+                log("\n".join("    " + ln for ln in
+                              fmt_rows(out["rows"]).splitlines()))
+            rows = out["rows"] if out else []
+            ok = r["rc"] == 0 and bool(rows) and all(
+                abs(sum(row[i] for row in rows) - out["totals"][k])
+                <= 1e-9 * max(1.0, out["totals"][k])
+                for i, k in enumerate(("flops", "mxu_flops", "bytes",
+                                       "ici_bytes"), 1))
+        else:
+            ok = (r["rc"] == 0 and out is not None
+                  and out.get("overrides") == {"n_col": "2", "save": "1"}
+                  and out.get("status") == "ok"
+                  and any("'n_col': '2'" in ln for ln in r["report"]))
+        check(ok, f"{name}: rc {r['rc']}\n" + "\n".join(r["log_tail"]))
 
 
 def roofline_attributes(rec):

@@ -35,6 +35,30 @@ unrolled, so every layer's ops are dispatched and counted, and there is no
 ``while`` body to multiply by a trip count (nor a fusion, conditional or
 async pair to resolve).
 
+``count_cost(attribute=True)`` also files every count under a bucket
+(``Cost.by_bucket``, the counterpart of ``tools/attribute.py``'s): the
+buckets partition the count (their FLOPs, products and bytes sum to the
+totals exactly; the ring traffic's fractions to rounding). An op's key
+is the port's ``op_name``: inside a kernel region the region's name;
+elsewhere the chain of the port's own functions on the Python stack,
+outermost first, each as ``<module>.<qualified name>`` in lower case
+(frames of ``analysis/`` and of any ``__torch_dispatch__`` or
+``__torch_function__`` left out, so the counter's own names match no
+keyword; the module keeps ``adamw.global_norm`` out of ``norm``). An
+op the autograd engine runs is keyed ``transpose(<key>)``, ``<key>``
+that of the forward op that made its node: a ``TorchFunctionMode``
+stamps each new node's metadata with its key in the forward (a custom
+``autograd.Function``'s node, its ``ctx``, from its ``forward``'s first
+count), and the dispatch mode reads ``torch._C._current_autograd_node()``.
+A node the stamp never saw is keyed by the port's frames that run it:
+a ``torch.utils.checkpoint`` recompute by the recomputed function, a
+graph that a backward differentiates itself (the flash attention's
+recompute) by that backward. ``bucket_of`` (a copy of the JAX tool's)
+turns a key into its bucket: the first keyword in it, "bwd:" before it
+for a backward op. Only the autograd engine's frames cut the chain, so
+a step keys alike on CUDA (whose backward runs on the engine's device
+thread) and on CPU and ``meta`` tensors.
+
 The counter also tracks the peak of the bytes held by storages created
 while it is active (each op's and region's outputs, held through weak
 references and dropped when freed): the counterpart of XLA's
@@ -45,10 +69,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
+import sys
 import weakref
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.autograd.function import BackwardCFunction
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis import roofline as RL
@@ -88,6 +116,21 @@ _COLLECTIVES = {
 }
 
 
+# the port's copy of ``tools/attribute.py``'s op_name buckets: the first
+# keyword a key holds names its bucket ("transpose" marks the backward)
+KEYWORDS = ("flash", "attn", "rope", "moe", "dispatch", "combine", "xent",
+            "logsumexp", "embed", "silu", "gelu", "ssd", "ssm", "conv",
+            "adamw", "norm", "transpose")
+
+
+def bucket_of(name: str) -> str:
+    bwd = "bwd:" if "transpose" in name else ""
+    for kw in KEYWORDS[:-1]:
+        if kw in name:
+            return bwd + kw
+    return bwd + "other"
+
+
 @dataclasses.dataclass
 class Cost:
     """A step's count on one rank. ``mxu_flops``: the products' FLOPs
@@ -97,7 +140,10 @@ class Cost:
     ``coll_counts``; ``regions`` each kernel's calls, FLOPs and bytes;
     ``by_op`` each aten op overload's [calls, FLOPs, bytes];
     ``peak_bytes`` the peak of the storages the step created and still
-    held."""
+    held; ``by_bucket`` (with ``attribute``) each bucket's "flops",
+    "mxu_flops", "bytes", "ici_bytes" and "calls", and
+    ``region_buckets`` the calls of each kernel region by the bucket
+    they were filed under."""
     flops: float = 0.0
     mxu_flops: float = 0.0
     mxu_by_dtype: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -110,6 +156,10 @@ class Cost:
     by_op: Dict[object, List[float]] = dataclasses.field(
         default_factory=dict)
     peak_bytes: int = 0
+    by_bucket: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+    region_buckets: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
 
 
 def _flat(xs, acc: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -202,11 +252,148 @@ def _kind(func) -> Tuple[str, bool]:
     return "op", mutable
 
 
+# -- attribution: the key of the op being counted ---------------------------
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ANALYSIS = os.path.join(_PKG, "analysis") + os.sep
+_MODE_HOOKS = ("__torch_dispatch__", "__torch_function__")
+_CHECKPOINT = os.path.join("torch", "utils", "checkpoint.py")
+# a frame's part in a key: left out, the port's, the autograd engine's
+# entry, a ``torch.utils.checkpoint`` frame, a ``forward`` not yet known
+# to be a custom Function's, one known to be
+_SKIP, _PORT, _ENGINE, _CKPT, _FWD, _CTX_FWD = range(6)
+_STAMP = "op_cost.key"         # a node's metadata entry: its forward key
+
+
+class _Keys:
+    """Each counted op's key (the module docstring: attribution), from
+    the Python stack and the autograd node the engine is running."""
+
+    def __init__(self):
+        self.part: Dict = {}               # code -> its part (_SKIP ...)
+        self.names: Dict[tuple, str] = {}  # port codes, innermost first
+        # the code object that enters the autograd engine from Python
+        self.engine = {torch.autograd.graph._engine_run_backward.__code__}
+
+    def _part(self, code) -> int:
+        if code in self.engine:
+            return _ENGINE
+        fn = code.co_filename
+        if fn.endswith(_CHECKPOINT):
+            return _CKPT
+        if (not fn.startswith(_PKG) or fn.startswith(_ANALYSIS)
+                or code.co_name in _MODE_HOOKS):
+            return _SKIP
+        if code.co_name == "forward" and code.co_argcount:
+            return _FWD
+        return _PORT
+
+    def name(self, codes) -> str:
+        """The key of a chain of port codes (innermost first)."""
+        codes = tuple(codes)
+        key = self.names.get(codes)
+        if key is None:
+            key = self.names[codes] = "/".join(
+                (os.path.splitext(os.path.basename(c.co_filename))[0]
+                 + "." + c.co_qualname).lower() for c in reversed(codes))
+        return key
+
+    def _walk(self, f):
+        """(the port's codes on the stack from ``f`` out, innermost first;
+        the (index, part) of each engine or checkpoint frame among them;
+        the node of the innermost custom ``Function.forward``)."""
+        part, codes, cuts, ctx = self.part, [], [], None
+        while f is not None:
+            c = f.f_code
+            k = part.get(c)
+            if k is None:
+                k = part[c] = self._part(c)
+            if k in (_ENGINE, _CKPT):
+                cuts.append((len(codes), k))
+            elif k:
+                if k == _FWD:
+                    arg = f.f_locals.get(c.co_varnames[0])
+                    k = part[c] = (_CTX_FWD if isinstance(
+                        arg, BackwardCFunction) else _PORT)
+                if k == _CTX_FWD and ctx is None:
+                    ctx = f.f_locals.get(c.co_varnames[0])
+                codes.append(c)
+            f = f.f_back
+        return codes, cuts, ctx
+
+    def key(self, f, region: str = "") -> str:
+        """The key of an op counted with the stack at ``f``: ``region``'s
+        name inside a kernel region, else the port's chain; in the
+        backward ``transpose(<the forward op's key>)``."""
+        node = torch._C._current_autograd_node()
+        if node is not None and region:
+            return f"transpose({region})"
+        codes, cuts, ctx = self._walk(f)
+        if node is None:
+            key = region or self.name(codes)
+            if ctx is not None and _STAMP not in ctx.metadata:
+                ctx.metadata[_STAMP] = key
+            return key
+        inner = codes[:cuts[0][0]] if cuts else codes
+        stamp = node.metadata.get(_STAMP)
+        if cuts and cuts[0][1] == _CKPT and inner:
+            base = self.name(inner)            # a checkpoint's recompute
+        elif isinstance(node, BackwardCFunction):
+            base = stamp or self.name(inner)
+        else:
+            base = stamp or self._differentiating(codes, cuts)
+        return f"transpose({base or type(node).__name__})"
+
+    def _differentiating(self, codes, cuts) -> str:
+        """The port's frames between the innermost engine entry and the
+        next: the backward whose own ``autograd.grad`` runs this node."""
+        eng = [i for i, k in cuts if k == _ENGINE] + [len(codes)]
+        return self.name(codes[eng[0]:eng[1]])
+
+
+def _stamp(node, key: str) -> None:
+    """Stamp ``key`` into ``node`` and every unstamped node it reaches
+    (a composite op's inner nodes)."""
+    todo = [node]
+    while todo:
+        n = todo.pop()
+        md = n.metadata
+        if _STAMP in md:
+            continue
+        md[_STAMP] = key
+        todo.extend(m for m, _ in n.next_functions if m is not None)
+
+
+class _Stamper(TorchFunctionMode):
+    """Stamps each autograd node that a forward op makes with the op's
+    key (a dispatch mode sits below autograd and never sees a node)."""
+
+    def __init__(self, counter: "_Counter"):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.is_grad_enabled():
+            key = None
+            for t in _tensors(out):
+                fn = t.grad_fn
+                if fn is not None and _STAMP not in fn.metadata:
+                    if key is None:
+                        key = self.counter.keys.key(sys._getframe(1),
+                                                    self.counter.region)
+                    _stamp(fn, key)
+        return out
+
+
 class _Counter(TorchDispatchMode):
-    def __init__(self, cost: Cost):
+    def __init__(self, cost: Cost, attribute: bool = False):
         super().__init__()
         self.cost = cost
         self.depth = 0                     # > 0 inside a kernel region
+        self.region = ""                   # the outermost region's name
+        self.keys: Optional[_Keys] = _Keys() if attribute else None
+        self.buckets: Dict[str, str] = {}  # key -> bucket_of(key)
         self.live: Dict[int, weakref.finalize] = {}
         self.cur = 0
         self.kinds: Dict = {}              # func -> _kind(func)
@@ -226,6 +413,24 @@ class _Counter(TorchDispatchMode):
             self.live[key] = weakref.finalize(st, self._free, key, n)
             self.cur += n
             self.cost.peak_bytes = max(self.cost.peak_bytes, self.cur)
+
+    def _file(self, key: str, flops: float, mxu: float, nbytes: float,
+              ici: float) -> str:
+        """Add one count to ``key``'s bucket; returns the bucket."""
+        b = self.buckets.get(key)
+        if b is None:
+            b = self.buckets[key] = bucket_of(key)
+        r = self.cost.by_bucket.get(b)
+        if r is None:
+            r = self.cost.by_bucket[b] = {"flops": 0.0, "mxu_flops": 0.0,
+                                          "bytes": 0.0, "ici_bytes": 0.0,
+                                          "calls": 0}
+        r["flops"] += flops
+        r["mxu_flops"] += mxu
+        r["bytes"] += nbytes
+        r["ici_bytes"] += ici
+        r["calls"] += 1
+        return b
 
     def close(self) -> None:
         for f in list(self.live.values()):
@@ -249,11 +454,18 @@ class _Counter(TorchDispatchMode):
         r["calls"] += 1
         r["flops"] += kc.flops
         r["bytes"] += kc.bytes
+        if self.keys is not None:
+            b = self._file(self.keys.key(sys._getframe(1), name), kc.flops,
+                           kc.flops if kc.products else 0.0, kc.bytes, 0.0)
+            rb = c.region_buckets.setdefault(name, {})
+            rb[b] = rb.get(b, 0) + 1
         self.depth += 1
+        self.region = name
         try:
             out = fn()
         finally:
             self.depth -= 1
+            self.region = ""
         self._track(out, {id(t.untyped_storage())
                           for t in _tensors(operands)})
         return out
@@ -277,7 +489,7 @@ class _Counter(TorchDispatchMode):
             self._collective(func, args)
             return out
         c = self.cost
-        flops = 0.0
+        flops = mxu = 0.0
         ins = _flat(args, [])
         if kwargs:
             _flat(kwargs.values(), ins)
@@ -293,6 +505,7 @@ class _Counter(TorchDispatchMode):
             if kind == "product":
                 flops = _product_flops(str(func.overloadpacket), args, out)
                 cls = product_class(ins[0].dtype)
+                mxu = flops
                 c.mxu_flops += flops
                 c.mxu_by_dtype[cls] = c.mxu_by_dtype.get(cls, 0.0) + flops
             elif kind == "pointwise":
@@ -309,37 +522,61 @@ class _Counter(TorchDispatchMode):
         r[0] += 1
         r[1] += flops
         r[2] += b
+        if self.keys is not None:
+            self._file(self.keys.key(sys._getframe(1)), flops, mxu, b, 0.0)
         return out
 
     def _collective(self, func, args) -> None:
         c = self.cost
         op = func.overloadpacket.__name__
         touched = _all_bytes(args)
+        traffic = 0.0
         if op not in _COLLECTIVES:          # recv_, barrier: bytes only
-            c.bytes += touched
-            return
-        kind, i = _COLLECTIVES[op]
-        ob = _all_bytes(args[i])
-        traffic = RL.collective_traffic(kind, ob, _group_size(func, args))
-        c.ici_bytes += traffic
-        c.coll_per_op[kind] = c.coll_per_op.get(kind, 0.0) + traffic
-        c.coll_counts[kind] = c.coll_counts.get(kind, 0) + 1
-        # in place (all-reduce, broadcast): the operand is read and written
-        c.bytes += touched + (ob if i == 0 and kind != "collective-permute"
-                              else 0)
+            nb = touched
+        else:
+            kind, i = _COLLECTIVES[op]
+            ob = _all_bytes(args[i])
+            traffic = RL.collective_traffic(kind, ob,
+                                            _group_size(func, args))
+            c.ici_bytes += traffic
+            c.coll_per_op[kind] = c.coll_per_op.get(kind, 0.0) + traffic
+            c.coll_counts[kind] = c.coll_counts.get(kind, 0) + 1
+            # in place (all-reduce, broadcast): the operand is read and
+            # written
+            nb = touched + (ob if i == 0 and kind != "collective-permute"
+                            else 0)
+        c.bytes += nb
+        if self.keys is not None:
+            self._file(self.keys.key(sys._getframe(2)), 0.0, 0.0, nb,
+                       traffic)
 
 
 @contextlib.contextmanager
-def count_cost() -> Iterator[Cost]:
+def count_cost(attribute: bool = False) -> Iterator[Cost]:
     """Count every op dispatched inside the block; yields the ``Cost``,
-    complete when the block exits."""
+    complete when the block exits. ``attribute`` also fills
+    ``Cost.by_bucket`` (the module docstring)."""
     cost = Cost()
-    mode = _Counter(cost)
+    mode = _Counter(cost, attribute)
     try:
-        with mode:
+        with contextlib.ExitStack() as modes:
+            if attribute:
+                modes.enter_context(_Stamper(mode))
+            modes.enter_context(mode)
             yield cost
     finally:
         mode.close()
+
+
+def bucket_rows(cost: Cost) -> List[tuple]:
+    """(bucket, flops, mxu_flops, bytes, ici_bytes, calls) of an
+    attributed count, by bytes plus collective bytes, the most first (the
+    JAX tool's order)."""
+    rows = sorted(cost.by_bucket.items(),
+                  key=lambda kv: (-(kv[1]["bytes"] + kv[1]["ici_bytes"]),
+                                  kv[0]))
+    return [(k, v["flops"], v["mxu_flops"], v["bytes"], v["ici_bytes"],
+             int(v["calls"])) for k, v in rows]
 
 
 def top_ops(cost: Cost, key: str = "bytes", n: int = 10) -> List[tuple]:

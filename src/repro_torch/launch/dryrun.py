@@ -167,12 +167,17 @@ def _tree_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def build_cell(cfg, shape, mesh=None):
+def build_cell(cfg, shape, mesh=None, accum: int = 0, fsdp: bool = True,
+               seq_shard: bool = True):
     """(run, this rank's bytes by kind, assumed): ``run()`` takes one step
     of the cell's kind on ``meta`` arguments made from the shapes (one
     rank's cut on ``mesh``; the whole of them without one); ``assumed``
     lists what the step takes for granted on meta (the train step's host
-    read takes the finite branch)."""
+    read takes the finite branch). ``accum`` (0: the shape's default
+    microbatch count), ``fsdp`` and ``seq_shard`` go to the builders as
+    ``tools/hillclimb.py`` passes them: all three to the train step
+    (whose batch then leads with its (accum,) axis), ``fsdp`` to the
+    prefill and decode steps."""
     from repro_torch.launch.train_step import (build_decode_step,
                                                build_prefill_step,
                                                build_train_step)
@@ -180,7 +185,8 @@ def build_cell(cfg, shape, mesh=None):
     mem: Dict[str, int] = {}
     assumed = []
     if shape.kind == "train":
-        built = build_train_step(cfg, shape, mesh)
+        built = build_train_step(cfg, shape, mesh, accum=accum, fsdp=fsdp,
+                                 seq_shard=seq_shard)
         ctx = built["ctx"]
         specs = built.get("state_specs", {}).get("params")
         params = meta_params(cfg, ctx, specs)
@@ -197,7 +203,7 @@ def build_cell(cfg, shape, mesh=None):
                        "update's ops run on the state's shapes")
         return (lambda: built["fn"](state, batch)), mem, assumed
     if shape.kind == "prefill":
-        built = build_prefill_step(cfg, shape, mesh)
+        built = build_prefill_step(cfg, shape, mesh, fsdp=fsdp)
         params = meta_params(cfg, built["ctx"], built.get("param_specs"))
         # every rank is handed the global batch and takes its rows
         batch = meta_batch(built["batch_structs"], None, mesh, local=False)
@@ -205,7 +211,7 @@ def build_cell(cfg, shape, mesh=None):
                    batch_bytes=_tree_bytes(batch))
         return (lambda: built["fn"](params, batch)), mem, assumed
     from repro_torch.launch import specs as SP
-    built = build_decode_step(cfg, shape, mesh)
+    built = build_decode_step(cfg, shape, mesh, fsdp=fsdp)
     ctx = built["ctx"]
     params = meta_params(cfg, ctx, built.get("param_specs"))
     shapes, _, _ = SP.decode_inputs(cfg, shape, ctx)
@@ -220,26 +226,41 @@ def build_cell(cfg, shape, mesh=None):
     return (lambda: built["fn"](params, cache, tok, pos, live)), mem, assumed
 
 
-def run_cell(cfg, shape, mesh, n_chips, impl, out_dir=None, verbose=True):
+def _write(report, cfg, shape, n_chips, out_dir) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    fn = f"{cfg.name}_{shape.name}_{n_chips}_{report['impl']}.json"
+    with open(os.path.join(out_dir, fn), "w") as f:
+        json.dump(report, f, indent=1)
+
+
+def run_cell(cfg, shape, mesh, n_chips, impl, out_dir=None, verbose=True,
+             **build):
     """One cell: the skip of ``shape_applicable``, else the step of the
     cell's kind run once on meta under ``count_cost``, its roofline report
     (``analyze``) and this rank's bytes against the card's: the
     arguments (parameters, AdamW moments, batch, cache) and the peak of
     the step's temporaries, which hold the gradients (``grad_bytes``,
-    reported beside them)."""
+    reported beside them). ``build``: ``build_cell``'s knobs. With
+    ``out_dir`` the report (a skipped cell's too) is written to
+    ``<arch>_<shape>_<chips>_<impl>.json`` there."""
     from repro_torch.analysis import roofline as RL
     from repro_torch.analysis.op_cost import count_cost
     from repro_torch.configs.base import shape_applicable
 
-    ok, reason = shape_applicable(cfg, shape)
-    if not ok:
-        return {"status": "skipped", "reason": reason}
-
     if cfg.moe is not None and impl:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                impl=impl))
+    impl = impl or (cfg.moe.impl if cfg.moe else "-")
+    ok, reason = shape_applicable(cfg, shape)
+    if not ok:
+        report = {"status": "skipped", "reason": reason,
+                  "n_chips": n_chips, "impl": impl}
+        if out_dir:
+            _write(report, cfg, shape, n_chips, out_dir)
+        return report
+
     t0 = time.time()
-    run, mem, assumed = build_cell(cfg, shape, mesh)
+    run, mem, assumed = build_cell(cfg, shape, mesh, **build)
     with MetaOutputCache(), count_cost() as cost:
         run()
     elapsed = time.time() - t0
@@ -253,16 +274,13 @@ def run_cell(cfg, shape, mesh, n_chips, impl, out_dir=None, verbose=True):
     report["assumed"] = assumed
     report["status"] = "ok"
     report["run_s"] = elapsed
-    report["impl"] = impl or (cfg.moe.impl if cfg.moe else "-")
+    report["impl"] = impl
     name = f"{cfg.name}/{shape.name}/{n_chips}chips"
     if verbose:
         print(RL.fmt_report(name, report))
         print(f"  run: {elapsed:.1f}s")
     if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        fn = f"{cfg.name}_{shape.name}_{n_chips}_{report['impl']}.json"
-        with open(os.path.join(out_dir, fn), "w") as f:
-            json.dump(report, f, indent=1)
+        _write(report, cfg, shape, n_chips, out_dir)
     return report
 
 
