@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import adaptive as A
 from repro_torch.core import routing as R
 from repro_torch.core import transport as T
@@ -105,43 +106,47 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
             token_axes = token_axes + (ctx.model_axis,)
         if token_axes:
             token_group = ctx.mesh.group(token_axes)
-    # one router product per sequence (S > 1): a sequence's routing does
-    # not depend on the batch it shares the call with
-    idx, wts, aux = R.router(xt, router_w, mcfg, token_group,
-                             seq_len=S if S > 1 else 0)
-    C = R.capacity(B * S, mcfg.top_k, E, mcfg.capacity_factor)
+    impl = mcfg.impl
+    if impl not in IMPLS:
+        raise ValueError(f"unknown MoE impl {impl!r}")
+    # the coarse schedule dispatches per token slice: the full-batch
+    # dispatch is not built
+    coarse = impl == "coarse" and ranked and ctx.world > 1
+    with tracing.span("moe.route"):
+        # one router product per sequence (S > 1): a sequence's routing
+        # does not depend on the batch it shares the call with
+        idx, wts, aux = R.router(xt, router_w, mcfg, token_group,
+                                 seq_len=S if S > 1 else 0)
+        C = R.capacity(B * S, mcfg.top_k, E, mcfg.capacity_factor)
+        xe = xt if w_desc is None else (xt @ w_desc).to(xt.dtype)
+        if not coarse:
+            buf, info = R.build_dispatch(xe, idx, E, C)             # (E,C,dw)
     ep = ctx.ep if ranked else 1
     E_loc = E // ep
     w_local = {k: v[0] for k, v in experts.items()}       # strip the shard dim
-
-    xe = xt if w_desc is None else (xt @ w_desc).to(xt.dtype)
     dw = xe.shape[-1]                                   # wire (or full) width
 
     def ascend(y):
         y = y if w_asc is None else (y @ w_asc).to(y.dtype)
         return y.reshape(B, S, d)
 
-    impl = mcfg.impl
-    if impl not in IMPLS:
-        raise ValueError(f"unknown MoE impl {impl!r}")
-    if impl == "coarse" and ranked and ctx.world > 1:
-        # the coarse schedule dispatches per token slice: the full-batch
-        # dispatch is not built
-        y = _coarse(cfg, mcfg, ctx, xe, idx, wts, E, C, w_local, gemm_impl)
+    if coarse:
+        with tracing.span("moe.experts"):
+            y = _coarse(cfg, mcfg, ctx, xe, idx, wts, E, C, w_local,
+                        gemm_impl)
         return ascend(y), aux
 
-    buf, info = R.build_dispatch(xe, idx, E, C)                      # (E,C,dw)
     seq_shard = ranked and ctx.seq_shard
     if impl == "bcast" or (impl != "dense" and S == 1 and not seq_shard):
-        out = T.transport_bcast(buf, w_local, cfg.activation, gemm_impl,
-                                ctx=ctx)
-        y = R.combine(out.reshape(E * C, dw), info, wts, E_loc=E, C=C,
-                      rot=None, ep=1)
-    else:
+        with tracing.span("moe.experts"):
+            out = T.transport_bcast(buf, w_local, cfg.activation, gemm_impl,
+                                    ctx=ctx)
+        with tracing.span("moe.combine"):
+            y = R.combine(out.reshape(E * C, dw), info, wts, E_loc=E, C=C,
+                          rot=None, ep=1)
+    elif impl in ("comet", "comet_hier"):
         send = buf.reshape(ep, E_loc, C, dw)
-        # at one rank coarse is the naive schedule on the one token slice
-        # that matters
-        if impl in ("comet", "comet_hier"):
+        with tracing.span("moe.experts"):
             if impl == "comet_hier":
                 blocks, rot = T.transport_comet_hier(
                     send, w_local, cfg.activation, n_col_blocks=n_col,
@@ -152,6 +157,7 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
                 blocks, rot = T.transport_comet_blocks(
                     send, w_local, cfg.activation, n_col_blocks=n_col,
                     ring_group=mcfg.ring_group, gemm_impl=gemm_impl, ctx=ctx)
+        with tracing.span("moe.combine"):
             if mcfg.fused_combine:
                 # streaming layer-1 consumer: one combine per column block
                 parts = [R.combine(b.reshape(ep * E_loc * C, b.shape[-1]),
@@ -163,9 +169,14 @@ def _moe_body(cfg, mcfg, n_col: int, gemm_impl: str, x, router_w, experts,
                     torch.cat(blocks, dim=-1)
                 y = R.combine(out.reshape(ep * E_loc * C, dw), info, wts,
                               E_loc, C, rot, ep)
-        else:                                           # naive/coarse/dense
+    else:                                               # naive/coarse/dense
+        # at one rank coarse is the naive schedule on the one token slice
+        # that matters
+        send = buf.reshape(ep, E_loc, C, dw)
+        with tracing.span("moe.experts"):
             out, rot = T.transport_naive(send, w_local, cfg.activation,
                                          gemm_impl, ctx=ctx)
+        with tracing.span("moe.combine"):
             y = R.combine(out.reshape(ep * E_loc * C, dw), info, wts, E_loc,
                           C, rot, ep)
     # aux is already pmean'd over the token group inside the router

@@ -42,15 +42,25 @@ Prompt lengths are drawn from [--prompt-min, --prompt-max] by a seeded
 numpy RNG; under ``--disagg`` from the JAX launcher's mixed trace, 0.5x-2x
 of a mean of ``--prompt-max`` / 2. ``--device cpu`` runs on the CPU (small
 configs only).
+
+``--trace`` records the program's spans (``repro_torch/tracing.py``) while
+the engine runs, and prints for each span name its count, its total host
+time and its self time (the total less its children's), then the p50 and p90 of the
+engine's admission wait (``Request.admit_t - submit_t``):
+
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b-smoke --trace
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from collections import Counter
 
 import numpy as np
+
+from repro_torch import tracing
 
 
 def make_trace(vocab: int, n_req: int, lo: int, hi: int, seed: int):
@@ -115,6 +125,18 @@ def print_router_summary(router, prompts, dt):
         print(f"  {name}: {w}")
 
 
+def print_admission_wait(finished):
+    """p50 and p90 of the engine's wait from a request's submission to the
+    start of the stacked call that admitted it (``admit_t - submit_t``),
+    over the finished requests that were admitted."""
+    waits = [r.admit_t - r.submit_t for r in finished.values()
+             if r.admit_t > 0]
+    if waits:
+        p50, p90 = np.percentile(waits, [50, 90]) * 1e3
+        print(f"admission wait: p50 {p50:.2f} ms, p90 {p90:.2f} ms "
+              f"({len(waits)} of {len(finished)} requests admitted)")
+
+
 def main(argv=None, device=None):
     """``device``: where the engine runs (default ``--device``, else
     cuda)."""
@@ -129,6 +151,10 @@ def main(argv=None, device=None):
                     choices=("xla", "pallas", "pallas_fused"))
     wl.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
+    wl.add_argument("--trace", action="store_true",
+                    help="record the program's spans and print their "
+                         "count, total and self time, and the admission "
+                         "wait")
     from repro_torch.serving import EngineConfig
     EngineConfig.add_cli_args(ap)
     # the card's defaults (the JAX launcher's are 128, 4 and 16)
@@ -154,7 +180,8 @@ def main(argv=None, device=None):
     prompts = make_trace(cfg.vocab_size, args.requests, lo, hi, args.seed)
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=args.max_new) for p in prompts]
-    eng.run()
+    with tracing.recording() if args.trace else contextlib.nullcontext():
+        eng.run()
     if eng.device.type == "cuda":
         import torch
         torch.cuda.synchronize()
@@ -167,6 +194,9 @@ def main(argv=None, device=None):
         print_router_summary(eng, prompts, dt)
     else:
         print_engine_summary(eng, prompts, dt)
+    if args.trace:
+        tracing.print_summary(tracing.drain())
+        print_admission_wait(eng.finished)
     return eng
 
 

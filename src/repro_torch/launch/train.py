@@ -16,12 +16,22 @@ resolves every MoE layer's schedule from a tuned plan cache
 (``launch/tune.py`` writes one), keyed by ``--plan-hw`` (default
 h100_nvlink). ``--sp-residual`` carries the residual between blocks as
 each model rank's slice of the sequence (``models/lm.sp_split``).
+``--trace`` records the program's spans (``repro_torch/tracing.py``: the
+step's ``train.grad``, ``train.guard`` and ``train.update``, the blocks'
+``model.*`` and the MoE layer's ``moe.*``) over the run, and prints for
+each span name its count, total and self host time (on rank 0):
+
+  python -m repro_torch.launch.train --arch qwen2-moe-2.7b-smoke \
+      --steps 5 --batch 2 --seq 64 --trace
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
+
+from repro_torch import tracing
 
 
 def _join(device):
@@ -65,6 +75,9 @@ def main(argv=None, device=None):
     ap.add_argument("--sp-residual", action="store_true")
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group torchrun describes")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the program's spans and print their "
+                         "count, total and self time")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -98,12 +111,18 @@ def main(argv=None, device=None):
                              ckpt_every=args.ckpt_every,
                              plan_cache=args.plan_cache,
                              plan_hw=args.plan_hw)
-        out = Trainer(cfg, shape, mesh, tcfg, device=device).run(args.steps)
+        trainer = Trainer(cfg, shape, mesh, tcfg, device=device)
+        with tracing.recording() if args.trace else \
+                contextlib.nullcontext():
+            out = trainer.run(args.steps)
+        spans = tracing.drain() if args.trace else []
         ls = [m["loss"] for m in out["metrics"]]
         if not dist.is_initialized() or dist.get_rank() == 0:
             print(f"final_step={out['final_step']} restarts="
                   f"{out['restarts']} loss {ls[0]:.4f} -> {ls[-1]:.4f}"
                   if ls else "no steps run", flush=True)
+            if args.trace:
+                tracing.print_summary(spans)
         return out
     finally:
         if owned:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.launch import specs as SP
 from repro_torch.models import lm
 from repro_torch.models.common import tree_leaves, tree_map_path
@@ -111,31 +112,36 @@ def make_train_fn(cfg, ctx: Optional[AxisCtx], optim: AdamW, accum: int,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             for i in range(accum):
-                lo, _ = loss(params, {k: v[i] for k, v in batch.items()})
-                for acc, g in zip(grads, _grad(lo, leaves)):
-                    acc.add_(g.float())
-                lsum = lsum + lo.detach()
+                with tracing.span("train.grad"):
+                    lo, _ = loss(params, {k: v[i] for k, v in batch.items()})
+                    for acc, g in zip(grads, _grad(lo, leaves)):
+                        acc.add_(g.float())
+                    lsum = lsum + lo.detach()
             grads = [g / accum for g in grads]
             lo = lsum / accum
         else:
-            lo, _ = loss(params, batch)
-            grads = list(_grad(lo, leaves))
-            lo = lo.detach()
+            with tracing.span("train.grad"):
+                lo, _ = loss(params, batch)
+                grads = list(_grad(lo, leaves))
+                lo = lo.detach()
         if ranked:
             _reduce_over_dp(ctx, grads, specs)
         gtree = _unflatten(params, grads)
-        if ranked:
-            gnorm = global_norm(gtree, pspecs, ctx.mesh)
-            # every rank counts the ranks whose loss is not finite
-            bad = CL.all_reduce_((~torch.isfinite(lo)).float().reshape(1),
-                                 ctx.mesh.group(ctx.mesh.axis_names))
-            ok = _all_finite((bad[0] == 0) & torch.isfinite(gnorm))
-        else:
-            gnorm = global_norm(gtree)
-            ok = _all_finite(torch.isfinite(lo) & torch.isfinite(gnorm))
+        with tracing.span("train.guard"):
+            if ranked:
+                gnorm = global_norm(gtree, pspecs, ctx.mesh)
+                # every rank counts the ranks whose loss is not finite
+                bad = CL.all_reduce_(
+                    (~torch.isfinite(lo)).float().reshape(1),
+                    ctx.mesh.group(ctx.mesh.axis_names))
+                ok = _all_finite((bad[0] == 0) & torch.isfinite(gnorm))
+            else:
+                gnorm = global_norm(gtree)
+                ok = _all_finite(torch.isfinite(lo) & torch.isfinite(gnorm))
         if ok:
-            _, state["opt"], stats = optim.update(gtree, state["opt"], params,
-                                                  gnorm=gnorm)
+            with tracing.span("train.update"):
+                _, state["opt"], stats = optim.update(gtree, state["opt"],
+                                                      params, gnorm=gnorm)
             state["step"] += 1
         else:
             stats = {"grad_norm": gnorm,

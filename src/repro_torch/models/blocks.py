@@ -36,6 +36,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.moe_layer import moe_ffn, moe_schema
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
@@ -183,11 +184,13 @@ def _mlp_tail(cfg, p, x, ctx=None, sp: bool = False):
     if "ln2" not in p:
         return x, aux
     if "moe" in p:
-        h, aux = _moe_out(cfg, p, x, ctx, sp)
-        if "shared" in p["moe"]:
-            h = h + _shared_out(cfg, p, x, ctx, sp)
+        with tracing.span("model.moe"):
+            h, aux = _moe_out(cfg, p, x, ctx, sp)
+            if "shared" in p["moe"]:
+                h = h + _shared_out(cfg, p, x, ctx, sp)
     else:
-        h = _ffn_out(cfg, p, x, ctx, sp)
+        with tracing.span("model.ffn"):
+            h = _ffn_out(cfg, p, x, ctx, sp)
     return x + h.to(x.dtype), aux
 
 
@@ -447,6 +450,7 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
     the cross-attention run on the gathered sequence (``_seq_whole``), so
     the entry covers the whole sequence."""
     kind = "attn" if cfg.layer_kind(pos) == "a" else "ssm"
+    mix_span = "model.attn" if kind == "attn" else "model.ssm"
     cross = kind == "attn" and enc_out is not None
     pr = f"L{block}."
     xm = pr + "xm"
@@ -474,8 +478,9 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
             entry.append(ce)
             return out
 
-        h = sp_norm(cfg, p["ln1"], env[x_in], ctx, sp)
-        env[pr + "h0"] = _seq_whole(run, h, ctx, sp)
+        with tracing.span(mix_span):
+            h = sp_norm(cfg, p["ln1"], env[x_in], ctx, sp)
+            env[pr + "h0"] = _seq_whole(run, h, ctx, sp)
         if return_cache:
             env[pr + "cache"] = entry[0]
 
@@ -500,8 +505,9 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
                     xkv.append(kv)
                 return out
 
-            hx = sp_norm(cfg, p["ln_x"], env[xm0], ctx, sp)
-            env[pr + "hx"] = _seq_whole(run, hx, ctx, sp)
+            with tracing.span("model.attn"):
+                hx = sp_norm(cfg, p["ln_x"], env[xm0], ctx, sp)
+                env[pr + "hx"] = _seq_whole(run, hx, ctx, sp)
             if return_cache:
                 env[pr + "cache"]["xk"] = xkv[0]["k"]
                 env[pr + "cache"]["xv"] = xkv[0]["v"]
@@ -517,8 +523,9 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
     tail = []
     if "ln2" in p and "moe" in p:
         def f_moe(env):
-            env[pr + "h1"], env[pr + "aux"] = _moe_out(cfg, p, env[xm], ctx,
-                                                       sp)
+            with tracing.span("model.moe"):
+                env[pr + "h1"], env[pr + "aux"] = _moe_out(cfg, p, env[xm],
+                                                           ctx, sp)
 
         segs.append(ExecSeg(pr + "moe", "moe", block, (xm,),
                             (pr + "h1", pr + "aux"), f_moe))
@@ -527,14 +534,16 @@ def block_segments(cfg, pos: int, p, positions, mask=None,
             # reads the mid residual only: independent of the ring, the
             # one executed segment the scheduler can move past it
             def f_shared(env):
-                env[pr + "hsh"] = _shared_out(cfg, p, env[xm], ctx, sp)
+                with tracing.span("model.moe"):
+                    env[pr + "hsh"] = _shared_out(cfg, p, env[xm], ctx, sp)
 
             segs.append(ExecSeg(pr + "shared", "shared_ffn", block, (xm,),
                                 (pr + "hsh",), f_shared))
             tail.append(pr + "hsh")
     elif "ln2" in p:
         def f_ffn(env):
-            env[pr + "h1"] = _ffn_out(cfg, p, env[xm], ctx, sp)
+            with tracing.span("model.ffn"):
+                env[pr + "h1"] = _ffn_out(cfg, p, env[xm], ctx, sp)
 
         segs.append(ExecSeg(pr + "ffn", "ffn", block, (xm,), (pr + "h1",),
                             f_ffn))
@@ -745,13 +754,25 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     flash-decode partials over this rank's rows, every row valid (no
     position mask), merged by the MAX and SUM all-reduces; ``replicated``
     whole."""
-    h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
-        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=cache,
-                                 ctx=ctx)
-        cache["conv"].copy_(new["conv"])
-        cache["state"].copy_(new["state"])
+        with tracing.span("model.ssm"):
+            h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"],
+                                     apply_norm(cfg, p["ln1"], x),
+                                     cache=cache, ctx=ctx)
+            cache["conv"].copy_(new["conv"])
+            cache["state"].copy_(new["state"])
         return _mlp_tail(cfg, p, x + h, ctx)[0]
+    with tracing.span("model.attn"):
+        x = _decode_attn(cfg, p, x, cache, t_pos, ctx, cut, paged, rope_pos,
+                         kv_start, has_cross, xcut)
+    return _mlp_tail(cfg, p, x, ctx)[0]
+
+
+def _decode_attn(cfg, p, x, cache, t_pos, ctx, cut, paged, rope_pos,
+                 kv_start, has_cross, xcut):
+    """``decode_layer``'s attention and its residual (and an
+    encoder-decoder's cross-attention): x after them."""
+    h = apply_norm(cfg, p["ln1"], x)
     a = cfg.attn
     B = x.shape[0]
     w, partial = _serve_attn(cfg, p["attn"], ctx, cut)
@@ -773,7 +794,7 @@ def decode_layer(cfg, pos: int, p, x, cache, t_pos, ctx=None,
     x = x + o
     if has_cross:
         x = x + _decode_cross(cfg, p, x, cache, ctx, xcut)
-    return _mlp_tail(cfg, p, x, ctx)[0]
+    return x
 
 
 def _decode_cross(cfg, p, x, cache, ctx, xcut: str):
@@ -834,18 +855,29 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
     its logical view gathered through ``paged.table``. ``slots`` then
     index the SSM entries only."""
     n = x.shape[0] if n_write < 0 else n_write
-    h = apply_norm(cfg, p["ln1"], x)
     if cfg.layer_kind(pos) != "a":
-        carry = {}
-        for k in ("conv", "state"):
-            c = cache[k][slots]
-            first = (pos_off == 0).reshape((-1,) + (1,) * (c.dim() - 1))
-            carry[k] = torch.where(first, torch.zeros_like(c), c)
-        h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"], h, cache=carry,
-                                 mask=mask, valid_len=valid_len, ctx=ctx)
-        for k in ("conv", "state"):
-            cache[k].index_copy_(0, slots[:n], new[k][:n].to(cache[k].dtype))
+        with tracing.span("model.ssm"):
+            carry = {}
+            for k in ("conv", "state"):
+                c = cache[k][slots]
+                first = (pos_off == 0).reshape((-1,) + (1,) * (c.dim() - 1))
+                carry[k] = torch.where(first, torch.zeros_like(c), c)
+            h, new = SSM.ssm_forward(cfg, cfg.ssm, p["ssm"],
+                                     apply_norm(cfg, p["ln1"], x),
+                                     cache=carry, mask=mask,
+                                     valid_len=valid_len, ctx=ctx)
+            for k in ("conv", "state"):
+                cache[k].index_copy_(0, slots[:n],
+                                     new[k][:n].to(cache[k].dtype))
         return _mlp_tail(cfg, p, x + h.to(x.dtype), ctx)[0]
+    with tracing.span("model.attn"):
+        x = _chunk_attn(cfg, p, x, cache, slots, q_pos, ctx, cut, n, paged)
+    return _mlp_tail(cfg, p, x, ctx)[0]
+
+
+def _chunk_attn(cfg, p, x, cache, slots, q_pos, ctx, cut, n, paged):
+    """``chunk_layer``'s attention and its residual: x after them."""
+    h = apply_norm(cfg, p["ln1"], x)
     a = cfg.attn
     Ac, C, _ = x.shape
     w, partial = _serve_attn(cfg, p["attn"], ctx, cut)
@@ -880,5 +912,4 @@ def chunk_layer(cfg, pos: int, p, x, cache, slots, pos_off, q_pos, mask,
     h = o.reshape(Ac, C, -1) @ w["wo"]
     if partial:
         h = CL.reduce_from(h, ctx.model_group)
-    x = x + h.to(x.dtype)
-    return _mlp_tail(cfg, p, x, ctx)[0]
+    return x + h.to(x.dtype)

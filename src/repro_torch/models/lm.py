@@ -34,6 +34,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -548,8 +549,9 @@ def loss_fn(cfg, params, batch, ctx=None, fsdp: bool = True):
     over every rank's tokens, as the JAX package's mesh step computes it
     from the global batch."""
     h, aux, top, _ = _forward(cfg, params, batch, ctx, fsdp)
-    loss, cnt = chunked_xent(h, output_head(cfg, top), batch["labels"],
-                             ctx=ctx, vocab=cfg.vocab_size)
+    with tracing.span("model.head"):
+        loss, cnt = chunked_xent(h, output_head(cfg, top), batch["labels"],
+                                 ctx=ctx, vocab=cfg.vocab_size)
     return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 
@@ -654,9 +656,10 @@ def _serve_logits(cfg, top, h, ctx, per_row: bool = False):
     """fp32 logits of h (rows, d) over the whole vocab (``per_row``: as
     ``_logits``): on a mesh whose vocab is stored cut, each model rank's
     slice gathered."""
-    logits = _logits(cfg, top, h, per_row)
-    if model_sharded(ctx, cfg.vocab_size):
-        logits = CL.gather_from(logits, ctx.model_group, -1)
+    with tracing.span("model.head"):
+        logits = _logits(cfg, top, h, per_row)
+        if model_sharded(ctx, cfg.vocab_size):
+            logits = CL.gather_from(logits, ctx.model_group, -1)
     return logits
 
 

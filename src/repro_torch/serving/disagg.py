@@ -174,10 +174,13 @@ class Router:
         self._pool_cap = min(min(w.n_pages - 1, w.max_blocks)
                              for w in self.workers)
         # one emission watermark across the fleet: exactly-once delivery
-        # must survive a request moving between workers
+        # must survive a request moving between workers; so must its
+        # admission stamp (both popped by ``collect``)
         self.emitted: Dict[int, int] = {}
+        self.admitted_t: Dict[int, float] = {}
         for w in self.workers:
             w.emitted = self.emitted
+            w.admitted_t = self.admitted_t
         # router scheduler state
         self.queue: deque = deque()
         self.ready: deque = deque()               # rids awaiting migration
@@ -266,6 +269,7 @@ class Router:
         req.status = status
         req.error = error
         req.done_t = self._shared_now() if now is None else now
+        req.admit_t = self.admitted_t.get(req.rid, 0.0)
         if req.length < 0:
             req.length = len(req.tokens)
         self.finished[req.rid] = req

@@ -90,6 +90,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -262,6 +263,7 @@ class Request:
     length: int = -1            # tokens before eos; -1 while running
     slot: int = -1
     submit_t: float = 0.0
+    admit_t: float = 0.0        # start of the stacked call admitting it
     first_token_t: float = 0.0  # TTFT = first_token_t - submit_t
     done_t: float = 0.0
     status: RequestStatus = RequestStatus.QUEUED
@@ -469,6 +471,10 @@ class ServeEngine:
         # rolled back by restore: replayed tokens below the watermark are
         # regenerated (bit-identically) but not re-emitted
         self.emitted: Dict[int, int] = {}
+        # rid -> the engine's clock at its first admission, kept across a
+        # restore and replay as the emission ledger is (the snapshot's
+        # request records keep the JAX engine's fields); popped by collect
+        self.admitted_t: Dict[int, float] = {}
         # write-ahead event log since the last committed snapshot, replayed
         # after a restore so post-snapshot submits and drops are not lost
         self._log: List[Tuple] = []
@@ -778,7 +784,9 @@ class ServeEngine:
         (valid_len 0: a parking row only scribbles on a free slot's
         region), as the JAX engine pads it to bound its compiles; the port
         keeps the padding so both engines run the same tokens through the
-        MoE."""
+        MoE. Each request's ``admit_t`` is the engine's clock at the start
+        of this call (of its first admission's, on a replay)."""
+        t_admit = self._clock()
         t0 = time.perf_counter()
         C = self.chunk
         A = len(pairs)
@@ -798,19 +806,24 @@ class ServeEngine:
         tables = ((self._tensor(self.block_tables[slots]),) if self.paged
                   else ())
         for j in range(int(nchunks.max())):
-            toks = np.zeros((A, C), np.int64)
-            valids = np.clip(plens - j * C, 0, C)
-            for a, (_, r) in enumerate(pairs):
-                part = r.prompt[j * C:(j + 1) * C]
-                toks[a, :len(part)] = part
-            offs = np.full((A,), j * C, np.int64)
-            logits, self.cache = self.prefill["fn"](
-                self.params, self.cache, self._tensor(toks),
-                self._tensor(offs), self._tensor(valids), slots_t, *tables)
-            # the next tokens and the rows' health in one copy to the host
-            got = torch.stack([torch.argmax(logits, dim=-1),
-                               torch.isfinite(logits).all(-1).long()],
-                              -1).cpu().numpy()
+            with tracing.span("engine.prefill.inputs"):
+                toks = np.zeros((A, C), np.int64)
+                valids = np.clip(plens - j * C, 0, C)
+                for a, (_, r) in enumerate(pairs):
+                    part = r.prompt[j * C:(j + 1) * C]
+                    toks[a, :len(part)] = part
+                offs = np.full((A,), j * C, np.int64)
+                args = (self._tensor(toks), self._tensor(offs),
+                        self._tensor(valids), slots_t, *tables)
+            with tracing.span("engine.prefill.forward"):
+                logits, self.cache = self.prefill["fn"](
+                    self.params, self.cache, *args)
+            with tracing.span("engine.prefill.readback"):
+                # the next tokens and the rows' health in one copy to the
+                # host
+                got = torch.stack([torch.argmax(logits, dim=-1),
+                                   torch.isfinite(logits).all(-1).long()],
+                                  -1).cpu().numpy()
             last = nchunks == j + 1
             first_tok[last] = got[last, 0]
             row_ok[last] = got[last, 1].astype(bool)
@@ -822,6 +835,7 @@ class ServeEngine:
         for a, (slot, req) in enumerate(pairs):
             req.slot = slot
             req.status = RequestStatus.RUNNING
+            req.admit_t = self.admitted_t.setdefault(req.rid, t_admit)
             if req.first_token_t <= 0:           # preserve TTFT on replay
                 req.first_token_t = now
             self.slot_req[slot] = req
@@ -878,7 +892,8 @@ class ServeEngine:
         self._after_phases()
         if self.ckpt is not None and self.snapshot_every and \
                 self.step_idx % self.snapshot_every == 0:
-            self.snapshot()
+            with tracing.span("engine.snapshot"):
+                self.snapshot()
 
     def _check_agreement(self):
         """Raises unless every rank's scheduler holds the same state before
@@ -917,10 +932,15 @@ class ServeEngine:
         """The admission phase of one scheduler iteration: queued-deadline
         expiry, then one stacked chunk-admission call (free-page gated
         when paged). Returns the admitted (slot, request) pairs."""
-        self._expire_queued()
-        pairs = self._gather_admissions()
-        if pairs:
-            self._admit_batch(pairs)
+        with tracing.span("engine.expire"):
+            self._expire_queued()
+        with tracing.span("engine.admit") as sp:
+            sp.set("step", self.step_idx)
+            pairs = self._gather_admissions()
+            if tracing.enabled():
+                sp.set("rids", [r.rid for _, r in pairs])
+            if pairs:
+                self._admit_batch(pairs)
         return pairs
 
     def decode_step(self) -> int:
@@ -929,8 +949,11 @@ class ServeEngine:
         live-deadline expiry. Returns how many rows decoded."""
         n = int(self.live.sum())
         if n:
-            self._decode_once()
-        self._expire_live()
+            with tracing.span("engine.decode") as sp:
+                sp.set("step", self.step_idx)
+                self._decode_once()
+        with tracing.span("engine.expire"):
+            self._expire_live()
         return n
 
     def _after_phases(self):
@@ -939,36 +962,42 @@ class ServeEngine:
 
     def _decode_once(self):
         t0 = time.perf_counter()
-        tables = ((None, self._tensor(self.block_tables)) if self.paged
-                  else ())
-        # no live mask: only the live slots' tokens are read below; the
-        # rows' health comes back with the tokens, in one copy
-        got, _, self.cache = self.decode["fn"](
-            self.params, self.cache, self._tensor(self.last_tok[:, None]),
-            self._tensor(self.pos), *tables, health=True)
-        got = got.cpu().numpy()
-        nxt, row_ok = got[:, 0], got[:, 1].astype(bool)
-        # a poisoned request retires alone instead of taking the engine
-        # (or its batch neighbours) down
-        poisoned = (set(self.faults.poison_rows(self))
-                    if self.faults is not None else set())
+        with tracing.span("engine.decode.inputs"):
+            tables = ((None, self._tensor(self.block_tables)) if self.paged
+                      else ())
+            args = (self._tensor(self.last_tok[:, None]),
+                    self._tensor(self.pos), *tables)
+        with tracing.span("engine.decode.forward"):
+            # no live mask: only the live slots' tokens are read below;
+            # the rows' health comes back with the tokens, in one copy
+            got, _, self.cache = self.decode["fn"](
+                self.params, self.cache, *args, health=True)
+        with tracing.span("engine.decode.readback"):
+            got = got.cpu().numpy()
+            nxt, row_ok = got[:, 0], got[:, 1].astype(bool)
+            # a poisoned request retires alone instead of taking the
+            # engine (or its batch neighbours) down
+            poisoned = (set(self.faults.poison_rows(self))
+                        if self.faults is not None else set())
         self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         self.decode_tokens += int(self.live.sum())
-        for slot in range(self.B):
-            if not self.live[slot]:
-                continue
-            req = self.slot_req[slot]
-            if slot in poisoned or not row_ok[slot]:
-                self._retire(slot, RequestStatus.QUARANTINED,
-                             f"non-finite logits after {len(req.tokens)} "
-                             f"tokens")
-                self.quarantined += 1
-                continue
-            self.pos[slot] += 1
-            self.last_tok[slot] = int(nxt[slot])
-            if self._record_token(req, int(nxt[slot]), len(req.tokens)):
-                self._retire(slot)
+        with tracing.span("engine.decode.emit"):
+            for slot in range(self.B):
+                if not self.live[slot]:
+                    continue
+                req = self.slot_req[slot]
+                if slot in poisoned or not row_ok[slot]:
+                    self._retire(slot, RequestStatus.QUARANTINED,
+                                 f"non-finite logits after "
+                                 f"{len(req.tokens)} tokens")
+                    self.quarantined += 1
+                    continue
+                self.pos[slot] += 1
+                self.last_tok[slot] = int(nxt[slot])
+                if self._record_token(req, int(nxt[slot]),
+                                      len(req.tokens)):
+                    self._retire(slot)
 
     # -- page-migration handoff (disaggregated prefill/decode) --------------
 
@@ -1081,6 +1110,8 @@ class ServeEngine:
                 for k in e:
                     e[k][:, local] = h[k]
         req = _req_from_json(hand.req_json)
+        # the stamp is not in the record: a router shares its ledger
+        req.admit_t = self.admitted_t.get(req.rid, 0.0)
         req.slot = slot
         req.status = RequestStatus.RUNNING
         self.slot_req[slot] = req
@@ -1140,7 +1171,10 @@ class ServeEngine:
         """Restore the scheduler and the cache from the latest (or a given)
         committed snapshot, the cache copied into the live tensors (their
         device, dtypes and layout). The monotonic step counter and the
-        emission ledger are not rolled back."""
+        emission and admission ledgers are not rolled back; a request this
+        engine never admitted takes its first token's time as ``admit_t``
+        (a restore in a new process loses the stamp, not the order
+        ``submit_t <= admit_t <= first_token_t``)."""
         if self.ckpt is None:
             raise RuntimeError("restore() needs snapshot_dir")
         self.ckpt.wait()
@@ -1169,6 +1203,12 @@ class ServeEngine:
                 self.alloc.free_slot(s)
         reqs = {int(rid): _req_from_json(d)
                 for rid, d in extra["requests"].items()}
+        for rid, r in reqs.items():
+            # an engine that did not admit it (a restore in a new process)
+            # has lost the stamp: its first token's time bounds it
+            if r.first_token_t > 0:
+                self.admitted_t.setdefault(rid, r.first_token_t)
+            r.admit_t = self.admitted_t.get(rid, 0.0)
         self.queue = deque(reqs[rid] for rid in extra["queue"])
         self.slot_req = [reqs[rid] if rid is not None else None
                          for rid in extra["slots"]]
@@ -1261,6 +1301,7 @@ class ServeEngine:
         collect, or clear ``finished``: the engine keeps every uncollected
         request)."""
         self.emitted.pop(rid, None)
+        self.admitted_t.pop(rid, None)
         return self.finished.pop(rid)
 
     def generate(self, prompts: Sequence[Union[Sequence[int], RequestSpec]],
