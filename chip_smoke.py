@@ -9,6 +9,7 @@
   python3 chip_smoke.py --only build,serve_lifecycle
   python3 chip_smoke.py --only build,serve_disagg
   python3 chip_smoke.py --only build,stack_bits
+  python3 chip_smoke.py --only build,head_product
   python3 chip_smoke.py --only build,train_scheduled,prefill
   python3 chip_smoke.py --only build,kernels,whisper
   python3 chip_smoke.py --only build,elastic
@@ -423,7 +424,14 @@ tensor, each rank's outcome recorded); ``--only build,stack_bits`` whether
 a qwen2-moe-2.7b request's prefill bits depend on its stack (alone in
 two slots, in stacks of 2, 4 and 8 at the first and last row: the first
 op whose bits change), each product of the path alone at those row
-counts, and the decode's live rows at 4, 8 and 16 slots.
+counts, and the decode's live rows at 4, 8 and 16 slots;
+``--only build,head_product`` the training head's fp32 product on bf16
+tensor cores at the training cell's chunk shape (2,048 x 2,048 x
+151,936): logits, dh and dW against fp64 beside the fp32 cuBLAS product,
+a one-piece and a one-pass control, over a sweep of the longest K a
+tensor-core pass sums; the present and the new path's times a chunk; and
+one traced train step's count of head products (8 ``bf16_exact``) and
+split launches (4).
 
 Prints the card line, one JSON line of kernel records, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -458,7 +466,7 @@ PHASES = ("build", "kernels", "serve", "logits", "pallas", "serve_ssm",
 EXTRA_PHASES = ("profile", "profile_serve_ssm", "profile_train",
                 "profile_train_ssm", "profile_serve_hybrid",
                 "profile_serve_paged", "rule_seeds", "nccl_pair",
-                "stack_bits")
+                "stack_bits", "head_product")
 REPLACES = {
     "fused_mlp": "src/repro/kernels/fused_mlp.py:90",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:49",
@@ -1575,7 +1583,7 @@ class PlainGuard:
     NAMES = ("fused_mlp_ref", "grouped_gemm_ref", "topk_combine_ref",
              "fused_mlp_dgrad_ref", "fused_mlp_wgrad_ref",
              "flash_attention_ref", "ssd_chunked_ref", "ssd_ref",
-             "ssd_state_ref", "rmsnorm_ref", "rms_norm")
+             "ssd_state_ref", "rmsnorm_ref", "rms_norm", "split3_bf16_ref")
 
     def __init__(self):
         from repro_torch.kernels import ref
@@ -1605,17 +1613,24 @@ class PlainGuard:
 
 def reset_counts():
     from repro_torch.kernels import (flash_attention, fused_mlp,
-                                     grouped_gemm, rmsnorm, ssd,
+                                     grouped_gemm, rmsnorm, split3, ssd,
                                      topk_combine)
+    from repro_torch.models.common import HEAD_PRODUCT_CALLS
     for m in (fused_mlp, grouped_gemm, topk_combine, flash_attention, ssd,
-              rmsnorm):
+              rmsnorm, split3):
         m.reset()
+    for k in HEAD_PRODUCT_CALLS:
+        HEAD_PRODUCT_CALLS[k] = 0
 
 
 def read_counts():
+    """Each kernel's launches (its Hopper path's beside it), and the
+    head's logits products by path (``models/common.HEAD_PRODUCT_CALLS``)
+    as ``head_bf16_exact`` and ``head_fp32``."""
     from repro_torch.kernels import (flash_attention, fused_mlp,
-                                     grouped_gemm, rmsnorm, ssd,
+                                     grouped_gemm, rmsnorm, split3, ssd,
                                      topk_combine)
+    from repro_torch.models.common import HEAD_PRODUCT_CALLS
     return {"fused_mlp": fused_mlp.launches,
             "fused_mlp_hopper": fused_mlp.hopper_launches,
             "grouped_gemm": grouped_gemm.launches,
@@ -1629,7 +1644,27 @@ def read_counts():
             "flash_attention_hopper": flash_attention.hopper_launches,
             "ssd_forward": ssd.launches,
             "ssd_forward_hopper": ssd.hopper_launches,
-            "rmsnorm": rmsnorm.launches}
+            "rmsnorm": rmsnorm.launches,
+            "split3": split3.launches,
+            "head_bf16_exact": HEAD_PRODUCT_CALLS["bf16_exact"],
+            "head_fp32": HEAD_PRODUCT_CALLS["fp32"]}
+
+
+def head_launches(cfg, seq, passes):
+    """The head's counts in ``passes`` forward and backward passes of
+    ``chunked_xent`` over sequences of ``seq`` tokens: a logits product a
+    chunk in the forward and one in its checkpoint recompute, on the
+    bf16-exact path with a split launch a chunk in the backward for bf16
+    operands and fp32 logits, else on the fp32 path."""
+    import inspect
+
+    from repro_torch.models.common import chunked_xent
+    chunk = inspect.signature(chunked_xent).parameters["chunk"].default
+    n = -(-seq // chunk) * passes
+    if (cfg.param_dtype == cfg.compute_dtype == "bfloat16"
+            and cfg.logit_dtype == "float32"):
+        return {"split3": n, "head_bf16_exact": 2 * n, "head_fp32": 0}
+    return {"split3": 0, "head_bf16_exact": 0, "head_fp32": 2 * n}
 
 
 @contextlib.contextmanager
@@ -1796,7 +1831,7 @@ def plain_ops():
     from repro_torch.kernels import ops, ref
     names = ("topk_combine", "grouped_gemm", "fused_mlp", "fused_mlp_dgrad",
              "fused_mlp_wgrad", "flash_attention", "ssd_forward",
-             "ssd_forward_state", "rms_norm")
+             "ssd_forward_state", "rms_norm", "split3_bf16")
     saved = {n: getattr(ops, n) for n in names}
 
     def wd_of(w, col_slice):
@@ -1829,7 +1864,8 @@ def plain_ops():
     plain = dict(zip(names, (ref.topk_combine_ref, plain_gg, plain_mlp,
                              plain_dgrad, plain_wgrad,
                              ref.flash_attention_ref, plain_ssd,
-                             plain_ssd_state, ref.rms_norm)))
+                             plain_ssd_state, ref.rms_norm,
+                             ref.split3_bf16_ref)))
     for n in names:
         setattr(ops, n, plain[n])
     try:
@@ -2220,7 +2256,8 @@ def phase_train(state, out):
             "flash_attention": 2 * L * 3,
             "flash_attention_hopper": 2 * L * 3,
             "ssd_forward": 0, "ssd_forward_hopper": 0,
-            "rmsnorm": (2 * 2 * L + 1) * 3}
+            "rmsnorm": (2 * 2 * L + 1) * 3,
+            **head_launches(cfg, TRAIN_SEQ, 3)}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -2408,7 +2445,8 @@ def phase_train_ssm(state, out):
             "grouped_gemm": 0, "grouped_gemm_hopper": 0, "flash_attention": 0,
             "flash_attention_hopper": 0,
             "ssd_forward": 2 * L * 3, "ssd_forward_hopper": 2 * L * 3,
-            "rmsnorm": (2 * 2 * L + 1) * 3}
+            "rmsnorm": (2 * 2 * L + 1) * 3,
+            **head_launches(cfg, SSM_SEQ, 3)}
     check(counts == want, f"launches {counts}, expected {want} (3 steps)")
     check(plain_calls == 0,
           f"plain versions saw CUDA tensors {plain_calls} times")
@@ -2759,7 +2797,8 @@ def mesh_timed_steps(rec, out, kept):
             "flash_attention": 2 * L * 3,
             "flash_attention_hopper": 2 * L * 3,
             "ssd_forward": 0, "ssd_forward_hopper": 0,
-            "rmsnorm": (2 * 2 * L + 1) * 3}
+            "rmsnorm": (2 * 2 * L + 1) * 3,
+            **head_launches(train_cfg(L, "bfloat16"), TRAIN_SEQ, 3)}
     check(counts == want, f"mesh step launches {counts}, expected {want} "
           f"(3 steps)")
     check(plain_calls == 0,
@@ -4563,9 +4602,10 @@ SCHED_TURNS = 2
 def sched_launches(L, remat):
     """The launches one fwd+bwd of phase 6's configuration makes per
     kernel: the forward's (twice under remat: its recompute), one dgrad
-    and one wgrad per MoE layer, 2L+1 norms a forward."""
+    and one wgrad per MoE layer, 2L+1 norms a forward; the head's (its
+    chunks' own recompute under any schedule)."""
     f = 2 if remat else 1
-    return {"fused_mlp": f * L, "fused_mlp_hopper": f * L,
+    return {**head_launches(train_cfg(L, "bfloat16"), TRAIN_SEQ, 1),"fused_mlp": f * L, "fused_mlp_hopper": f * L,
             "topk_combine": f * L, "fused_mlp_dgrad": L,
             "fused_mlp_dgrad_hopper": L, "fused_mlp_wgrad": L,
             "fused_mlp_wgrad_hopper": L, "grouped_gemm": 0,
@@ -5320,7 +5360,8 @@ def phase_whisper(state, out):
     torch.cuda.empty_cache()
     n = 3 * whisper_flash_launches(cfg, train=True)
     want = {k: 0 for k in counts}
-    want.update(flash_attention=n, flash_attention_hopper=n)
+    want.update(flash_attention=n, flash_attention_hopper=n,
+                **head_launches(cfg, T, 3))
     check(counts == want, f"train launches {counts}, expected {want}")
     check(plain_calls == 0, f"plain versions saw CUDA tensors {plain_calls} "
                             f"times")
@@ -5454,7 +5495,8 @@ def elastic_rescale(rec):
                   fused_mlp_dgrad_hopper=L * 5, fused_mlp_wgrad=L * 5,
                   fused_mlp_wgrad_hopper=L * 5, flash_attention=2 * L * 5,
                   flash_attention_hopper=2 * L * 5,
-                  rmsnorm=(2 * 2 * L + 1) * 5)
+                  rmsnorm=(2 * 2 * L + 1) * 5,
+                  **head_launches(cfg, TRAIN_SEQ, 5))
     rec["rescale"] = {
         "layers": L, "tokens_per_step": TRAIN_SEQ * TRAIN_BATCH,
         "path": "none -> (1, 1) -> none", "losses": elastic,
@@ -5928,6 +5970,236 @@ def _pair_probe(path):
     return 0 if res["ok"] else 1
 
 
+# ---------------------------------------------------------------------------
+# extra phase: the head's fp32 product on bf16 tensor cores
+# ---------------------------------------------------------------------------
+
+# one chunk of the training head: 2 x 1,024 rows, d 2,048, qwen2's vocab
+HEAD_SHAPE = (2048, 2048, 151936)
+HEAD_SEED = 11
+# a product's max error against fp64 may be this many times the fp32
+# cuBLAS product's (TF32 off)
+HEAD_ERR_RATIO = 4.0
+# the head's scale over 1/sqrt(d): logits of about unit spread, as at
+# initialisation, and four times that, a softmax peaked as a model's that
+# has learned (its gradient's large entries then carry all their bits)
+HEAD_SCALES = {"init": 1.0, "peaked": 4.0}
+# the longest K of one tensor-core pass, swept (``common.K_PASS`` among
+# them is the one the path takes)
+HEAD_K_PASSES = (512, 1024, 2048, 4096, 8192)
+
+
+def _max_rel(got, want):
+    """max |got - want| over max |want|, want in fp64."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _head_errors(a, b, G):
+    """Max relative errors against fp64 of the logits a @ b, dh = G @ b.T
+    and dW = a.T @ G: the fp32 cuBLAS product of the widened operands
+    (``fp32``), the tensor-core path in passes of each of
+    ``HEAD_K_PASSES`` along K (``k<n>``; ``new`` the one of
+    ``common.K_PASS``), and two controls: G rounded once to bf16
+    (``one_piece``) and dh's three pieces in one pass over the whole vocab
+    (``one_pass``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    errs = {}
+    with torch.no_grad():
+        want = a.double() @ b.double()
+        e = errs["logits"] = {"fp32": _max_rel(a.float() @ b.float(), want)}
+        for k in HEAD_K_PASSES:
+            e[f"k{k}"] = _max_rel(common._mm_f32(a, b, k_pass=k), want)
+        del want
+        want = G.double() @ b.double().t()
+        e = errs["dh"] = {"fp32": _max_rel(G @ b.float().t(), want)}
+        for k in HEAD_K_PASSES:
+            e[f"k{k}"] = _max_rel(common.split_grads_f32(
+                a, b, G, (True, False), k)[0], want)
+        e["one_piece"] = _max_rel(common._mm_f32(G.bfloat16(), b.t()), want)
+        p = torch.mm(ops.split3_bf16(G).view(-1, G.shape[1]), b.t(),
+                     out_dtype=torch.float32).view(3, *a.shape)
+        e["one_pass"] = _max_rel((p[0] - p[1]) - p[2], want)
+        del want, p
+        want = a.double().t() @ G.double()
+        e = errs["dW"] = {"fp32": _max_rel(a.float().t() @ G, want)}
+        for k in HEAD_K_PASSES:
+            e[f"k{k}"] = _max_rel(common.split_grads_f32(
+                a, b, G, (False, True), k)[1], want)
+        e["one_piece"] = _max_rel(common._mm_f32(a.t(), G.bfloat16()), want)
+        del want
+    for e in errs.values():
+        e["new"] = e[f"k{common.K_PASS}"]
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_head_product(state, out):
+    """The head's logits, dh and dW (``models/common.bf16_exact_mm``, its
+    backward's ``split_grads_f32``) at the training cell's chunk shape,
+    against fp64, for a head at each of ``HEAD_SCALES`` and passes along K
+    of each of ``HEAD_K_PASSES``: at ``common.K_PASS`` each max relative
+    error at most ``HEAD_ERR_RATIO`` times the fp32 cuBLAS product's; the
+    gradient rounded once to bf16 (the control) misses that limit in dh
+    and dW of the peaked softmax. Then the forward and the backward's
+    products a chunk at each K pass, the present (widened fp32) and the
+    new path's forward and backward a chunk in turns, all with CUDA
+    events, and the split alone (``csrc/split3.cu``, its bits those of the
+    plain version); and one traced, profiled train step of qwen2-moe-2.7b
+    at the training cell's 4 layers and 2 x 4,096 tokens (4 chunks),
+    counters zeroed just before it: 8 ``bf16_exact`` head products and no
+    fp32 one, 4 split launches, and its device time by kernel."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train_step import build_train_step
+    from repro_torch.models import common, lm
+    from repro_torch.optim.adamw import AdamW
+    for key in list(state):                    # earlier phases' weights
+        state.pop(key)
+    torch.cuda.empty_cache()
+    check(common.K_PASS in HEAD_K_PASSES,
+          f"K_PASS {common.K_PASS} is not among the swept {HEAD_K_PASSES}")
+    rec = out["head_product"] = {"shape": list(HEAD_SHAPE), "errors": {},
+                                 "k_passes": list(HEAD_K_PASSES),
+                                 "k_pass": common.K_PASS}
+    rows, d, V = HEAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(HEAD_SEED)
+    # the final norm's unit-scale rows
+    a = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(d, V, device="cuda", generator=gen)
+    labels = torch.randint(0, V, (rows,), device="cuda", generator=gen)
+    for dist, scale in HEAD_SCALES.items():
+        b = (w * (scale * d ** -0.5)).bfloat16()
+        with torch.no_grad():
+            # the logits' gradient as the chunk's backward gives it:
+            # softmax less one-hot, over the count
+            G = torch.softmax(a.float() @ b.float(), -1)
+            G[torch.arange(rows, device="cuda"), labels] -= 1.0
+            G /= rows
+        errs = rec["errors"][dist] = _head_errors(a, b, G)
+        for name, e in errs.items():
+            log(f"  {dist} {name}: max rel err against fp64 (x fp32's): "
+                + ", ".join(f"{k} {v:.3e} ({v / e['fp32']:.2f})"
+                            for k, v in e.items() if k != "new"))
+        for name, e in errs.items():
+            check(e["new"] <= HEAD_ERR_RATIO * e["fp32"],
+                  f"{dist} {name}: {e['new']:.3e} > {HEAD_ERR_RATIO} x "
+                  f"fp32's {e['fp32']:.3e}")
+            if dist == "peaked" and "one_piece" in e:
+                check(e["one_piece"] > HEAD_ERR_RATIO * e["fp32"],
+                      f"{dist} {name}: the one-piece control passes the "
+                      f"limit")
+        if dist != "peaked":
+            del G
+    del w
+
+    # the tensor-core products a chunk at each K pass
+    sweep = rec["k_pass_ms"] = {}
+    for k in HEAD_K_PASSES:
+        with torch.no_grad():
+            sweep[k] = {
+                "fwd_ms": median_ms(
+                    lambda: common._mm_f32(a, b, k_pass=k), iters=5,
+                    warmup=1),
+                "bwd_ms": median_ms(
+                    lambda: common.split_grads_f32(a, b, G, (True, True), k),
+                    iters=5, warmup=1)}
+        torch.cuda.empty_cache()
+        log(f"  K pass {k}: forward {sweep[k]['fwd_ms']:.3f} ms, backward's "
+            f"split and products {sweep[k]['bwd_ms']:.3f} ms, a chunk")
+
+    def fwd(path):
+        return (lambda: a.float() @ b.float()) if path == "fp32" else \
+            (lambda: common.bf16_exact_mm(a, b))
+
+    def bwd(path):
+        ag, bg = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = (ag.float() @ bg.float() if path == "fp32"
+             else common.bf16_exact_mm(ag, bg))
+        return lambda: torch.autograd.grad(y, (ag, bg), G,
+                                           retain_graph=True)
+
+    times = rec["times"] = {}
+    for path in ("fp32", "new", "new", "fp32"):
+        with torch.no_grad():
+            f = median_ms(fwd(path), iters=5, warmup=1)
+        bk = median_ms(bwd(path), iters=5, warmup=1)
+        torch.cuda.empty_cache()
+        times.setdefault(path, []).append({"fwd_ms": f, "bwd_ms": bk})
+    with torch.no_grad():
+        same = torch.equal(ops.split3_bf16(G).view(torch.int16),
+                           ref.split3_bf16_ref(G).view(torch.int16))
+        rec["split_bits_equal"] = same
+        for key, split in (("split_ms", ops.split3_bf16),
+                           ("split_plain_ms", ref.split3_bf16_ref)):
+            rec[key] = median_ms(lambda: split(G), iters=5, warmup=1)
+    flop = 2 * rows * d * V
+    for path, runs in times.items():
+        f = statistics.median(r["fwd_ms"] for r in runs)
+        bk = statistics.median(r["bwd_ms"] for r in runs)
+        log(f"  {path}: forward {f:.3f} ms ({flop / f / 1e9:.1f} TFLOP/s of "
+            f"the fp32 product), backward {bk:.3f} ms, a chunk")
+    bound_ms = RL.split3_cost(G.numel()).bound_s()[0] * 1e3
+    log(f"  the split alone: kernel {rec['split_ms']:.3f} ms, plain "
+        f"{rec['split_plain_ms']:.3f} ms a chunk (bound {bound_ms:.3f} ms); "
+        f"the same bits: {same}")
+    check(same, "the split kernel's pieces differ from the plain version's")
+    del G, a, b
+    torch.cuda.empty_cache()
+
+    # the training cell's step: 4 layers, 2 x 4,096 tokens (4 chunks)
+    cfg = train_cfg(4, "bfloat16")
+    params = lm.init_params(cfg, seed=HEAD_SEED, device="cuda")
+    fn = build_train_step(cfg, ShapeConfig("train", 4096, 2, "train"),
+                          optim=AdamW())["fn"]
+    tstate = {"params": params, "opt": AdamW().init(params), "step": 0}
+    nb = {"tokens": torch.randint(0, cfg.vocab_size, (2, 4096),
+                                  device="cuda", generator=gen)}
+    nb["labels"] = torch.roll(nb["tokens"], -1, 1)
+    tstate, m = fn(tstate, nb)                             # warm-up
+    float(m["loss"])
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            tracing.recording():
+        t0 = time.perf_counter()
+        tstate, m = fn(tstate, nb)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = tracing.drain()
+    counts = read_counts()
+    heads = {k: counts[k] for k in ("split3", "head_bf16_exact",
+                                    "head_fp32")}
+    prof_rec = RL.device_time_by_name(prof, wall)
+    rec["train_step"] = {"counts": heads, "loss": loss,
+                         "head_spans": sum(sp[0] == "model.head"
+                                           for sp in spans),
+                         "profile": prof_rec}
+    log(f"  one traced train step (4 layers, 2 x 4096): {heads}, loss "
+        f"{loss:.4f}, wall {wall * 1e3:.1f} ms, device "
+        f"{prof_rec['device_ms']:.1f} ms")
+    for r in prof_rec["top"]:
+        log(f"    {r['ms']:9.3f} ms {r['calls']:6d}x  {r['kernel']}")
+    want = head_launches(cfg, 4096, 1)
+    check(heads == want == {"split3": 4, "head_bf16_exact": 8,
+                            "head_fp32": 0},
+          f"a train step's head counts {heads}, expected {want}")
+    check(math.isfinite(loss), "non-finite loss")
+    del tstate, params, fn
+    torch.cuda.empty_cache()
+
+
 def phase_nccl_pair(out):
     """Two NCCL ranks on the one card: what NCCL does with them."""
     import tempfile
@@ -6208,7 +6480,8 @@ def main(argv=None):
              "mesh_train", "plan", "serve_hybrid", "profile_serve_hybrid",
              "mesh_serve", "serve_paged", "profile_serve_paged",
              "serve_lifecycle", "serve_disagg", "train_scheduled", "prefill",
-             "whisper", "elastic", "roofline", "stack_bits", "nccl_pair")
+             "whisper", "elastic", "roofline", "stack_bits", "head_product",
+             "nccl_pair")
     for name in order:
         if name not in phases:
             continue
@@ -6285,6 +6558,8 @@ def main(argv=None):
                 phase_roofline(state, out, dryrun_cli)
             elif name == "stack_bits":
                 phase_stack_bits(state, out)
+            elif name == "head_product":
+                phase_head_product(state, out)
             elif name == "nccl_pair":
                 phase_nccl_pair(out)
             status = "ok"

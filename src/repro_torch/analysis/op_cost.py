@@ -28,7 +28,10 @@ rules mirror ``hlo_cost.py``'s:
   (``roofline.region_cost``: FLOPs and boundary bytes), and nothing that
   runs inside it is counted (the ``__fusable__`` rule). So a step counts
   the same on CPU tensors (plain versions inside), on CUDA tensors (a
-  ctypes launch the dispatcher never sees) and on ``meta`` tensors.
+  ctypes launch the dispatcher never sees) and on ``meta`` tensors. The
+  one part of a step that differs by device is a bf16 model's training
+  head (``models/common.head_logits``): on the card and on ``meta`` its
+  tensor-core passes, on the CPU the widened fp32 product.
 
 ``hlo_cost.py``'s other half has no counterpart: PyTorch runs Python loops
 unrolled, so every layer's ops are dispatched and counted, and there is no

@@ -253,6 +253,13 @@ def rmsnorm_cost(T: int, d: int, itemsize: int = 2) -> KernelCost:
                       products=False)
 
 
+def split3_cost(n: int) -> KernelCost:
+    """The three-piece bf16 split of n fp32 values: each read once (4
+    bytes) and its three pieces written once (6 bytes); two fp32
+    differences a value (elementwise)."""
+    return KernelCost(10 * n, 2 * n, "fp32", products=False)
+
+
 def region_cost(kernel: str, *operands) -> KernelCost:
     """The cost of one ``kernels/ops.py`` call of ``kernel`` from the
     operands it was given (tensors, or None where absent), as
@@ -295,6 +302,9 @@ def region_cost(kernel: str, *operands) -> KernelCost:
         x, _ = operands
         return rmsnorm_cost(x.numel() // x.shape[-1], x.shape[-1],
                             x.element_size())
+    if kernel == "split3":
+        g, = operands
+        return split3_cost(g.numel())
     raise ValueError(f"no cost function for kernel {kernel!r}")
 
 
@@ -320,6 +330,7 @@ KERNEL_GROUPS = (
     ("sum_partials", "fused_mlp reduce pass"),
     ("sum_splits", "fused_mlp reduce pass"),
     ("topk_combine", "topk_combine kernel"),
+    ("split3", "head split kernel"),
     ("gemm", "library GEMMs"), ("nvjet", "library GEMMs"),
     ("xmma", "library GEMMs"), ("cutlass", "library GEMMs"),
     ("softmax", "softmax"), ("reduce_kernel", "reductions"),

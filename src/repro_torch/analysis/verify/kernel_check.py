@@ -16,10 +16,11 @@ The checker works on :class:`KernelModel`, one per launch: its grid,
 threads, shared memory, the output tiles each block writes (a mirror of
 the ``.cu`` file's block-index arithmetic), the input and accumulator
 dtypes and the TMA operands. ``builtin_kernel_models`` builds them for
-all eight kernels on both paths at PERF.md §6's shapes from the
-wrappers' own plan functions (``fused_mlp_plan``, ``hopper_smem_bytes``,
-``grouped_gemm.hopper_plan``, ``rmsnorm.launch_plan``,
-``topk_combine.launch_plan``) and ``hopper_path`` predicates; a tile or
+the eight TPU kernels' ports on both paths at PERF.md §6's shapes, and
+the head's split at its chunk, from the wrappers' own plan functions
+(``fused_mlp_plan``, ``hopper_smem_bytes``, ``grouped_gemm.hopper_plan``,
+``rmsnorm.launch_plan``, ``topk_combine.launch_plan``,
+``split3.launch_plan``) and ``hopper_path`` predicates; a tile or
 layout that only a ``.cu`` file holds is in ``CU_CONSTANTS``, which
 ``tests/test_torch_verify.py`` reads back out of the sources. The tuner's
 plan gate (``plan_vmem_ok``, ``check_candidate_plans``) stays in
@@ -41,6 +42,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import grouped_gemm as GG
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import split3 as S3
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import topk_combine as TK
 
@@ -97,6 +99,7 @@ CU_CONSTANTS: Dict[Tuple[str, str], int] = {
     ("ssd_hopper.cu", "kP"): 32,
     ("ssd_hopper.cu", "kTerms"): 2,
     ("rmsnorm.cu", "kMaxThreads"): 512,
+    ("split3.cu", "kThreads"): 256,
 }
 
 
@@ -636,6 +639,23 @@ def rmsnorm_models(T: int, d: int, dtype: str = "bfloat16",
         static_smem=static)]
 
 
+def split3_models(n: int, vec: bool = True,
+                  sm_count: int = SM_COUNT) -> List[KernelModel]:
+    """The split of n fp32 values into three bf16 pieces: the persistent
+    blocks walk tiles of ``kThreads`` threads' values, each tile's three
+    pieces written by one block."""
+    threads = _c("split3.cu", "kThreads")
+    p = S3.launch_plan(n, vec, sm_count)
+    span = threads * p["per_thread"]
+
+    def tiles(ids):
+        t = _persistent(p["tiles"])(ids)
+        return np.concatenate([_stack(k, t) for k in range(3)])
+    return [KernelModel(
+        f"split3[{p['instance']}]", "split3.cu", (p["blocks"],), threads, 0,
+        (Output("out", (3, n), (1, span), tiles),), ("float32",))]
+
+
 def _ssd_hopper_smem(ds: int) -> int:
     """csrc/ssd_hopper.cu ``layout(ds).bytes``."""
     kQ, kP = _c("ssd_hopper.cu", "kQ"), _c("ssd_hopper.cu", "kP")
@@ -750,6 +770,8 @@ def builtin_kernel_models() -> List[KernelModel]:
         out += rmsnorm_models(2048, 1536, dtype=dt)
         out += rmsnorm_models(8, 1536, dtype=dt)
         out += rmsnorm_models(2048, 8192, dtype=dt)
+    # the training head's chunk: 2 x 1,024 rows of qwen2's vocab
+    out += split3_models(2048 * 151936)
     return out
 
 
@@ -773,6 +795,7 @@ def attribute_models() -> List[KernelModel]:
         for k in (2, 3, 8):
             out += topk_combine_models(2048, k, 2048, dtype=dt)
         out += topk_combine_models(64, 4, 2047, dtype=dt)     # scalar
+    out += split3_models(1001, vec=False)
     return out
 
 

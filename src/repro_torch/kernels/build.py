@@ -73,6 +73,7 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P),
+    "repro_split3_bf16": (_P, _P, _LL, _I, _I, _P),
 }
 # each source's attribute query (csrc/attrs.cuh): (instance, out, label, cap)
 ATTR_QUERIES = tuple(f"repro_attrs_{p.stem}"

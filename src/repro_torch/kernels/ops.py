@@ -20,7 +20,9 @@ devices, because the JAX package has no backward kernel for either
 ``rms_norm`` is the model's norm: the rmsnorm kernel's ``model`` epilogue
 forward, the plain form recomputed under autograd backward, for the same
 reason. ``ssd_forward_state`` is the serving chunks' SSD, with an initial
-and a final state, under ``no_grad``.
+and a final state, under ``no_grad``. ``split3_bf16`` cuts the head's fp32
+logit gradient into three bf16 pieces (``models/common.bf16_exact_mm``'s
+backward).
 
 A ``meta`` tensor goes to the plain version too: on ``meta`` it only
 propagates shapes (the dry run, ``launch/dryrun.py``). Each kernel call
@@ -41,6 +43,7 @@ from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import split3 as _s3
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import topk_combine as _tc
 
@@ -294,3 +297,14 @@ def rms_norm(x, scale, eps: float):
     dimensions. Differentiable: the backward is the plain form recomputed
     under autograd."""
     return _RMSNorm.apply(x, scale, eps)
+
+
+def split3_bf16(g):
+    """The fp32 g's three exact bf16 pieces, stacked (3, *g.shape), with g
+    == (p[0] - p[1]) - p[2] (``ref.split3_bf16_ref``): one pass of the
+    split kernel on a CUDA tensor, the plain form otherwise."""
+    def run():
+        if _on_cuda(g):
+            return _s3.split3_bf16(g)
+        return ref.split3_bf16_ref(g)
+    return _kernel("split3", run, g)

@@ -98,6 +98,22 @@ def rms_norm_vjp(x, scale, eps, ct):
         return torch.autograd.grad(out, ins, ct.to(out.dtype))
 
 
+def split3_bf16_ref(g):
+    """Three bf16 pieces p of the fp32 tensor g, stacked (3, *g.shape),
+    with g == (p[0] - p[1]) - p[2] in fp32 bit for bit (signed zeros too)
+    over fp32's normal range: p[0] = bf16(g), p[1] = bf16(p[0] - g), p[2]
+    = bf16(p[0] - g - p[1]), the differences taken in fp32. Each is exact,
+    as 24 significand bits are three times 8; taken as p[0] - g, and not g
+    - p[0], a zero remainder of -0.0 keeps its sign."""
+    out = torch.empty((3,) + tuple(g.shape), dtype=torch.bfloat16,
+                      device=g.device)
+    out[0].copy_(g)
+    r = out[0] - g
+    out[1].copy_(r)
+    out[2].copy_(r.sub_(out[1]))
+    return out
+
+
 def grouped_gemm_ref(lhs, rhs, out_dtype=None):
     """lhs: (E, M, K); rhs: (E, K, N) -> (E, M, N), fp32 accumulation."""
     out = torch.bmm(lhs.float(), rhs.float())

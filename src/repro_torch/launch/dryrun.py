@@ -106,6 +106,23 @@ def meta_cache(cache_shapes, cache_specs, mesh):
                  for e, sp in zip(cache_shapes, cache_specs))
 
 
+# addmm with an fp32 output of bf16 operands (the head's tensor-core
+# passes, ``models/common._mm_f32``): torch 2.11's meta kernel takes the
+# out_dtype for beta and raises, so the dry run gives the output itself
+_ADDMM_DTYPE = (torch.ops.aten.addmm.dtype, torch.ops.aten.addmm.dtype_out)
+
+
+def _addmm_dtype_meta(args, kwargs):
+    """addmm(self, mat1, mat2, out_dtype)'s result on ``meta``: ``out``
+    when given, else a (rows of mat1, columns of mat2) tensor of
+    out_dtype."""
+    if kwargs.get("out") is not None:
+        return kwargs["out"]
+    mat1, mat2, out_dtype = args[1], args[2], args[3]
+    return torch.empty((mat1.shape[0], mat2.shape[1]), dtype=out_dtype,
+                       device=META)
+
+
 class MetaOutputCache(TorchDispatchMode):
     """Reuses the outputs' metadata of a functional aten op on ``meta``
     tensors: a call whose arguments have the shapes, strides and dtypes of
@@ -138,6 +155,8 @@ class MetaOutputCache(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in _ADDMM_DTYPE:
+            return _addmm_dtype_meta(args, kwargs)
         if (func.is_view or func._schema.is_mutable
                 or func.namespace != "aten"):
             return func(*args, **kwargs)

@@ -19,7 +19,10 @@ each model rank's slice of the sequence (``models/lm.sp_split``).
 ``--trace`` records the program's spans (``repro_torch/tracing.py``: the
 step's ``train.grad``, ``train.guard`` and ``train.update``, the blocks'
 ``model.*`` and the MoE layer's ``moe.*``) over the run, and prints for
-each span name its count, total and self host time (on rank 0):
+each span name its count, total and self host time (on rank 0), and the
+run's calls of the head's logits product by path
+(``models/common.HEAD_PRODUCT_CALLS``: ``bf16_exact``, ``fp32``) with
+their count a step:
 
   python -m repro_torch.launch.train --arch qwen2-moe-2.7b-smoke \
       --steps 5 --batch 2 --seq 64 --trace
@@ -83,6 +86,7 @@ def main(argv=None, device=None):
     import torch.distributed as dist
 
     from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.common import HEAD_PRODUCT_CALLS
     from repro_torch.parallel.mesh import make_mesh
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -112,6 +116,7 @@ def main(argv=None, device=None):
                              plan_cache=args.plan_cache,
                              plan_hw=args.plan_hw)
         trainer = Trainer(cfg, shape, mesh, tcfg, device=device)
+        heads0 = dict(HEAD_PRODUCT_CALLS)
         with tracing.recording() if args.trace else \
                 contextlib.nullcontext():
             out = trainer.run(args.steps)
@@ -123,6 +128,10 @@ def main(argv=None, device=None):
                   if ls else "no steps run", flush=True)
             if args.trace:
                 tracing.print_summary(spans)
+                n = max(len(out["metrics"]), 1)
+                print("head products: " + ", ".join(
+                    f"{k} {v - heads0[k]} ({(v - heads0[k]) / n:g} a step)"
+                    for k, v in HEAD_PRODUCT_CALLS.items()), flush=True)
         return out
     finally:
         if owned:

@@ -202,12 +202,124 @@ def sinusoid_positions(S: int, d: int, device=None):
 
 
 # ---------------------------------------------------------------------------
+# The head's fp32 product of bf16 operands, on bf16 tensor cores
+# ---------------------------------------------------------------------------
+
+
+# the longest K that one tensor-core pass sums. Each product of two bf16
+# values is exact in fp32, but the tensor cores' fp32 accumulation loses
+# bits as K grows, so a longer product is cut into passes of this K, each
+# pass's result added to the last in the pass's fp32 epilogue. Swept at the
+# training head's chunk (``chip_smoke.py --only build,head_product``): dh
+# over its vocab of 151,936 reads 15-32x the fp32 cuBLAS product's error in
+# one pass, 0.5-1.0x in passes of 4,096, 1.0-2.1x of 8,192; passes of 512
+# bring the logits' and dW's K of 2,048 under 1x too, at 2.5x the time
+K_PASS = 4096
+
+
+def _on_cpu(*tensors) -> bool:
+    return any(t.device.type == "cpu" for t in tensors)
+
+
+def _mm_f32(x, y, acc=None, alpha: float = 1.0, k_pass: int = K_PASS):
+    """x @ y of bf16 matrices in fp32, or with ``acc`` acc + alpha * (x @
+    y) written into acc: off the CPU (the card, and ``meta`` for the dry
+    run), bf16 tensor-core passes of at most ``k_pass`` along K with fp32
+    accumulation; on the CPU, the widened operands' product."""
+    if _on_cpu(x, y):
+        p = x.float() @ y.float()
+        return p if acc is None else acc.add_(p, alpha=alpha)
+    for k0 in range(0, x.shape[1], k_pass):
+        xk, yk = x[:, k0:k0 + k_pass], y[k0:k0 + k_pass]
+        if acc is None:
+            acc, alpha = torch.mm(xk, yk, out_dtype=torch.float32), 1.0
+        else:
+            torch.addmm(acc, xk, yk, alpha=alpha, out_dtype=torch.float32,
+                        out=acc)
+    return acc
+
+
+def split_grads_f32(a, b, g, need=(True, True), k_pass: int = K_PASS):
+    """The fp32 gradients (g @ b.T, a.T @ g) of bf16 a (rows, d), b (d, V)
+    and an fp32 g (rows, V): g's three bf16 pieces (``ops.split3_bf16``: g
+    == (p[0] - p[1]) - p[2] exactly), each times a bf16 operand on bf16
+    tensor cores (every product of two values exact in fp32), summed in
+    fp32 by ``_mm_f32`` passes. ``need``: which of the two to compute (None
+    for the other)."""
+    pieces = ops.split3_bf16(g)                         # (3, rows, V)
+    da = db = None
+    if need[0]:
+        # the three pieces stacked as rows of one product
+        p = _mm_f32(pieces.view(-1, g.shape[-1]), b.t(),
+                    k_pass=k_pass).view(3, *a.shape)
+        da = (p[0] - p[1]) - p[2]
+    if need[1]:
+        # one product a piece, each added to the last in fp32
+        db = _mm_f32(a.t(), pieces[0], k_pass=k_pass)
+        for k in (1, 2):
+            _mm_f32(a.t(), pieces[k], acc=db, alpha=-1.0, k_pass=k_pass)
+    return da, db
+
+
+class _Bf16ExactMM(torch.autograd.Function):
+    """The fp32 product of two bf16 matrices on bf16 tensor cores. A
+    product of two bf16 values is exact in fp32, so one bf16 pass with fp32
+    accumulation multiplies the numbers the fp32 product of the widened
+    operands multiplies; only the fp32 sums differ, in order and in the
+    tensor cores' rounding (at the training head's chunk the logits, dh
+    and dW read at most 1.6x, 1.1x and 3.1x the fp32 cuBLAS product's max
+    error against fp64, ``chip_smoke.py --only build,head_product``). The
+    backward's products take the fp32 gradient in three exact pieces
+    (``split_grads_f32``) and return their sums in the operands' dtype, as
+    the widened product's backward does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da, db = split_grads_f32(a, b, g, ctx.needs_input_grad)
+        return (None if da is None else da.to(a.dtype),
+                None if db is None else db.to(b.dtype))
+
+
+def bf16_exact_mm(a, b):
+    """a (rows, d) @ b (d, V), both bf16, as fp32: ``_Bf16ExactMM``."""
+    return _Bf16ExactMM.apply(a, b)
+
+
+# calls of the head's logits product by path (``head_logits``), forward
+# and checkpoint recompute alike; ``launch/train.py --trace`` prints them
+HEAD_PRODUCT_CALLS = {"bf16_exact": 0, "fp32": 0}
+
+
+def head_logits(hc, w_out, logit_dtype):
+    """A chunk's logits hc (..., d) @ w_out (d, V) in ``logit_dtype``.
+    bf16 operands off the CPU (on the card, and on ``meta`` tensors, so
+    that the dry run counts what the card runs) with fp32 logits take
+    ``bf16_exact_mm``: the fp32 product on the tensor cores. Every other
+    case (the CPU, fp32 parameters, other logit dtypes) the widened
+    operands' product."""
+    if (not _on_cpu(hc, w_out) and hc.dtype == torch.bfloat16
+            and w_out.dtype == torch.bfloat16
+            and logit_dtype == torch.float32):
+        HEAD_PRODUCT_CALLS["bf16_exact"] += 1
+        out = bf16_exact_mm(hc.reshape(-1, hc.shape[-1]), w_out)
+        return out.view(*hc.shape[:-1], w_out.shape[-1])
+    HEAD_PRODUCT_CALLS["fp32"] += 1
+    return hc.to(logit_dtype) @ w_out.to(logit_dtype)
+
+
+# ---------------------------------------------------------------------------
 # Chunked softmax cross-entropy: never keeps (tokens, vocab) logits alive
 # ---------------------------------------------------------------------------
 
 
 def _xent_chunk(hc, w_out, lc, logit_dtype):
-    logits = hc.to(logit_dtype) @ w_out.to(logit_dtype)
+    logits = head_logits(hc, w_out, logit_dtype)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
     mask = (lc >= 0).to(logit_dtype)
@@ -219,7 +331,7 @@ def _xent_chunk_vocab(hc, w_out, lc, logit_dtype, group):
     logsumexp's max and sum of exponentials reduced over the model group,
     the target logit from the rank whose slice holds it."""
     hc = CL.copy_to(hc, group)
-    logits = hc.to(logit_dtype) @ w_out.to(logit_dtype)
+    logits = head_logits(hc, w_out, logit_dtype)
     Vl = logits.shape[-1]
     # the max only steadies the exponentials: its gradient cancels
     gmax = CL.all_reduce_(logits.detach().amax(dim=-1), group, op="max")

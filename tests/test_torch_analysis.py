@@ -258,6 +258,7 @@ def _kernel_calls(dev):
         lambda: ops.ssd_forward(xs, dt, A, Bm, Bm, D, chunk=8),
         lambda: ops.ssd_forward_state(xs, dt, A, Bm, Bm, D, chunk=8),
         lambda: ops.rms_norm(xn, sc, 1e-5),
+        lambda: ops.split3_bf16(xn),
     ]
 
 
@@ -266,7 +267,7 @@ def test_regions_price_the_same_on_cpu_and_meta():
     tensors (plain versions inside) as on meta tensors."""
     names = ["fused_mlp", "fused_mlp_dgrad", "fused_mlp_wgrad",
              "grouped_gemm", "topk_combine", "flash_attention",
-             "ssd_forward", "ssd_forward", "rmsnorm"]
+             "ssd_forward", "ssd_forward", "rmsnorm", "split3"]
     for name, on_cpu, on_meta in zip(names, _kernel_calls("cpu"),
                                      _kernel_calls("meta")):
         with torch.no_grad(), count_cost() as c:

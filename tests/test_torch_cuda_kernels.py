@@ -16,7 +16,9 @@ the top-k combine for every k the archs use, with the bits of the plain
 j-order sum; the grouped GEMM's wgmma path at the main paths' shapes (both
 orders, the same bits) and its refusal of gradients; the rmsnorm in both
 epilogues (vector and scalar widths, rows of several warps, fp32 and bf16
-scales) and its autograd op. Needs an NVIDIA Hopper GPU and
+scales) and its autograd op; the head's fp32 product on bf16 tensor
+cores (``models/common.bf16_exact_mm``) against fp64, the path each
+dtype takes, and its split kernel against the plain version's bits. Needs an NVIDIA Hopper GPU and
 nvcc; skips elsewhere. On the card:
 
   python -m pytest -m gpu tests/test_torch_cuda_kernels.py
@@ -860,3 +862,89 @@ def test_world1_nccl_moe_ffn_gives_the_contextless_bits(cuda, world1, dtype,
                         + [params["experts"][k].grad for k in sorted(packed)])
         for a, b in zip(*runs):
             assert a.is_cuda and torch.equal(a, b), impl
+
+
+def _max_rel(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_head_product_bf16_exact(cuda, tied):
+    """The head's fp32 product on bf16 tensor cores (``models/common``):
+    logits, dh and dW against fp64 within 4x the fp32 cuBLAS product's
+    error, dh over more than one ``K_PASS`` pass; the returned gradients
+    in the operands' dtype."""
+    from repro_torch.models import common
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    rows, d, V = 256, 512, 3 * common.K_PASS + 123
+    a = _randn(gen, (rows, d), torch.bfloat16)
+    b = (_randn(gen, (V, d), torch.bfloat16, d ** -0.5).t() if tied
+         else _randn(gen, (d, V), torch.bfloat16, d ** -0.5))
+    g = torch.softmax(a.float() @ b.float() * 4, -1) / rows
+    g[torch.arange(rows, device="cuda"),
+      torch.randint(0, V, (rows,), device="cuda", generator=gen)] -= 1 / rows
+    want = a.double() @ b.double()
+    assert (_max_rel(common.bf16_exact_mm(a, b), want)
+            <= 4 * _max_rel(a.float() @ b.float(), want))
+    da, db = common.split_grads_f32(a, b, g)
+    for got, fp32, want in (
+            (da, g @ b.float().t(), g.double() @ b.double().t()),
+            (db, a.float().t() @ g, a.double().t() @ g.double())):
+        assert _max_rel(got, want) <= 4 * _max_rel(fp32, want)
+    ag, bg = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    common.bf16_exact_mm(ag, bg).backward(g)
+    torch.cuda.synchronize()
+    assert ag.grad.dtype == bg.grad.dtype == torch.bfloat16
+    for got, p32 in ((ag.grad, da), (bg.grad, db)):
+        assert bool(((got.float() - p32).abs() <= p32.abs() * 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "bf16_exact"),
+                                        (torch.float32, "fp32")])
+def test_head_product_path_on_the_card(cuda, dtype, path):
+    """bf16 operands on the card take the bf16-exact product, fp32 ones the
+    widened product: two calls a chunk (forward and recompute)."""
+    from repro_torch.models import common
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    h = _randn(gen, (2, 48, 64), dtype).requires_grad_(True)
+    w = _randn(gen, (64, 200), dtype, 0.125).requires_grad_(True)
+    labels = torch.randint(-1, 200, (2, 48), device="cuda", generator=gen)
+    before = dict(common.HEAD_PRODUCT_CALLS)
+    loss, _ = common.chunked_xent(h, w, labels, chunk=16)
+    loss.backward()
+    calls = {k: v - before[k] for k, v in common.HEAD_PRODUCT_CALLS.items()}
+    want_calls = {"bf16_exact": 0, "fp32": 0}
+    want_calls[path] = 6
+    assert calls == want_calls
+    with torch.no_grad():
+        want, _ = common.chunked_xent(h.double(), w.double(), labels,
+                                      chunk=16, logit_dtype=torch.float64)
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want))
+
+
+@pytest.mark.parametrize("shape,strided", [((96, 1000), False),   # vectors
+                                           ((7, 333), False),     # scalar
+                                           ((64, 130), True)])
+def test_split3_kernel_matches_plain_bits(cuda, shape, strided):
+    """The split kernel's three pieces are the plain version's bit for
+    bit, signed zeros and every magnitude included, and rebuild g."""
+    from repro_torch.kernels import ref, split3
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(shape[1])
+    g = torch.randn(shape, device="cuda", generator=gen) * torch.exp(
+        8 * torch.randn(shape, device="cuda", generator=gen))
+    g.view(-1)[:4] = torch.tensor([0.0, -0.0, 1.0, -3e-30], device="cuda")
+    if strided:
+        g = g.t()
+    n0 = split3.launches
+    got = split3.split3_bf16(g)
+    torch.cuda.synchronize()
+    assert split3.launches == n0 + 1
+    want = ref.split3_bf16_ref(g)
+    assert got.shape == (3, *g.shape)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    p = got.float()
+    back = (p[0] - p[1]) - p[2]
+    assert torch.equal(back.view(torch.int32), g.contiguous().view(torch.int32))

@@ -417,7 +417,7 @@ def test_serve_launcher_prints_the_spans(capsys):
 def test_train_launcher_prints_the_spans(capsys):
     """``launch/train.py --trace``: the train step's spans, each step's
     ``train.grad``, ``train.guard`` and ``train.update``, with the model's
-    and the MoE layer's under them."""
+    and the MoE layer's under them, and the head products by path."""
     from repro_torch.launch import train
     with tempfile.TemporaryDirectory() as t:
         train.main(["--arch", TRAIN_ARCH, "--steps", "2", "--batch", "2",
@@ -425,7 +425,13 @@ def test_train_launcher_prints_the_spans(capsys):
                    device="cpu")
     out = capsys.readouterr().out.splitlines()
     head = next(i for i, ln in enumerate(out) if ln.startswith("span "))
-    rows = {ln.split()[0]: ln.split()[1:] for ln in out[head + 1:]}
+    # the summary's rows, then the head products' count by path: one
+    # chunk, its forward and its recompute, each step
+    calls = next(i for i, ln in enumerate(out)
+                 if ln.startswith("head products: "))
+    assert out[calls] == ("head products: bf16_exact 0 (0 a step), "
+                          "fp32 4 (2 a step)")
+    rows = {ln.split()[0]: ln.split()[1:] for ln in out[head + 1:calls]}
     for name in ("train.grad", "train.guard", "train.update"):
         assert int(rows[name][0]) == 2
     assert {"model.attn", "model.moe", "model.head"} | MOE_SPANS <= set(rows)

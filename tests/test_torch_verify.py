@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import grouped_gemm as GG
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import split3 as S3
 from repro_torch.kernels import ssd as SSD
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -328,6 +329,7 @@ def test_wrapper_constants_match_the_sources():
     assert SSD.CHUNK == c("ssd.cu", "kQ") == c("ssd_hopper.cu", "kQ")
     assert SSD.MAX_STATE == c("ssd.cu", "kDS")
     assert SSD.MAX_HEAD_DIM == c("ssd.cu", "kHD")
+    assert S3.THREADS == c("split3.cu", "kThreads")
     assert SSD.HOPPER_SLAB == c("ssd_hopper.cu", "kP")
     assert SSD.HOPPER_TERMS == c("ssd_hopper.cu", "kTerms")
     assert RN.MAX_THREADS == c("rmsnorm.cu", "kMaxThreads")
